@@ -1,0 +1,60 @@
+"""The PyTorch port stands alone: it imports neither JAX, optax nor the JAX
+package, and reads the JAX checkpoint without them."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ('jax', 'jaxlib', 'optax', 'waveflow_tpu')
+
+SCRIPT = r"""
+import sys
+for name in ('jax', 'jaxlib', 'optax', 'waveflow_tpu'):
+    sys.modules[name] = None
+import importlib, pkgutil
+import waveflow_tpu_torch
+for info in pkgutil.walk_packages(waveflow_tpu_torch.__path__,
+                                  'waveflow_tpu_torch.'):
+    importlib.import_module(info.name)
+from waveflow_tpu_torch.convert import load_jax_checkpoint, params_from_jax
+ck = load_jax_checkpoint(sys.argv[1])
+sd = params_from_jax(ck['params'])
+assert ck['epoch'] == 100000, ck['epoch']
+assert len(sd) == 28 and sd['conditioner.zero_params'].shape == (2, 28)
+print('ok')
+"""
+
+
+def test_imports_and_checkpoint_without_jax():
+    """(i) With jax, optax and waveflow_tpu made unimportable, every module
+    of the port imports and the committed checkpoint loads."""
+    ckpt = ROOT / 'results' / 'r5_flagship_fwd_batched_100k' / 'checkpoints'
+    out = subprocess.run([sys.executable, '-c', SCRIPT, str(ckpt)], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith('ok')
+
+
+def _imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            yield node.module
+
+
+def test_no_file_imports_jax_or_the_jax_package():
+    """(i) No file of the port, nor chip_smoke.py, names jax, optax or
+    waveflow_tpu in an import."""
+    files = sorted((ROOT / 'waveflow_tpu_torch').rglob('*.py'))
+    files.append(ROOT / 'chip_smoke.py')
+    assert len(files) > 20
+    bad = [(str(f.relative_to(ROOT)), m) for f in files
+           for m in _imported_roots(f) if m.split('.')[0] in FORBIDDEN]
+    assert not bad, bad

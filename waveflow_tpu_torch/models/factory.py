@@ -1,0 +1,54 @@
+"""Configured model assembly: the Waveflow ψ ansatz.
+
+Port of waveflow_tpu/models/factory.py::get_waveflow_model ('mean'
+coordinate map).  The module tree mirrors the JAX params pytree:
+``transform.layers`` = [BoxTransform, (IMADE, Reverse) × n_flow_layers] and
+``conditioner`` = the prior's masked conditioner (see convert.py).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from waveflow_tpu_torch import resolve_device
+from waveflow_tpu_torch.bijections import (
+    BoxTransform, IMADE, Reverse, Serial, masked_conditioner,
+)
+from waveflow_tpu_torch.models.waveflow import Waveflow
+
+
+def get_waveflow_model(n_dimension, base_spline_degree=5, i_spline_degree=5,
+                       n_prior_internal_knots=16, n_i_internal_knots=16,
+                       i_spline_reg=0.0, n_flow_layers=1, box_size=1.0,
+                       xu_coord_type='mean', n_spline_base_mesh_points=2000,
+                       eval_backend='poly', sampling_backend='table', *,
+                       generator: torch.Generator | None = None,
+                       device=None) -> Waveflow:
+    """Waveflow ψ: BoxTransform + n × (IMADE + Reverse) over a squared
+    orthonormal-B-spline prior.  The gap dimensions 0..n-2 of the 'mean'
+    map carry the left-edge zero boundary.  Weights are drawn from
+    ``generator`` (CPU generator; seed it for reproducible inits)."""
+    device = resolve_device(device)
+    layers = [BoxTransform(box_size, xu_coord_type=xu_coord_type)]
+    for _ in range(n_flow_layers):
+        layers.append(IMADE(masked_conditioner(), n_dimension,
+                            spline_degree=i_spline_degree,
+                            n_internal_knots=n_i_internal_knots,
+                            spline_regularization=i_spline_reg,
+                            constraints_dict_left={0: 0.0},
+                            constraints_dict_right={0: 1.0},
+                            set_nn_output_grad_to_zero=False,
+                            n_spline_base_mesh_points=n_spline_base_mesh_points,
+                            eval_backend=eval_backend,
+                            generator=generator, device=device))
+        layers.append(Reverse())
+    return Waveflow(
+        Serial(*layers), masked_conditioner(allow_negative_params=True),
+        n_dimension, spline_degree=base_spline_degree,
+        n_internal_knots=n_prior_internal_knots,
+        constraints_dict_left={0: 0.0}, constraints_dict_right={0: 0.0},
+        constrained_dimension_indices_left=range(n_dimension - 1),
+        set_nn_output_grad_to_zero=False,
+        n_spline_base_mesh_points=n_spline_base_mesh_points,
+        eval_backend=eval_backend, sampling_backend=sampling_backend,
+        generator=generator, device=device)
