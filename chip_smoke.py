@@ -5,18 +5,26 @@
 
 Phases (any failure exits non-zero; nothing is caught):
   1. device  — require CUDA; print the card's name and power limit;
-  2. build   — compile every CUDA kernel of the path (one nvcc each, in
+  2. build   — compile every CUDA kernel of the paths (one nvcc each, in
                parallel) into waveflow_tpu_torch/build/;
   3. kernels — hold each kernel against its plain PyTorch version on the
-               card at the main path's shapes, and time kernel, plain
-               version and (where one exists) a single library call;
+               card at the main paths' shapes, and time kernel, plain
+               version and (where one exists) a single library call:
+               K1 sampler 'squared' and K3 basis jet at the flagship's
+               shapes, K2 sampler 'linear' and K4 table-lerp evaluation at
+               the density model's;
   4. checkpoint — load the committed JAX flagship checkpoint, draw 65,536
                ancestral walkers and compute the mean local energy, which
                must agree with the JAX evaluation −1.815872(12);
   5. training — VMCTrainer at the flagship config with the CUDA basis-jet
                backend, 2 windows of 100 epochs at batch 256; every loss
-               finite, both kernels launched on that run;
-  6. report  — one JSON line of kernels, then the final status line.
+               finite, K1 and K3 launched on that run;
+  6. density — train_density_model at the full width of the density
+               benchmark (MFlow, circles, 20,000 points), 200 epochs with a
+               metric checkpoint every 100; losses finite and falling, K2
+               and K4 launched on that run, metrics finite, the round trip
+               closes, the card agrees with the CPU;
+  7. report  — one JSON line of kernels, then the final status line.
 
 Imports torch and the port only.
 """
@@ -36,6 +44,12 @@ E_JAX = -1.815872          # JAX frozen-params Metropolis evaluation (RESULTS.md
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12     # H100 SXM, f32 outside the tensor cores
 FLAGSHIP = dict(spline_degree=6, num_knots=23, n_mesh=2000)
+# the density benchmark's model at full width (examples/run_benchmark_torch.py
+# defaults): 3 x (IMADE + Reverse), I-splines of degree 5 with 23 knots,
+# M-spline prior of degree 3 with 15 knots, 2000-point mesh
+DENSITY = dict(spline_reg=0.02, n_flow_layers=3, spline_degree=5, n_knots=23,
+               n_mesh_points=2000, prior_spline_degree=3, prior_n_knots=15)
+DENSITY_POINTS = 20000
 
 
 def fail(msg: str):
@@ -64,15 +78,21 @@ def bound_ms(n_bytes: float, n_ops: float):
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
-def quantile_err(torch, table_t, c, u, x):
+def quantile_err(torch, table_t, c, u, x, kind):
     """|F(x) − u| in float64: how much probability lies between each draw x
-    and the exact u-quantile of its own density (c · T)², T the table."""
+    and the exact u-quantile of its own density, (c · T)² for kind
+    'squared' and max(c · T, 0) for kind 'linear', T the table."""
     psi = c.double() @ table_t.double()
+    if kind == 'linear':
+        psi = torch.clamp(psi, min=0.0)
     n_cells = psi.shape[-1] - 1
     h = 1.0 / n_cells
     p_l = psi[..., :-1]
     d = psi[..., 1:] - p_l
-    m = h * (p_l * p_l + p_l * d + d * d / 3.0)
+    if kind == 'squared':
+        m = h * (p_l * p_l + p_l * d + d * d / 3.0)
+    else:
+        m = h * (p_l + 0.5 * d)
     cdf = torch.cat([torch.zeros_like(m[..., :1]), torch.cumsum(m, -1)], -1)
     xd = x.double()
     j = torch.clamp(torch.floor(xd / h).long(), 0, n_cells - 1)
@@ -82,33 +102,45 @@ def quantile_err(torch, table_t, c, u, x):
         return torch.gather(a, -1, j[..., None])[..., 0]
 
     a, dd = at(p_l), at(d)
-    f = (at(cdf) + h * (a * a * s + a * dd * s * s + dd * dd * s ** 3 / 3.0)
-         ) / cdf[..., -1]
-    return (f - u.double()).abs()
+    if kind == 'squared':
+        in_cell = h * (a * a * s + a * dd * s * s + dd * dd * s ** 3 / 3.0)
+    else:
+        in_cell = h * (a * s + 0.5 * dd * s * s)
+    return ((at(cdf) + in_cell) / cdf[..., -1] - u.double()).abs()
 
 
-def check_sampler(torch, model, gen):
-    """K1 against the plain sampler on the inputs the main path gives it:
-    the checkpoint model's conditional OB coefficients of both ancestral
-    columns, at the training batch (256) and at 65,536 walkers, with the
-    u = 0 and u = 1 − 1e-7 walls among the draws, plus 4,096 draws per
-    column in the thin right tail u ∈ (1 − 1e-4, 1 − 1e-7].
+def check_sampler(torch, gen, kind, ev, coeffs_of, B_max):
+    """A sampler kernel (K1: kind 'squared', K2: kind 'linear') against its
+    plain path on the inputs the main path gives it: the model's conditional
+    coefficients ``coeffs_of(points)[:, column]`` of both ancestral columns,
+    at a batch of 256 and at ``B_max``, with the u = 0 and u = 1 − 1e-7
+    walls among the draws, plus 4,096 draws per column in the right tail
+    u ∈ (1 − 1e-4, 1 − 1e-7].
 
     Draws with u ≤ 1 − 1e-4 are held to the f32 plain draw at 6e-5 (the
     prefix sum's association order, ~0.1 mesh cell).  For u > 1 − 1e-4 the
     target lies within a few f32 ulps of the CDF total, where the rounding
-    of either f32 prefix sum spans whole cells; there both f32 versions are
-    held to a float64 plain draw on the same inputs, measured as the
-    probability between the draw and the exact quantile: K1's largest must
-    not exceed the f32 plain path's by more than 2 ulps of u."""
+    of either f32 prefix sum can span whole cells of a thin tail; there both
+    f32 versions are held to a float64 plain draw on the same inputs,
+    measured as the probability between the draw and the exact quantile:
+    the kernel's largest must not exceed the f32 plain path's by more than
+    2 ulps of u."""
     import types
     from waveflow_tpu_torch.ops import cuda_sampler
-    from waveflow_tpu_torch.ops.sampling import sample_squared_amplitude
-    ev_ob = model.ev_ob
+    from waveflow_tpu_torch.ops.sampling import (
+        sample_linear_density, sample_squared_amplitude)
+    if kind == 'squared':
+        name, sample = 'K1 sampler', sample_squared_amplitude
+        kernel = cuda_sampler.sample_squared_amplitude_cuda
+        cell_ops = 8                 # cubic mass 6, scan 1, compare 1
+    else:
+        name, sample = 'K2 sampler_linear', sample_linear_density
+        kernel = cuda_sampler.sample_linear_density_cuda
+        cell_ops = 5                 # clamp 1, trapezoid 2, scan 1, compare 1
     ev_64 = types.SimpleNamespace(
-        density_on_mesh=lambda cc, t=ev_ob.table_t.double(): cc @ t)
-    n_b, n_mesh = ev_ob.table_t.shape
-    B_max, n_tail = 65536, 4096
+        density_on_mesh=lambda cc, t=ev.table_t.double(): cc @ t)
+    n_b, n_mesh = ev.table_t.shape
+    n_tail = 4096
     u = torch.rand((2, B_max), generator=gen, device='cuda')
     u[:, :3] = 0.0
     u[:, 3:6] = 1.0 - 1e-7
@@ -116,9 +148,9 @@ def check_sampler(torch, model, gen):
         (2, n_tail), generator=gen, device='cuda', dtype=torch.float64))
     u_tail = torch.clamp(u_tail.float(), max=1.0 - 1e-7)
     with torch.no_grad():
-        c0 = model.ob_coeffs(torch.zeros((B_max, 2), device='cuda'))[:, 0]
-        x0 = sample_squared_amplitude(ev_ob, c0, u[0], impl='plain')
-        c1 = model.ob_coeffs(torch.stack([x0, torch.zeros_like(x0)], -1))[:, 1]
+        c0 = coeffs_of(torch.zeros((B_max, 2), device='cuda'))[:, 0]
+        x0 = sample(ev, c0, u[0], impl='plain')
+        c1 = coeffs_of(torch.stack([x0, torch.zeros_like(x0)], -1))[:, 1]
     rows, tail = {}, {'dx': [], 'k64': [], 'p64': [], 'qk': [], 'qp': []}
     for B in (256, B_max, 'tail'):
         errs = []
@@ -127,54 +159,143 @@ def check_sampler(torch, model, gen):
                 c, uu = c[:n_tail].contiguous(), u_tail[col]
             else:
                 c, uu = c[:B].contiguous(), u[col, :B]
-            x_k = sample_squared_amplitude(ev_ob, c, uu, impl='cuda')
-            x_p = sample_squared_amplitude(ev_ob, c, uu, impl='plain')
+            x_k = sample(ev, c, uu, impl='cuda')
+            x_p = sample(ev, c, uu, impl='plain')
             torch.cuda.synchronize()
             if not (x_k.min() >= 0 and x_k.max() <= 1):
-                fail(f"K1 draws outside [0, 1] at B={B}")
+                fail(f"{name} draws outside [0, 1] at B={B}")
             diff = (x_k - x_p).abs()
             t = uu > 1.0 - 1e-4
             errs.append(diff[~t])
             if t.any():
                 ct, ut = c[t], uu[t]
-                x64 = sample_squared_amplitude(ev_64, ct.double(), ut.double(),
-                                               impl='plain')
+                x64 = sample(ev_64, ct.double(), ut.double(), impl='plain')
                 tail['dx'].append(diff[t])
                 tail['k64'].append((x_k[t] - x64).abs())
                 tail['p64'].append((x_p[t] - x64).abs())
-                tail['qk'].append(quantile_err(torch, ev_ob.table_t, ct, ut, x_k[t]))
-                tail['qp'].append(quantile_err(torch, ev_ob.table_t, ct, ut, x_p[t]))
+                tail['qk'].append(quantile_err(torch, ev.table_t, ct, ut,
+                                               x_k[t], kind))
+                tail['qp'].append(quantile_err(torch, ev.table_t, ct, ut,
+                                               x_p[t], kind))
         if B == 'tail':
             continue
         diff = torch.cat(errs)
         err, med = diff.max().item(), diff.median().item()
         if err > 6e-5:
-            fail(f"K1 disagrees with its plain version at B={B}: max {err:.3e} "
-                 "for u <= 1 - 1e-4 (atol 6e-5)")
-        k_ms = cuda_ms(torch, lambda: cuda_sampler.sample_squared_amplitude_cuda(
-            ev_ob, c, uu))
-        p_ms = cuda_ms(torch, lambda: sample_squared_amplitude(
-            ev_ob, c, uu, impl='plain'))
+            fail(f"{name} disagrees with its plain version at B={B}: max "
+                 f"{err:.3e} for u <= 1 - 1e-4 (atol 6e-5), "
+                 f"{(diff > 6e-5).sum().item()} draws beyond it")
+        k_ms = cuda_ms(torch, lambda: kernel(ev, c, uu))
+        p_ms = cuda_ms(torch, lambda: sample(ev, c, uu, impl='plain'))
         n_cells = n_mesh - 1
         b_ms, b_by = bound_ms(4 * (B * n_b + 2 * B + n_b * n_mesh),
-                              B * (2 * n_b * n_mesh + 8 * n_cells))
+                              B * (2 * n_b * n_mesh + cell_ops * n_cells))
         rows[B] = dict(max_abs_err=err, median_abs_err=med, ms=k_ms,
                        plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
-        print(f"K1 sampler B={B}: max|dx| {err:.3e} over u <= 1 - 1e-4 (atol "
-              f"6e-5), median {med:.3e} | kernel_ms {k_ms:.4f} plain_ms "
-              f"{p_ms:.4f} bound_ms {b_ms:.5f} ({b_by})", flush=True)
+        print(f"{name} B={B} (n_bases {n_b}, n_mesh {n_mesh}): max|dx| "
+              f"{err:.3e} over u <= 1 - 1e-4 (atol 6e-5), median {med:.3e} | "
+              f"kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} bound_ms {b_ms:.5f} "
+              f"({b_by})", flush=True)
     t = {k: torch.cat(v).max().item() for k, v in tail.items()}
     n = sum(v.numel() for v in tail['dx'])
-    print(f"K1 sampler tail: {n} draws with u > 1 - 1e-4 (walls included) | "
+    print(f"{name} tail: {n} draws with u > 1 - 1e-4 (walls included) | "
           f"max|dx| against the f32 plain draw {t['dx']:.3e} | against a "
-          f"float64 plain draw: K1 {t['k64']:.3e}, f32 plain {t['p64']:.3e} | "
-          f"max |F64(x) - u|: K1 {t['qk']:.3e}, f32 plain {t['qp']:.3e}",
-          flush=True)
+          f"float64 plain draw: kernel {t['k64']:.3e}, f32 plain "
+          f"{t['p64']:.3e} | max |F64(x) - u|: kernel {t['qk']:.3e}, f32 "
+          f"plain {t['qp']:.3e}", flush=True)
     if not t['qk'] <= t['qp'] + 2.0 ** -23:
-        fail("K1's tail draws lie farther from the float64 quantile than the "
-             f"f32 plain path's: {t['qk']:.3e} > {t['qp']:.3e} + 2^-23")
+        fail(f"{name}'s tail draws lie farther from the float64 quantile than "
+             f"the f32 plain path's: {t['qk']:.3e} > {t['qp']:.3e} + 2^-23")
     rows['tail'] = dict(n=n, max_abs_err=t['dx'], k64=t['k64'], p64=t['p64'],
                         quantile_err=t['qk'], plain_quantile_err=t['qp'])
+    return rows
+
+
+def check_spline_eval(torch, model, gen):
+    """K4 against the plain gather-lerp on the density model's prior: the
+    M-spline tables of orders 0 and 1, the model's own prior weights as
+    coefficients, N = 512 and N = 40,000 (the (20,000, 2) batch flattened),
+    with x = 0, x = 1, cell edges and out-of-domain points among the
+    inputs.  atol 2e-5, times the largest output where that exceeds 1 (the
+    order-1 table holds slopes).  Also against the one-hot matmul form, and
+    through SplineEvaluator.__call__ with its backward (the order-(d+1)
+    evaluation) against the same evaluator on the CPU."""
+    from waveflow_tpu_torch.ops import cuda_spline, make_evaluator
+    from waveflow_tpu_torch.ops.spline_tables import get_tables
+    ev = model.ev
+    n_mesh, n_b = ev.tables.shape[1:]
+    N_max = 2 * DENSITY_POINTS
+    x = torch.rand((N_max,), generator=gen, device='cuda')
+    special = torch.tensor([0.0, 1.0, -0.03, 1.02, -1e-6, 1.0 + 1e-6,
+                            0.5, 1000 / (n_mesh - 1), 1 / (n_mesh - 1)],
+                           device='cuda')
+    x[:special.numel()] = special
+    with torch.no_grad():
+        coeffs = model.prior_weights(
+            x.reshape(-1, 2)).reshape(N_max, n_b).contiguous()
+    rows = {}
+    for d in (0, 1):
+        table = ev.tables[d]
+        for N in (512, N_max):
+            c, xx = coeffs[:N], x[:N]
+            y_k = cuda_spline.spline_eval_cuda(table, c, xx)
+            y_p = cuda_spline.spline_eval_plain(table, c, xx)
+            y_o = cuda_spline.onehot_matmul_eval(table, c, xx)
+            torch.cuda.synchronize()
+            scale = max(1.0, y_p.abs().max().item())
+            err = (y_k - y_p).abs().max().item()
+            err_o = (y_k - y_o).abs().max().item()
+            if not (err <= 2e-5 * scale and err_o <= 2e-5 * scale):
+                fail(f"K4 disagrees with its plain versions at N={N}, d={d}: "
+                     f"gather-lerp {err:.3e}, one-hot matmul {err_o:.3e} "
+                     f"(atol {2e-5 * scale:.3e})")
+            k_ms = cuda_ms(torch, lambda: cuda_spline.spline_eval_cuda(
+                table, c, xx))
+            p_ms = cuda_ms(torch, lambda: cuda_spline.spline_eval_plain(
+                table, c, xx))
+            o_ms = cuda_ms(torch, lambda: cuda_spline.onehot_matmul_eval(
+                table, c, xx), reps=10)
+            b_ms, b_by = bound_ms(4 * (N * n_b + 2 * N + n_mesh * n_b),
+                                  N * (4 * n_b + 6))
+            rows[(d, N)] = dict(max_abs_err=err, onehot_abs_err=err_o,
+                                ms=k_ms, plain_ms=p_ms, onehot_ms=o_ms,
+                                bound_ms=b_ms, bound_by=b_by)
+            print(f"K4 spline_eval d={d} N={N} (n_bases {n_b}, n_mesh "
+                  f"{n_mesh}): max|dy| {err:.3e} against the gather-lerp, "
+                  f"{err_o:.3e} against the one-hot matmul (atol "
+                  f"{2e-5 * scale:.1e}) | kernel_ms {k_ms:.4f} plain_ms "
+                  f"{p_ms:.4f} onehot_matmul_ms {o_ms:.4f} bound_ms "
+                  f"{b_ms:.5f} ({b_by})", flush=True)
+    # the evaluator's Function: value and both gradients, card against CPU
+    tabs = get_tables('M', DENSITY['prior_spline_degree'],
+                      DENSITY['prior_n_knots'], n_mesh=n_mesh)
+    ev_cpu = make_evaluator(tabs, device='cpu')
+    g = torch.randn((512,), generator=gen, device='cuda')
+    before = cuda_spline.launches
+    for d in (0, 3):
+        got, ref = [], []
+        for evaluator, dev, out in ((ev, 'cuda', got), (ev_cpu, 'cpu', ref)):
+            c = coeffs[:512].to(dev).requires_grad_()
+            xx = x[:512].to(dev).requires_grad_()
+            y = evaluator(c, xx, d)
+            out.extend((y, *torch.autograd.grad((y * g.to(dev)).sum(), (c, xx))))
+        for a, b, what in zip(got, ref, ('value', 'coeffs-gradient',
+                                         'x-gradient')):
+            tol = 2e-5 * max(1.0, b.abs().max().item())
+            if not (a.cpu() - b).abs().max().item() <= tol:
+                fail(f"SplineEvaluator.__call__ d={d} {what} on the card "
+                     f"disagrees with the CPU: "
+                     f"{(a.cpu() - b).abs().max().item():.3e} (atol {tol:.1e})")
+        if d == 3 and got[2].any():
+            fail("the x-gradient at the top tabulated order is not zero")
+    # d = 0: forward + order-1 backward; d = 3: forward only (top order)
+    if cuda_spline.launches - before != 3:
+        fail(f"SplineEvaluator.__call__ launched K4 "
+             f"{cuda_spline.launches - before} times for 3 evaluations")
+    print("K4 through SplineEvaluator.__call__: value, coeffs-gradient and "
+          "x-gradient (order-(d+1) evaluation; zero at the top order) agree "
+          "with the CPU evaluator (atol 2e-5 of the largest value)",
+          flush=True)
     return rows
 
 
@@ -249,6 +370,146 @@ def check_basis_jet(torch, ops, tabs_i, tabs_b, gen):
     return rows
 
 
+def host_ms(torch, fn, n=20):
+    """Mean host-clock time of ``fn`` over ``n`` calls ending in a
+    synchronise."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / n * 1e3
+
+
+def profile_window(torch, run, n_epochs, label):
+    """Profile ``run()`` (``n_epochs`` epochs): print the device's busy and
+    idle share of the wall time and the kernels that take most of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kern = sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA),
+                  key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    print(f"{label}profiled {n_epochs} epochs: wall {wall_ms:.1f} ms, device "
+          f"busy {busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.4f}, "
+          f"{sum(e.count for e in kern) / n_epochs:.0f} kernel launches per "
+          "epoch", flush=True)
+    # the eight largest, and the port's own kernels wherever they rank
+    own = ('sampler_kernel', 'basis_jet_kernel', 'spline_eval_kernel')
+    for e in kern[:8] + [e for e in kern[8:] if any(k in e.key for k in own)]:
+        print(f"  {e.self_device_time_total / 1e3 / n_epochs:8.4f} ms/epoch "
+              f"{e.count / n_epochs:6.1f}/epoch  {e.key[:90]}", flush=True)
+
+
+def density_phase(torch):
+    """The density-estimation path at full width: MFlow trained by MLE on
+    20,000 'circles' points, 200 epochs, a metric checkpoint every 100.
+    Returns the launches of K2 and K4 on that run."""
+    from waveflow_tpu_torch.benchmark import get_dataset, train_density_model
+    from waveflow_tpu_torch.benchmark.density import (
+        density_step, get_benchmark_model, metric_checkpoint)
+    from waveflow_tpu_torch.ops import cuda_sampler, cuda_spline
+    n_epochs, log_every = 200, 100
+    X = get_dataset('circles', DENSITY_POINTS)
+    X_test = get_dataset('circles', 5000, seed=43)
+    kw = dict(model_name='MFlow', learning_rate=1e-4, log_every=log_every,
+              n_model_sample=DENSITY_POINTS, X_test=X_test, device='cuda',
+              **DENSITY)
+    cuda_sampler.launches_linear = 0
+    cuda_spline.launches = 0
+    t0 = time.perf_counter()
+    model, hist = train_density_model(X, num_epochs=n_epochs, **kw)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = {'sampler_linear': cuda_sampler.launches_linear,
+                'spline_eval': cuda_spline.launches}
+    losses = hist['losses']
+    if len(losses) != n_epochs or not all(math.isfinite(v) for v in losses):
+        fail("density training produced non-finite losses")
+    first, last = sum(losses[:10]) / 10, sum(losses[-10:]) / 10
+    if not last < first:
+        fail(f"density loss did not fall: first 10 mean {first:.5f}, last 10 "
+             f"mean {last:.5f}")
+    n_ckpt = n_epochs // log_every
+    if launches['sampler_linear'] != 2 * n_ckpt:
+        fail(f"K2 launched {launches['sampler_linear']} times for {n_ckpt} "
+             "metric checkpoints of 2 columns")
+    if launches['spline_eval'] < n_epochs:
+        fail(f"K4 launched {launches['spline_eval']} times in {n_epochs} epochs")
+    for key in ('kl', 'hellinger', 'test_ll', 'reconstruction'):
+        if len(hist[key]) != n_ckpt or not all(
+                math.isfinite(v) for v in hist[key]):
+            fail(f"density metric {key} is missing or not finite: {hist[key]}")
+    if not max(hist['reconstruction']) < 1e-3:
+        fail(f"reconstruction distance {max(hist['reconstruction']):.3e} >= 1e-3")
+    print(f"density: {n_epochs} epochs at batch {DENSITY_POINTS}, losses "
+          f"finite, first-10 mean {first:.5f} -> last-10 mean {last:.5f} | "
+          f"KL {hist['kl'][-1]:.4f} H2 {hist['hellinger'][-1]:.4f} held-out LL "
+          f"{hist['test_ll'][-1]:.4f} recon {hist['reconstruction'][-1]:.3e} | "
+          f"whole run (first calls and {n_ckpt} metric checkpoints included) "
+          f"{t1 - t0:.2f} s | launches: sampler_linear "
+          f"{launches['sampler_linear']} "
+          f"({launches['sampler_linear'] / n_ckpt:g} per checkpoint), "
+          f"spline_eval {launches['spline_eval']}", flush=True)
+
+    # the card against the CPU: the same parameters in a CPU module
+    cpu = get_benchmark_model('MFlow', **DENSITY, device='cpu')
+    cpu.load_state_dict(model.state_dict())
+    pts = torch.as_tensor(X[:4096])
+    with torch.no_grad():
+        lp_card = model.log_pdf(pts.cuda()).cpu()
+        lp_cpu = cpu.log_pdf(pts)
+    err = (lp_card - lp_cpu).abs().max().item()
+    print(f"density: log_pdf of 4096 points, card against CPU (plain paths): "
+          f"max |d| {err:.3e} (atol 1e-4)", flush=True)
+    if not err <= 1e-4:
+        fail("log_pdf on the card disagrees with the CPU")
+
+    # where an epoch's time goes: host clock per stage, then a profiled window
+    opt = torch.optim.Adam(model.parameters(), lr=1e-4, eps=1e-8)
+    X_dev = torch.as_tensor(X, device='cuda')
+    held = {}
+
+    def forward():
+        held['loss'] = -model.log_pdf(X_dev).mean()
+
+    def backward_adam():
+        # every timed call needs a fresh graph; its forward is timed above
+        forward()
+        opt.zero_grad(set_to_none=True)
+        held['loss'].backward()
+        opt.step()
+
+    ms_fwd = host_ms(torch, forward)
+    ms_all = host_ms(torch, backward_adam)
+    gen = torch.Generator('cuda').manual_seed(8)
+    ms_ckpt = host_ms(torch, lambda: metric_checkpoint(
+        model, DENSITY_POINTS, gen, X_test), n=2)
+    print(f"density epoch stages (host clock, batch {DENSITY_POINTS}): forward "
+          f"{ms_fwd:.2f} ms | backward + adam {ms_all - ms_fwd:.2f} ms (a "
+          f"whole step {ms_all:.2f} ms less the forward) | one metric "
+          f"checkpoint ({DENSITY_POINTS} draws, 300x300 KDE, round trip, held-out "
+          f"LL) "
+          f"{ms_ckpt:.1f} ms", flush=True)
+
+    def epochs(n):
+        for _ in range(n):
+            density_step(model, opt, X_dev)
+
+    # a second block of 100 epochs, warm, without its checkpoint
+    ms_epoch = host_ms(torch, lambda: epochs(100), n=1) / 100
+    print(f"density: points/s {DENSITY_POINTS / ms_epoch * 1e3:.1f} (a "
+          f"further block of 100 epochs, {ms_epoch:.2f} ms per epoch)",
+          flush=True)
+    profile_window(torch, lambda: epochs(10), 10, "density ")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -271,6 +532,7 @@ def main() -> int:
     from waveflow_tpu_torch import ops
     from waveflow_tpu_torch.convert import load_jax_checkpoint, params_from_jax
     from waveflow_tpu_torch.models import get_waveflow_model
+    from waveflow_tpu_torch.benchmark.density import get_benchmark_model
     from waveflow_tpu_torch.ops import cuda_build, cuda_jet, cuda_sampler
     from waveflow_tpu_torch.physics import (
         construct_hamiltonian_function, system_catalogue)
@@ -300,8 +562,17 @@ def main() -> int:
         device='cuda')
     model.load_state_dict(params_from_jax(ck['params']))
     gen = torch.Generator('cuda').manual_seed(0)
-    k1 = check_sampler(torch, model, gen)
+    k1 = check_sampler(torch, gen, 'squared', model.ev_ob, model.ob_coeffs,
+                       65536)
     k3 = check_basis_jet(torch, ops, tabs_i, tabs_b, gen)
+    # the density model at full width, random weights from a seed
+    mflow = get_benchmark_model('MFlow', **DENSITY,
+                                generator=torch.Generator().manual_seed(1),
+                                device='cuda')
+    gen = torch.Generator('cuda').manual_seed(1)
+    k2 = check_sampler(torch, gen, 'linear', mflow.ev, mflow.prior_weights,
+                       DENSITY_POINTS)
+    k4 = check_spline_eval(torch, mflow, gen)
 
     # ---- 4. checkpoint ----------------------------------------------------
     protons, _ = system_catalogue[1]['He']
@@ -359,58 +630,44 @@ def main() -> int:
     # where an epoch's time goes: host clock per stage, then a profiled
     # window for the device's busy share and its kernels
     batch = trainer.sample(256)
-
-    def host_ms(fn, n=20):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t) / n * 1e3
-
     with torch.no_grad():
-        ms_sample = host_ms(lambda: trainer.sample(256))
-        ms_energy = host_ms(lambda: trainer.h_fn(batch))
-    ms_step = host_ms(lambda: trainer.step(batch))
+        ms_sample = host_ms(torch, lambda: trainer.sample(256))
+        ms_energy = host_ms(torch, lambda: trainer.h_fn(batch))
+    ms_step = host_ms(torch, lambda: trainer.step(batch))
     print(f"epoch stages (host clock, batch 256): sample {ms_sample:.2f} ms | "
           f"energy (nested-jvp Laplacian) {ms_energy:.2f} ms | train step "
           f"(loss incl. energy, backward, clip, adam) {ms_step:.2f} ms",
           flush=True)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        trainer.train(10, verbose=False)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kern = sorted((e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA),
-                  key=lambda e: -e.self_device_time_total)
-    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
-    print(f"profiled 10 epochs: wall {wall_ms:.1f} ms, device busy "
-          f"{busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.4f}, "
-          f"{sum(e.count for e in kern) / 10:.0f} kernel launches per epoch",
-          flush=True)
-    for e in kern[:8]:
-        print(f"  {e.self_device_time_total / 1e3 / 10:8.4f} ms/epoch "
-              f"{e.count / 10:6.1f}/epoch  {e.key[:90]}", flush=True)
+    profile_window(torch, lambda: trainer.train(10, verbose=False), 10, "")
 
-    # ---- 6. report ---------------------------------------------------------
-    k1_row, k3_row, k1_tail = k1[256], k3[('I', 512)], k1['tail']
-    kernels = [
+    # ---- 6. density (the second main path; counts reset just before) -------
+    launches.update(density_phase(torch))
+
+    # ---- 7. report ---------------------------------------------------------
+    # each row at the shape its main path gives the kernel: K1 and K3 at the
+    # training batch of 256, K2 at the 20,000 model draws of a metric
+    # checkpoint, K4 at the flattened (20,000, 2) training batch
+    k3_row, k4_row = k3[('I', 512)], k4[(0, 2 * DENSITY_POINTS)]
+
+    def sampler_row(name, rows, shape):
         # max_abs_err: every compared draw, the right tail's included;
         # tail_*: the u > 1 - 1e-4 draws alone, against the f32 plain draw
-        # and as probability from the float64 quantile (K1, f32 plain)
-        dict(name='sampler', route='cuda',
-             source='waveflow_tpu_torch/csrc/sampler.cu',
-             replaces='waveflow_tpu/ops/pallas_sampler.py:63',
-             launches=launches['sampler'],
-             max_abs_err=max(r['max_abs_err'] for r in k1.values()),
-             ms=k1_row['ms'], plain_ms=k1_row['plain_ms'],
-             bound_ms=k1_row['bound_ms'], bound_by=k1_row['bound_by'],
-             library_ms=None, tail_max_abs_err=k1_tail['max_abs_err'],
-             tail_quantile_err=k1_tail['quantile_err'],
-             tail_plain_quantile_err=k1_tail['plain_quantile_err']),
+        # and as probability from the float64 quantile (kernel, f32 plain)
+        row, tail = rows[shape], rows['tail']
+        return dict(name=name, route='cuda',
+                    source='waveflow_tpu_torch/csrc/sampler.cu',
+                    replaces='waveflow_tpu/ops/pallas_sampler.py:63',
+                    launches=launches[name],
+                    max_abs_err=max(r['max_abs_err'] for r in rows.values()),
+                    ms=row['ms'], plain_ms=row['plain_ms'],
+                    bound_ms=row['bound_ms'], bound_by=row['bound_by'],
+                    library_ms=None, tail_max_abs_err=tail['max_abs_err'],
+                    tail_quantile_err=tail['quantile_err'],
+                    tail_plain_quantile_err=tail['plain_quantile_err'])
+
+    kernels = [
+        sampler_row('sampler', k1, 256),
+        sampler_row('sampler_linear', k2, DENSITY_POINTS),
         dict(name='basis_jet', route='cuda',
              source='waveflow_tpu_torch/csrc/basis_jet.cu',
              replaces='waveflow_tpu/ops/pallas_jet.py:63',
@@ -419,6 +676,14 @@ def main() -> int:
              ms=k3_row['ms'], plain_ms=k3_row['plain_ms'],
              bound_ms=k3_row['bound_ms'], bound_by=k3_row['bound_by'],
              library_ms=k3_row['library_ms']),
+        dict(name='spline_eval', route='cuda',
+             source='waveflow_tpu_torch/csrc/spline_eval.cu',
+             replaces='waveflow_tpu/ops/pallas_spline.py:29',
+             launches=launches['spline_eval'],
+             max_abs_err=max(r['max_abs_err'] for r in k4.values()),
+             ms=k4_row['ms'], plain_ms=k4_row['plain_ms'],
+             bound_ms=k4_row['bound_ms'], bound_by=k4_row['bound_by'],
+             library_ms=None, onehot_matmul_ms=k4_row['onehot_ms']),
     ]
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: it imports neither JAX, optax nor the JAX
-package, and reads the JAX checkpoint without them."""
+"""The PyTorch port stands alone: it imports neither JAX, optax,
+scikit-learn nor the JAX package, and reads the JAX checkpoint without
+them."""
 
 import ast
 import subprocess
@@ -11,11 +12,11 @@ import torch
 torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ('jax', 'jaxlib', 'optax', 'waveflow_tpu')
+FORBIDDEN = ('jax', 'jaxlib', 'optax', 'sklearn', 'waveflow_tpu')
 
 SCRIPT = r"""
 import sys
-for name in ('jax', 'jaxlib', 'optax', 'waveflow_tpu'):
+for name in ('jax', 'jaxlib', 'optax', 'sklearn', 'waveflow_tpu'):
     sys.modules[name] = None
 import importlib, pkgutil
 import waveflow_tpu_torch
@@ -27,13 +28,16 @@ ck = load_jax_checkpoint(sys.argv[1])
 sd = params_from_jax(ck['params'])
 assert ck['epoch'] == 100000, ck['epoch']
 assert len(sd) == 28 and sd['conditioner.zero_params'].shape == (2, 28)
+from waveflow_tpu_torch.benchmark import get_dataset
+assert get_dataset('circles', 64).shape == (64, 2)
 print('ok')
 """
 
 
 def test_imports_and_checkpoint_without_jax():
-    """(i) With jax, optax and waveflow_tpu made unimportable, every module
-    of the port imports and the committed checkpoint loads."""
+    """(i) With jax, optax, scikit-learn and waveflow_tpu made unimportable,
+    every module of the port imports, the committed checkpoint loads and a
+    benchmark dataset is generated."""
     ckpt = ROOT / 'results' / 'r5_flagship_fwd_batched_100k' / 'checkpoints'
     out = subprocess.run([sys.executable, '-c', SCRIPT, str(ckpt)], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -50,10 +54,11 @@ def _imported_roots(path: Path):
 
 
 def test_no_file_imports_jax_or_the_jax_package():
-    """(i) No file of the port, nor chip_smoke.py, names jax, optax or
-    waveflow_tpu in an import."""
+    """(i) No file of the port, nor chip_smoke.py or the port's example
+    script, names jax, optax, sklearn or waveflow_tpu in an import."""
     files = sorted((ROOT / 'waveflow_tpu_torch').rglob('*.py'))
     files.append(ROOT / 'chip_smoke.py')
+    files.append(ROOT / 'examples' / 'run_benchmark_torch.py')
     assert len(files) > 20
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imported_roots(f) if m.split('.')[0] in FORBIDDEN]

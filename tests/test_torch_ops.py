@@ -1,11 +1,12 @@
 """Parity of the PyTorch port's ops (waveflow_tpu_torch.ops) with the JAX
 package on the CPU: tables, the basis jet (K3's function), the inverse-CDF
-sampler (K1's function), the table inverse and the boundary projector.
+samplers (K1's and K2's functions), the table-lerp evaluation (K4's
+function), the table inverse and the boundary projector.
 
 Where the JAX function reaches a Pallas kernel it runs as the JAX tests run
-it here: the basis jet in interpret mode (jet_backend='pallas'), the
-sampler on its XLA path.  On CPU tensors the port's kernel wrappers run
-their plain versions.
+it here: the basis jet, the table-lerp kernel and the linear-density
+sampler in interpret mode, the squared-amplitude sampler on its XLA path.
+On CPU tensors the port's kernel wrappers run their plain versions.
 """
 
 import jax
@@ -259,3 +260,164 @@ def test_boundary_projector_and_bias_remover(kind, norm):
         tb = tops.make_bias_remover(tev.n_bases, 6, 'I')
         np.testing.assert_allclose(tb(_t(w)).numpy(),
                                    np.asarray(jb(jnp.asarray(w))), rtol=1e-6)
+
+
+@pytest.fixture(scope='module')
+def m_evaluators():
+    jt = jops.get_tables('M', 3, 8, n_mesh=300)
+    tt = tops.get_tables('M', 3, 8, n_mesh=300)
+    return jops.make_evaluator(jt), tops.make_evaluator(tt, device='cpu')
+
+
+def _eval_inputs(n_bases, seed=8):
+    """Coefficients and points with the troublesome ones among them: both
+    walls, a cell edge, and points outside [0, 1] (linear extension)."""
+    rng = np.random.default_rng(seed)
+    w = rng.uniform(0.1, 1, (64, n_bases)).astype(np.float32)
+    x = rng.uniform(0, 1, 64).astype(np.float32)
+    x[:6] = np.array([0.0, 1.0, -0.03, 1.04, 150 / 299, 299 / 299], np.float32)
+    return w, x
+
+
+@pytest.mark.parametrize('d', [0, 1, 3])
+def test_table_eval_value_and_gradients(m_evaluators, d):
+    """(a) SplineEvaluator.__call__: value, coeffs-gradient (the lerped
+    basis) and x-gradient (the order-(d+1) table evaluation, zero at the top
+    order d = 3) against jax.grad of the JAX evaluator; atol 2e-5, scaled
+    by the size of the derivative tables."""
+    jev, tev = m_evaluators
+    w, x = _eval_inputs(jev.n_bases)
+    g = np.random.default_rng(9).normal(size=64).astype(np.float32)
+
+    def jf(ww, xx):
+        return (jev(ww, xx, d) * jnp.asarray(g)).sum()
+
+    ref = np.asarray(jev(jnp.asarray(w), jnp.asarray(x), d))
+    ref_gw, ref_gx = jax.grad(jf, argnums=(0, 1))(jnp.asarray(w),
+                                                  jnp.asarray(x))
+    tw = _t(w).requires_grad_()
+    tx = _t(x).requires_grad_()
+    out = tev(tw, tx, d)
+    gw, gx = torch.autograd.grad((out * _t(g)).sum(), (tw, tx))
+    scale = max(1.0, float(np.abs(ref).max()))
+    np.testing.assert_allclose(out.detach().numpy(), ref, atol=2e-5 * scale)
+    np.testing.assert_allclose(gw.numpy(), np.asarray(ref_gw),
+                               atol=2e-5 * scale)
+    gx_scale = max(1.0, float(np.abs(np.asarray(ref_gx)).max()))
+    np.testing.assert_allclose(gx.numpy(), np.asarray(ref_gx),
+                               atol=2e-5 * gx_scale)
+    if d == 3:
+        assert not gx.any() and not np.asarray(ref_gx).any()
+    np.testing.assert_array_equal(
+        tev.basis(_t(x), d).numpy(), np.asarray(jev.basis(jnp.asarray(x), d)))
+
+
+def test_table_eval_takes_any_batch_rank(m_evaluators):
+    """A (B, D, n_b) / (B, D) batch, as the density model's prior passes it,
+    equals the flattened batch exactly, and a mismatched x is refused."""
+    _, tev = m_evaluators
+    w, x = _eval_inputs(tev.n_bases)
+    flat = tev(_t(w), _t(x))
+    got = tev(_t(w).reshape(32, 2, -1), _t(x).reshape(32, 2))
+    torch.testing.assert_close(got.reshape(64), flat, rtol=0, atol=0)
+    with pytest.raises(ValueError):
+        tev(_t(w), _t(x)[:5])
+
+
+@pytest.mark.parametrize('twin', ['gather_lerp', 'onehot_matmul'])
+@pytest.mark.parametrize('d', [0, 1])
+def test_spline_eval_twins_match_pallas_interpret(twin, d):
+    """(b) The plain versions beside kernel K4 against the JAX Pallas kernel
+    in interpret mode, run as tests/test_spline_eval.py runs it; atol 2e-5
+    (scaled by the table's size for the derivative order)."""
+    import jax.experimental.pallas as pl
+    from waveflow_tpu.ops.pallas_spline import _spline_eval_kernel
+    from waveflow_tpu_torch.ops import cuda_spline
+    jt = jops.get_tables('I', 4, 8, n_mesh=300)
+    table = np.asarray(jt.tables[d])
+    N, block = 128, 64
+    rng = np.random.default_rng(11)
+    w = rng.uniform(0.1, 1, (N, table.shape[1])).astype(np.float32)
+    x = rng.uniform(0, 1, N).astype(np.float32)
+    x[:4] = np.array([0.0, 1.0, -0.02, 1.03], np.float32)
+    ref = pl.pallas_call(
+        _spline_eval_kernel,
+        grid=(N // block,),
+        in_specs=[
+            pl.BlockSpec((block, 1), lambda i: (i, 0)),
+            pl.BlockSpec((block, table.shape[1]), lambda i: (i, 0)),
+            pl.BlockSpec(table.shape, lambda i: (0, 0)),
+        ],
+        out_specs=pl.BlockSpec((block, 1), lambda i: (i, 0)),
+        out_shape=jax.ShapeDtypeStruct((N, 1), jnp.float32),
+        interpret=True,
+    )(jnp.asarray(x).reshape(-1, 1), jnp.asarray(w), jnp.asarray(table))
+    fn = (cuda_spline.spline_eval if twin == 'gather_lerp'
+          else cuda_spline.onehot_matmul_eval)
+    got = fn(_t(table), _t(w), _t(x)).numpy()
+    np.testing.assert_allclose(got, np.asarray(ref[:, 0]),
+                               atol=2e-5 * max(1.0, np.abs(table).max()))
+
+
+@pytest.mark.parametrize('branch', ['flat', 'two_level'])
+def test_sample_linear_density(branch, monkeypatch):
+    """(c) Plain sample_linear_density, through both branches of
+    _locate_in_masses, against the JAX XLA path (atol 2e-6 as
+    tests/test_pallas_sampler.py) and the JAX Pallas kernel (kind 'linear')
+    in interpret mode on the same uniforms, walls included.  The Pallas
+    kernel sums its trapezoids and its prefix in another order than the XLA
+    path, and the quadratic's (disc − a) / d amplifies an ulp of the
+    residual mass by a / |d|: on these inputs the two JAX paths themselves
+    differ by 3.7e-6 (one draw, d / a = 2e-4), so the kernel is held to
+    atol 5e-6."""
+    from waveflow_tpu.ops.pallas_sampler import pallas_sample_linear_density
+    if branch == 'two_level':
+        monkeypatch.setattr(jsampling, 'TWO_LEVEL_MIN_ELEMENTS', 0)
+        monkeypatch.setattr(tsampling, 'TWO_LEVEL_MIN_ELEMENTS', 0)
+    jev = jops.make_evaluator(jops.get_tables('M', 4, 12, n_mesh=1000))
+    tev = tops.make_evaluator(tops.get_tables('M', 4, 12, n_mesh=1000),
+                              device='cpu')
+    rng = np.random.default_rng(12)
+    B = 200
+    w = rng.uniform(0, 1, (B, jev.n_bases)).astype(np.float32)
+    c = w / w.sum(-1, keepdims=True)
+    u = rng.uniform(0, 1, B).astype(np.float32)
+    u[:3] = 0.0
+    u[3:6] = np.float32(1.0 - 1e-7)
+    ref = np.asarray(jsampling.sample_linear_density(
+        jev, jnp.asarray(c), jnp.asarray(u), impl='xla'))
+    ref_pallas = np.asarray(pallas_sample_linear_density(
+        jev, jnp.asarray(c), jnp.asarray(u), interpret=True))
+    got = tsampling.sample_linear_density(tev, _t(c), _t(u)).numpy()
+    assert ((got >= 0) & (got <= 1)).all()
+    np.testing.assert_allclose(got, ref, atol=2e-6)
+    np.testing.assert_allclose(got, ref_pallas, atol=5e-6)
+
+
+def test_linear_sampler_kernel_route(monkeypatch):
+    """'auto' on a CPU tensor takes the plain path; the kernel route hands
+    K2 one flattened batch and reshapes its draws back (the kernel is stood
+    in for by the plain path here), and the real wrapper refuses CPU
+    tensors."""
+    from waveflow_tpu_torch.ops import cuda_sampler
+    tev = tops.make_evaluator(tops.get_tables('M', 3, 8, n_mesh=300),
+                              device='cpu')
+    rng = np.random.default_rng(13)
+    c = _t(rng.uniform(0, 1, (3, 5, tev.n_bases)).astype(np.float32))
+    u = _t(rng.uniform(0, 1, (3, 5)).astype(np.float32))
+    flat = tsampling.sample_linear_density(tev, c.reshape(15, -1),
+                                           u.reshape(15), impl='plain')
+    with pytest.raises(ValueError):
+        tsampling.sample_linear_density(tev, c, u, impl='cuda')
+    seen = []
+
+    def stand_in(ev, cc, uu):
+        seen.append((tuple(cc.shape), tuple(uu.shape)))
+        return tsampling.sample_linear_density(ev, cc, uu, impl='plain')
+
+    monkeypatch.setattr(cuda_sampler, 'sample_linear_density_cuda', stand_in)
+    got = tsampling.sample_linear_density(tev, c, u, impl='cuda')
+    torch.testing.assert_close(got.reshape(15), flat, rtol=0, atol=0)
+    assert seen == [((15, tev.n_bases), (15,))]
+    torch.testing.assert_close(tsampling.sample_linear_density(tev, c, u),
+                               got, rtol=0, atol=0)

@@ -1,9 +1,11 @@
 """waveflow_tpu_torch — the PyTorch/CUDA port of waveflow_tpu.
 
-Square-flow wavefunctions trained by variational Monte Carlo, in PyTorch,
-with the Pallas TPU kernels of the main path rewritten as CUDA C++ kernels
-for Hopper (sm_90a): the fused inverse-CDF sampler (ops/cuda_sampler.py)
-and the fused basis jet (ops/cuda_jet.py).  The JAX package is the
+Square-flow wavefunctions trained by variational Monte Carlo, and spline
+flows trained by maximum likelihood on 2D density benchmarks, in PyTorch,
+with the Pallas TPU kernels rewritten as CUDA C++ kernels for Hopper
+(sm_90a): the fused inverse-CDF sampler in its two kinds
+(ops/cuda_sampler.py), the fused basis jet (ops/cuda_jet.py) and the
+table-lerp spline evaluation (ops/cuda_spline.py).  The JAX package is the
 reference; this package imports torch, numpy and scipy only.
 
 Entry points run on ``cuda`` unless the caller passes ``device='cpu'``; on

@@ -108,6 +108,20 @@ class MaskedConditioner(nn.Module):
         return p / p.sum(-1, keepdim=True)
 
 
+def simple_masked_transform(output_shape: int = 2, hidden_dim: int = 64,
+                            num_hidden: int = 1):
+    """Plain masked MLP factory for the affine MADE layer: ``(input_dim, *,
+    generator, device) -> MaskedMLP`` emitting (batch, output_shape *
+    input_dim) grouped features; the port of the JAX factory of the same
+    name."""
+
+    def make(input_dim, *, generator=None, device=None):
+        return MaskedMLP(input_dim, output_shape, hidden_dim, num_hidden,
+                         generator=generator, device=device)
+
+    return make
+
+
 def masked_conditioner(allow_negative_params: bool = False,
                        hidden_dim: int = 64, num_hidden: int = 1):
     """Factory ``(input_dim, n_out_params, set_nn_output_grad_to_zero, *,

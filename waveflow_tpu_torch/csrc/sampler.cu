@@ -1,16 +1,25 @@
 // Fused inverse-CDF sampler for Hopper (sm_90a): one exact draw per walker
-// from p(x) ∝ (c · T(x))², ψ = c · T the piecewise-linear table spline.
+// from a density built on ψ = c · T, the piecewise-linear table spline.
+// Two kinds, one kernel template:
+//   SQUARED  p(x) ∝ ψ(x)²          (squared-B-spline conditionals, K1)
+//   LINEAR   p(x) ∝ max(ψ(x), 0)   (M-spline priors, K2)
 //
-// Replaces: waveflow_tpu/ops/pallas_sampler.py, `_sampler_kernel` with
-// kind='squared' (pl.pallas_call at :144, entry
-// pallas_sample_squared_amplitude at :189).  Same chain, same semantics:
+// Replaces: waveflow_tpu/ops/pallas_sampler.py, `_sampler_kernel`
+// (pl.pallas_call at :144) with kind='squared' (entry
+// pallas_sample_squared_amplitude at :189) and kind='linear' (entry
+// pallas_sample_linear_density at :205).  Same chain, same semantics:
 //   ψ on the mesh = coeffs @ table            (n_bases FMAs per mesh point)
-//   cell masses  m_c = h (ψ_l² + ψ_l Δ + Δ²/3)
+//   LINEAR only: ψ clamped at 0 before the masses
+//   cell masses  SQUARED m_c = h (ψ_l² + ψ_l Δ + Δ²/3)
+//                LINEAR  m_c = h (ψ_l + Δ/2)
 //   inclusive prefix-sum CDF over the cells, total = cdf[n_cells - 1]
 //   j = #{cells c : cdf[c] <= u · total}, clipped to [0, n_cells - 1]
 //   q = u · total - cdf[j - 1]  (cdf[-1] = 0)
-//   in-cell cubic m(s) = h (a² s + a d s² + d² s³ / 3) = q solved by
-//   n_bisect bisection steps + n_newton clipped Newton steps;
+//   SQUARED: in-cell cubic m(s) = h (a² s + a d s² + d² s³ / 3) = q solved
+//   by n_bisect bisection steps + n_newton clipped Newton steps;
+//   LINEAR: in-cell quadratic h (a s + d s² / 2) = q in closed form,
+//   s = (sqrt(a² + 2 d q/h) − a) / d, or q / (h a) where |d| < 1e-12,
+//   clipped to [0, 1];
 //   x = (j + s) h.
 // The prefix sum runs in another association order than the TPU's
 // Hillis-Steele lane scan and XLA's cumsum, which moves draws near cell
@@ -29,7 +38,10 @@
 //     and local sums stay in registers, a warp-shuffle block scan gives the
 //     CDF, a block reduction gives j, and the owners of cells j - 1 and j
 //     publish q, a and Δ;
-//   * one thread runs the short serial 12 + 3 solve and writes x.
+//   * one thread runs the short serial in-cell solve and writes x.
+// The kind is a template parameter, so each instantiation compiles to its
+// own straight-line code and the SQUARED one is the kernel it was before
+// the LINEAR kind was added.
 
 #include <cuda_runtime.h>
 
@@ -40,12 +52,27 @@ constexpr int WARPS = THREADS / 32;
 constexpr int CPT = 8;          // cells per thread: n_cells <= 2048
 constexpr int WPB = 4;          // walkers per block
 constexpr int MAX_BASES = 64;
+constexpr int SQUARED = 0;
+constexpr int LINEAR = 1;
 
 __device__ __forceinline__ float cell_mass(float h, float a, float d,
                                            float s) {
   return h * (a * a * s + a * d * s * s + d * d * (s * s * s) / 3.f);
 }
 
+// closed-form root of h (a s + d s² / 2) = q in [0, 1]; the products are
+// rounded one by one (no fused multiply-add), as the plain version's are
+__device__ __forceinline__ float solve_linear_cell(float h, float a, float d,
+                                                   float q) {
+  const float qn = q / h;
+  const float disc = sqrtf(fmaxf(
+      __fadd_rn(__fmul_rn(a, a), __fmul_rn(__fmul_rn(2.f, d), qn)), 0.f));
+  const bool flat = fabsf(d) < 1e-12f;
+  const float s = flat ? qn / fmaxf(a, 1e-12f) : (disc - a) / d;
+  return fminf(fmaxf(s, 0.f), 1.f);
+}
+
+template <int KIND>
 __global__ void __launch_bounds__(THREADS)
 sampler_kernel(const float* __restrict__ u, const float* __restrict__ coeffs,
                const float* __restrict__ table_t, float* __restrict__ out,
@@ -81,7 +108,8 @@ sampler_kernel(const float* __restrict__ u, const float* __restrict__ coeffs,
       for (int w = 0; w < WPB; ++w) acc[w] = fmaf(c_s[w][j], tv, acc[w]);
     }
 #pragma unroll
-    for (int w = 0; w < WPB; ++w) psi_s[w * n_mesh + p] = acc[w];
+    for (int w = 0; w < WPB; ++w)
+      psi_s[w * n_mesh + p] = KIND == LINEAR ? fmaxf(acc[w], 0.f) : acc[w];
   }
   __syncthreads();
 
@@ -101,7 +129,10 @@ sampler_kernel(const float* __restrict__ u, const float* __restrict__ coeffs,
       if (c < n_cells) {
         const float pl = psi[c];
         const float d = psi[c + 1] - pl;
-        m = h * (pl * pl + pl * d + d * d / 3.f);
+        if constexpr (KIND == SQUARED)
+          m = h * (pl * pl + pl * d + d * d / 3.f);
+        else
+          m = h * (pl + 0.5f * d);
       }
       local += m;
       cdf[i] = local;
@@ -160,21 +191,45 @@ sampler_kernel(const float* __restrict__ u, const float* __restrict__ coeffs,
     if (t == 0) {
       const float q = target - cdf_prev_s;
       const float a = a_s, d = d_s;
-      float lo = 0.f, hi = 1.f;
-      for (int it = 0; it < n_bisect; ++it) {
-        const float mid = 0.5f * (lo + hi);
-        if (cell_mass(h, a, d, mid) > q) hi = mid; else lo = mid;
-      }
-      float s = 0.5f * (lo + hi);
-      for (int it = 0; it < n_newton; ++it) {
-        const float v = a + d * s;
-        const float dm = fmaxf(h * v * v, 1e-14f);
-        s = fminf(fmaxf(s - (cell_mass(h, a, d, s) - q) / dm, lo), hi);
+      float s;
+      if constexpr (KIND == SQUARED) {
+        float lo = 0.f, hi = 1.f;
+        for (int it = 0; it < n_bisect; ++it) {
+          const float mid = 0.5f * (lo + hi);
+          if (cell_mass(h, a, d, mid) > q) hi = mid; else lo = mid;
+        }
+        s = 0.5f * (lo + hi);
+        for (int it = 0; it < n_newton; ++it) {
+          const float v = a + d * s;
+          const float dm = fmaxf(h * v * v, 1e-14f);
+          s = fminf(fmaxf(s - (cell_mass(h, a, d, s) - q) / dm, lo), hi);
+        }
+      } else {
+        s = solve_linear_cell(h, a, d, q);
       }
       out[row] = (static_cast<float>(j) + s) * h;
     }
     __syncthreads();  // shared scratch is reused by the next walker
   }
+}
+
+template <int KIND>
+int launch(const float* u, const float* coeffs, const float* table_t,
+           float* out, int B, int n_bases, int n_mesh, float h, int n_bisect,
+           int n_newton, void* stream) {
+  if (B <= 0) return 0;
+  if (n_mesh - 1 > THREADS * CPT || n_mesh < 2 || n_bases > MAX_BASES)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = sizeof(float) * WPB * static_cast<size_t>(n_mesh);
+  cudaError_t err = cudaFuncSetAttribute(
+      sampler_kernel<KIND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = (B + WPB - 1) / WPB;
+  sampler_kernel<KIND>
+      <<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+          u, coeffs, table_t, out, B, n_bases, n_mesh, h, n_bisect, n_newton);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -183,18 +238,16 @@ extern "C" int sampler_launch(const float* u, const float* coeffs,
                               const float* table_t, float* out, int B,
                               int n_bases, int n_mesh, float h, int n_bisect,
                               int n_newton, void* stream) {
-  if (B <= 0) return 0;
-  if (n_mesh - 1 > THREADS * CPT || n_mesh < 2 || n_bases > MAX_BASES)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * WPB * static_cast<size_t>(n_mesh);
-  cudaError_t err = cudaFuncSetAttribute(
-      sampler_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = (B + WPB - 1) / WPB;
-  sampler_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      u, coeffs, table_t, out, B, n_bases, n_mesh, h, n_bisect, n_newton);
-  return static_cast<int>(cudaGetLastError());
+  return launch<SQUARED>(u, coeffs, table_t, out, B, n_bases, n_mesh, h,
+                         n_bisect, n_newton, stream);
+}
+
+extern "C" int sampler_linear_launch(const float* u, const float* coeffs,
+                                     const float* table_t, float* out, int B,
+                                     int n_bases, int n_mesh, float h,
+                                     void* stream) {
+  return launch<LINEAR>(u, coeffs, table_t, out, B, n_bases, n_mesh, h, 0, 0,
+                        stream);
 }
 
 extern "C" const char* sampler_error_string(int err) {

@@ -1,2 +1,4 @@
+from waveflow_tpu_torch.models.flow import Flow
+from waveflow_tpu_torch.models.mflow import MFlow
 from waveflow_tpu_torch.models.waveflow import Waveflow
-from waveflow_tpu_torch.models.factory import get_waveflow_model
+from waveflow_tpu_torch.models.factory import get_model, get_waveflow_model

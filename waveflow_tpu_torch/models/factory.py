@@ -1,9 +1,11 @@
-"""Configured model assembly: the Waveflow ψ ansatz.
+"""Configured model assemblies: the MFlow density model and the Waveflow ψ
+ansatz.
 
-Port of waveflow_tpu/models/factory.py::get_waveflow_model ('mean'
-coordinate map).  The module tree mirrors the JAX params pytree:
-``transform.layers`` = [BoxTransform, (IMADE, Reverse) × n_flow_layers] and
-``conditioner`` = the prior's masked conditioner (see convert.py).
+Port of waveflow_tpu/models/factory.py (``get_model``, and
+``get_waveflow_model`` with the 'mean' coordinate map).  The module trees
+mirror the JAX params pytrees: ``transform.layers`` = [(BoxTransform,)
+(IMADE, Reverse) × n_flow_layers] and ``conditioner`` = the prior's masked
+conditioner (see convert.py).
 """
 
 from __future__ import annotations
@@ -14,7 +16,46 @@ from waveflow_tpu_torch import resolve_device
 from waveflow_tpu_torch.bijections import (
     BoxTransform, IMADE, Reverse, Serial, masked_conditioner,
 )
+from waveflow_tpu_torch.models.mflow import MFlow
 from waveflow_tpu_torch.models.waveflow import Waveflow
+
+
+def get_model(input_dim, base_spline_degree=5, i_spline_degree=5,
+              n_prior_internal_knots=15, n_i_internal_knots=15,
+              i_spline_reg=0.0, i_spline_reverse_fun_tol=1e-6,
+              n_flow_layers=1,
+              prior_constraint_dict_left={}, prior_constraint_dict_right={},
+              i_constraint_dict_left={}, i_constraint_dict_right={},
+              set_nn_output_grad_to_zero=False,
+              n_spline_base_mesh_points=2000, *,
+              generator: torch.Generator | None = None,
+              device=None) -> MFlow:
+    """MFlow density model: n × (IMADE + Reverse) over an M-spline prior.
+
+    ``i_spline_reverse_fun_tol`` is accepted and unused: the IMADE inverse
+    is the exact table inverse, which has no tolerance.  Weights are drawn
+    from ``generator`` (CPU generator; seed it for reproducible inits)."""
+    device = resolve_device(device)
+    layers = []
+    for _ in range(n_flow_layers):
+        layers.append(IMADE(masked_conditioner(), input_dim,
+                            spline_degree=i_spline_degree,
+                            n_internal_knots=n_i_internal_knots,
+                            spline_regularization=i_spline_reg,
+                            constraints_dict_left=i_constraint_dict_left,
+                            constraints_dict_right=i_constraint_dict_right,
+                            set_nn_output_grad_to_zero=set_nn_output_grad_to_zero,
+                            n_spline_base_mesh_points=n_spline_base_mesh_points,
+                            generator=generator, device=device))
+        layers.append(Reverse())
+    return MFlow(Serial(*layers), masked_conditioner(), input_dim,
+                 spline_degree=base_spline_degree,
+                 n_internal_knots=n_prior_internal_knots,
+                 constraints_dict_left=prior_constraint_dict_left,
+                 constraints_dict_right=prior_constraint_dict_right,
+                 set_nn_output_grad_to_zero=set_nn_output_grad_to_zero,
+                 n_spline_base_mesh_points=n_spline_base_mesh_points,
+                 generator=generator, device=device)
 
 
 def get_waveflow_model(n_dimension, base_spline_degree=5, i_spline_degree=5,

@@ -13,4 +13,6 @@ from waveflow_tpu_torch.ops.boundary import (
 from waveflow_tpu_torch.ops.inverse import (
     batched_monotone_inverse, exact_node_bisect_inverse, exact_table_inverse,
 )
-from waveflow_tpu_torch.ops.sampling import sample_squared_amplitude
+from waveflow_tpu_torch.ops.sampling import (
+    sample_linear_density, sample_squared_amplitude,
+)

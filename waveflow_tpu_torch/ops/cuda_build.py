@@ -20,7 +20,7 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / 'csrc'
 BUILD_DIR = PKG_DIR / 'build'
-KERNELS = ('sampler', 'basis_jet')
+KERNELS = ('sampler', 'basis_jet', 'spline_eval')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 

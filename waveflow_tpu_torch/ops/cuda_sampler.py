@@ -1,13 +1,16 @@
-"""Kernel K1: the fused inverse-CDF sampler (csrc/sampler.cu).
+"""Kernels K1 and K2: the fused inverse-CDF sampler (csrc/sampler.cu).
 
-Replaces waveflow_tpu/ops/pallas_sampler.py::pallas_sample_squared_amplitude
-(``_sampler_kernel``, kind 'squared').  Its plain version is the plain path
-of ops/sampling.py::sample_squared_amplitude, which routes CUDA tensors
-here.  The kernel's 12 + 3 bisection/Newton schedule and clipping walls are
-the plain path's; its prefix sum associates differently, which moves
-draws near cell edges by up to ~6e-5.  For u within ~1e-4 of 1 (the thin
-right tail, where a few f32 ulps of the CDF span many cells) either f32
-version may land many cells from the exact quantile in x while staying
+One kernel template, two kinds.  K1 ('squared') replaces
+waveflow_tpu/ops/pallas_sampler.py::pallas_sample_squared_amplitude and K2
+('linear') ::pallas_sample_linear_density (``_sampler_kernel`` with kind
+'squared' / 'linear').  Their plain versions are the plain paths of
+ops/sampling.py::sample_squared_amplitude and ::sample_linear_density,
+which route CUDA tensors here.  The kernel's in-cell solves (12 + 3
+bisection/Newton for K1, the closed-form quadratic for K2) and clipping
+walls are the plain paths'; its prefix sum associates differently, which
+moves draws near cell edges by up to ~6e-5.  For u within ~1e-4 of 1 (a
+thin right tail, where a few f32 ulps of the CDF span many cells) either
+f32 version may land many cells from the exact quantile in x while staying
 within ~1e-6 of it in probability; chip_smoke.py holds those draws to a
 float64 plain draw.
 """
@@ -21,19 +24,20 @@ import torch
 from waveflow_tpu_torch.ops import cuda_build
 from waveflow_tpu_torch.ops.spline_eval import SplineEvaluator
 
-launches = 0          # kernel launches since the last reset (chip_smoke.py)
+# kernel launches since the last reset (chip_smoke.py), one count per kind
+launches = 0          # K1, 'squared'
+launches_linear = 0   # K2, 'linear'
 
 CELLS_PER_THREAD = 8
 THREADS = 256
 MAX_BASES = 64
 
 
-def sample_squared_amplitude_cuda(evaluator: SplineEvaluator,
-                                  coeffs: torch.Tensor, u: torch.Tensor,
-                                  n_bisect: int = 12,
-                                  n_newton: int = 3) -> torch.Tensor:
-    """coeffs (B, n_bases), u (B,) f32 on the card -> (B,) draws in [0, 1]."""
-    global launches
+def _launch(entry: str, evaluator: SplineEvaluator, coeffs: torch.Tensor,
+            u: torch.Tensor, *schedule: int) -> torch.Tensor:
+    """Check the inputs, then call the C entry point ``entry`` of
+    csrc/sampler.cu: (u, coeffs, table, out, B, n_bases, n_mesh, h,
+    *schedule, stream).  Raises if the launch is refused."""
     table_t = evaluator.table_t                     # (n_bases, n_mesh)
     n_bases, n_mesh = table_t.shape
     if not (coeffs.is_cuda and u.device == coeffs.device
@@ -54,18 +58,39 @@ def sample_squared_amplitude_cuda(evaluator: SplineEvaluator,
     B = coeffs.shape[0]
     out = torch.empty(B, dtype=torch.float32, device=coeffs.device)
     lib = cuda_build.load('sampler')
-    fn = lib.sampler_launch
+    fn = getattr(lib, entry)
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float]
-                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * len(schedule) + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     # ctypes rounds h to f32, as the JAX package's f32 arithmetic does
     err = fn(u.data_ptr(), coeffs.data_ptr(), table_t.data_ptr(),
-             out.data_ptr(), B, n_bases, n_mesh, 1.0 / (n_mesh - 1),
-             n_bisect, n_newton,
+             out.data_ptr(), B, n_bases, n_mesh, 1.0 / (n_mesh - 1), *schedule,
              torch.cuda.current_stream(coeffs.device).cuda_stream)
-    launches += 1
     if err:
         lib.sampler_error_string.restype = ctypes.c_char_p
         raise RuntimeError("sampler kernel launch failed: "
                            + lib.sampler_error_string(err).decode())
+    return out
+
+
+def sample_squared_amplitude_cuda(evaluator: SplineEvaluator,
+                                  coeffs: torch.Tensor, u: torch.Tensor,
+                                  n_bisect: int = 12,
+                                  n_newton: int = 3) -> torch.Tensor:
+    """K1: coeffs (B, n_bases), u (B,) f32 on the card -> (B,) draws in
+    [0, 1] from p ∝ (coeffs · T)²."""
+    global launches
+    out = _launch('sampler_launch', evaluator, coeffs, u, n_bisect, n_newton)
+    launches += 1
+    return out
+
+
+def sample_linear_density_cuda(evaluator: SplineEvaluator,
+                               coeffs: torch.Tensor,
+                               u: torch.Tensor) -> torch.Tensor:
+    """K2: coeffs (B, n_bases), u (B,) f32 on the card -> (B,) draws in
+    [0, 1] from p ∝ max(coeffs · T, 0)."""
+    global launches_linear
+    out = _launch('sampler_linear_launch', evaluator, coeffs, u)
+    launches_linear += 1
     return out

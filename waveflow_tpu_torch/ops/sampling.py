@@ -1,13 +1,17 @@
-"""Exact inverse-CDF sampling of squared-spline conditionals.
+"""Exact inverse-CDF sampling of spline densities.
 
-Port of waveflow_tpu/ops/sampling.py (``sample_squared_amplitude`` and the
-cell locate it uses).  The runtime ψ is the linearly interpolated table,
-so p ∝ ψ² has closed-form cubic cell masses: density on the mesh (one
-matmul), cell masses, prefix-sum CDF, cell locate, in-cell cubic solve by
-bracketing bisection + Newton polish.
+Port of waveflow_tpu/ops/sampling.py (``sample_squared_amplitude``,
+``sample_linear_density`` and the cell locate they share).  The runtime
+density is built on the linearly interpolated table ψ = w · T: p ∝ ψ² for
+the squared-B-spline conditionals (closed-form cubic cell masses, in-cell
+solve by bracketing bisection + Newton polish) and p ∝ max(ψ, 0) for the
+M-spline priors (trapezoid cell masses, closed-form quadratic in-cell
+solve).  Both: density on the mesh (one matmul), cell masses, prefix-sum
+CDF, cell locate, in-cell solve.
 
-``impl='auto'`` sends every CUDA tensor to kernel K1 (ops/cuda_sampler.py)
-and a CPU tensor to the plain path below, which is K1's plain version.
+``impl='auto'`` sends every CUDA tensor to the fused kernel (K1 'squared',
+K2 'linear'; ops/cuda_sampler.py) and a CPU tensor to the plain paths
+below, which are the kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -63,6 +67,54 @@ def _locate_in_masses(masses: torch.Tensor, u: torch.Tensor):
     return j, q
 
 
+def _flat_batch(coeffs: torch.Tensor, u: torch.Tensor):
+    """The kernels take one (N, n_bases) batch: leading dims flattened."""
+    if u.shape != coeffs.shape[:-1]:
+        raise ValueError(f"u {tuple(u.shape)} does not match the batch "
+                         f"of coeffs {tuple(coeffs.shape)}")
+    return coeffs.reshape(-1, coeffs.shape[-1]), u.reshape(-1)
+
+
+def sample_linear_density(evaluator: SplineEvaluator,
+                          coeffs: torch.Tensor,
+                          u: torch.Tensor,
+                          impl: str = 'auto') -> torch.Tensor:
+    """Inverse-CDF sample of the piecewise-linear density d(x) = w·T(x),
+    clamped at 0.
+
+    coeffs: (..., n_bases) spline coefficients (M-splines), u: (...,)
+    uniforms in [0, 1) -> (...,) exact samples of the normalized
+    table-interpolated density.  ``impl`` as in sample_squared_amplitude:
+    'auto' (K2 for a CUDA tensor, the plain path for a CPU one), 'cuda' or
+    'plain'.  In-cell mass h(a s + b s²/2), inverted in closed form.
+    """
+    if impl == 'auto':
+        impl = 'cuda' if coeffs.is_cuda else 'plain'
+    if impl == 'cuda':
+        from waveflow_tpu_torch.ops.cuda_sampler import (
+            sample_linear_density_cuda)
+        x = sample_linear_density_cuda(evaluator, *_flat_batch(coeffs, u))
+        return x.reshape(u.shape)
+    if impl != 'plain':
+        raise ValueError(f"unknown impl {impl!r}")
+    dens = torch.clamp(evaluator.density_on_mesh(coeffs), min=0.0)   # (B, P)
+    h = 1.0 / (dens.shape[-1] - 1)
+    d_l = dens[..., :-1]
+    d_r = dens[..., 1:]
+    masses = 0.5 * (d_l + d_r) * h
+    j, q = _locate_in_masses(masses, u)
+    a = _take(d_l, j)
+    b = _take(d_r, j) - a
+    # solve h*(a s + b s^2/2) = q for s in [0, 1]
+    qn = q / h
+    flat = b.abs() < 1e-12
+    disc = torch.sqrt(torch.clamp(a * a + 2.0 * b * qn, min=0.0))
+    s_quad = (disc - a) / torch.where(flat, torch.ones_like(b), b)
+    s_lin = qn / torch.clamp(a, min=1e-12)
+    s = torch.clamp(torch.where(flat, s_lin, s_quad), 0.0, 1.0)
+    return (j + s) * h
+
+
 def sample_squared_amplitude(evaluator: SplineEvaluator,
                              coeffs: torch.Tensor,
                              u: torch.Tensor,
@@ -82,12 +134,8 @@ def sample_squared_amplitude(evaluator: SplineEvaluator,
     if impl == 'cuda':
         from waveflow_tpu_torch.ops.cuda_sampler import (
             sample_squared_amplitude_cuda)
-        if u.shape != coeffs.shape[:-1]:
-            raise ValueError(f"u {tuple(u.shape)} does not match the batch "
-                             f"of coeffs {tuple(coeffs.shape)}")
         x = sample_squared_amplitude_cuda(
-            evaluator, coeffs.reshape(-1, coeffs.shape[-1]), u.reshape(-1),
-            n_bisect, n_newton)
+            evaluator, *_flat_batch(coeffs, u), n_bisect, n_newton)
         return x.reshape(u.shape)
     if impl != 'plain':
         raise ValueError(f"unknown impl {impl!r}")

@@ -1,11 +1,15 @@
-"""Table-backed spline evaluation: the subset the main path uses.
+"""Table-backed spline evaluation.
 
-Port of waveflow_tpu/ops/spline_eval.py.  On the main path the tables
-serve the ancestral sampler (``density_on_mesh``, and the transposed
-table that kernel K1 reads), the exact table inverse of the IMADE layers
-(``density_on_mesh`` / ``at_nodes``) and the boundary projector
-(``left`` / ``right``).  The table-lerp ``__call__`` / ``pair`` custom-JVP
-chains serve only ``eval_backend='table'`` and are not ported.
+Port of waveflow_tpu/ops/spline_eval.py.  The tables serve the ancestral
+samplers (``density_on_mesh``, and the transposed table that kernels K1 and
+K2 read), the exact table inverse of the IMADE layers (``density_on_mesh``
+/ ``at_nodes``), the boundary projector (``left`` / ``right``) and the
+table-lerp evaluation ``__call__`` (kernel K4 on the card), which the
+density model's M-spline prior uses.  ``__call__`` differentiates as the
+JAX custom-JVP chain does: the x-derivative of the order-d evaluation is
+the order-(d+1) table evaluation, not the slope of the lerp.  The fused
+``pair`` chain serves only IMADE's ``eval_backend='table'`` and is not
+ported.
 """
 
 from __future__ import annotations
@@ -14,7 +18,36 @@ import numpy as np
 import torch
 
 from waveflow_tpu_torch import resolve_device
+from waveflow_tpu_torch.ops.cuda_spline import lerp_basis, spline_eval
 from waveflow_tpu_torch.ops.spline_tables import SplineTables
+
+
+class _TableEval(torch.autograd.Function):
+    """Σ_i coeffs_i T_i^{(d)}(x) by table lerp, with the derivative chain of
+    the JAX evaluator: d/dx is the order-(d+1) evaluation (zero at the top
+    tabulated order), d/dcoeffs the lerped basis.  First-order reverse
+    mode, which is what likelihood training needs."""
+
+    @staticmethod
+    def forward(ctx, coeffs, x, tables, d):
+        ctx.save_for_backward(coeffs, x)
+        ctx.tables, ctx.d = tables, d
+        return spline_eval(tables[d], coeffs, x)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        coeffs, x = ctx.saved_tensors
+        tables, d = ctx.tables, ctx.d
+        g_coeffs = g_x = None
+        if ctx.needs_input_grad[0]:
+            g_coeffs = grad[..., None] * lerp_basis(tables[d], x)
+        if ctx.needs_input_grad[1]:
+            if d + 1 < tables.shape[0]:
+                g_x = grad * spline_eval(tables[d + 1], coeffs, x)
+            else:
+                g_x = torch.zeros_like(x)
+        return g_coeffs, g_x, None, None
 
 
 class SplineEvaluator:
@@ -33,6 +66,20 @@ class SplineEvaluator:
         # (n_bases, n_mesh) value table: the density_on_mesh operand, and
         # the layout the fused sampler kernel reads (ops/cuda_sampler.py)
         self.table_t = self.tables[0].T.contiguous()
+
+    def basis(self, x: torch.Tensor, d: int = 0) -> torch.Tensor:
+        """Interpolated basis matrix T^{(d)} at x: (...,) -> (..., n_bases)."""
+        return lerp_basis(self.tables[d], x)
+
+    def __call__(self, coeffs: torch.Tensor, x: torch.Tensor,
+                 d: int = 0) -> torch.Tensor:
+        """sum_i coeffs[..., i] * T_i^{(d)}(x[...]) with derivative chaining.
+
+        coeffs: (..., n_bases), x: (...,) -> (...,).  The cell index is
+        clipped to the table, the in-cell fraction is not: outside [0, 1]
+        the edge cell extends linearly.  On a CUDA tensor the evaluation
+        (and the order-(d+1) evaluation of its backward) is kernel K4."""
+        return _TableEval.apply(coeffs, x, self.tables, d)
 
     def at_nodes(self, coeffs: torch.Tensor, idx: torch.Tensor,
                  d: int = 0) -> torch.Tensor:
