@@ -8,11 +8,15 @@ Phases (any failure exits non-zero; nothing is caught):
   2. build   — compile every CUDA kernel of the paths (one nvcc each, in
                parallel) into waveflow_tpu_torch/build/;
   3. kernels — hold each kernel against its plain PyTorch version on the
-               card at the main paths' shapes, and time kernel, plain
-               version and (where one exists) a single library call:
-               K1 sampler 'squared' and K3 basis jet at the flagship's
-               shapes, K2 sampler 'linear' and K4 table-lerp evaluation at
-               the density model's;
+               card at the main paths' shapes and at ragged sizes, and time
+               kernel (back-to-back calls, and the kernel alone by the
+               profiler's device time), plain version and (where one
+               exists) a single library call: K1 sampler 'squared' and K3
+               basis jet at the flagship's shapes, K2 sampler 'linear' and
+               K4 table-lerp evaluation at the density model's; K1 also on
+               a table too large for shared memory (the streamed regime)
+               and on meshes that take the kernel's other branches;
+               print each kernel's launch plan at those shapes;
   4. checkpoint — load the committed JAX flagship checkpoint, draw 65,536
                ancestral walkers and compute the mean local energy, which
                must agree with the JAX evaluation −1.815872(12);
@@ -72,6 +76,25 @@ def cuda_ms(torch, fn, reps: int = 50, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(torch, fn, reps: int = 20) -> float:
+    """Mean device time of the kernels one call of ``fn`` launches, without
+    the host path around them: one profiler pass over ``reps`` calls, self
+    device time over the calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA)
+    if not total_us > 0:
+        fail("the profiler recorded no device time")
+    return total_us / 1e3 / reps
+
+
 def bound_ms(n_bytes: float, n_ops: float):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / F32_FLOP_PER_S * 1e3
@@ -113,9 +136,11 @@ def check_sampler(torch, gen, kind, ev, coeffs_of, B_max):
     """A sampler kernel (K1: kind 'squared', K2: kind 'linear') against its
     plain path on the inputs the main path gives it: the model's conditional
     coefficients ``coeffs_of(points)[:, column]`` of both ancestral columns,
-    at a batch of 256 and at ``B_max``, with the u = 0 and u = 1 − 1e-7
-    walls among the draws, plus 4,096 draws per column in the right tail
-    u ∈ (1 − 1e-4, 1 − 1e-7].
+    at a batch of 256 and at ``B_max`` (both timed), at ragged batches
+    (1, 3, 255, 257, 300, 1,000 and ``B_max`` − 1: every walkers-per-group
+    variant, groups and grids that do not divide), with the u = 0 and
+    u = 1 − 1e-7 walls among the draws, plus 4,096 draws per column in the
+    right tail u ∈ (1 − 1e-4, 1 − 1e-7].
 
     Draws with u ≤ 1 − 1e-4 are held to the f32 plain draw at 6e-5 (the
     prefix sum's association order, ~0.1 mesh cell).  For u > 1 − 1e-4 the
@@ -152,7 +177,8 @@ def check_sampler(torch, gen, kind, ev, coeffs_of, B_max):
         x0 = sample(ev, c0, u[0], impl='plain')
         c1 = coeffs_of(torch.stack([x0, torch.zeros_like(x0)], -1))[:, 1]
     rows, tail = {}, {'dx': [], 'k64': [], 'p64': [], 'qk': [], 'qp': []}
-    for B in (256, B_max, 'tail'):
+    ragged = (1, 3, 255, 257, 300, 1000, B_max - 1)
+    for B in (256, B_max, 'tail') + ragged:
         errs = []
         for col, c in enumerate((c0, c1)):
             if B == 'tail':
@@ -185,17 +211,25 @@ def check_sampler(torch, gen, kind, ev, coeffs_of, B_max):
             fail(f"{name} disagrees with its plain version at B={B}: max "
                  f"{err:.3e} for u <= 1 - 1e-4 (atol 6e-5), "
                  f"{(diff > 6e-5).sum().item()} draws beyond it")
+        if B in ragged:
+            rows[('ragged', B)] = dict(max_abs_err=err)
+            continue
         k_ms = cuda_ms(torch, lambda: kernel(ev, c, uu))
+        d_ms = device_ms(torch, lambda: kernel(ev, c, uu))
         p_ms = cuda_ms(torch, lambda: sample(ev, c, uu, impl='plain'))
         n_cells = n_mesh - 1
         b_ms, b_by = bound_ms(4 * (B * n_b + 2 * B + n_b * n_mesh),
                               B * (2 * n_b * n_mesh + cell_ops * n_cells))
         rows[B] = dict(max_abs_err=err, median_abs_err=med, ms=k_ms,
-                       plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+                       device_ms=d_ms, plain_ms=p_ms, bound_ms=b_ms,
+                       bound_by=b_by, plan=cuda_sampler.last_plan)
         print(f"{name} B={B} (n_bases {n_b}, n_mesh {n_mesh}): max|dx| "
               f"{err:.3e} over u <= 1 - 1e-4 (atol 6e-5), median {med:.3e} | "
-              f"kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} bound_ms {b_ms:.5f} "
-              f"({b_by})", flush=True)
+              f"kernel_ms {k_ms:.4f} device_ms {d_ms:.4f} plain_ms {p_ms:.4f} "
+              f"bound_ms {b_ms:.5f} ({b_by})", flush=True)
+    print(f"{name} ragged batches: max|dx| over u <= 1 - 1e-4 (atol 6e-5) "
+          + ", ".join(f"B={B}: {rows[('ragged', B)]['max_abs_err']:.3e}"
+                      for B in ragged), flush=True)
     t = {k: torch.cat(v).max().item() for k, v in tail.items()}
     n = sum(v.numel() for v in tail['dx'])
     print(f"{name} tail: {n} draws with u > 1 - 1e-4 (walls included) | "
@@ -209,6 +243,52 @@ def check_sampler(torch, gen, kind, ev, coeffs_of, B_max):
     rows['tail'] = dict(n=n, max_abs_err=t['dx'], k64=t['k64'], p64=t['p64'],
                         quantile_err=t['qk'], plain_quantile_err=t['qp'])
     return rows
+
+
+def check_sampler_other_tables(torch, ops, gen):
+    """K1 on tables the main paths do not use, each of which takes another
+    branch of the kernel: a table too large for a block's shared memory
+    (orthonormal B-splines of degree 6 with 40 knots: 45 bases, 360 KB on
+    the 2000-point mesh) must take the 'streamed' regime, the same kernel
+    reading the table through L1/L2; a mesh whose rows are not 16-byte
+    aligned (1001 points) is staged by plain loads instead of bulk copies;
+    the largest mesh (2049 points) has a last point that no thread owns,
+    streamed at 28 bases and staged at 15.  The draws must agree with the
+    plain path as everywhere else: 6e-5 for u <= 1 - 1e-4."""
+    from waveflow_tpu_torch.ops import cuda_sampler
+    from waveflow_tpu_torch.ops.sampling import sample_squared_amplitude
+    cases = ((40, 2000, 'streamed'), (23, 1001, 'shared'),
+             (23, 2049, 'streamed'), (10, 2049, 'shared'))
+    for knots, n_mesh, regime in cases:
+        tabs = ops.get_tables('B', FLAGSHIP['spline_degree'], knots,
+                              n_mesh=n_mesh)
+        ev = ops.make_evaluator(tabs, use_ob=True, device='cuda')
+        n_b = ev.table_t.shape[0]
+        errs = {}
+        for B in (1, 257, 4096):
+            c = torch.randn((B, n_b), generator=gen, device='cuda')
+            c = c / c.norm(dim=-1, keepdim=True)
+            u = torch.rand((B,), generator=gen, device='cuda')
+            x_k = sample_squared_amplitude(ev, c, u, impl='cuda')
+            x_p = sample_squared_amplitude(ev, c, u, impl='plain')
+            torch.cuda.synchronize()
+            plan = cuda_sampler.last_plan
+            if plan.regime != regime:
+                fail(f"a ({n_b}, {n_mesh}) table was launched as {plan}, not "
+                     f"{regime}")
+            body = u <= 1.0 - 1e-4
+            errs[B] = (x_k - x_p).abs()[body].max().item()
+            if not (x_k.min() >= 0 and x_k.max() <= 1 and errs[B] <= 6e-5):
+                fail(f"K1 on a ({n_b}, {n_mesh}) table disagrees with its "
+                     f"plain version at B={B}: max {errs[B]:.3e} (atol 6e-5)")
+        d_ms = device_ms(torch, lambda: sample_squared_amplitude(
+            ev, c, u, impl='cuda'))
+        print(f"K1 sampler, {regime} table (n_bases {n_b}, n_mesh {n_mesh}, "
+              f"{4 * n_b * n_mesh} B): max|dx| over u <= 1 - 1e-4 (atol 6e-5) "
+              + ", ".join(f"B={B}: {e:.3e}" for B, e in errs.items())
+              + f" | B=4096 device_ms {d_ms:.4f} | plan grid {plan.grid} x "
+              f"{plan.threads} threads, {plan.smem_bytes} B dynamic shared, "
+              f"group {plan.group}", flush=True)
 
 
 def check_spline_eval(torch, model, gen):
@@ -251,6 +331,8 @@ def check_spline_eval(torch, model, gen):
                      f"(atol {2e-5 * scale:.3e})")
             k_ms = cuda_ms(torch, lambda: cuda_spline.spline_eval_cuda(
                 table, c, xx))
+            d_ms = device_ms(torch, lambda: cuda_spline.spline_eval_cuda(
+                table, c, xx))
             p_ms = cuda_ms(torch, lambda: cuda_spline.spline_eval_plain(
                 table, c, xx))
             o_ms = cuda_ms(torch, lambda: cuda_spline.onehot_matmul_eval(
@@ -258,14 +340,15 @@ def check_spline_eval(torch, model, gen):
             b_ms, b_by = bound_ms(4 * (N * n_b + 2 * N + n_mesh * n_b),
                                   N * (4 * n_b + 6))
             rows[(d, N)] = dict(max_abs_err=err, onehot_abs_err=err_o,
-                                ms=k_ms, plain_ms=p_ms, onehot_ms=o_ms,
-                                bound_ms=b_ms, bound_by=b_by)
+                                ms=k_ms, device_ms=d_ms, plain_ms=p_ms,
+                                onehot_ms=o_ms, bound_ms=b_ms, bound_by=b_by,
+                                plan=cuda_spline.plan(N))
             print(f"K4 spline_eval d={d} N={N} (n_bases {n_b}, n_mesh "
                   f"{n_mesh}): max|dy| {err:.3e} against the gather-lerp, "
                   f"{err_o:.3e} against the one-hot matmul (atol "
-                  f"{2e-5 * scale:.1e}) | kernel_ms {k_ms:.4f} plain_ms "
-                  f"{p_ms:.4f} onehot_matmul_ms {o_ms:.4f} bound_ms "
-                  f"{b_ms:.5f} ({b_by})", flush=True)
+                  f"{2e-5 * scale:.1e}) | kernel_ms {k_ms:.4f} device_ms "
+                  f"{d_ms:.4f} plain_ms {p_ms:.4f} onehot_matmul_ms "
+                  f"{o_ms:.4f} bound_ms {b_ms:.5f} ({b_by})", flush=True)
     # the evaluator's Function: value and both gradients, card against CPU
     tabs = get_tables('M', DENSITY['prior_spline_degree'],
                       DENSITY['prior_n_knots'], n_mesh=n_mesh)
@@ -301,8 +384,12 @@ def check_spline_eval(torch, model, gen):
 
 def check_basis_jet(torch, ops, tabs_i, tabs_b, gen):
     """K3 against the plain core, and its derivative rules against the
-    plain backend, for the I-spline (29 bases) and OB (28 bases) jets."""
+    plain backend, for the I-spline (29 bases) and OB (28 bases) jets: at
+    R = 512 and 131,072 (timed), and at ragged sizes on both sides of the
+    kernel's direct/staged switch, x partly outside [0, 1] throughout."""
     from waveflow_tpu_torch.ops import cuda_jet
+    switch = cuda_jet.STAGED_MIN_SITES
+    ragged = (1, 31, 513, 4097, switch - 1, switch, 131071)
     rows = {}
     for label, tabs, use_ob in (('I', tabs_i, False), ('OB', tabs_b, True)):
         ev_k = ops.make_poly_evaluator(tabs, use_ob=use_ob,
@@ -323,17 +410,39 @@ def check_basis_jet(torch, ops, tabs_i, tabs_b, gen):
             err = (out_k - out_p).abs().max().item()
             W = torch.zeros((R, nc * k), device='cuda')
             k_ms = cuda_ms(torch, lambda: cuda_jet.basis_jet_cuda(x, A, nc, k))
+            d_ms = device_ms(torch, lambda: cuda_jet.basis_jet_cuda(x, A, nc, k))
             p_ms = cuda_ms(torch, lambda: cuda_jet.basis_jet_plain(x, A, nc, k))
             lib_ms = cuda_ms(torch, lambda: torch.matmul(W, A))
+            lib_d_ms = device_ms(torch, lambda: torch.matmul(W, A))
             N = A.shape[1]
             b_ms, b_by = bound_ms(4 * (R + A.numel() + R * N), 2 * R * N * k)
-            rows[(label, R)] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                                    library_ms=lib_ms, bound_ms=b_ms,
-                                    bound_by=b_by)
+            rows[(label, R)] = dict(max_abs_err=err, ms=k_ms, device_ms=d_ms,
+                                    plain_ms=p_ms, library_ms=lib_ms,
+                                    library_device_ms=lib_d_ms,
+                                    bound_ms=b_ms, bound_by=b_by,
+                                    plan=cuda_jet.last_plan)
             print(f"K3 basis_jet {label} R={R}: max|d| {err:.3e} "
-                  f"(rtol 2e-5, atol 2e-4) | kernel_ms {k_ms:.4f} plain_ms "
-                  f"{p_ms:.4f} library_ms {lib_ms:.4f} (matmul of a built W) "
+                  f"(rtol 2e-5, atol 2e-4) | kernel_ms {k_ms:.4f} device_ms "
+                  f"{d_ms:.4f} plain_ms {p_ms:.4f} library_ms {lib_ms:.4f} "
+                  f"library_device_ms {lib_d_ms:.4f} (matmul of a built W) "
                   f"bound_ms {b_ms:.5f} ({b_by})", flush=True)
+        seen = {}
+        for R in ragged:
+            x = torch.rand((R,), generator=gen, device='cuda') * 1.1 - 0.05
+            out_k = cuda_jet.basis_jet_cuda(x, A, nc, k)
+            out_p = cuda_jet.basis_jet_plain(x, A, nc, k)
+            torch.cuda.synchronize()
+            if not torch.allclose(out_k, out_p, rtol=2e-5, atol=2e-4):
+                fail(f"K3 {label} core R={R} disagrees: max "
+                     f"{(out_k - out_p).abs().max().item():.3e}")
+            err = (out_k - out_p).abs().max().item()
+            rows[(label, 'ragged', R)] = dict(max_abs_err=err)
+            seen[R] = (err, cuda_jet.last_plan.regime)
+        if {seen[switch - 1][1], seen[switch][1]} != {'direct', 'staged'}:
+            fail(f"K3 did not change regime at R={switch}: {seen}")
+        print(f"K3 basis_jet {label} ragged sizes (rtol 2e-5, atol 2e-4): "
+              + ", ".join(f"R={R} {reg}: {err:.3e}"
+                          for R, (err, reg) in seen.items()), flush=True)
         # first and second x-derivatives through the Function: nested jvp
         # and backward, kernel core against the plain core
         n_b = ev_k.n_bases
@@ -400,7 +509,7 @@ def profile_window(torch, run, n_epochs, label):
           f"{sum(e.count for e in kern) / n_epochs:.0f} kernel launches per "
           "epoch", flush=True)
     # the eight largest, and the port's own kernels wherever they rank
-    own = ('sampler_kernel', 'basis_jet_kernel', 'spline_eval_kernel')
+    own = ('sampler_kernel', 'basis_jet_', 'spline_eval_kernel')
     for e in kern[:8] + [e for e in kern[8:] if any(k in e.key for k in own)]:
         print(f"  {e.self_device_time_total / 1e3 / n_epochs:8.4f} ms/epoch "
               f"{e.count / n_epochs:6.1f}/epoch  {e.key[:90]}", flush=True)
@@ -545,7 +654,7 @@ def main() -> int:
     for name, (secs, log) in report.items():
         print(f"  {name}.cu: {secs:.1f} s", flush=True)
         for line in log.splitlines():
-            if 'registers' in line or 'spill' in line:
+            if any(w in line for w in ('Compiling entry', 'registers', 'spill')):
                 print(f"    {line.strip()}", flush=True)
 
     # ---- 3. kernels against their plain versions --------------------------
@@ -564,6 +673,7 @@ def main() -> int:
     gen = torch.Generator('cuda').manual_seed(0)
     k1 = check_sampler(torch, gen, 'squared', model.ev_ob, model.ob_coeffs,
                        65536)
+    check_sampler_other_tables(torch, ops, gen)
     k3 = check_basis_jet(torch, ops, tabs_i, tabs_b, gen)
     # the density model at full width, random weights from a seed
     mflow = get_benchmark_model('MFlow', **DENSITY,
@@ -573,6 +683,19 @@ def main() -> int:
     k2 = check_sampler(torch, gen, 'linear', mflow.ev, mflow.prior_weights,
                        DENSITY_POINTS)
     k4 = check_spline_eval(torch, mflow, gen)
+    # how each wrapper launched its kernel at the driven shapes
+    plans = [('K1 sampler', k1, (256, 65536)),
+             ('K2 sampler_linear', k2, (256, DENSITY_POINTS)),
+             ('K3 basis_jet', k3, (('I', 512), ('I', 131072))),
+             ('K4 spline_eval', k4, ((0, 512), (0, 2 * DENSITY_POINTS)))]
+    for name, rows, shapes in plans:
+        parts = []
+        for shape in shapes:
+            p = rows[shape]['plan']
+            parts.append(f"{shape}: grid {p.grid} x {p.threads} threads, "
+                         f"{p.smem_bytes} B dynamic shared, regime {p.regime}, "
+                         f"group {p.group}")
+        print(f"launch plan {name}: " + "; ".join(parts), flush=True)
 
     # ---- 4. checkpoint ----------------------------------------------------
     protons, _ = system_catalogue[1]['He']
@@ -659,7 +782,8 @@ def main() -> int:
                     replaces='waveflow_tpu/ops/pallas_sampler.py:63',
                     launches=launches[name],
                     max_abs_err=max(r['max_abs_err'] for r in rows.values()),
-                    ms=row['ms'], plain_ms=row['plain_ms'],
+                    ms=row['ms'], device_ms=row['device_ms'],
+                    plain_ms=row['plain_ms'],
                     bound_ms=row['bound_ms'], bound_by=row['bound_by'],
                     library_ms=None, tail_max_abs_err=tail['max_abs_err'],
                     tail_quantile_err=tail['quantile_err'],
@@ -673,15 +797,18 @@ def main() -> int:
              replaces='waveflow_tpu/ops/pallas_jet.py:63',
              launches=launches['basis_jet'],
              max_abs_err=max(r['max_abs_err'] for r in k3.values()),
-             ms=k3_row['ms'], plain_ms=k3_row['plain_ms'],
+             ms=k3_row['ms'], device_ms=k3_row['device_ms'],
+             plain_ms=k3_row['plain_ms'],
              bound_ms=k3_row['bound_ms'], bound_by=k3_row['bound_by'],
-             library_ms=k3_row['library_ms']),
+             library_ms=k3_row['library_ms'],
+             library_device_ms=k3_row['library_device_ms']),
         dict(name='spline_eval', route='cuda',
              source='waveflow_tpu_torch/csrc/spline_eval.cu',
              replaces='waveflow_tpu/ops/pallas_spline.py:29',
              launches=launches['spline_eval'],
              max_abs_err=max(r['max_abs_err'] for r in k4.values()),
-             ms=k4_row['ms'], plain_ms=k4_row['plain_ms'],
+             ms=k4_row['ms'], device_ms=k4_row['device_ms'],
+             plain_ms=k4_row['plain_ms'],
              bound_ms=k4_row['bound_ms'], bound_by=k4_row['bound_by'],
              library_ms=None, onehot_matmul_ms=k4_row['onehot_ms']),
     ]

@@ -55,10 +55,10 @@ def _imported_roots(path: Path):
 
 def test_no_file_imports_jax_or_the_jax_package():
     """(i) No file of the port, nor chip_smoke.py or the port's example
-    script, names jax, optax, sklearn or waveflow_tpu in an import."""
+    scripts, names jax, optax, sklearn or waveflow_tpu in an import."""
     files = sorted((ROOT / 'waveflow_tpu_torch').rglob('*.py'))
     files.append(ROOT / 'chip_smoke.py')
-    files.append(ROOT / 'examples' / 'run_benchmark_torch.py')
+    files.extend(sorted((ROOT / 'examples').glob('*_torch.py')))
     assert len(files) > 20
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imported_roots(f) if m.split('.')[0] in FORBIDDEN]

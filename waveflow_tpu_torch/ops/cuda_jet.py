@@ -16,6 +16,7 @@ derivative rules live in ops/poly_eval.py around either core.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -23,6 +24,22 @@ import torch.nn.functional as F
 from waveflow_tpu_torch.ops import cuda_build
 
 launches = 0          # kernel launches since the last reset (chip_smoke.py)
+
+# the kernel's constants (csrc/basis_jet.cu checks a plan against its own)
+DIRECT_THREADS = 128
+STAGED_THREADS = 512
+STAGED_SITES = 2
+# from this many sites on, staging A_jet in shared memory pays
+STAGED_MIN_SITES = 65536
+
+# the C entry points of csrc/basis_jet.cu: (argtypes, restype)
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+SIGNATURES = {
+    'basis_jet_launch': ([_PTR] * 3 + [_INT] * 8 + [_PTR], _INT),
+    'basis_jet_init': ([ctypes.POINTER(_INT)] * 2, _INT),
+    'basis_jet_error_string': ([_INT], ctypes.c_char_p)}
+
+last_plan = None      # the LaunchPlan of the latest launch
 
 
 def basis_jet_plain(x: torch.Tensor, A_jet: torch.Tensor, n_cells: int,
@@ -41,33 +58,78 @@ def basis_jet_plain(x: torch.Tensor, A_jet: torch.Tensor, n_cells: int,
     return W @ A_jet
 
 
+@functools.lru_cache(maxsize=256)
+def plan(R: int, n_cells: int, ncoef: int, n_out: int,
+         n_sm: int = cuda_build.N_SM,
+         smem_limit: int = cuda_build.SMEM_PER_BLOCK,
+         regime: str | None = None) -> cuda_build.LaunchPlan:
+    """The launch of csrc/basis_jet.cu for R sites: one warp per site in
+    both regimes.  'direct' (R below STAGED_MIN_SITES, or an A_jet too large
+    for a block's shared memory): blocks of 4 warps, one site each, A_jet
+    read from L1/L2.  'staged': persistent blocks of 16 warps, A_jet in
+    dynamic shared memory, 4 sites per warp in flight.  ``regime`` forces
+    one of the two (measurements only).  Raises ValueError on a shape the
+    kernel does not take."""
+    if R < 1 or n_cells < 1 or ncoef < 1 or n_out < 4 or n_out % 4:
+        raise ValueError(
+            f"basis_jet kernel needs R, n_cells, ncoef >= 1 and n_out a "
+            f"positive multiple of 4, got R={R}, n_cells={n_cells}, "
+            f"ncoef={ncoef}, n_out={n_out}")
+    staged_smem = 4 * n_cells * ncoef * n_out + 16      # A_jet + the mbarrier
+    fits = staged_smem <= smem_limit
+    if regime is None:
+        regime = 'staged' if fits and R >= STAGED_MIN_SITES else 'direct'
+    if regime == 'direct':
+        warps = DIRECT_THREADS // 32
+        return cuda_build.LaunchPlan(-(-R // warps), DIRECT_THREADS, 0,
+                                     'direct', 1)
+    if regime != 'staged':
+        raise ValueError(f"unknown regime {regime!r}")
+    if not fits:
+        raise ValueError(
+            f"A_jet needs {staged_smem} bytes of shared memory, above the "
+            f"block's limit of {smem_limit}")
+    resident = 2 if 2 * (staged_smem + cuda_build.SMEM_BLOCK_RESERVE) \
+        <= cuda_build.SMEM_PER_SM else 1
+    per_pass = STAGED_THREADS // 32 * STAGED_SITES
+    grid = min(resident * n_sm, -(-R // per_pass))
+    return cuda_build.LaunchPlan(grid, STAGED_THREADS, staged_smem, 'staged',
+                                 STAGED_SITES)
+
+
 def basis_jet_cuda(x: torch.Tensor, A_jet: torch.Tensor, n_cells: int,
-                   ncoef: int) -> torch.Tensor:
+                   ncoef: int, regime: str | None = None) -> torch.Tensor:
     """Launch the CUDA kernel: x (...,) f32 on the card -> (..., n_out)."""
-    global launches
+    global launches, last_plan
     n_out = A_jet.shape[1]
     if not (x.is_cuda and A_jet.device == x.device):
         raise ValueError("basis_jet_cuda needs x and A_jet on one CUDA device")
     if x.dtype != torch.float32 or A_jet.dtype != torch.float32:
         raise TypeError("basis_jet_cuda takes float32 tensors")
-    if A_jet.shape[0] != n_cells * ncoef or not A_jet.is_contiguous():
-        raise ValueError(f"A_jet must be a contiguous ({n_cells * ncoef}, n_out) "
-                         f"matrix, got {tuple(A_jet.shape)}")
-    xf = x.contiguous().reshape(-1)
-    out = torch.empty((xf.numel(), n_out), dtype=torch.float32,
-                      device=x.device)
-    lib = cuda_build.load('basis_jet')
-    fn = lib.basis_jet_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(xf.data_ptr(), A_jet.data_ptr(), out.data_ptr(), xf.numel(),
-             n_cells, ncoef, n_out, torch.cuda.current_stream(x.device).cuda_stream)
+    if (A_jet.shape[0] != n_cells * ncoef or not A_jet.is_contiguous()
+            or A_jet.data_ptr() % 16):
+        raise ValueError(f"A_jet must be a contiguous, 16-byte aligned "
+                         f"({n_cells * ncoef}, n_out) matrix, got "
+                         f"{tuple(A_jet.shape)}")
+    xf = x if x.is_contiguous() else x.contiguous()
+    R = xf.numel()
+    out = torch.empty((R, n_out) if x.ndim == 1 else (*x.shape, n_out),
+                      dtype=torch.float32, device=x.device)
+    if R == 0:
+        return out
+    lib = cuda_build.bind('basis_jet', SIGNATURES)
+    n_sm, smem_limit = cuda_build.device_limits(lib, 'basis_jet_init',
+                                                x.device.index)
+    p = last_plan = plan(R, n_cells, ncoef, n_out, n_sm, smem_limit, regime)
+    err = lib.basis_jet_launch(
+        xf.data_ptr(), A_jet.data_ptr(), out.data_ptr(), R, n_cells, ncoef,
+        n_out, p.regime == 'staged', p.grid, p.threads, p.smem_bytes,
+        cuda_build.current_stream(x.device.index))
     launches += 1
     if err:
-        lib.basis_jet_error_string.restype = ctypes.c_char_p
         raise RuntimeError("basis_jet kernel launch failed: "
                            + lib.basis_jet_error_string(err).decode())
-    return out.reshape(x.shape + (n_out,))
+    return out
 
 
 def basis_jet(x: torch.Tensor, A_jet: torch.Tensor, n_cells: int,

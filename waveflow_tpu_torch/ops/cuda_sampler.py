@@ -18,6 +18,7 @@ float64 plain draw.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -28,16 +29,109 @@ from waveflow_tpu_torch.ops.spline_eval import SplineEvaluator
 launches = 0          # K1, 'squared'
 launches_linear = 0   # K2, 'linear'
 
+# the kernel's constants (csrc/sampler.cu checks a plan against its own)
+HALF_THREADS = 256            # the threads that own one mesh
+WARPS = HALF_THREADS // 32
 CELLS_PER_THREAD = 8
-THREADS = 256
-MAX_BASES = 64
+PREFETCH_REGISTERS = 2        # G * n_bases <= PREFETCH_REGISTERS * threads
+RING = 256                    # deferred in-cell solves per block
+# walkers per group -> threads: 8 walkers are two halves of 4
+WALKERS_PER_BLOCK = {8: 2 * HALF_THREADS, 4: HALF_THREADS, 2: HALF_THREADS}
+# what a block spends on one group, in microseconds on an H100 at the
+# flagship's table (examples/kernel_sweep_torch.py); only the ratios matter
+GROUP_COST = {8: 6.5, 4: 4.1, 2: 3.0}
+STREAMED_GROUP = 8            # the one group size of a streamed table
+
+# the C entry points of csrc/sampler.cu: (argtypes, restype)
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+_HEAD = [_PTR] * 4 + [_INT] * 3 + [ctypes.c_float]
+SIGNATURES = {
+    'sampler_launch': (_HEAD + [_INT] * 6 + [_PTR], _INT),
+    'sampler_linear_launch': (_HEAD + [_INT] * 4 + [_PTR], _INT),
+    'sampler_init': ([ctypes.POINTER(_INT)] * 2, _INT),
+    'sampler_error_string': ([_INT], ctypes.c_char_p)}
+
+last_plan = None      # the LaunchPlan of the latest launch, either kind
+
+
+def _round4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def smem_bytes(n_bases: int, n_mesh: int, walkers_per_block: int,
+               staged: bool = True) -> int:
+    """Dynamic shared memory of one block: the whole (n_bases, n_mesh) table
+    where it is staged (padded so that every thread may read its 8 points of
+    the last row), the group's coefficients, the scan's scratch, the ring of
+    deferred solves and the mbarrier — the sum csrc/sampler.cu computes."""
+    G = walkers_per_block
+    table = _round4(n_bases * n_mesh
+                    + max(HALF_THREADS * CELLS_PER_THREAD - n_mesh, 0))
+    return 4 * (table * staged + _round4(n_bases * G) + G * (3 * WARPS + 4)
+                + 3 * RING) + 16
+
+
+@functools.lru_cache(maxsize=256)
+def plan(B: int, n_bases: int, n_mesh: int,
+         n_sm: int = cuda_build.N_SM,
+         smem_limit: int = cuda_build.SMEM_PER_BLOCK,
+         walkers_per_block: int | None = None) -> cuda_build.LaunchPlan:
+    """The launch of csrc/sampler.cu for B walkers: persistent blocks, one
+    per SM, taking groups of G walkers (the plan's ``group``) grid-stride;
+    256 threads for G = 2 or 4, 512 (two halves of 4 walkers) for G = 8.
+
+    Regime 'shared': the whole table sits in the block's shared memory.  G
+    is the one of 8, 4, 2 that fits and costs the busiest block least: its
+    rounds of groups times GROUP_COST — small groups while they spread over
+    idle SMs, large ones once every SM is busy.  ``walkers_per_block``
+    forces it (measurements only).  Regime 'streamed': a table above the
+    shared-memory limit stays in device memory and the same kernel reads it
+    through L1/L2, in groups of 8.  Raises ValueError on a shape the kernel
+    does not take, with the limit in its text."""
+    if B < 1 or n_bases < 1 or n_mesh < 2:
+        raise ValueError(f"sampler kernel needs B, n_bases >= 1 and n_mesh "
+                         f">= 2, got B={B}, n_bases={n_bases}, n_mesh={n_mesh}")
+    if n_mesh - 1 > HALF_THREADS * CELLS_PER_THREAD:
+        raise ValueError(f"sampler kernel supports n_mesh <= "
+                         f"{HALF_THREADS * CELLS_PER_THREAD + 1}, got {n_mesh}")
+    fitting = [G for G, threads in WALKERS_PER_BLOCK.items()
+               if smem_bytes(n_bases, n_mesh, G) <= smem_limit
+               and G * n_bases <= PREFETCH_REGISTERS * threads]
+    if walkers_per_block is not None:
+        if walkers_per_block not in fitting:
+            raise ValueError(
+                f"walkers_per_block must be one of {fitting} for a "
+                f"({n_bases}, {n_mesh}) table in shared memory, got "
+                f"{walkers_per_block}")
+        G = walkers_per_block
+    elif fitting:
+        G = min(fitting, key=lambda G: (
+            -(-(-(-B // G)) // n_sm) * GROUP_COST[G], GROUP_COST[G]))
+    else:
+        G = STREAMED_GROUP
+        max_bases = PREFETCH_REGISTERS * WALKERS_PER_BLOCK[G] // G
+        if (n_bases > max_bases
+                or smem_bytes(n_bases, n_mesh, G, staged=False) > smem_limit):
+            raise ValueError(
+                f"the ({n_bases}, {n_mesh}) table needs "
+                f"{smem_bytes(n_bases, n_mesh, min(WALKERS_PER_BLOCK))} bytes "
+                f"of shared memory, above the block's limit of {smem_limit}, "
+                f"and a streamed table takes at most {max_bases} bases")
+    staged = bool(fitting)
+    return cuda_build.LaunchPlan(
+        min(-(-B // G), n_sm), WALKERS_PER_BLOCK[G],
+        smem_bytes(n_bases, n_mesh, G, staged),
+        'shared' if staged else 'streamed', G)
 
 
 def _launch(entry: str, evaluator: SplineEvaluator, coeffs: torch.Tensor,
-            u: torch.Tensor, *schedule: int) -> torch.Tensor:
+            u: torch.Tensor, *schedule: int,
+            walkers_per_block: int | None = None) -> torch.Tensor:
     """Check the inputs, then call the C entry point ``entry`` of
     csrc/sampler.cu: (u, coeffs, table, out, B, n_bases, n_mesh, h,
-    *schedule, stream).  Raises if the launch is refused."""
+    *schedule, G, table staged or not, grid, shared bytes, stream).  Raises
+    if the launch is refused."""
+    global last_plan
     table_t = evaluator.table_t                     # (n_bases, n_mesh)
     n_bases, n_mesh = table_t.shape
     if not (coeffs.is_cuda and u.device == coeffs.device
@@ -49,25 +143,28 @@ def _launch(entry: str, evaluator: SplineEvaluator, coeffs: torch.Tensor,
     if coeffs.ndim != 2 or coeffs.shape[1] != n_bases or u.shape != coeffs.shape[:1]:
         raise ValueError(f"expected coeffs (B, {n_bases}) and u (B,), got "
                          f"{tuple(coeffs.shape)} and {tuple(u.shape)}")
-    if n_mesh - 1 > THREADS * CELLS_PER_THREAD or n_bases > MAX_BASES:
-        raise ValueError(f"sampler kernel supports n_mesh <= "
-                         f"{THREADS * CELLS_PER_THREAD + 1} and n_bases <= "
-                         f"{MAX_BASES}")
-    coeffs = coeffs.contiguous()
-    u = u.contiguous()
+    if not table_t.is_contiguous() or table_t.data_ptr() % 16:
+        raise ValueError("the sampler kernel needs a contiguous, 16-byte "
+                         "aligned table")
+    if not coeffs.is_contiguous():
+        coeffs = coeffs.contiguous()
+    if not u.is_contiguous():
+        u = u.contiguous()
     B = coeffs.shape[0]
     out = torch.empty(B, dtype=torch.float32, device=coeffs.device)
-    lib = cuda_build.load('sampler')
-    fn = getattr(lib, entry)
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float]
-                   + [ctypes.c_int] * len(schedule) + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    if B == 0:
+        return out
+    lib = cuda_build.bind('sampler', SIGNATURES)
+    n_sm, smem_limit = cuda_build.device_limits(lib, 'sampler_init',
+                                                coeffs.device.index)
+    p = last_plan = plan(B, n_bases, n_mesh, n_sm, smem_limit,
+                         walkers_per_block)
     # ctypes rounds h to f32, as the JAX package's f32 arithmetic does
-    err = fn(u.data_ptr(), coeffs.data_ptr(), table_t.data_ptr(),
-             out.data_ptr(), B, n_bases, n_mesh, 1.0 / (n_mesh - 1), *schedule,
-             torch.cuda.current_stream(coeffs.device).cuda_stream)
+    err = getattr(lib, entry)(
+        u.data_ptr(), coeffs.data_ptr(), table_t.data_ptr(), out.data_ptr(),
+        B, n_bases, n_mesh, 1.0 / (n_mesh - 1), *schedule, p.group,
+        p.regime == 'shared', p.grid, p.smem_bytes, cuda_build.current_stream(coeffs.device.index))
     if err:
-        lib.sampler_error_string.restype = ctypes.c_char_p
         raise RuntimeError("sampler kernel launch failed: "
                            + lib.sampler_error_string(err).decode())
     return out
@@ -76,21 +173,27 @@ def _launch(entry: str, evaluator: SplineEvaluator, coeffs: torch.Tensor,
 def sample_squared_amplitude_cuda(evaluator: SplineEvaluator,
                                   coeffs: torch.Tensor, u: torch.Tensor,
                                   n_bisect: int = 12,
-                                  n_newton: int = 3) -> torch.Tensor:
+                                  n_newton: int = 3,
+                                  walkers_per_block: int | None = None
+                                  ) -> torch.Tensor:
     """K1: coeffs (B, n_bases), u (B,) f32 on the card -> (B,) draws in
     [0, 1] from p ∝ (coeffs · T)²."""
     global launches
-    out = _launch('sampler_launch', evaluator, coeffs, u, n_bisect, n_newton)
-    launches += 1
+    out = _launch('sampler_launch', evaluator, coeffs, u, n_bisect, n_newton,
+                  walkers_per_block=walkers_per_block)
+    launches += bool(out.numel())
     return out
 
 
 def sample_linear_density_cuda(evaluator: SplineEvaluator,
                                coeffs: torch.Tensor,
-                               u: torch.Tensor) -> torch.Tensor:
+                               u: torch.Tensor,
+                               walkers_per_block: int | None = None
+                               ) -> torch.Tensor:
     """K2: coeffs (B, n_bases), u (B,) f32 on the card -> (B,) draws in
     [0, 1] from p ∝ max(coeffs · T, 0)."""
     global launches_linear
-    out = _launch('sampler_linear_launch', evaluator, coeffs, u)
-    launches_linear += 1
+    out = _launch('sampler_linear_launch', evaluator, coeffs, u,
+                  walkers_per_block=walkers_per_block)
+    launches_linear += bool(out.numel())
     return out

@@ -25,6 +25,25 @@ from waveflow_tpu_torch.ops import cuda_build
 
 launches = 0          # kernel launches since the last reset (chip_smoke.py)
 
+# the kernel's constants (csrc/spline_eval.cu sets its own grid from them)
+THREADS = 256
+LANES_PER_ROW = 8
+
+# the C entry points of csrc/spline_eval.cu: (argtypes, restype)
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+SIGNATURES = {
+    'spline_eval_launch': ([_PTR] * 4 + [_INT] * 3 + [_PTR], _INT),
+    'spline_eval_error_string': ([_INT], ctypes.c_char_p)}
+
+
+def plan(N: int) -> cuda_build.LaunchPlan:
+    """The launch of csrc/spline_eval.cu for N rows: 8 lanes gather and
+    reduce one row, 32 rows per 256-thread block, no shared memory."""
+    if N < 1:
+        raise ValueError(f"spline_eval kernel needs N >= 1, got {N}")
+    rows_per_block = THREADS // LANES_PER_ROW
+    return cuda_build.LaunchPlan(-(-N // rows_per_block), THREADS, 0, 'gather')
+
 
 def lerp_basis(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Table rows interpolated at x: table (n_mesh, n_bases), x (...,) ->
@@ -77,21 +96,19 @@ def spline_eval_cuda(table: torch.Tensor, coeffs: torch.Tensor,
             "expected table (n_mesh >= 2, n_bases), coeffs (N, n_bases) and "
             f"x (N,), got {tuple(table.shape)}, {tuple(coeffs.shape)} and "
             f"{tuple(x.shape)}")
-    table = table.contiguous()
-    coeffs = coeffs.contiguous()
-    x = x.contiguous()
+    table, coeffs, x = (a if a.is_contiguous() else a.contiguous()
+                        for a in (table, coeffs, x))
     N = x.shape[0]
     out = torch.empty(N, dtype=torch.float32, device=x.device)
-    lib = cuda_build.load('spline_eval')
-    fn = lib.spline_eval_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(table.data_ptr(), coeffs.data_ptr(), x.data_ptr(), out.data_ptr(),
-             N, table.shape[0], table.shape[1],
-             torch.cuda.current_stream(x.device).cuda_stream)
+    if N == 0:
+        return out
+    lib = cuda_build.bind('spline_eval', SIGNATURES)
+    err = lib.spline_eval_launch(
+        table.data_ptr(), coeffs.data_ptr(), x.data_ptr(), out.data_ptr(),
+        N, table.shape[0], table.shape[1],
+        cuda_build.current_stream(x.device.index))
     launches += 1
     if err:
-        lib.spline_eval_error_string.restype = ctypes.c_char_p
         raise RuntimeError("spline_eval kernel launch failed: "
                            + lib.spline_eval_error_string(err).decode())
     return out
