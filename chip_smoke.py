@@ -13,7 +13,9 @@ Phases (any failure exits non-zero; nothing is caught):
                profiler's device time), plain version and (where one
                exists) a single library call: K1 sampler 'squared' and K3
                basis jet at the flagship's shapes, K2 sampler 'linear' and
-               K4 table-lerp evaluation at the density model's; K1 also on
+               K4 table-lerp evaluation with its backward kernel at the
+               density model's (K4 also at ragged sizes, on a table of 13
+               bases and on unaligned views); K1 also on
                a table too large for shared memory (the streamed regime)
                and on meshes that take the kernel's other branches;
                print each kernel's launch plan at those shapes;
@@ -26,8 +28,8 @@ Phases (any failure exits non-zero; nothing is caught):
   6. density — train_density_model at the full width of the density
                benchmark (MFlow, circles, 20,000 points), 200 epochs with a
                metric checkpoint every 100; losses finite and falling, K2
-               and K4 launched on that run, metrics finite, the round trip
-               closes, the card agrees with the CPU;
+               and both K4 kernels launched on that run, metrics finite,
+               the round trip closes, the card agrees with the CPU;
   7. report  — one JSON line of kernels, then the final status line.
 
 Imports torch and the port only.
@@ -79,20 +81,32 @@ def cuda_ms(torch, fn, reps: int = 50, warmup: int = 3) -> float:
 def device_ms(torch, fn, reps: int = 20) -> float:
     """Mean device time of the kernels one call of ``fn`` launches, without
     the host path around them: one profiler pass over ``reps`` calls, self
-    device time over the calls."""
+    device time over the calls.
+
+    The profiler's device clock is not CUDA events' clock: after the card
+    has idled for some seconds inside a process (a compile, a sleep) it
+    reads about 5% short, and the steps add up, while events do not move.
+    Here every reading follows seconds of steady work, and for kernels
+    longer than their launch path the back-to-back time by events printed
+    beside it bounds it from above.  Two builds are compared by events, in
+    turns (examples/kernel_sweep_torch.py)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA)
-    if not total_us > 0:
-        fail("the profiler recorded no device time")
-    return total_us / 1e3 / reps
+    # a profiler pass now and then comes back without its device rows;
+    # such a pass is taken again, and three in a row fail
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA)
+        if total_us > 0:
+            return total_us / 1e3 / reps
+    fail("the profiler recorded no device time")
 
 
 def bound_ms(n_bytes: float, n_ops: float):
@@ -291,29 +305,68 @@ def check_sampler_other_tables(torch, ops, gen):
               f"group {plan.group}", flush=True)
 
 
+def count_device_launches(torch, fn) -> int:
+    """Every kernel the device runs for one call of ``fn``, by the
+    profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = sum(e.count for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+        if n:
+            return n
+    fail("the profiler recorded no device launch")
+
+
 def check_spline_eval(torch, model, gen):
-    """K4 against the plain gather-lerp on the density model's prior: the
+    """K4, forward and backward kernel, on the density model's prior.
+
+    Forward against the plain gather-lerp and the one-hot matmul form: the
     M-spline tables of orders 0 and 1, the model's own prior weights as
     coefficients, N = 512 and N = 40,000 (the (20,000, 2) batch flattened),
     with x = 0, x = 1, cell edges and out-of-domain points among the
-    inputs.  atol 2e-5, times the largest output where that exceeds 1 (the
-    order-1 table holds slopes).  Also against the one-hot matmul form, and
-    through SplineEvaluator.__call__ with its backward (the order-(d+1)
-    evaluation) against the same evaluator on the CPU."""
+    inputs.  Backward against ``spline_eval_bwd_plain`` at the same sizes,
+    at order 0 (x-gradient from the order-1 table) and at the top order
+    (x-gradient zero).  Both at ragged N (1, 3, 31, 513, 40,001), on a
+    second table whose n_bases is no multiple of 4, on views that are not
+    16-byte aligned (the scalar path: the same bits as the vector path),
+    and with either gradient left out.  atol 2e-5, times the largest
+    reference value where that exceeds 1 (the order-1 table holds slopes).
+    Then through SplineEvaluator.__call__ with its backward against the
+    same evaluator on the CPU, counting the launches."""
     from waveflow_tpu_torch.ops import cuda_spline, make_evaluator
     from waveflow_tpu_torch.ops.spline_tables import get_tables
     ev = model.ev
     n_mesh, n_b = ev.tables.shape[1:]
+    top = ev.tables.shape[0] - 1
     N_max = 2 * DENSITY_POINTS
-    x = torch.rand((N_max,), generator=gen, device='cuda')
+    x = torch.rand((N_max + 1,), generator=gen, device='cuda')
     special = torch.tensor([0.0, 1.0, -0.03, 1.02, -1e-6, 1.0 + 1e-6,
                             0.5, 1000 / (n_mesh - 1), 1 / (n_mesh - 1)],
                            device='cuda')
     x[:special.numel()] = special
+    g = torch.randn((N_max + 1,), generator=gen, device='cuda')
     with torch.no_grad():
         coeffs = model.prior_weights(
-            x.reshape(-1, 2)).reshape(N_max, n_b).contiguous()
-    rows = {}
+            x[:N_max].reshape(-1, 2)).reshape(N_max, n_b)
+        coeffs = torch.cat([coeffs, coeffs[:1]]).contiguous()
+
+    def close(got, ref, what):
+        """Largest |got − ref| and its limit, 2e-5 of the largest reference
+        value (at least 1); fails above the limit."""
+        tol = 2e-5 * max(1.0, ref.abs().max().item())
+        err = (got - ref).abs().max().item()
+        if not err <= tol:
+            fail(f"K4 {what}: max {err:.3e} (atol {tol:.3e})")
+        return err, tol
+
+    rows, rows_b = {}, {}
     for d in (0, 1):
         table = ev.tables[d]
         for N in (512, N_max):
@@ -322,13 +375,10 @@ def check_spline_eval(torch, model, gen):
             y_p = cuda_spline.spline_eval_plain(table, c, xx)
             y_o = cuda_spline.onehot_matmul_eval(table, c, xx)
             torch.cuda.synchronize()
-            scale = max(1.0, y_p.abs().max().item())
-            err = (y_k - y_p).abs().max().item()
-            err_o = (y_k - y_o).abs().max().item()
-            if not (err <= 2e-5 * scale and err_o <= 2e-5 * scale):
-                fail(f"K4 disagrees with its plain versions at N={N}, d={d}: "
-                     f"gather-lerp {err:.3e}, one-hot matmul {err_o:.3e} "
-                     f"(atol {2e-5 * scale:.3e})")
+            err, tol = close(y_k, y_p, f"forward d={d} N={N} against the "
+                             "gather-lerp")
+            err_o, _ = close(y_k, y_o, f"forward d={d} N={N} against the "
+                             "one-hot matmul")
             k_ms = cuda_ms(torch, lambda: cuda_spline.spline_eval_cuda(
                 table, c, xx))
             d_ms = device_ms(torch, lambda: cuda_spline.spline_eval_cuda(
@@ -342,44 +392,152 @@ def check_spline_eval(torch, model, gen):
             rows[(d, N)] = dict(max_abs_err=err, onehot_abs_err=err_o,
                                 ms=k_ms, device_ms=d_ms, plain_ms=p_ms,
                                 onehot_ms=o_ms, bound_ms=b_ms, bound_by=b_by,
-                                plan=cuda_spline.plan(N))
+                                plan=cuda_spline.plan(N, n_b))
             print(f"K4 spline_eval d={d} N={N} (n_bases {n_b}, n_mesh "
                   f"{n_mesh}): max|dy| {err:.3e} against the gather-lerp, "
                   f"{err_o:.3e} against the one-hot matmul (atol "
-                  f"{2e-5 * scale:.1e}) | kernel_ms {k_ms:.4f} device_ms "
+                  f"{tol:.1e}) | kernel_ms {k_ms:.4f} device_ms "
                   f"{d_ms:.4f} plain_ms {p_ms:.4f} onehot_matmul_ms "
                   f"{o_ms:.4f} bound_ms {b_ms:.5f} ({b_by})", flush=True)
+
+    # the backward kernel: order 0 chains to the order-1 table, the top
+    # order has none
+    for d in (0, top):
+        t_d = ev.tables[d]
+        t_d1 = ev.tables[d + 1] if d < top else None
+        for N in (512, N_max):
+            c, xx, gg = coeffs[:N], x[:N], g[:N]
+
+            def bwd():
+                return cuda_spline.spline_eval_bwd_cuda(t_d, t_d1, c, xx, gg)
+
+            def bwd_plain():
+                return cuda_spline.spline_eval_bwd_plain(t_d, t_d1, c, xx, gg)
+
+            (gc_k, gx_k), (gc_p, gx_p) = bwd(), bwd_plain()
+            torch.cuda.synchronize()
+            err_c, tol_c = close(gc_k, gc_p, f"backward d={d} N={N} g_coeffs")
+            err_x, tol_x = close(gx_k, gx_p, f"backward d={d} N={N} g_x")
+            if t_d1 is None:
+                if gx_k.any():
+                    fail("K4 backward: the x-gradient at the top tabulated "
+                         "order is not zero")
+            elif not torch.equal(
+                    gx_k, gg * cuda_spline.spline_eval_cuda(t_d1, c, xx)):
+                fail("K4 backward: g_x is not g times the forward kernel at "
+                     "order d + 1, bit for bit")
+            k_ms, d_ms = cuda_ms(torch, bwd), device_ms(torch, bwd)
+            p_ms = cuda_ms(torch, bwd_plain)
+            # each input once, each output once: grad, x and g_coeffs, g_x
+            # always; coeffs and the second table only where g_x chains
+            chains = t_d1 is not None
+            b_ms, b_by = bound_ms(
+                4 * (N * (2 + n_b + 1 + n_b * chains)
+                     + (1 + chains) * n_mesh * n_b),
+                N * (3 * n_b + (4 * n_b + 1) * chains + 6))
+            rows_b[(d, N)] = dict(
+                max_abs_err=max(err_c / tol_c, err_x / tol_x) * 2e-5,
+                g_coeffs_abs_err=err_c, g_x_abs_err=err_x, ms=k_ms,
+                device_ms=d_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                plan=cuda_spline.plan(N, n_b, True))
+            print(f"K4 spline_eval_bwd d={d} N={N}: max|d g_coeffs| "
+                  f"{err_c:.3e} (atol {tol_c:.1e}), max|d g_x| {err_x:.3e} "
+                  f"(atol {tol_x:.1e}) against spline_eval_bwd_plain | "
+                  f"kernel_ms {k_ms:.4f} device_ms {d_ms:.4f} plain_ms "
+                  f"{p_ms:.4f} bound_ms {b_ms:.5f} ({b_by})", flush=True)
+
+    # ragged sizes, a table of another width, unaligned views, one gradient
+    tabs13 = get_tables('M', DENSITY['prior_spline_degree'],
+                        DENSITY['prior_n_knots'] - 3, n_mesh=n_mesh)
+    ev13 = make_evaluator(tabs13, device='cuda')
+    if ev13.n_bases % 4 == 0:
+        fail(f"the second table has {ev13.n_bases} bases, a multiple of 4")
+    c13 = torch.rand((N_max + 1, ev13.n_bases), generator=gen, device='cuda')
+    worst = {}
+    for e, cc in ((ev, coeffs), (ev13, c13)):
+        t0, t1 = e.tables[0], e.tables[1]
+        for N in (1, 3, 31, 513, N_max + 1):
+            c, xx, gg = cc[:N], x[:N], g[:N]
+            y = cuda_spline.spline_eval_cuda(t0, c, xx)
+            gc, gx = cuda_spline.spline_eval_bwd_cuda(t0, t1, c, xx, gg)
+            gc_p, gx_p = cuda_spline.spline_eval_bwd_plain(t0, t1, c, xx, gg)
+            torch.cuda.synchronize()
+            what = f"n_bases {e.n_bases} N={N}"
+            errs = (close(y, cuda_spline.spline_eval_plain(t0, c, xx),
+                          f"forward {what}"),
+                    close(gc, gc_p, f"backward {what} g_coeffs"),
+                    close(gx, gx_p, f"backward {what} g_x"))
+            worst[(e.n_bases, N)] = max(err / tol for err, tol in errs) * 2e-5
+            # views one float off a 16-byte boundary take the scalar path
+            off = [torch.empty(a.numel() + 1, device='cuda')[1:].view(a.shape)
+                   .copy_(a) for a in (t0, t1, c)]
+            if not all(a.data_ptr() % 16 for a in off):
+                fail("the unaligned views came out aligned")
+            y_u = cuda_spline.spline_eval_cuda(off[0], off[2], xx)
+            gc_u, gx_u = cuda_spline.spline_eval_bwd_cuda(
+                off[0], off[1], off[2], xx, gg)
+            if not (torch.equal(y_u, y) and torch.equal(gc_u, gc)
+                    and torch.equal(gx_u, gx)):
+                fail(f"K4 on unaligned views differs from aligned ones, {what}")
+            only_c = cuda_spline.spline_eval_bwd_cuda(t0, t1, c, xx, gg,
+                                                      need_x=False)
+            only_x = cuda_spline.spline_eval_bwd_cuda(t0, t1, c, xx, gg,
+                                                      need_coeffs=False)
+            if not (only_c[1] is None and only_x[0] is None
+                    and torch.equal(only_c[0], gc)
+                    and torch.equal(only_x[1], gx)):
+                fail(f"K4 backward with one gradient left out differs, {what}")
+    print("K4 forward + backward at ragged N, on aligned and unaligned views "
+          "(equal to the bit), either gradient alone; worst error, scaled to "
+          "an atol of 2e-5: "
+          + ", ".join(f"n_bases {k[0]} N={k[1]}: {v:.2e}"
+                      for k, v in worst.items()), flush=True)
+    rows_b['ragged'] = dict(max_abs_err=max(worst.values()))
+
     # the evaluator's Function: value and both gradients, card against CPU
     tabs = get_tables('M', DENSITY['prior_spline_degree'],
                       DENSITY['prior_n_knots'], n_mesh=n_mesh)
     ev_cpu = make_evaluator(tabs, device='cpu')
-    g = torch.randn((512,), generator=gen, device='cuda')
-    before = cuda_spline.launches
-    for d in (0, 3):
+    before = cuda_spline.launches, cuda_spline.launches_bwd
+    for d in (0, top):
         got, ref = [], []
         for evaluator, dev, out in ((ev, 'cuda', got), (ev_cpu, 'cpu', ref)):
             c = coeffs[:512].to(dev).requires_grad_()
             xx = x[:512].to(dev).requires_grad_()
             y = evaluator(c, xx, d)
-            out.extend((y, *torch.autograd.grad((y * g.to(dev)).sum(), (c, xx))))
+            out.extend((y, *torch.autograd.grad((y * g[:512].to(dev)).sum(),
+                                                (c, xx))))
         for a, b, what in zip(got, ref, ('value', 'coeffs-gradient',
                                          'x-gradient')):
-            tol = 2e-5 * max(1.0, b.abs().max().item())
-            if not (a.cpu() - b).abs().max().item() <= tol:
-                fail(f"SplineEvaluator.__call__ d={d} {what} on the card "
-                     f"disagrees with the CPU: "
-                     f"{(a.cpu() - b).abs().max().item():.3e} (atol {tol:.1e})")
-        if d == 3 and got[2].any():
+            close(a.cpu(), b, f"SplineEvaluator.__call__ d={d} {what}, card "
+                  "against CPU")
+        if d == top and got[2].any():
             fail("the x-gradient at the top tabulated order is not zero")
-    # d = 0: forward + order-1 backward; d = 3: forward only (top order)
-    if cuda_spline.launches - before != 3:
-        fail(f"SplineEvaluator.__call__ launched K4 "
-             f"{cuda_spline.launches - before} times for 3 evaluations")
+    # one forward and one backward launch per differentiated call
+    counted = (cuda_spline.launches - before[0],
+               cuda_spline.launches_bwd - before[1])
+    if counted != (2, 2):
+        fail(f"SplineEvaluator.__call__ launched K4 forward/backward "
+             f"{counted} times for 2 differentiated calls")
+
+    c2 = coeffs[:N_max].reshape(-1, 2, n_b).clone().requires_grad_()
+    x2 = x[:N_max].reshape(-1, 2).clone().requires_grad_()
+    g2 = g[:N_max].reshape(-1, 2).contiguous()
+
+    def forward_backward():
+        return torch.autograd.grad(ev(c2, x2), (c2, x2), g2)
+
+    n_launch = count_device_launches(torch, forward_backward)
+    if n_launch != 2:
+        fail(f"one forward + backward of SplineEvaluator.__call__ ran "
+             f"{n_launch} kernels on the device, not 2")
     print("K4 through SplineEvaluator.__call__: value, coeffs-gradient and "
-          "x-gradient (order-(d+1) evaluation; zero at the top order) agree "
-          "with the CPU evaluator (atol 2e-5 of the largest value)",
-          flush=True)
-    return rows
+          "x-gradient (order-(d+1) table; zero at the top order) agree with "
+          "the CPU evaluator (atol 2e-5 of the largest value); one forward "
+          f"+ backward at (20000, 2) runs {n_launch} device kernels, both "
+          "K4's (15 while the backward was plain PyTorch: 2 K4 launches and "
+          "13 generic ones)", flush=True)
+    return rows, rows_b
 
 
 def check_basis_jet(torch, ops, tabs_i, tabs_b, gen):
@@ -509,7 +667,8 @@ def profile_window(torch, run, n_epochs, label):
           f"{sum(e.count for e in kern) / n_epochs:.0f} kernel launches per "
           "epoch", flush=True)
     # the eight largest, and the port's own kernels wherever they rank
-    own = ('sampler_kernel', 'basis_jet_', 'spline_eval_kernel')
+    own = ('sampler_kernel', 'basis_jet_', 'spline_eval_kernel',
+           'spline_eval_bwd_kernel')
     for e in kern[:8] + [e for e in kern[8:] if any(k in e.key for k in own)]:
         print(f"  {e.self_device_time_total / 1e3 / n_epochs:8.4f} ms/epoch "
               f"{e.count / n_epochs:6.1f}/epoch  {e.key[:90]}", flush=True)
@@ -518,7 +677,7 @@ def profile_window(torch, run, n_epochs, label):
 def density_phase(torch):
     """The density-estimation path at full width: MFlow trained by MLE on
     20,000 'circles' points, 200 epochs, a metric checkpoint every 100.
-    Returns the launches of K2 and K4 on that run."""
+    Returns the launches of K2 and of both K4 kernels on that run."""
     from waveflow_tpu_torch.benchmark import get_dataset, train_density_model
     from waveflow_tpu_torch.benchmark.density import (
         density_step, get_benchmark_model, metric_checkpoint)
@@ -530,13 +689,14 @@ def density_phase(torch):
               n_model_sample=DENSITY_POINTS, X_test=X_test, device='cuda',
               **DENSITY)
     cuda_sampler.launches_linear = 0
-    cuda_spline.launches = 0
+    cuda_spline.launches = cuda_spline.launches_bwd = 0
     t0 = time.perf_counter()
     model, hist = train_density_model(X, num_epochs=n_epochs, **kw)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     launches = {'sampler_linear': cuda_sampler.launches_linear,
-                'spline_eval': cuda_spline.launches}
+                'spline_eval': cuda_spline.launches,
+                'spline_eval_bwd': cuda_spline.launches_bwd}
     losses = hist['losses']
     if len(losses) != n_epochs or not all(math.isfinite(v) for v in losses):
         fail("density training produced non-finite losses")
@@ -548,8 +708,13 @@ def density_phase(torch):
     if launches['sampler_linear'] != 2 * n_ckpt:
         fail(f"K2 launched {launches['sampler_linear']} times for {n_ckpt} "
              "metric checkpoints of 2 columns")
-    if launches['spline_eval'] < n_epochs:
-        fail(f"K4 launched {launches['spline_eval']} times in {n_epochs} epochs")
+    # every epoch: one forward and one backward launch; the checkpoints'
+    # log_pdf calls add forward launches only
+    if (launches['spline_eval'] < n_epochs
+            or launches['spline_eval_bwd'] != n_epochs):
+        fail(f"K4 launched {launches['spline_eval']} times forward and "
+             f"{launches['spline_eval_bwd']} times backward in {n_epochs} "
+             "epochs")
     for key in ('kl', 'hellinger', 'test_ll', 'reconstruction'):
         if len(hist[key]) != n_ckpt or not all(
                 math.isfinite(v) for v in hist[key]):
@@ -564,7 +729,10 @@ def density_phase(torch):
           f"{t1 - t0:.2f} s | launches: sampler_linear "
           f"{launches['sampler_linear']} "
           f"({launches['sampler_linear'] / n_ckpt:g} per checkpoint), "
-          f"spline_eval {launches['spline_eval']}", flush=True)
+          f"spline_eval {launches['spline_eval']} (1 per epoch + "
+          f"{(launches['spline_eval'] - n_epochs) / n_ckpt:g} per "
+          f"checkpoint), spline_eval_bwd {launches['spline_eval_bwd']} (1 "
+          "per epoch)", flush=True)
 
     # the card against the CPU: the same parameters in a CPU module
     cpu = get_benchmark_model('MFlow', **DENSITY, device='cpu')
@@ -682,19 +850,20 @@ def main() -> int:
     gen = torch.Generator('cuda').manual_seed(1)
     k2 = check_sampler(torch, gen, 'linear', mflow.ev, mflow.prior_weights,
                        DENSITY_POINTS)
-    k4 = check_spline_eval(torch, mflow, gen)
+    k4, k4b = check_spline_eval(torch, mflow, gen)
     # how each wrapper launched its kernel at the driven shapes
     plans = [('K1 sampler', k1, (256, 65536)),
              ('K2 sampler_linear', k2, (256, DENSITY_POINTS)),
              ('K3 basis_jet', k3, (('I', 512), ('I', 131072))),
-             ('K4 spline_eval', k4, ((0, 512), (0, 2 * DENSITY_POINTS)))]
+             ('K4 spline_eval', k4, ((0, 512), (0, 2 * DENSITY_POINTS))),
+             ('K4 spline_eval_bwd', k4b, ((0, 512), (0, 2 * DENSITY_POINTS)))]
     for name, rows, shapes in plans:
         parts = []
         for shape in shapes:
             p = rows[shape]['plan']
             parts.append(f"{shape}: grid {p.grid} x {p.threads} threads, "
                          f"{p.smem_bytes} B dynamic shared, regime {p.regime}, "
-                         f"group {p.group}")
+                         f"group {p.group}, rows {p.rows}")
         print(f"launch plan {name}: " + "; ".join(parts), flush=True)
 
     # ---- 4. checkpoint ----------------------------------------------------
@@ -771,6 +940,7 @@ def main() -> int:
     # training batch of 256, K2 at the 20,000 model draws of a metric
     # checkpoint, K4 at the flattened (20,000, 2) training batch
     k3_row, k4_row = k3[('I', 512)], k4[(0, 2 * DENSITY_POINTS)]
+    k4b_row = k4b[(0, 2 * DENSITY_POINTS)]
 
     def sampler_row(name, rows, shape):
         # max_abs_err: every compared draw, the right tail's included;
@@ -811,6 +981,17 @@ def main() -> int:
              plain_ms=k4_row['plain_ms'],
              bound_ms=k4_row['bound_ms'], bound_by=k4_row['bound_by'],
              library_ms=None, onehot_matmul_ms=k4_row['onehot_ms']),
+        dict(name='spline_eval_bwd', route='cuda',
+             source='waveflow_tpu_torch/csrc/spline_eval.cu',
+             replaces='waveflow_tpu/ops/pallas_spline.py:29',
+             launches=launches['spline_eval_bwd'],
+             max_abs_err=max(r['max_abs_err'] for r in k4b.values()),
+             g_coeffs_abs_err=k4b_row['g_coeffs_abs_err'],
+             g_x_abs_err=k4b_row['g_x_abs_err'],
+             ms=k4b_row['ms'], device_ms=k4b_row['device_ms'],
+             plain_ms=k4b_row['plain_ms'],
+             bound_ms=k4b_row['bound_ms'], bound_by=k4b_row['bound_by'],
+             library_ms=None),
     ]
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {

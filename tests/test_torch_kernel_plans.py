@@ -154,14 +154,103 @@ def test_jet_plan_too_large_for_staging_stays_direct():
         cuda_jet.plan(512, 22, 8, 116, regime='tiled')
 
 
-@pytest.mark.parametrize('N', [1, 31, 32, 33, 512, 40_000])
-def test_spline_plan_covers(N):
-    """K4: 32 rows per 256-thread block, no shared memory."""
-    p = cuda_spline.plan(N)
-    assert (p.threads, p.smem_bytes) == (256, 0)
-    assert (p.grid - 1) * 32 < N <= p.grid * 32
-    with pytest.raises(ValueError):
-        cuda_spline.plan(0)
+@pytest.mark.parametrize('backward', [False, True])
+@pytest.mark.parametrize('n_bases', [5, 16, 29, 64])
+@pytest.mark.parametrize('N', [1, 31, 32, 33, 512, 40_000, 40_001])
+def test_spline_plan_covers(N, n_bases, backward):
+    """K4, forward and backward: a power of two of lanes that divides the
+    warp shares a row, 4 bases per lane and load where they fit; a block
+    covers 256 / lanes * rows rows; the grid covers N and never exceeds the
+    work; no shared memory."""
+    p = cuda_spline.plan(N, n_bases, backward)
+    lanes, rows = p.group, p.rows
+    assert (p.threads, p.smem_bytes) == (cuda_spline.THREADS, 0)
+    assert p.smem_bytes <= SMEM_LIMIT
+    assert p.regime == ('backward' if backward else 'forward')
+    assert 32 % lanes == 0 and rows in cuda_spline.ROWS_IN_FLIGHT
+    assert rows == (cuda_spline.BACKWARD_ROWS if backward
+                    else cuda_spline.FORWARD_ROWS)
+    chunks = -(-n_bases // cuda_spline.CHUNK)
+    assert lanes == cuda_spline.lanes_per_row(n_bases)
+    assert lanes >= chunks or lanes == 32
+    assert lanes < 2 * chunks or lanes == 1
+    per_block = cuda_spline.THREADS // lanes * rows
+    assert p.grid >= 1 and (p.grid - 1) * per_block < N <= p.grid * per_block
+
+
+@pytest.mark.parametrize('n_bases,lanes', [(1, 1), (4, 1), (5, 2), (16, 4),
+                                           (28, 8), (29, 8), (64, 16),
+                                           (128, 32), (129, 32), (500, 32)])
+def test_spline_lanes_per_row(n_bases, lanes):
+    """Lanes per row from n_bases: the density model's 16 bases take 4."""
+    assert cuda_spline.lanes_per_row(n_bases) == lanes
+
+
+@pytest.mark.parametrize('lanes', [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize('rows', [1, 2, 4])
+def test_spline_plan_forced(lanes, rows):
+    """Forced lanes and rows (measurements) are taken as given and still
+    cover the work; what the source does not hold is refused."""
+    for backward in (False, True):
+        p = cuda_spline.plan(40_001, 16, backward, lanes, rows)
+        per_block = 256 // lanes * rows
+        assert (p.group, p.rows) == (lanes, rows)
+        assert (p.grid - 1) * per_block < 40_001 <= p.grid * per_block
+
+
+def test_spline_plan_refuses():
+    for bad in [(0, 16), (512, 0)]:
+        with pytest.raises(ValueError):
+            cuda_spline.plan(*bad)
+    for lanes in (0, 3, 64):
+        with pytest.raises(ValueError, match='lanes'):
+            cuda_spline.plan(512, 16, False, lanes)
+    with pytest.raises(ValueError, match='rows'):
+        cuda_spline.plan(512, 16, False, None, 3)
+
+
+LINEAR_TABLES = [(16, 2000), (12, 300), (7, 2), (20, 2049), (28, 2000)]
+
+
+@pytest.mark.parametrize('n_bases,n_mesh', LINEAR_TABLES)
+@pytest.mark.parametrize('B', SIZES)
+def test_linear_sampler_plan_fits_and_covers(B, n_bases, n_mesh):
+    """K2's plans (kind 'linear', costs per group measured at 16 bases): a
+    listed group with its threads, table and scratch inside the block's
+    shared memory, a grid of at least one block and no more than the groups
+    or the SMs."""
+    p = cuda_sampler.plan(B, n_bases, n_mesh, kind='linear')
+    G = p.group
+    assert p.regime == 'shared' and G in cuda_sampler.WALKERS_PER_BLOCK
+    assert p.threads == cuda_sampler.WALKERS_PER_BLOCK[G]
+    assert p.smem_bytes == cuda_sampler.smem_bytes(n_bases, n_mesh, G)
+    assert 4 * n_bases * n_mesh < p.smem_bytes <= SMEM_LIMIT
+    assert 1 <= p.grid <= min(-(-B // G), N_SM)
+    assert G * n_bases <= cuda_sampler.PREFETCH_REGISTERS * p.threads
+
+
+def test_linear_sampler_plan_group_size():
+    """At the density model's table every listed group fits and a forced
+    one is taken as given; small groups while they spread over idle SMs,
+    groups of 8 once every SM is busy; both kinds have a cost for every
+    group; an unknown kind is refused."""
+    for forced, threads in cuda_sampler.WALKERS_PER_BLOCK.items():
+        p = cuda_sampler.plan(20_000, 16, 2000, walkers_per_block=forced,
+                              kind='linear')
+        assert (p.group, p.threads) == (forced, threads)
+        assert p.smem_bytes <= SMEM_LIMIT
+    groups = [cuda_sampler.plan(B, 16, 2000, kind='linear').group
+              for B in (1, 256, 1000, 4096, 20_000, 65_536)]
+    assert groups == sorted(groups) and (groups[0], groups[-1]) == (2, 8)
+    assert cuda_sampler.plan(20_000, 16, 2000, kind='linear').group == 8
+    for kind, cost in cuda_sampler.GROUP_COST.items():
+        assert set(cost) == set(cuda_sampler.WALKERS_PER_BLOCK), kind
+        # a larger group costs more in all, less per walker
+        assert cost[2] < cost[4] < cost[8]
+        assert cost[2] / 2 > cost[4] / 4 > cost[8] / 8
+    assert cuda_sampler.plan(256, 45, 2000, kind='linear').regime == 'streamed'
+    with pytest.raises(ValueError, match='kind'):
+        cuda_sampler.plan(256, 16, 2000, kind='cubic')
 
 
 def test_wrappers_refuse_cpu_tensors():
@@ -173,6 +262,9 @@ def test_wrappers_refuse_cpu_tensors():
         cuda_jet.basis_jet_cuda(x, A, 22, 8)
     with pytest.raises(ValueError, match='CUDA'):
         cuda_spline.spline_eval_cuda(torch.rand(10, 4), torch.rand(8, 4), x)
+    with pytest.raises(ValueError, match='CUDA'):
+        cuda_spline.spline_eval_bwd_cuda(torch.rand(10, 4), torch.rand(10, 4),
+                                         torch.rand(8, 4), x, x)
     assert cuda_jet.basis_jet(x, A, 22, 8).shape == (8, 116)
 
 
@@ -185,7 +277,8 @@ ENTRY_POINTS = {
                   'basis_jet_error_string'},
     'sampler': {'sampler_launch', 'sampler_linear_launch', 'sampler_init',
                 'sampler_error_string'},
-    'spline_eval': {'spline_eval_launch', 'spline_eval_error_string'},
+    'spline_eval': {'spline_eval_launch', 'spline_eval_bwd_launch',
+                    'spline_eval_error_string'},
 }
 
 
@@ -227,6 +320,10 @@ def test_wrappers_bind_the_declared_entry_points(module, name, monkeypatch):
     assert launch.argtypes[0] is ctypes.c_void_p
     assert launch.argtypes[-1] is ctypes.c_void_p          # the stream
     assert lib.seen[f'{name}_error_string'].restype is ctypes.c_char_p
+    for entry, fn in lib.seen.items():
+        if entry.endswith('_launch'):           # every launcher of the source
+            assert fn.restype is ctypes.c_int
+            assert fn.argtypes[0] is fn.argtypes[-1] is ctypes.c_void_p
 
 
 def test_kernels_match_the_sources(tmp_path, monkeypatch):
@@ -266,4 +363,11 @@ def test_plan_constants_match_the_sources():
     assert const(sampler, 'CREG') == cuda_sampler.PREFETCH_REGISTERS
     assert const(sampler, 'RING') == cuda_sampler.RING
     assert const(spline, 'THREADS') == cuda_spline.THREADS
-    assert const(spline, 'LANES') == cuda_spline.LANES_PER_ROW
+    assert const(spline, 'CHUNK') == cuda_spline.CHUNK
+    # the rows in flight the launcher switches over, and no other
+    held = {int(r) for r in re.findall(r'case \d+: LAUNCH\((\d), ', spline)}
+    held |= {int(r) for r in re.findall(r'default: LAUNCH\((\d), ', spline)}
+    assert held == set(cuda_spline.ROWS_IN_FLIGHT)
+    # the group sizes the sampler's launcher switches over
+    cases = {int(g) for g in re.findall(r'case (\d+):\n', sampler)}
+    assert cases == set(cuda_sampler.WALKERS_PER_BLOCK)

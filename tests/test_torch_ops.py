@@ -324,6 +324,65 @@ def test_table_eval_takes_any_batch_rank(m_evaluators):
         tev(_t(w), _t(x)[:5])
 
 
+@pytest.mark.parametrize('d', [0, 1, 3])
+def test_spline_eval_bwd_plain_matches_jax_vjp(m_evaluators, d):
+    """(b) The plain version beside K4's backward kernel against jax.vjp of
+    the JAX evaluator's custom-JVP chain, on the same numpy inputs (walls, a
+    cell edge and out-of-domain points among them) and the same cotangent:
+    the coefficient gradient is the lerped order-d basis, the x-gradient the
+    order-(d+1) evaluation, zero at the top order d = 3.  rtol 2e-5, atol
+    2e-5 of the largest value (f32 sums in another order)."""
+    from waveflow_tpu_torch.ops import cuda_spline
+    jev, tev = m_evaluators
+    w, x = _eval_inputs(jev.n_bases, seed=21)
+    g = np.random.default_rng(22).normal(size=64).astype(np.float32)
+    _, vjp = jax.vjp(lambda ww, xx: jev(ww, xx, d), jnp.asarray(w),
+                     jnp.asarray(x))
+    ref_gw, ref_gx = (np.asarray(a) for a in vjp(jnp.asarray(g)))
+    table_d1 = tev.tables[d + 1] if d + 1 < tev.n_derivatives else None
+    gw, gx = cuda_spline.spline_eval_bwd_plain(tev.tables[d], table_d1,
+                                               _t(w), _t(x), _t(g))
+    np.testing.assert_allclose(gw.numpy(), ref_gw, rtol=2e-5,
+                               atol=2e-5 * max(1.0, np.abs(ref_gw).max()))
+    np.testing.assert_allclose(gx.numpy(), ref_gx, rtol=2e-5,
+                               atol=2e-5 * max(1.0, np.abs(ref_gx).max()))
+    if d == 3:
+        assert table_d1 is None and not gx.any() and not ref_gx.any()
+    else:
+        assert gx.abs().max() > 0
+
+
+@pytest.mark.parametrize('needs', ['both', 'coeffs', 'x'])
+@pytest.mark.parametrize('d', [0, 3])
+def test_table_eval_autograd_is_the_plain_backward(m_evaluators, d, needs):
+    """On the CPU the evaluator's Function differentiates through
+    spline_eval_bwd_plain: torch.autograd.grad equals it exactly, for a
+    (B, D) batch too, and a gradient nobody needs is not returned."""
+    from waveflow_tpu_torch.ops import cuda_spline
+    _, tev = m_evaluators
+    w, x = _eval_inputs(tev.n_bases, seed=23)
+    g = _t(np.random.default_rng(24).normal(size=64).astype(np.float32))
+    table_d1 = tev.tables[d + 1] if d + 1 < tev.n_derivatives else None
+    ref = dict(zip(('coeffs', 'x'), cuda_spline.spline_eval_bwd_plain(
+        tev.tables[d], table_d1, _t(w), _t(x), g)))
+    for shape in ((64,), (32, 2)):
+        leaves = {'coeffs': _t(w).reshape(*shape, -1), 'x': _t(x).reshape(shape)}
+        wanted = ('coeffs', 'x') if needs == 'both' else (needs,)
+        for name in wanted:
+            leaves[name].requires_grad_()
+        out = tev(leaves['coeffs'], leaves['x'], d)
+        grads = torch.autograd.grad(out, [leaves[n] for n in wanted],
+                                    g.reshape(shape))
+        for name, got in zip(wanted, grads):
+            torch.testing.assert_close(got.reshape(ref[name].shape),
+                                       ref[name], rtol=0, atol=0)
+    got = cuda_spline.spline_eval_bwd(
+        tev.tables[d], table_d1, _t(w), _t(x), g,
+        need_coeffs=needs != 'x', need_x=needs != 'coeffs')
+    assert (got[0] is None) == (needs == 'x')
+    assert (got[1] is None) == (needs == 'coeffs')
+
+
 @pytest.mark.parametrize('twin', ['gather_lerp', 'onehot_matmul'])
 @pytest.mark.parametrize('d', [0, 1])
 def test_spline_eval_twins_match_pallas_interpret(twin, d):

@@ -1,85 +1,336 @@
-// Table-lerp spline evaluation for Hopper (sm_90a):
-//     y[n] = sum_i coeffs[n, i] * lerp(table[:, i], x[n])
+// Table-lerp spline evaluation for Hopper (sm_90a), forward and backward:
+//     y[n]      = sum_i c[n, i] * lerp(T_d[:, i], x[n])
+//     g_c[n, i] = g[n] * lerp(T_d[:, i], x[n])
+//     g_x[n]    = g[n] * sum_i c[n, i] * lerp(T_{d+1}[:, i], x[n])
 // with cell = clip(floor(x * n_cells), 0, n_cells - 1), frac = x * n_cells -
 // cell NOT clipped, so a point outside [0, 1] extends its edge cell linearly.
+// The x-derivative of the order-d evaluation is the order-(d+1) evaluation
+// (ops/spline_eval.py), zero where order d + 1 is not tabulated.
 //
 // Replaces: waveflow_tpu/ops/pallas_spline.py, `_spline_eval_kernel`
-// (pl.pallas_call at :77, entry spline_eval_pallas at :60).  On the TPU a
-// row gather serialises through the scalar units, so that kernel builds a
-// dense (256, n_mesh) matrix of lerp weights — two non-zeros per row — and
-// multiplies it against the whole table on the MXU.  On this card a gather
-// is cheap, so the one-hot product is not carried over: each row reads the
-// two table rows that bracket x[n], n_bases contiguous floats each in the
-// (n_mesh, n_bases) layout, lerps them, multiplies by its coefficients and
-// reduces.
+// (pl.pallas_call at :77, entry spline_eval_pallas at :60) and the lerped
+// basis `W @ table` that its body holds, which the reference's derivative
+// rule evaluates again for the coefficient gradient.  On the TPU a row gather
+// serialises through the scalar units, so that kernel builds a dense
+// (256, n_mesh) matrix of lerp weights — two non-zeros per row — and
+// multiplies it against the whole table on the MXU.  On this card a gather is
+// cheap, so the one-hot product is not carried over.
 //
-// What bounds it on this card: bytes.  A row reads n_bases + 1 floats from
-// device memory and writes one; the table (n_mesh * n_bases floats, ~150 KB
-// at the density model's prior) is shared by all rows and stays in L2.  It
-// does ~4 flops per coefficient read, far below the f32 ridge.  At the
-// density path's N = 40,000 the whole call moves ~3 MB, about a microsecond
-// of memory time, so the launch dominates.  The design:
-//   * LANES = 8 lanes of a warp share a row: lane l takes bases l, l + 8, …,
-//     so the 8 lanes read 32 contiguous bytes of the coefficient row and of
-//     each table row per step, and a warp covers 4 rows;
-//   * an xor-shuffle over the 8 lanes reduces the row's partial sums;
-//   * no shared memory and no staging: one pass, one float written per row.
-// The table is an argument, so the same kernel serves every derivative
-// order (the x-derivative of the order-d evaluation is the order-(d+1)
-// evaluation, ops/spline_eval.py).
+// What bounds it on this card: bytes, and below ~10^5 rows the launch.  A
+// forward row reads n_bases + 1 floats and writes one; a backward row reads
+// n_bases + 2 and writes n_bases + 1.  The tables (n_mesh * n_bases floats
+// each, 128 KB at the density model's prior) are shared by all rows and stay
+// in L1/L2.  ~4 flops per coefficient read: far below the f32 ridge.  At the
+// density path's N = 40,000 a forward moves ~3 MB and a backward ~6 MB, one to
+// two microseconds of memory time, so what the kernel can lose is latency: the
+// chain x[row] -> cell -> table rows is two dependent trips to memory.  The
+// design:
+//   * a row's two bracketing table rows, cell and cell + 1, are one
+//     contiguous span of 2 * n_bases floats in the (n_mesh, n_bases) layout;
+//     a lane group of `lanes` threads (a power of two, chosen by
+//     ops/cuda_spline.py::plan from n_bases) shares a row, and each lane takes
+//     chunks of 4 consecutive bases: one 16-byte load of the coefficients and
+//     one of each table row per chunk (VEC).  Where n_bases is not a multiple
+//     of 4, or a pointer is not 16-byte aligned, the rows are not aligned
+//     either and the same chunks go through scalar loads (the launcher checks
+//     and picks; the assignment of bases to lanes, and so the result to the
+//     bit, is the same);
+//   * a lane group can keep ROWS rows in flight (all their x read and their
+//     cells located first, then all their loads started chunk by chunk before
+//     the first is used), so that one row's x -> table dependency overlaps
+//     the loads of the others.  Measured on an NVIDIA H100 80GB HBM3 at
+//     700.00 W, it does not pay: at every N from 512 to 4,000,000 one row
+//     per group is as fast or faster than 2 or 4, forward and backward
+//     (PERF.md names the runs) — twice the warps hide the chain better
+//     than twice the loads per warp — so the plan takes ROWS = 1 and the
+//     other instantiations stay for the sweep;
+//   * coefficients and gradients are read once and outputs written once:
+//     streaming loads and stores (`__ldcs` / `__stcs`), so they do not push
+//     the tables out of L1; the tables go through the read-only path;
+//   * order of the sum over the bases: a lane adds its chunks' products in
+//     ascending base order with fmaf, then an xor-shuffle tree (distance
+//     lanes / 2, ..., 1) adds the lanes.  At 16 bases and 4 lanes that is
+//     ((0..3) + (8..11)) + ((4..7) + (12..15)) with each quadruple summed in
+//     order; it stays inside 2e-5 of the largest output against both plain
+//     versions;
+//   * the backward is ONE kernel: cell and fraction located once (the
+//     forward's arithmetic), g_c written as 16-byte streaming stores, g_x
+//     reduced as the forward reduces y — bitwise g * (the forward at order
+//     d + 1) — and written as zeros at the top order; either output is skipped
+//     when its pointer is null;
+//   * no shared memory: a trial with the table staged in the shared memory
+//     of persistent blocks by one bulk copy was 2.3 to 2.5 times slower at
+//     every N from 40,000 to 4,000,000 (PERF.md); the 128 KB live in L1/L2
+//     just as well and the fill is paid by every block.
+// The launch plan (lanes, rows, grid) comes from ops/cuda_spline.py::plan and
+// is checked here against the kernel's own constants.
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int LANES = 8;                  // lanes per row
-constexpr int ROWS_PER_BLOCK = THREADS / LANES;
+constexpr int CHUNK = 4;  // consecutive bases a lane takes per load
+static_assert(CHUNK == 4, "a chunk is one float4");
 
+// cell and unclipped in-cell fraction of x; the product is rounded before
+// the floor and the subtraction (no fused multiply-add), so both are the
+// plain version's
+__device__ __forceinline__ float locate(float xv, int n_cells, int* cell) {
+  const float pos = __fmul_rn(xv, static_cast<float>(n_cells));
+  const float cell_f =
+      fminf(fmaxf(floorf(pos), 0.f), static_cast<float>(n_cells - 1));
+  *cell = static_cast<int>(cell_f);
+  return pos - cell_f;
+}
+
+// bases i .. i + 3 of a row that is read many times (a table)
+template <bool VEC>
+__device__ __forceinline__ void load_table(const float* p, int i, int n,
+                                           float (&v)[CHUNK]) {
+  if constexpr (VEC) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p + i));
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < CHUNK; ++k) v[k] = i + k < n ? __ldg(p + i + k) : 0.f;
+  }
+}
+
+// the same of a row that is read once (coefficients)
+template <bool VEC>
+__device__ __forceinline__ void load_once(const float* p, int i, int n,
+                                          float (&v)[CHUNK]) {
+  if constexpr (VEC) {
+    const float4 q = __ldcs(reinterpret_cast<const float4*>(p + i));
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < CHUNK; ++k) v[k] = i + k < n ? __ldcs(p + i + k) : 0.f;
+  }
+}
+
+// sum over the lanes of a row's group; all 32 lanes of the warp take part
+__device__ __forceinline__ float lane_sum(float v, int lanes) {
+  for (int o = lanes >> 1; o > 0; o >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// The rows of one lane group: row r of the group is first + r * groups, so
+// that at a fixed r a warp's groups read neighbouring rows.  Rows past N
+// are computed on row N - 1 and not written.
+template <int ROWS>
+struct Rows {
+  long long row[ROWS];
+  long long at[ROWS];      // the row that is read: min(row, N - 1)
+  float frac[ROWS];
+  int cell[ROWS];
+
+  __device__ __forceinline__ Rows(const float* __restrict__ x, int N,
+                                  int n_cells, int lanes_log2) {
+    const int groups = THREADS >> lanes_log2;
+    const long long first =
+        static_cast<long long>(blockIdx.x) * (groups * ROWS) +
+        (threadIdx.x >> lanes_log2);
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      row[r] = first + r * groups;
+      at[r] = row[r] < N ? row[r] : N - 1;
+    }
+    float xv[ROWS];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) xv[r] = __ldcs(x + at[r]);
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) frac[r] = locate(xv[r], n_cells, &cell[r]);
+  }
+};
+
+template <int ROWS, bool VEC>
 __global__ void __launch_bounds__(THREADS)
 spline_eval_kernel(const float* __restrict__ table,
                    const float* __restrict__ coeffs,
                    const float* __restrict__ x, float* __restrict__ out,
-                   int N, int n_mesh, int n_bases) {
-  const int sub = threadIdx.x % LANES;
-  const long long row =
-      static_cast<long long>(blockIdx.x) * ROWS_PER_BLOCK + threadIdx.x / LANES;
-  const int n_cells = n_mesh - 1;
-  float acc = 0.f;
-  if (row < N) {
-    // the product is rounded before the floor and the subtraction (no fused
-    // multiply-add), so cell and frac are the plain version's
-    const float pos = __fmul_rn(x[row], static_cast<float>(n_cells));
-    const float cell_f =
-        fminf(fmaxf(floorf(pos), 0.f), static_cast<float>(n_cells - 1));
-    const float frac = pos - cell_f;
-    const int cell = static_cast<int>(cell_f);
-    const float* t_l = table + static_cast<size_t>(cell) * n_bases;
-    const float* t_r = t_l + n_bases;
-    const float* c = coeffs + static_cast<size_t>(row) * n_bases;
-    for (int i = sub; i < n_bases; i += LANES) {
-      const float y_l = t_l[i];
-      acc = fmaf(c[i], fmaf(t_r[i] - y_l, frac, y_l), acc);
+                   int N, int n_cells, int n_bases, int lanes_log2) {
+  const int lanes = 1 << lanes_log2;
+  const int sub = threadIdx.x & (lanes - 1);
+  const Rows<ROWS> rows(x, N, n_cells, lanes_log2);
+  float acc[ROWS];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) acc[r] = 0.f;
+  for (int i = CHUNK * sub; i < n_bases; i += CHUNK * lanes) {
+    float c[ROWS][CHUNK], y_l[ROWS][CHUNK], y_r[ROWS][CHUNK];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      const float* span = table + static_cast<size_t>(rows.cell[r]) * n_bases;
+      load_table<VEC>(span, i, n_bases, y_l[r]);
+      load_table<VEC>(span + n_bases, i, n_bases, y_r[r]);
+      load_once<VEC>(coeffs + rows.at[r] * n_bases, i, n_bases, c[r]);
+    }
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+      for (int k = 0; k < CHUNK; ++k)
+        acc[r] = fmaf(c[r][k],
+                      fmaf(y_r[r][k] - y_l[r][k], rows.frac[r], y_l[r][k]),
+                      acc[r]);
+  }
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    const float y = lane_sum(acc[r], lanes);
+    if (sub == 0 && rows.row[r] < N) __stcs(out + rows.row[r], y);
+  }
+}
+
+// table_d1, g_coeffs and g_x may each be null: no order d + 1 (g_x = 0), and
+// an output that nobody asked for
+template <int ROWS, bool VEC>
+__global__ void __launch_bounds__(THREADS)
+spline_eval_bwd_kernel(const float* __restrict__ table_d,
+                       const float* __restrict__ table_d1,
+                       const float* __restrict__ coeffs,
+                       const float* __restrict__ x,
+                       const float* __restrict__ grad,
+                       float* __restrict__ g_coeffs, float* __restrict__ g_x,
+                       int N, int n_cells, int n_bases, int lanes_log2) {
+  const int lanes = 1 << lanes_log2;
+  const int sub = threadIdx.x & (lanes - 1);
+  const Rows<ROWS> rows(x, N, n_cells, lanes_log2);
+  const bool chain = g_x != nullptr && table_d1 != nullptr;
+  float g[ROWS], acc[ROWS];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    g[r] = __ldcs(grad + rows.at[r]);
+    acc[r] = 0.f;
+  }
+  for (int i = CHUNK * sub; i < n_bases; i += CHUNK * lanes) {
+    float c[ROWS][CHUNK], y_l[ROWS][CHUNK], y_r[ROWS][CHUNK];
+    float z_l[ROWS][CHUNK], z_r[ROWS][CHUNK];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      const size_t span = static_cast<size_t>(rows.cell[r]) * n_bases;
+      if (g_coeffs != nullptr) {
+        load_table<VEC>(table_d + span, i, n_bases, y_l[r]);
+        load_table<VEC>(table_d + span + n_bases, i, n_bases, y_r[r]);
+      }
+      if (chain) {
+        load_table<VEC>(table_d1 + span, i, n_bases, z_l[r]);
+        load_table<VEC>(table_d1 + span + n_bases, i, n_bases, z_r[r]);
+        load_once<VEC>(coeffs + rows.at[r] * n_bases, i, n_bases, c[r]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      if (g_coeffs != nullptr && rows.row[r] < N) {
+        float w[CHUNK];
+#pragma unroll
+        for (int k = 0; k < CHUNK; ++k)
+          w[k] = g[r] * fmaf(y_r[r][k] - y_l[r][k], rows.frac[r], y_l[r][k]);
+        float* dst = g_coeffs + rows.row[r] * n_bases + i;
+        if constexpr (VEC) {
+          __stcs(reinterpret_cast<float4*>(dst),
+                 make_float4(w[0], w[1], w[2], w[3]));
+        } else {
+#pragma unroll
+          for (int k = 0; k < CHUNK; ++k)
+            if (i + k < n_bases) __stcs(dst + k, w[k]);
+        }
+      }
+      if (chain) {
+#pragma unroll
+        for (int k = 0; k < CHUNK; ++k)
+          acc[r] = fmaf(c[r][k],
+                        fmaf(z_r[r][k] - z_l[r][k], rows.frac[r], z_l[r][k]),
+                        acc[r]);
+      }
     }
   }
-  // all 32 lanes take part in the shuffles, rows past N with acc = 0
+  if (g_x != nullptr) {
 #pragma unroll
-  for (int o = LANES / 2; o > 0; o >>= 1)
-    acc += __shfl_xor_sync(0xffffffffu, acc, o);
-  if (row < N && sub == 0) out[row] = acc;
+    for (int r = 0; r < ROWS; ++r) {
+      const float y = lane_sum(acc[r], lanes);
+      if (sub == 0 && rows.row[r] < N)
+        __stcs(g_x + rows.row[r], chain ? g[r] * y : 0.f);
+    }
+  }
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// lanes: a power of two up to 32; rows: 1, 2 or 4; grid: the blocks that
+// cover N rows at (THREADS / lanes) * rows rows per block, no more
+int check_plan(int N, int n_mesh, int n_bases, int lanes, int rows, int grid,
+               int* lanes_log2) {
+  if (n_mesh < 2 || n_bases < 1 || lanes < 1 || lanes > 32 ||
+      (lanes & (lanes - 1)) != 0 || (rows != 1 && rows != 2 && rows != 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long per_block = static_cast<long long>(THREADS / lanes) * rows;
+  if (grid != (N + per_block - 1) / per_block)
+    return static_cast<int>(cudaErrorInvalidValue);
+  *lanes_log2 = 0;
+  while ((1 << *lanes_log2) < lanes) ++*lanes_log2;
+  return 0;
 }
 
 }  // namespace
 
+#define FOR_ROWS_AND_VEC(LAUNCH)                \
+  switch (rows * 2 + (vec ? 1 : 0)) {           \
+    case 2: LAUNCH(1, false); break;            \
+    case 3: LAUNCH(1, true); break;             \
+    case 4: LAUNCH(2, false); break;            \
+    case 5: LAUNCH(2, true); break;             \
+    case 8: LAUNCH(4, false); break;            \
+    default: LAUNCH(4, true); break;            \
+  }
+
 extern "C" int spline_eval_launch(const float* table, const float* coeffs,
                                   const float* x, float* out, int N,
-                                  int n_mesh, int n_bases, void* stream) {
+                                  int n_mesh, int n_bases, int lanes, int rows,
+                                  int grid, void* stream) {
   if (N <= 0) return 0;
-  if (n_mesh < 2 || n_bases < 1)
+  int lanes_log2 = 0;
+  if (const int err = check_plan(N, n_mesh, n_bases, lanes, rows, grid,
+                                 &lanes_log2))
+    return err;
+  const bool vec = n_bases % 4 == 0 && aligned16(table) && aligned16(coeffs);
+#define LAUNCH(ROWS, VEC)                                                    \
+  spline_eval_kernel<ROWS, VEC>                                              \
+      <<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(             \
+          table, coeffs, x, out, N, n_mesh - 1, n_bases, lanes_log2)
+  FOR_ROWS_AND_VEC(LAUNCH)
+#undef LAUNCH
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int spline_eval_bwd_launch(const float* table_d,
+                                      const float* table_d1,
+                                      const float* coeffs, const float* x,
+                                      const float* grad, float* g_coeffs,
+                                      float* g_x, int N, int n_mesh,
+                                      int n_bases, int lanes, int rows,
+                                      int grid, void* stream) {
+  if (N <= 0) return 0;
+  int lanes_log2 = 0;
+  if (const int err = check_plan(N, n_mesh, n_bases, lanes, rows, grid,
+                                 &lanes_log2))
+    return err;
+  if (g_coeffs == nullptr && g_x == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int grid = (N + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
-  spline_eval_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      table, coeffs, x, out, N, n_mesh, n_bases);
+  const bool vec = n_bases % 4 == 0 && aligned16(table_d) &&
+                   aligned16(table_d1) && aligned16(coeffs) &&
+                   aligned16(g_coeffs);
+#define LAUNCH(ROWS, VEC)                                                    \
+  spline_eval_bwd_kernel<ROWS, VEC>                                          \
+      <<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(             \
+          table_d, table_d1, coeffs, x, grad, g_coeffs, g_x, N, n_mesh - 1,  \
+          n_bases, lanes_log2)
+  FOR_ROWS_AND_VEC(LAUNCH)
+#undef LAUNCH
   return static_cast<int>(cudaGetLastError());
 }
 

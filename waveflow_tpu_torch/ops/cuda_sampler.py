@@ -37,9 +37,12 @@ PREFETCH_REGISTERS = 2        # G * n_bases <= PREFETCH_REGISTERS * threads
 RING = 256                    # deferred in-cell solves per block
 # walkers per group -> threads: 8 walkers are two halves of 4
 WALKERS_PER_BLOCK = {8: 2 * HALF_THREADS, 4: HALF_THREADS, 2: HALF_THREADS}
-# what a block spends on one group, in microseconds on an H100 at the
-# flagship's table (examples/kernel_sweep_torch.py); only the ratios matter
-GROUP_COST = {8: 6.5, 4: 4.1, 2: 3.0}
+# what a block spends on one group, in microseconds on an H100
+# (examples/kernel_sweep_torch.py): kind 'squared' at the flagship's 28-base
+# table, kind 'linear' at the density model's 16-base table; only the ratios
+# within a kind matter
+GROUP_COST = {'squared': {8: 6.5, 4: 4.1, 2: 3.0},
+              'linear': {8: 4.6, 4: 2.9, 2: 1.9}}
 STREAMED_GROUP = 8            # the one group size of a streamed table
 
 # the C entry points of csrc/sampler.cu: (argtypes, restype)
@@ -75,19 +78,25 @@ def smem_bytes(n_bases: int, n_mesh: int, walkers_per_block: int,
 def plan(B: int, n_bases: int, n_mesh: int,
          n_sm: int = cuda_build.N_SM,
          smem_limit: int = cuda_build.SMEM_PER_BLOCK,
-         walkers_per_block: int | None = None) -> cuda_build.LaunchPlan:
+         walkers_per_block: int | None = None,
+         kind: str = 'squared') -> cuda_build.LaunchPlan:
     """The launch of csrc/sampler.cu for B walkers: persistent blocks, one
     per SM, taking groups of G walkers (the plan's ``group``) grid-stride;
     256 threads for G = 2 or 4, 512 (two halves of 4 walkers) for G = 8.
 
     Regime 'shared': the whole table sits in the block's shared memory.  G
     is the one of 8, 4, 2 that fits and costs the busiest block least: its
-    rounds of groups times GROUP_COST — small groups while they spread over
-    idle SMs, large ones once every SM is busy.  ``walkers_per_block``
+    rounds of groups times the GROUP_COST of the kernel's ``kind`` — small
+    groups while they spread over idle SMs, large ones once every SM is
+    busy.  ``walkers_per_block``
     forces it (measurements only).  Regime 'streamed': a table above the
     shared-memory limit stays in device memory and the same kernel reads it
     through L1/L2, in groups of 8.  Raises ValueError on a shape the kernel
     does not take, with the limit in its text."""
+    if kind not in GROUP_COST:
+        raise ValueError(f"kind must be one of {sorted(GROUP_COST)}, got "
+                         f"{kind!r}")
+    cost = GROUP_COST[kind]
     if B < 1 or n_bases < 1 or n_mesh < 2:
         raise ValueError(f"sampler kernel needs B, n_bases >= 1 and n_mesh "
                          f">= 2, got B={B}, n_bases={n_bases}, n_mesh={n_mesh}")
@@ -106,7 +115,7 @@ def plan(B: int, n_bases: int, n_mesh: int,
         G = walkers_per_block
     elif fitting:
         G = min(fitting, key=lambda G: (
-            -(-(-(-B // G)) // n_sm) * GROUP_COST[G], GROUP_COST[G]))
+            -(-(-(-B // G)) // n_sm) * cost[G], cost[G]))
     else:
         G = STREAMED_GROUP
         max_bases = PREFETCH_REGISTERS * WALKERS_PER_BLOCK[G] // G
@@ -124,8 +133,8 @@ def plan(B: int, n_bases: int, n_mesh: int,
         'shared' if staged else 'streamed', G)
 
 
-def _launch(entry: str, evaluator: SplineEvaluator, coeffs: torch.Tensor,
-            u: torch.Tensor, *schedule: int,
+def _launch(entry: str, kind: str, evaluator: SplineEvaluator,
+            coeffs: torch.Tensor, u: torch.Tensor, *schedule: int,
             walkers_per_block: int | None = None) -> torch.Tensor:
     """Check the inputs, then call the C entry point ``entry`` of
     csrc/sampler.cu: (u, coeffs, table, out, B, n_bases, n_mesh, h,
@@ -158,12 +167,13 @@ def _launch(entry: str, evaluator: SplineEvaluator, coeffs: torch.Tensor,
     n_sm, smem_limit = cuda_build.device_limits(lib, 'sampler_init',
                                                 coeffs.device.index)
     p = last_plan = plan(B, n_bases, n_mesh, n_sm, smem_limit,
-                         walkers_per_block)
+                         walkers_per_block, kind)
     # ctypes rounds h to f32, as the JAX package's f32 arithmetic does
     err = getattr(lib, entry)(
         u.data_ptr(), coeffs.data_ptr(), table_t.data_ptr(), out.data_ptr(),
         B, n_bases, n_mesh, 1.0 / (n_mesh - 1), *schedule, p.group,
-        p.regime == 'shared', p.grid, p.smem_bytes, cuda_build.current_stream(coeffs.device.index))
+        p.regime == 'shared', p.grid, p.smem_bytes,
+        cuda_build.current_stream(coeffs.device.index))
     if err:
         raise RuntimeError("sampler kernel launch failed: "
                            + lib.sampler_error_string(err).decode())
@@ -179,7 +189,8 @@ def sample_squared_amplitude_cuda(evaluator: SplineEvaluator,
     """K1: coeffs (B, n_bases), u (B,) f32 on the card -> (B,) draws in
     [0, 1] from p ∝ (coeffs · T)²."""
     global launches
-    out = _launch('sampler_launch', evaluator, coeffs, u, n_bisect, n_newton,
+    out = _launch('sampler_launch', 'squared', evaluator, coeffs, u,
+                  n_bisect, n_newton,
                   walkers_per_block=walkers_per_block)
     launches += bool(out.numel())
     return out
@@ -193,7 +204,7 @@ def sample_linear_density_cuda(evaluator: SplineEvaluator,
     """K2: coeffs (B, n_bases), u (B,) f32 on the card -> (B,) draws in
     [0, 1] from p ∝ max(coeffs · T, 0)."""
     global launches_linear
-    out = _launch('sampler_linear_launch', evaluator, coeffs, u,
+    out = _launch('sampler_linear_launch', 'linear', evaluator, coeffs, u,
                   walkers_per_block=walkers_per_block)
     launches_linear += bool(out.numel())
     return out

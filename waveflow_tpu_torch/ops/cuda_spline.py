@@ -1,48 +1,89 @@
-"""Kernel K4: the table-lerp spline evaluation (csrc/spline_eval.cu) and its
-plain versions.
+"""Kernel K4: the table-lerp spline evaluation and its backward
+(csrc/spline_eval.cu), and their plain versions.
 
 Replaces waveflow_tpu/ops/pallas_spline.py::spline_eval_pallas
-(``_spline_eval_kernel``).  All versions compute
+(``_spline_eval_kernel``).  The forward versions compute
 
     y[n] = Σ_i coeffs[n, i] · lerp(table[:, i], x[n])
 
 with cell = clip(floor(x · n_cells), 0, n_cells − 1) and frac = x · n_cells −
-cell left unclipped (linear extension of the edge cells outside [0, 1]).
-``spline_eval`` runs the CUDA kernel on a CUDA tensor and the plain
-gather-lerp on a CPU tensor — never the plain version on the card.
-``onehot_matmul_eval`` is the gather-free formulation the TPU kernel uses
-(the JAX package's function of the same name); tests and chip_smoke.py
-hold the kernel against it, the port never calls it.
+cell left unclipped (linear extension of the edge cells outside [0, 1]); the
+backward versions compute, from the gradient g of y,
+
+    g_coeffs[n, i] = g[n] · lerp(T_d[:, i], x[n])
+    g_x[n]         = g[n] · Σ_i coeffs[n, i] · lerp(T_{d+1}[:, i], x[n])
+
+(the x-derivative of the order-d evaluation is the order-(d+1) evaluation,
+zero where that order is not tabulated).  ``spline_eval`` and
+``spline_eval_bwd`` run the CUDA kernels on a CUDA tensor — one launch each,
+the backward too is a kernel on the card — and the plain gather-lerp on a
+CPU tensor, never a plain version on the card.  ``onehot_matmul_eval`` is
+the gather-free formulation the TPU kernel uses (the JAX package's function
+of the same name); tests and chip_smoke.py hold the kernel against it, the
+port never calls it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from waveflow_tpu_torch.ops import cuda_build
 
-launches = 0          # kernel launches since the last reset (chip_smoke.py)
+# kernel launches since the last reset (chip_smoke.py)
+launches = 0          # the forward kernel
+launches_bwd = 0      # the backward kernel
 
-# the kernel's constants (csrc/spline_eval.cu sets its own grid from them)
+# the kernels' constants (csrc/spline_eval.cu checks a plan against its own)
 THREADS = 256
-LANES_PER_ROW = 8
+CHUNK = 4                     # consecutive bases a lane takes per load
+ROWS_IN_FLIGHT = (1, 2, 4)    # the instantiations the source holds
+# rows a lane group keeps in flight, forward and backward
+# (examples/kernel_sweep_torch.py)
+FORWARD_ROWS = 1
+BACKWARD_ROWS = 1
 
 # the C entry points of csrc/spline_eval.cu: (argtypes, restype)
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    'spline_eval_launch': ([_PTR] * 4 + [_INT] * 3 + [_PTR], _INT),
+    'spline_eval_launch': ([_PTR] * 4 + [_INT] * 6 + [_PTR], _INT),
+    'spline_eval_bwd_launch': ([_PTR] * 7 + [_INT] * 6 + [_PTR], _INT),
     'spline_eval_error_string': ([_INT], ctypes.c_char_p)}
 
 
-def plan(N: int) -> cuda_build.LaunchPlan:
-    """The launch of csrc/spline_eval.cu for N rows: 8 lanes gather and
-    reduce one row, 32 rows per 256-thread block, no shared memory."""
-    if N < 1:
-        raise ValueError(f"spline_eval kernel needs N >= 1, got {N}")
-    rows_per_block = THREADS // LANES_PER_ROW
-    return cuda_build.LaunchPlan(-(-N // rows_per_block), THREADS, 0, 'gather')
+def lanes_per_row(n_bases: int) -> int:
+    """The power of two (at most a warp) of lanes that share a row: one
+    chunk of 4 bases per lane where that fits."""
+    chunks = -(-n_bases // CHUNK)
+    return min(32, 1 << (chunks - 1).bit_length())
+
+
+@functools.lru_cache(maxsize=256)
+def plan(N: int, n_bases: int, backward: bool = False,
+         lanes: int | None = None,
+         rows: int | None = None) -> cuda_build.LaunchPlan:
+    """The launch of csrc/spline_eval.cu for N rows of n_bases coefficients,
+    forward or backward: ``group`` lanes share a row (4 consecutive bases
+    per lane and load), every lane group keeps ``rows`` rows in flight, a
+    256-thread block covers 256 / lanes * rows rows; no shared memory.
+    ``lanes`` and ``rows`` force the two (measurements only)."""
+    if N < 1 or n_bases < 1:
+        raise ValueError(f"spline_eval kernel needs N, n_bases >= 1, got "
+                         f"N={N}, n_bases={n_bases}")
+    if lanes is None:
+        lanes = lanes_per_row(n_bases)
+    if rows is None:
+        rows = BACKWARD_ROWS if backward else FORWARD_ROWS
+    if lanes < 1 or lanes > 32 or lanes & (lanes - 1):
+        raise ValueError(f"lanes must be a power of two up to 32, got {lanes}")
+    if rows not in ROWS_IN_FLIGHT:
+        raise ValueError(f"rows must be one of {ROWS_IN_FLIGHT}, got {rows}")
+    per_block = THREADS // lanes * rows
+    return cuda_build.LaunchPlan(-(-N // per_block), THREADS, 0,
+                                 'backward' if backward else 'forward',
+                                 lanes, rows)
 
 
 def lerp_basis(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -63,6 +104,20 @@ def spline_eval_plain(table: torch.Tensor, coeffs: torch.Tensor,
     return (lerp_basis(table, x) * coeffs).sum(-1)
 
 
+def spline_eval_bwd_plain(table_d: torch.Tensor,
+                          table_d1: torch.Tensor | None,
+                          coeffs: torch.Tensor, x: torch.Tensor,
+                          grad: torch.Tensor) -> tuple:
+    """Plain PyTorch backward of the order-d evaluation (gather-lerp):
+    (g_coeffs (..., n_bases), g_x (...,)) from the gradient ``grad`` (...,)
+    of its output; ``table_d1`` is the order-(d+1) table, None at the top
+    tabulated order, where g_x is zero."""
+    g_coeffs = grad[..., None] * lerp_basis(table_d, x)
+    if table_d1 is None:
+        return g_coeffs, torch.zeros_like(x)
+    return g_coeffs, grad * spline_eval_plain(table_d1, coeffs, x)
+
+
 def onehot_matmul_eval(table: torch.Tensor, coeffs: torch.Tensor,
                        x: torch.Tensor) -> torch.Tensor:
     """The same function as a dense lerp-weight matrix W (two non-zeros per
@@ -79,50 +134,130 @@ def onehot_matmul_eval(table: torch.Tensor, coeffs: torch.Tensor,
     return ((w @ table) * coeffs).sum(-1)
 
 
-def spline_eval_cuda(table: torch.Tensor, coeffs: torch.Tensor,
-                     x: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel: table (n_mesh, n_bases), coeffs (N, n_bases),
-    x (N,), all f32 on the card -> (N,)."""
-    global launches
-    if not (x.is_cuda and coeffs.device == x.device and table.device == x.device):
-        raise ValueError("spline_eval_cuda needs table, coeffs and x on one "
-                         "CUDA device")
-    if not (table.dtype == coeffs.dtype == x.dtype == torch.float32):
-        raise TypeError("spline_eval_cuda takes float32 tensors")
-    if (table.ndim != 2 or table.shape[0] < 2 or coeffs.ndim != 2
-            or coeffs.shape[1] != table.shape[1]
-            or x.shape != coeffs.shape[:1]):
+def _check(table: torch.Tensor, coeffs: torch.Tensor, x: torch.Tensor,
+           *same_as_x: torch.Tensor) -> None:
+    """Raise unless the operands are what the kernels take: f32, on one
+    CUDA device, table (n_mesh >= 2, n_bases), coeffs (..., n_bases), and x
+    and ``same_as_x`` of the coefficients' batch shape.  Reads no device
+    memory."""
+    if not x.is_cuda:
+        raise ValueError("the spline_eval kernels need their operands on "
+                         "one CUDA device")
+    for a in (table, coeffs, *same_as_x):
+        if a.device != x.device:
+            raise ValueError("the spline_eval kernels need their operands "
+                             "on one CUDA device")
+    for a in (table, coeffs, x, *same_as_x):
+        if a.dtype != torch.float32:
+            raise TypeError("the spline_eval kernels take float32 tensors")
+    if (table.ndim != 2 or table.shape[0] < 2 or coeffs.ndim < 1
+            or coeffs.shape[-1] != table.shape[1]
+            or any(a.shape != coeffs.shape[:-1] for a in (x, *same_as_x))):
         raise ValueError(
-            "expected table (n_mesh >= 2, n_bases), coeffs (N, n_bases) and "
-            f"x (N,), got {tuple(table.shape)}, {tuple(coeffs.shape)} and "
-            f"{tuple(x.shape)}")
-    table, coeffs, x = (a if a.is_contiguous() else a.contiguous()
-                        for a in (table, coeffs, x))
-    N = x.shape[0]
-    out = torch.empty(N, dtype=torch.float32, device=x.device)
+            "expected table (n_mesh >= 2, n_bases), coeffs (..., n_bases) "
+            f"and x (...,), got {tuple(table.shape)}, {tuple(coeffs.shape)} "
+            f"and {[tuple(a.shape) for a in (x, *same_as_x)]}")
+
+
+def _dense(a: torch.Tensor) -> torch.Tensor:
+    return a if a.is_contiguous() else a.contiguous()
+
+
+def _raise_on(err: int, lib: ctypes.CDLL, what: str) -> None:
+    if err:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           + lib.spline_eval_error_string(err).decode())
+
+
+def spline_eval_cuda(table: torch.Tensor, coeffs: torch.Tensor,
+                     x: torch.Tensor, lanes: int | None = None,
+                     rows: int | None = None) -> torch.Tensor:
+    """Launch the forward kernel: table (n_mesh, n_bases), coeffs
+    (..., n_bases), x (...,), all f32 on the card -> (...,).  The leading
+    dims are one batch to the kernel; nothing is reshaped or copied unless
+    an operand is not contiguous."""
+    global launches
+    _check(table, coeffs, x)
+    table, coeffs, x = _dense(table), _dense(coeffs), _dense(x)
+    N = x.numel()
+    out = torch.empty_like(x)
     if N == 0:
         return out
+    n_mesh, n_bases = table.shape
+    p = plan(N, n_bases, False, lanes, rows)
     lib = cuda_build.bind('spline_eval', SIGNATURES)
     err = lib.spline_eval_launch(
         table.data_ptr(), coeffs.data_ptr(), x.data_ptr(), out.data_ptr(),
-        N, table.shape[0], table.shape[1],
+        N, n_mesh, n_bases, p.group, p.rows, p.grid,
         cuda_build.current_stream(x.device.index))
     launches += 1
-    if err:
-        raise RuntimeError("spline_eval kernel launch failed: "
-                           + lib.spline_eval_error_string(err).decode())
+    _raise_on(err, lib, 'spline_eval')
     return out
+
+
+def spline_eval_bwd_cuda(table_d: torch.Tensor, table_d1: torch.Tensor | None,
+                         coeffs: torch.Tensor, x: torch.Tensor,
+                         grad: torch.Tensor, need_coeffs: bool = True,
+                         need_x: bool = True, lanes: int | None = None,
+                         rows: int | None = None) -> tuple:
+    """Launch the backward kernel, once for both gradients: (g_coeffs
+    (..., n_bases) or None, g_x (...,) or None) as ``need_coeffs`` and
+    ``need_x`` say.  ``table_d1`` is the order-(d+1) table, None at the top
+    tabulated order (g_x is then written as zeros)."""
+    global launches_bwd
+    _check(table_d, coeffs, x, grad)
+    if table_d1 is not None and (table_d1.shape != table_d.shape
+                                 or table_d1.device != x.device
+                                 or table_d1.dtype != torch.float32):
+        raise ValueError("the order-(d+1) table must match the order-d "
+                         f"table, got {tuple(table_d1.shape)}")
+    if not (need_coeffs or need_x):
+        return None, None
+    table_d, coeffs, x, grad = (_dense(table_d), _dense(coeffs), _dense(x),
+                                _dense(grad))
+    if table_d1 is not None:
+        table_d1 = _dense(table_d1)
+    N = x.numel()
+    n_mesh, n_bases = table_d.shape
+    # (two allocations: views of one buffer cost the host three times as much)
+    g_coeffs = torch.empty_like(coeffs) if need_coeffs else None
+    g_x = torch.empty_like(x) if need_x else None
+    if N == 0:
+        return g_coeffs, g_x
+    p = plan(N, n_bases, True, lanes, rows)
+    lib = cuda_build.bind('spline_eval', SIGNATURES)
+    err = lib.spline_eval_bwd_launch(
+        table_d.data_ptr(), None if table_d1 is None else table_d1.data_ptr(),
+        coeffs.data_ptr(), x.data_ptr(), grad.data_ptr(),
+        g_coeffs.data_ptr() if need_coeffs else None,
+        g_x.data_ptr() if need_x else None,
+        N, n_mesh, n_bases, p.group, p.rows, p.grid,
+        cuda_build.current_stream(x.device.index))
+    launches_bwd += 1
+    _raise_on(err, lib, 'spline_eval_bwd')
+    return g_coeffs, g_x
 
 
 def spline_eval(table: torch.Tensor, coeffs: torch.Tensor,
                 x: torch.Tensor) -> torch.Tensor:
-    """K4 on a CUDA tensor (leading dims flattened to one batch), its plain
-    gather-lerp on a CPU tensor: coeffs (..., n_bases), x (...,) -> (...,)."""
+    """K4 on a CUDA tensor, its plain gather-lerp on a CPU tensor: coeffs
+    (..., n_bases), x (...,) -> (...,)."""
+    if x.is_cuda:
+        return spline_eval_cuda(table, coeffs, x)
     if x.shape != coeffs.shape[:-1]:
         raise ValueError(f"x {tuple(x.shape)} does not match the batch of "
                          f"coeffs {tuple(coeffs.shape)}")
-    if x.is_cuda:
-        y = spline_eval_cuda(table, coeffs.reshape(-1, coeffs.shape[-1]),
-                             x.reshape(-1))
-        return y.reshape(x.shape)
     return spline_eval_plain(table, coeffs, x)
+
+
+def spline_eval_bwd(table_d: torch.Tensor, table_d1: torch.Tensor | None,
+                    coeffs: torch.Tensor, x: torch.Tensor,
+                    grad: torch.Tensor, need_coeffs: bool = True,
+                    need_x: bool = True) -> tuple:
+    """K4's backward kernel on a CUDA tensor, its plain version on a CPU
+    tensor: (g_coeffs or None, g_x or None)."""
+    if x.is_cuda:
+        return spline_eval_bwd_cuda(table_d, table_d1, coeffs, x, grad,
+                                    need_coeffs, need_x)
+    g_coeffs, g_x = spline_eval_bwd_plain(table_d, table_d1, coeffs, x, grad)
+    return (g_coeffs if need_coeffs else None, g_x if need_x else None)

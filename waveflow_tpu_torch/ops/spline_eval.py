@@ -4,12 +4,14 @@ Port of waveflow_tpu/ops/spline_eval.py.  The tables serve the ancestral
 samplers (``density_on_mesh``, and the transposed table that kernels K1 and
 K2 read), the exact table inverse of the IMADE layers (``density_on_mesh``
 / ``at_nodes``), the boundary projector (``left`` / ``right``) and the
-table-lerp evaluation ``__call__`` (kernel K4 on the card), which the
-density model's M-spline prior uses.  ``__call__`` differentiates as the
-JAX custom-JVP chain does: the x-derivative of the order-d evaluation is
-the order-(d+1) table evaluation, not the slope of the lerp.  The fused
-``pair`` chain serves only IMADE's ``eval_backend='table'`` and is not
-ported.
+table-lerp evaluation ``__call__``, which the density model's M-spline
+prior uses.  ``__call__`` differentiates as the JAX custom-JVP chain does:
+the x-derivative of the order-d evaluation is the order-(d+1) table
+evaluation, not the slope of the lerp.  On the card both directions are
+kernel K4 (csrc/spline_eval.cu): one launch for the value, and one launch
+of its fused backward kernel for both gradients — no plain PyTorch
+arithmetic runs on a CUDA tensor.  The fused ``pair`` chain serves only
+IMADE's ``eval_backend='table'`` and is not ported.
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ import numpy as np
 import torch
 
 from waveflow_tpu_torch import resolve_device
-from waveflow_tpu_torch.ops.cuda_spline import lerp_basis, spline_eval
+from waveflow_tpu_torch.ops.cuda_spline import (lerp_basis, spline_eval,
+                                                spline_eval_bwd)
 from waveflow_tpu_torch.ops.spline_tables import SplineTables
 
 
@@ -26,7 +29,9 @@ class _TableEval(torch.autograd.Function):
     """Σ_i coeffs_i T_i^{(d)}(x) by table lerp, with the derivative chain of
     the JAX evaluator: d/dx is the order-(d+1) evaluation (zero at the top
     tabulated order), d/dcoeffs the lerped basis.  First-order reverse
-    mode, which is what likelihood training needs."""
+    mode, which is what likelihood training needs.  On CUDA tensors the
+    forward is one launch of K4 and the backward one launch of its backward
+    kernel, whichever gradients are asked for."""
 
     @staticmethod
     def forward(ctx, coeffs, x, tables, d):
@@ -39,14 +44,10 @@ class _TableEval(torch.autograd.Function):
     def backward(ctx, grad):
         coeffs, x = ctx.saved_tensors
         tables, d = ctx.tables, ctx.d
-        g_coeffs = g_x = None
-        if ctx.needs_input_grad[0]:
-            g_coeffs = grad[..., None] * lerp_basis(tables[d], x)
-        if ctx.needs_input_grad[1]:
-            if d + 1 < tables.shape[0]:
-                g_x = grad * spline_eval(tables[d + 1], coeffs, x)
-            else:
-                g_x = torch.zeros_like(x)
+        table_d1 = tables[d + 1] if d + 1 < tables.shape[0] else None
+        g_coeffs, g_x = spline_eval_bwd(
+            tables[d], table_d1, coeffs, x, grad,
+            ctx.needs_input_grad[0], ctx.needs_input_grad[1])
         return g_coeffs, g_x, None, None
 
 
@@ -78,7 +79,7 @@ class SplineEvaluator:
         coeffs: (..., n_bases), x: (...,) -> (...,).  The cell index is
         clipped to the table, the in-cell fraction is not: outside [0, 1]
         the edge cell extends linearly.  On a CUDA tensor the evaluation
-        (and the order-(d+1) evaluation of its backward) is kernel K4."""
+        is kernel K4 and its backward K4's backward kernel."""
         return _TableEval.apply(coeffs, x, self.tables, d)
 
     def at_nodes(self, coeffs: torch.Tensor, idx: torch.Tensor,
