@@ -436,8 +436,7 @@ def check_spline_eval(torch, model, gen):
                      + (1 + chains) * n_mesh * n_b),
                 N * (3 * n_b + (4 * n_b + 1) * chains + 6))
             rows_b[(d, N)] = dict(
-                max_abs_err=max(err_c / tol_c, err_x / tol_x) * 2e-5,
-                g_coeffs_abs_err=err_c, g_x_abs_err=err_x, ms=k_ms,
+                max_abs_err=max(err_c, err_x), g_coeffs_abs_err=err_c, g_x_abs_err=err_x, ms=k_ms,
                 device_ms=d_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                 plan=cuda_spline.plan(N, n_b, True))
             print(f"K4 spline_eval_bwd d={d} N={N}: max|d g_coeffs| "
@@ -467,7 +466,7 @@ def check_spline_eval(torch, model, gen):
                           f"forward {what}"),
                     close(gc, gc_p, f"backward {what} g_coeffs"),
                     close(gx, gx_p, f"backward {what} g_x"))
-            worst[(e.n_bases, N)] = max(err / tol for err, tol in errs) * 2e-5
+            worst[(e.n_bases, N)] = (errs[0][0], max(errs[1][0], errs[2][0]))
             # views one float off a 16-byte boundary take the scalar path
             off = [torch.empty(a.numel() + 1, device='cuda')[1:].view(a.shape)
                    .copy_(a) for a in (t0, t1, c)]
@@ -488,11 +487,12 @@ def check_spline_eval(torch, model, gen):
                     and torch.equal(only_x[1], gx)):
                 fail(f"K4 backward with one gradient left out differs, {what}")
     print("K4 forward + backward at ragged N, on aligned and unaligned views "
-          "(equal to the bit), either gradient alone; worst error, scaled to "
-          "an atol of 2e-5: "
-          + ", ".join(f"n_bases {k[0]} N={k[1]}: {v:.2e}"
+          "(equal to the bit), either gradient alone; max|dy| / max|d "
+          "gradient|, each inside 2e-5 of its largest value: "
+          + ", ".join(f"n_bases {k[0]} N={k[1]}: {v[0]:.2e} / {v[1]:.2e}"
                       for k, v in worst.items()), flush=True)
-    rows_b['ragged'] = dict(max_abs_err=max(worst.values()))
+    rows['ragged'] = dict(max_abs_err=max(v[0] for v in worst.values()))
+    rows_b['ragged'] = dict(max_abs_err=max(v[1] for v in worst.values()))
 
     # the evaluator's Function: value and both gradients, card against CPU
     tabs = get_tables('M', DENSITY['prior_spline_degree'],
@@ -863,7 +863,7 @@ def main() -> int:
             p = rows[shape]['plan']
             parts.append(f"{shape}: grid {p.grid} x {p.threads} threads, "
                          f"{p.smem_bytes} B dynamic shared, regime {p.regime}, "
-                         f"group {p.group}, rows {p.rows}")
+                         f"group {p.group}")
         print(f"launch plan {name}: " + "; ".join(parts), flush=True)
 
     # ---- 4. checkpoint ----------------------------------------------------

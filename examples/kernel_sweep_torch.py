@@ -5,28 +5,22 @@ of site counts R — where the wrapper's switch STAGED_MIN_SITES belongs.
 K1 / K2 (csrc/sampler.cu): every walkers-per-group variant over a range of
 batches B — which group size the wrapper's plan should take where
 (GROUP_COST, per kind).
-K4 (csrc/spline_eval.cu): forward and backward over N, lanes per row and
-rows in flight — where FORWARD_ROWS and BACKWARD_ROWS come from.
+K4 (csrc/spline_eval.cu): forward and backward over N and lanes per row —
+where lanes_per_row comes from.
 Each point is first held against the kernel's plain version (the tolerances
 of chip_smoke.py), then timed twice: back-to-back calls by CUDA events (host
 path included) and the kernel alone by the profiler's device time.
 
-Two more parts, timed only:
+One more part, timed only:
   host    the host path of K4's wrappers in pieces (allocation, ctypes
-          call, stream getter, checks, Function.apply), host clock per call;
-  ablate  K2 at the density path's shape with parts of the kernel taken out
-          (cell work, mesh loop, loads, barriers): the source is patched in
-          memory, built beside the real library and timed by CUDA events —
-          the draws of an ablated kernel are wrong by design and are not
-          checked.
+          call, stream getter, checks, Function.apply), host clock per call.
 
 Usage (needs a CUDA card and nvcc; a few seconds after the build):
   python examples/kernel_sweep_torch.py [--check-only] [--out FILE.json]
-      [--only jet,sampler,sampler_linear,spline,host,ablate]
+      [--only jet,sampler,sampler_linear,spline,host]
 """
 
 import argparse
-import ctypes
 import json
 import subprocess
 import sys
@@ -138,7 +132,7 @@ def density_prior(gen, N):
 
 def sweep_spline(gen, timed):
     """K4 forward (order 0) and backward (order 0 with the order-1 table)
-    over N, lanes per row and rows in flight."""
+    over N and lanes per row."""
     rows_out = []
     for N in (512, 40000, 400000, 4000000):
         ev, c, x, g = density_prior(gen, N)
@@ -149,34 +143,31 @@ def sweep_spline(gen, timed):
         tol_gc = 2e-5 * max(1.0, ref_gc.abs().max().item())
         tol_gx = 2e-5 * max(1.0, ref_gx.abs().max().item())
         for lanes in (2, 4, 8):
-            for rows in cuda_spline.ROWS_IN_FLIGHT:
-                def fwd():
-                    return cuda_spline.spline_eval_cuda(t0, c, x, lanes, rows)
+            def fwd():
+                return cuda_spline.spline_eval_cuda(t0, c, x, lanes)
 
-                def bwd():
-                    return cuda_spline.spline_eval_bwd_cuda(
-                        t0, t1, c, x, g, lanes=lanes, rows=rows)
-                y, (gc, gx) = fwd(), bwd()
-                torch.cuda.synchronize()
-                errs = ((y - ref).abs().max().item(),
-                        (gc - ref_gc).abs().max().item(),
-                        (gx - ref_gx).abs().max().item())
-                if not (errs[0] <= tol and errs[1] <= tol_gc
-                        and errs[2] <= tol_gx):
-                    fail(f"K4 lanes {lanes} rows {rows} N={N} disagrees: "
-                         f"{errs}")
-                for name, run, err in (('spline_eval', fwd, errs[0]),
-                                       ('spline_eval_bwd', bwd,
-                                        max(errs[1:]))):
-                    row = dict(kernel=name, N=N, lanes=lanes, rows=rows,
-                               grid=cuda_spline.plan(
-                                   N, ev.n_bases, name.endswith('bwd'),
-                                   lanes, rows).grid, max_abs_err=err)
-                    if timed:
-                        row.update(ms=cuda_ms(torch, run),
-                                   device_ms=device_ms(torch, run))
-                    rows_out.append(row)
-                    print(json.dumps(row), flush=True)
+            def bwd():
+                return cuda_spline.spline_eval_bwd_cuda(t0, t1, c, x, g,
+                                                        lanes=lanes)
+            y, (gc, gx) = fwd(), bwd()
+            torch.cuda.synchronize()
+            errs = ((y - ref).abs().max().item(),
+                    (gc - ref_gc).abs().max().item(),
+                    (gx - ref_gx).abs().max().item())
+            if not (errs[0] <= tol and errs[1] <= tol_gc
+                    and errs[2] <= tol_gx):
+                fail(f"K4 lanes {lanes} N={N} disagrees: {errs}")
+            for name, run, err in (('spline_eval', fwd, errs[0]),
+                                   ('spline_eval_bwd', bwd, max(errs[1:]))):
+                row = dict(kernel=name, N=N, lanes=lanes,
+                           grid=cuda_spline.plan(
+                               N, ev.n_bases, name.endswith('bwd'),
+                               lanes).grid, max_abs_err=err)
+                if timed:
+                    row.update(ms=cuda_ms(torch, run),
+                               device_ms=device_ms(torch, run))
+                rows_out.append(row)
+                print(json.dumps(row), flush=True)
     return rows_out
 
 
@@ -224,14 +215,14 @@ def host_path_pieces(gen):
         'torch.cuda.current_stream().cuda_stream':
             lambda: torch.cuda.current_stream(0).cuda_stream,
         'argument checks (_check)': lambda: cuda_spline._check(t0, c, x),
-        'plan (cached)': lambda: cuda_spline.plan(40000, 16, False, None, None),
+        'plan (cached)': lambda: cuda_spline.plan(40000, 16, False, None),
         'ctypes call, forward kernel': lambda: lib.spline_eval_launch(
             t0.data_ptr(), c.data_ptr(), x.data_ptr(), out.data_ptr(), 40000,
-            2000, 16, p.group, p.rows, p.grid, stream),
+            2000, 16, p.group, p.grid, stream),
         'ctypes call, backward kernel': lambda: lib.spline_eval_bwd_launch(
             t0.data_ptr(), t1.data_ptr(), c.data_ptr(), x.data_ptr(),
             g.data_ptr(), g_c.data_ptr(), g_x.data_ptr(), 40000,
-            2000, 16, pb.group, pb.rows, pb.grid, stream),
+            2000, 16, pb.group, pb.grid, stream),
         'reshape(-1, n_bases) + reshape(-1) + reshape back': lambda: (
             c.reshape(-1, 16), x.reshape(-1), out.reshape(x.shape)),
         'spline_eval_cuda (whole forward wrapper)':
@@ -249,143 +240,6 @@ def host_path_pieces(gen):
                    host_us=host_us(fn, n))
         rows.append(row)
         print(json.dumps(row), flush=True)
-    return rows
-
-
-# K2 with parts taken out: (name, [(text in csrc/sampler.cu, replacement)]).
-# Every text must occur exactly once.  The draws of these builds are wrong;
-# only their device time is read.
-_KEEP_PSI = '''    {
-      // ABLATED: no masses, scan or locate; ψ is kept alive through the ring
-      float keep = 0.f;
-#pragma unroll
-      for (int w = 0; w < W; ++w)
-#pragma unroll
-        for (int i = 0; i <= CPT; ++i) keep += psi[w][i];
-      if (c0 == 0) {
-#pragma unroll
-        for (int w = 0; w < W; ++w) {
-          ring_j[slot + w0 + w] = 0;
-          ring_tgt[slot + w0 + w] = keep;
-          ring_prev[slot + w0 + w] = 0.f;
-        }
-      }
-    }
-'''
-ABLATIONS = (
-    ('no cell work (mesh loop, staging and solves stay)',
-     [(('    // masses of the owned cells, as running (inclusive) in-thread '
-        'sums;'), '@@CUT@@'),
-      ('    slot += G;\n', '@@END@@    slot += G;\n')]),
-    ('mesh loop of one basis (cell work stays)',
-     [('    for (int j = 0; j < n_bases; ++j) {\n      float na[4]',
-       '    for (int j = 0; j < 1; ++j) {\n      float na[4]')]),
-    ('mesh loop without its loads (registers only)',
-     [('        const float4 va = *reinterpret_cast<const float4*>(pa + j * '
-       'n_mesh);',
-       '        const float4 va = make_float4(h * j, h, -h, h + j);'),
-      ('        const float4 vb = *reinterpret_cast<const float4*>(pb + j * '
-       'n_mesh);',
-       '        const float4 vb = make_float4(h, h * j, h - j, -h);'),
-      ('        const float4 v = *reinterpret_cast<const float4*>(pc + j * G);',
-       '        const float4 v = make_float4(h, j * h, 1.f - h * j, 0.5f);')]),
-    ('cell work without the unswap and the clamp of psi',
-     [('        const float v = swap ? acc[w][i ^ 4] : acc[w][i];\n'
-       '        psi[w][i] = KIND == LINEAR ? fmaxf(v, 0.f) : v;',
-       '        psi[w][i] = acc[w][i];')]),
-    ('cell work without the warp scan of the thread sums',
-     [('        const float v = __shfl_up_sync(0xffffffffu, incl[w], o);\n'
-       '        if (lane >= o) incl[w] += v;',
-       '        if (lane > 32 + o) incl[w] += 1.f;')]),
-    ('cell work with one compare per walker in the locate',
-     [('      int n = 0;\n#pragma unroll\n'
-       '      for (int i = 0; i < CPT; ++i)\n'
-       '        n += ((all_cells || c0 + i < n_cells) && '
-       'cdf[w][i] <= target[w]);\n      cnt[w] = n;',
-       '      cnt[w] = cdf[w][CPT - 1] <= target[w];')]),
-    ('the three barriers of the cell work removed',
-     [('    __syncthreads();\n    if (lane == 31) {',
-       '    __syncwarp();\n    if (lane == 31) {'),
-      ('    __syncthreads();\n    const int last_warp',
-       '    __syncwarp();\n    const int last_warp'),
-      ('    __syncthreads();\n\n    // j, the target and',
-       '    __syncwarp();\n\n    // j, the target and')]),
-)
-
-
-def _patched(source, edits):
-    for old, new in edits:
-        if source.count(old) != 1:
-            fail(f"ablation anchor occurs {source.count(old)} times: {old!r}")
-        source = source.replace(old, new)
-    if '@@CUT@@' in source:
-        head, rest = source.split('@@CUT@@')
-        _, tail = rest.split('@@END@@')
-        source = head + _KEEP_PSI + tail
-    return source
-
-
-def ablate_sampler_linear(gen):
-    """Time of K2 at B = 20,000 and 16 bases for each build in ABLATIONS,
-    by CUDA events over 200 back-to-back launches (at this size the kernel
-    is several times its launch path, so this is its device time; the
-    profiler's clock is not used here, see chip_smoke.device_ms).  Every
-    build is read between two readings of the real library (``real_ms``:
-    their mean)."""
-    tabs = ops.get_tables('M', DENSITY['prior_spline_degree'],
-                          DENSITY['prior_n_knots'],
-                          n_mesh=DENSITY['n_mesh_points'])
-    ev = ops.make_evaluator(tabs, device='cuda')
-    B = 20000
-    c = torch.rand((B, ev.n_bases), generator=gen, device='cuda')
-    c = c / c.sum(-1, keepdim=True)
-    u = torch.rand((B,), generator=gen, device='cuda')
-    source = (cuda_build.CSRC_DIR / 'sampler.cu').read_text()
-    real = cuda_build.bind('sampler', cuda_sampler.SIGNATURES)
-
-    def read(lib):
-        cuda_build._BOUND['sampler'] = lib
-        cuda_build._LIMITS.pop(('sampler_init', 0), None)
-        out = {}
-        for G in cuda_sampler.WALKERS_PER_BLOCK:
-            def run():
-                return cuda_sampler.sample_linear_density_cuda(
-                    ev, c, u, walkers_per_block=G)
-            out[G] = cuda_ms(torch, run, reps=200, warmup=20)
-        return out
-
-    rows = []
-    try:
-        before = read(real)
-        for n, (name, edits) in enumerate(ABLATIONS):
-            # a path of its own: a library opened twice under one name is
-            # the first one
-            src = cuda_build.BUILD_DIR / f'ablate_sampler_{n}.cu'
-            src.write_text(_patched(source, edits))
-            lib_path = src.with_suffix('.so')
-            done = subprocess.run(
-                [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, '-I',
-                 str(cuda_build.CSRC_DIR), '-o', str(lib_path), str(src)],
-                capture_output=True, text=True)
-            if done.returncode:
-                fail(f"ablation {name!r} does not build:\n{done.stdout}"
-                     f"{done.stderr}")
-            lib = ctypes.CDLL(str(lib_path))
-            for entry, (args, res) in cuda_sampler.SIGNATURES.items():
-                fn = getattr(lib, entry)
-                fn.argtypes, fn.restype = list(args), res
-            got = read(lib)
-            after = read(real)
-            for G, ms in got.items():
-                row = dict(kernel='sampler_linear ablation', build=name, B=B,
-                           group=G, ms=ms,
-                           real_ms=0.5 * (before[G] + after[G]))
-                rows.append(row)
-                print(json.dumps(row), flush=True)
-            before = after
-    finally:
-        cuda_build._BOUND['sampler'] = real
-        cuda_build._LIMITS.pop(('sampler_init', 0), None)
     return rows
 
 
@@ -416,8 +270,7 @@ def main():
              'sampler': lambda: sweep_sampler(gen, timed, 'squared'),
              'sampler_linear': lambda: sweep_sampler(gen, timed, 'linear'),
              'spline': lambda: sweep_spline(gen, timed),
-             'host': lambda: host_path_pieces(gen),
-             'ablate': lambda: ablate_sampler_linear(gen)}
+             'host': lambda: host_path_pieces(gen)}
     rows = []
     for part in args.only.split(','):
         if part not in parts:

@@ -160,21 +160,19 @@ def test_jet_plan_too_large_for_staging_stays_direct():
 def test_spline_plan_covers(N, n_bases, backward):
     """K4, forward and backward: a power of two of lanes that divides the
     warp shares a row, 4 bases per lane and load where they fit; a block
-    covers 256 / lanes * rows rows; the grid covers N and never exceeds the
+    covers 256 / lanes rows; the grid covers N and never exceeds the
     work; no shared memory."""
     p = cuda_spline.plan(N, n_bases, backward)
-    lanes, rows = p.group, p.rows
+    lanes = p.group
     assert (p.threads, p.smem_bytes) == (cuda_spline.THREADS, 0)
     assert p.smem_bytes <= SMEM_LIMIT
     assert p.regime == ('backward' if backward else 'forward')
-    assert 32 % lanes == 0 and rows in cuda_spline.ROWS_IN_FLIGHT
-    assert rows == (cuda_spline.BACKWARD_ROWS if backward
-                    else cuda_spline.FORWARD_ROWS)
+    assert 32 % lanes == 0
     chunks = -(-n_bases // cuda_spline.CHUNK)
     assert lanes == cuda_spline.lanes_per_row(n_bases)
     assert lanes >= chunks or lanes == 32
     assert lanes < 2 * chunks or lanes == 1
-    per_block = cuda_spline.THREADS // lanes * rows
+    per_block = cuda_spline.THREADS // lanes
     assert p.grid >= 1 and (p.grid - 1) * per_block < N <= p.grid * per_block
 
 
@@ -187,15 +185,15 @@ def test_spline_lanes_per_row(n_bases, lanes):
 
 
 @pytest.mark.parametrize('lanes', [1, 2, 4, 8, 16, 32])
-@pytest.mark.parametrize('rows', [1, 2, 4])
-def test_spline_plan_forced(lanes, rows):
-    """Forced lanes and rows (measurements) are taken as given and still
-    cover the work; what the source does not hold is refused."""
+@pytest.mark.parametrize('N', [1, 513, 40_001])
+def test_spline_plan_forced(lanes, N):
+    """Forced lanes per row (measurements) are taken as given and still
+    cover the work."""
     for backward in (False, True):
-        p = cuda_spline.plan(40_001, 16, backward, lanes, rows)
-        per_block = 256 // lanes * rows
-        assert (p.group, p.rows) == (lanes, rows)
-        assert (p.grid - 1) * per_block < 40_001 <= p.grid * per_block
+        p = cuda_spline.plan(N, 16, backward, lanes)
+        per_block = 256 // lanes
+        assert p.group == lanes
+        assert (p.grid - 1) * per_block < N <= p.grid * per_block
 
 
 def test_spline_plan_refuses():
@@ -205,8 +203,6 @@ def test_spline_plan_refuses():
     for lanes in (0, 3, 64):
         with pytest.raises(ValueError, match='lanes'):
             cuda_spline.plan(512, 16, False, lanes)
-    with pytest.raises(ValueError, match='rows'):
-        cuda_spline.plan(512, 16, False, None, 3)
 
 
 LINEAR_TABLES = [(16, 2000), (12, 300), (7, 2), (20, 2049), (28, 2000)]
@@ -364,10 +360,6 @@ def test_plan_constants_match_the_sources():
     assert const(sampler, 'RING') == cuda_sampler.RING
     assert const(spline, 'THREADS') == cuda_spline.THREADS
     assert const(spline, 'CHUNK') == cuda_spline.CHUNK
-    # the rows in flight the launcher switches over, and no other
-    held = {int(r) for r in re.findall(r'case \d+: LAUNCH\((\d), ', spline)}
-    held |= {int(r) for r in re.findall(r'default: LAUNCH\((\d), ', spline)}
-    assert held == set(cuda_spline.ROWS_IN_FLIGHT)
     # the group sizes the sampler's launcher switches over
     cases = {int(g) for g in re.findall(r'case (\d+):\n', sampler)}
     assert cases == set(cuda_sampler.WALKERS_PER_BLOCK)

@@ -87,16 +87,16 @@
 // (no gain with two, 4% with three, which spill at 80 registers); a
 // warp-uniform shortcut in the locate (5% slower: the vote and the second
 // pass cost more than the compares they save); three halves in step (no
-// gain).  What stayed, behind the kind, with the draws unchanged to the bit:
-//   * the counts of the locate are reduced by one warp-wide integer
-//     reduction (redux) instead of five shuffle steps;
-//   * with two halves, the warps' sums are added in order once per warp by
-//     a chain of shuffles over lanes (LANES_ADD below) instead of 14
-//     additions per walker in every thread.
-// Together 3% (0.0913 -> 0.0888 ms by CUDA events on an NVIDIA H100 80GB
-// HBM3 at 700.00 W; PERF.md names the runs).  The operations bound (0.0221
-// ms) counts 5 operations per cell where the kernel executes ~20, and
-// getting nearer needs another algorithm for the cell work, not a schedule.
+// gain); the warps' sums added in order once per warp by a chain of shuffles
+// over lanes instead of 14 additions per walker in every thread (2% with
+// 16 warps, 4% slower with 8: not kept).  What stayed, for both kinds and
+// with the draws unchanged to the bit: the counts of the locate are reduced
+// by one warp-wide integer reduction (redux) instead of five shuffle steps
+// (on an NVIDIA H100 80GB HBM3 at 700.00 W by CUDA events: LINEAR at 20,000
+// walkers 0.0930 -> 0.0897 ms, SQUARED at 65,536 0.4014 -> 0.3940 ms;
+// PERF.md names the runs).  The operations bound (0.0221 ms) counts 5 operations per cell
+// where the kernel executes ~20, and getting nearer needs another algorithm
+// for the cell work, not a schedule.
 // Not here: tensor cores for the ψ product.  The path needs f32 accuracy
 // (TF32 keeps ~3 digits); a split-TF32 wgmma version is worth a look only
 // once this SIMT kernel sits at its FMA bound.
@@ -428,48 +428,22 @@ sampler_kernel(const float* __restrict__ u, const float* __restrict__ coeffs,
     const int last_warp = last / (32 * CPT);
     int cnt[W];
     float target[W];
-    // The warps' sums are added in order, up to this warp (warp_off) and up
-    // to the last cell's warp (last_off).  LANES_ADD: the order-keeping sums
-    // of all W walkers are made once per warp — lane w * WARPS + k holds the
-    // sum of walker w's warp k, and a chain of shuffles adds them in order,
-    // pre = ws_0 + ... + ws_k — instead of 2 * 7 additions per walker in
-    // every thread.  The chain is 7 shuffle latencies long, which 16 warps
-    // hide and 8 do not (4% slower there), so one half keeps the additions.
-    constexpr bool LANES_ADD = KIND == LINEAR && HALVES > 1;
-    float pre = 0.f;
-    if constexpr (LANES_ADD) {
-      static_assert(W * WARPS <= 32, "one lane per walker and warp");
-      const float own = lane < W * WARPS ? wsum_s[w0 * WARPS + lane] : 0.f;
-      pre = own;
-#pragma unroll
-      for (int k = 1; k < WARPS - 1; ++k) {
-        const float up = __shfl_up_sync(0xffffffffu, pre, 1);
-        if ((lane & (WARPS - 1)) == k) pre = up + own;
-      }
-    }
 #pragma unroll
     for (int w = 0; w < W; ++w) {
+      // the warps' sums, added in order up to this warp and up to the last
+      // cell's warp
+      float ws[WARPS];
+#pragma unroll
+      for (int q = 0; q < WARPS / 4; ++q) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            wsum_s + (w0 + w) * WARPS + 4 * q);
+        ws[4 * q] = v.x; ws[4 * q + 1] = v.y; ws[4 * q + 2] = v.z; ws[4 * q + 3] = v.w;
+      }
       float warp_off = 0.f, last_off = 0.f;
-      if constexpr (LANES_ADD) {
-        const float to_warp = __shfl_sync(0xffffffffu, pre,
-                                          w * WARPS + max(warp, 1) - 1);
-        const float to_last = __shfl_sync(0xffffffffu, pre,
-                                          w * WARPS + max(last_warp, 1) - 1);
-        if (warp > 0) warp_off = to_warp;
-        if (last_warp > 0) last_off = to_last;
-      } else {
-        float ws[WARPS];
 #pragma unroll
-        for (int q = 0; q < WARPS / 4; ++q) {
-          const float4 v = *reinterpret_cast<const float4*>(
-              wsum_s + (w0 + w) * WARPS + 4 * q);
-          ws[4 * q] = v.x; ws[4 * q + 1] = v.y; ws[4 * q + 2] = v.z; ws[4 * q + 3] = v.w;
-        }
-#pragma unroll
-        for (int k = 0; k < WARPS - 1; ++k) {
-          if (k < warp) warp_off += ws[k];
-          if (k < last_warp) last_off += ws[k];
-        }
+      for (int k = 0; k < WARPS - 1; ++k) {
+        if (k < warp) warp_off += ws[k];
+        if (k < last_warp) last_off += ws[k];
       }
       excl[w] += warp_off;
 #pragma unroll
@@ -484,19 +458,10 @@ sampler_kernel(const float* __restrict__ u, const float* __restrict__ coeffs,
         n += ((all_cells || c0 + i < n_cells) && cdf[w][i] <= target[w]);
       cnt[w] = n;
     }
-    if constexpr (KIND == LINEAR) {
-      // one warp-wide integer reduction each (the same sum)
+    // the warp's count: one warp-wide integer reduction per walker
 #pragma unroll
-      for (int w = 0; w < W; ++w)
-        cnt[w] = __reduce_add_sync(0xffffffffu, cnt[w]);
-    } else {
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-#pragma unroll
-        for (int w = 0; w < W; ++w)
-          cnt[w] += __shfl_down_sync(0xffffffffu, cnt[w], o);
-      }
-    }
+    for (int w = 0; w < W; ++w)
+      cnt[w] = __reduce_add_sync(0xffffffffu, cnt[w]);
     if (lane == 0) {
 #pragma unroll
       for (int w = 0; w < W; ++w) wcnt_s[(w0 + w) * WARPS + warp] = cnt[w];

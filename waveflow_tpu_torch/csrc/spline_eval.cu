@@ -35,15 +35,12 @@
 //     either and the same chunks go through scalar loads (the launcher checks
 //     and picks; the assignment of bases to lanes, and so the result to the
 //     bit, is the same);
-//   * a lane group can keep ROWS rows in flight (all their x read and their
-//     cells located first, then all their loads started chunk by chunk before
-//     the first is used), so that one row's x -> table dependency overlaps
-//     the loads of the others.  Measured on an NVIDIA H100 80GB HBM3 at
-//     700.00 W, it does not pay: at every N from 512 to 4,000,000 one row
-//     per group is as fast or faster than 2 or 4, forward and backward
-//     (PERF.md names the runs) — twice the warps hide the chain better
-//     than twice the loads per warp — so the plan takes ROWS = 1 and the
-//     other instantiations stay for the sweep;
+//   * one row per lane group.  Keeping 2 or 4 rows in flight per group (all
+//     their x read and their cells located first, then all their loads
+//     started before the first is used) was measured on an NVIDIA H100 80GB
+//     HBM3 at 700.00 W and was slower at every N from 512 to 4,000,000,
+//     forward and backward (PERF.md names the runs): twice the warps hide
+//     the chain better than twice the loads per warp, so it is not here;
 //   * coefficients and gradients are read once and outputs written once:
 //     streaming loads and stores (`__ldcs` / `__stcs`), so they do not push
 //     the tables out of L1; the tables go through the read-only path;
@@ -62,7 +59,7 @@
 //     of persistent blocks by one bulk copy was 2.3 to 2.5 times slower at
 //     every N from 40,000 to 4,000,000 (PERF.md); the 128 KB live in L1/L2
 //     just as well and the fill is paid by every block.
-// The launch plan (lanes, rows, grid) comes from ops/cuda_spline.py::plan and
+// The launch plan (lanes, grid) comes from ops/cuda_spline.py::plan and
 // is checked here against the kernel's own constants.
 
 #include <cuda_runtime.h>
@@ -119,36 +116,24 @@ __device__ __forceinline__ float lane_sum(float v, int lanes) {
   return v;
 }
 
-// The rows of one lane group: row r of the group is first + r * groups, so
-// that at a fixed r a warp's groups read neighbouring rows.  Rows past N
-// are computed on row N - 1 and not written.
-template <int ROWS>
-struct Rows {
-  long long row[ROWS];
-  long long at[ROWS];      // the row that is read: min(row, N - 1)
-  float frac[ROWS];
-  int cell[ROWS];
+// The row of this thread's lane group, its cell and fraction.  A group past
+// N computes on row N - 1 and writes nothing.
+struct Row {
+  long long row;
+  long long at;      // the row that is read: min(row, N - 1)
+  float frac;
+  int cell;
 
-  __device__ __forceinline__ Rows(const float* __restrict__ x, int N,
-                                  int n_cells, int lanes_log2) {
-    const int groups = THREADS >> lanes_log2;
-    const long long first =
-        static_cast<long long>(blockIdx.x) * (groups * ROWS) +
-        (threadIdx.x >> lanes_log2);
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      row[r] = first + r * groups;
-      at[r] = row[r] < N ? row[r] : N - 1;
-    }
-    float xv[ROWS];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) xv[r] = __ldcs(x + at[r]);
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) frac[r] = locate(xv[r], n_cells, &cell[r]);
+  __device__ __forceinline__ Row(const float* __restrict__ x, int N,
+                                 int n_cells, int lanes_log2) {
+    row = static_cast<long long>(blockIdx.x) * (THREADS >> lanes_log2) +
+          (threadIdx.x >> lanes_log2);
+    at = row < N ? row : N - 1;
+    frac = locate(__ldcs(x + at), n_cells, &cell);
   }
 };
 
-template <int ROWS, bool VEC>
+template <bool VEC>
 __global__ void __launch_bounds__(THREADS)
 spline_eval_kernel(const float* __restrict__ table,
                    const float* __restrict__ coeffs,
@@ -156,37 +141,25 @@ spline_eval_kernel(const float* __restrict__ table,
                    int N, int n_cells, int n_bases, int lanes_log2) {
   const int lanes = 1 << lanes_log2;
   const int sub = threadIdx.x & (lanes - 1);
-  const Rows<ROWS> rows(x, N, n_cells, lanes_log2);
-  float acc[ROWS];
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) acc[r] = 0.f;
+  const Row r(x, N, n_cells, lanes_log2);
+  const float* span = table + static_cast<size_t>(r.cell) * n_bases;
+  float acc = 0.f;
   for (int i = CHUNK * sub; i < n_bases; i += CHUNK * lanes) {
-    float c[ROWS][CHUNK], y_l[ROWS][CHUNK], y_r[ROWS][CHUNK];
+    float c[CHUNK], y_l[CHUNK], y_r[CHUNK];
+    load_table<VEC>(span, i, n_bases, y_l);
+    load_table<VEC>(span + n_bases, i, n_bases, y_r);
+    load_once<VEC>(coeffs + r.at * n_bases, i, n_bases, c);
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const float* span = table + static_cast<size_t>(rows.cell[r]) * n_bases;
-      load_table<VEC>(span, i, n_bases, y_l[r]);
-      load_table<VEC>(span + n_bases, i, n_bases, y_r[r]);
-      load_once<VEC>(coeffs + rows.at[r] * n_bases, i, n_bases, c[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-      for (int k = 0; k < CHUNK; ++k)
-        acc[r] = fmaf(c[r][k],
-                      fmaf(y_r[r][k] - y_l[r][k], rows.frac[r], y_l[r][k]),
-                      acc[r]);
+    for (int k = 0; k < CHUNK; ++k)
+      acc = fmaf(c[k], fmaf(y_r[k] - y_l[k], r.frac, y_l[k]), acc);
   }
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    const float y = lane_sum(acc[r], lanes);
-    if (sub == 0 && rows.row[r] < N) __stcs(out + rows.row[r], y);
-  }
+  const float y = lane_sum(acc, lanes);
+  if (sub == 0 && r.row < N) __stcs(out + r.row, y);
 }
 
 // table_d1, g_coeffs and g_x may each be null: no order d + 1 (g_x = 0), and
 // an output that nobody asked for
-template <int ROWS, bool VEC>
+template <bool VEC>
 __global__ void __launch_bounds__(THREADS)
 spline_eval_bwd_kernel(const float* __restrict__ table_d,
                        const float* __restrict__ table_d1,
@@ -197,63 +170,46 @@ spline_eval_bwd_kernel(const float* __restrict__ table_d,
                        int N, int n_cells, int n_bases, int lanes_log2) {
   const int lanes = 1 << lanes_log2;
   const int sub = threadIdx.x & (lanes - 1);
-  const Rows<ROWS> rows(x, N, n_cells, lanes_log2);
+  const Row r(x, N, n_cells, lanes_log2);
   const bool chain = g_x != nullptr && table_d1 != nullptr;
-  float g[ROWS], acc[ROWS];
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    g[r] = __ldcs(grad + rows.at[r]);
-    acc[r] = 0.f;
-  }
+  const float g = __ldcs(grad + r.at);
+  const size_t span = static_cast<size_t>(r.cell) * n_bases;
+  float acc = 0.f;
   for (int i = CHUNK * sub; i < n_bases; i += CHUNK * lanes) {
-    float c[ROWS][CHUNK], y_l[ROWS][CHUNK], y_r[ROWS][CHUNK];
-    float z_l[ROWS][CHUNK], z_r[ROWS][CHUNK];
+    float c[CHUNK], y_l[CHUNK], y_r[CHUNK], z_l[CHUNK], z_r[CHUNK];
+    if (g_coeffs != nullptr) {
+      load_table<VEC>(table_d + span, i, n_bases, y_l);
+      load_table<VEC>(table_d + span + n_bases, i, n_bases, y_r);
+    }
+    if (chain) {
+      load_table<VEC>(table_d1 + span, i, n_bases, z_l);
+      load_table<VEC>(table_d1 + span + n_bases, i, n_bases, z_r);
+      load_once<VEC>(coeffs + r.at * n_bases, i, n_bases, c);
+    }
+    if (g_coeffs != nullptr && r.row < N) {
+      float w[CHUNK];
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const size_t span = static_cast<size_t>(rows.cell[r]) * n_bases;
-      if (g_coeffs != nullptr) {
-        load_table<VEC>(table_d + span, i, n_bases, y_l[r]);
-        load_table<VEC>(table_d + span + n_bases, i, n_bases, y_r[r]);
-      }
-      if (chain) {
-        load_table<VEC>(table_d1 + span, i, n_bases, z_l[r]);
-        load_table<VEC>(table_d1 + span + n_bases, i, n_bases, z_r[r]);
-        load_once<VEC>(coeffs + rows.at[r] * n_bases, i, n_bases, c[r]);
+      for (int k = 0; k < CHUNK; ++k)
+        w[k] = g * fmaf(y_r[k] - y_l[k], r.frac, y_l[k]);
+      float* dst = g_coeffs + r.row * n_bases + i;
+      if constexpr (VEC) {
+        __stcs(reinterpret_cast<float4*>(dst),
+               make_float4(w[0], w[1], w[2], w[3]));
+      } else {
+#pragma unroll
+        for (int k = 0; k < CHUNK; ++k)
+          if (i + k < n_bases) __stcs(dst + k, w[k]);
       }
     }
+    if (chain) {
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      if (g_coeffs != nullptr && rows.row[r] < N) {
-        float w[CHUNK];
-#pragma unroll
-        for (int k = 0; k < CHUNK; ++k)
-          w[k] = g[r] * fmaf(y_r[r][k] - y_l[r][k], rows.frac[r], y_l[r][k]);
-        float* dst = g_coeffs + rows.row[r] * n_bases + i;
-        if constexpr (VEC) {
-          __stcs(reinterpret_cast<float4*>(dst),
-                 make_float4(w[0], w[1], w[2], w[3]));
-        } else {
-#pragma unroll
-          for (int k = 0; k < CHUNK; ++k)
-            if (i + k < n_bases) __stcs(dst + k, w[k]);
-        }
-      }
-      if (chain) {
-#pragma unroll
-        for (int k = 0; k < CHUNK; ++k)
-          acc[r] = fmaf(c[r][k],
-                        fmaf(z_r[r][k] - z_l[r][k], rows.frac[r], z_l[r][k]),
-                        acc[r]);
-      }
+      for (int k = 0; k < CHUNK; ++k)
+        acc = fmaf(c[k], fmaf(z_r[k] - z_l[k], r.frac, z_l[k]), acc);
     }
   }
   if (g_x != nullptr) {
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const float y = lane_sum(acc[r], lanes);
-      if (sub == 0 && rows.row[r] < N)
-        __stcs(g_x + rows.row[r], chain ? g[r] * y : 0.f);
-    }
+    const float y = lane_sum(acc, lanes);
+    if (sub == 0 && r.row < N) __stcs(g_x + r.row, chain ? g * y : 0.f);
   }
 }
 
@@ -261,14 +217,14 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-// lanes: a power of two up to 32; rows: 1, 2 or 4; grid: the blocks that
-// cover N rows at (THREADS / lanes) * rows rows per block, no more
-int check_plan(int N, int n_mesh, int n_bases, int lanes, int rows, int grid,
+// lanes: a power of two up to 32; grid: the blocks that cover N rows at
+// THREADS / lanes rows per block, no more
+int check_plan(int N, int n_mesh, int n_bases, int lanes, int grid,
                int* lanes_log2) {
   if (n_mesh < 2 || n_bases < 1 || lanes < 1 || lanes > 32 ||
-      (lanes & (lanes - 1)) != 0 || (rows != 1 && rows != 2 && rows != 4))
+      (lanes & (lanes - 1)) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long per_block = static_cast<long long>(THREADS / lanes) * rows;
+  const int per_block = THREADS / lanes;
   if (grid != (N + per_block - 1) / per_block)
     return static_cast<int>(cudaErrorInvalidValue);
   *lanes_log2 = 0;
@@ -278,32 +234,21 @@ int check_plan(int N, int n_mesh, int n_bases, int lanes, int rows, int grid,
 
 }  // namespace
 
-#define FOR_ROWS_AND_VEC(LAUNCH)                \
-  switch (rows * 2 + (vec ? 1 : 0)) {           \
-    case 2: LAUNCH(1, false); break;            \
-    case 3: LAUNCH(1, true); break;             \
-    case 4: LAUNCH(2, false); break;            \
-    case 5: LAUNCH(2, true); break;             \
-    case 8: LAUNCH(4, false); break;            \
-    default: LAUNCH(4, true); break;            \
-  }
-
 extern "C" int spline_eval_launch(const float* table, const float* coeffs,
                                   const float* x, float* out, int N,
-                                  int n_mesh, int n_bases, int lanes, int rows,
-                                  int grid, void* stream) {
+                                  int n_mesh, int n_bases, int lanes, int grid,
+                                  void* stream) {
   if (N <= 0) return 0;
   int lanes_log2 = 0;
-  if (const int err = check_plan(N, n_mesh, n_bases, lanes, rows, grid,
-                                 &lanes_log2))
+  if (const int err = check_plan(N, n_mesh, n_bases, lanes, grid, &lanes_log2))
     return err;
-  const bool vec = n_bases % 4 == 0 && aligned16(table) && aligned16(coeffs);
-#define LAUNCH(ROWS, VEC)                                                    \
-  spline_eval_kernel<ROWS, VEC>                                              \
-      <<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(             \
-          table, coeffs, x, out, N, n_mesh - 1, n_bases, lanes_log2)
-  FOR_ROWS_AND_VEC(LAUNCH)
-#undef LAUNCH
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (n_bases % 4 == 0 && aligned16(table) && aligned16(coeffs))
+    spline_eval_kernel<true><<<grid, THREADS, 0, s>>>(
+        table, coeffs, x, out, N, n_mesh - 1, n_bases, lanes_log2);
+  else
+    spline_eval_kernel<false><<<grid, THREADS, 0, s>>>(
+        table, coeffs, x, out, N, n_mesh - 1, n_bases, lanes_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -312,25 +257,24 @@ extern "C" int spline_eval_bwd_launch(const float* table_d,
                                       const float* coeffs, const float* x,
                                       const float* grad, float* g_coeffs,
                                       float* g_x, int N, int n_mesh,
-                                      int n_bases, int lanes, int rows,
-                                      int grid, void* stream) {
+                                      int n_bases, int lanes, int grid,
+                                      void* stream) {
   if (N <= 0) return 0;
   int lanes_log2 = 0;
-  if (const int err = check_plan(N, n_mesh, n_bases, lanes, rows, grid,
-                                 &lanes_log2))
+  if (const int err = check_plan(N, n_mesh, n_bases, lanes, grid, &lanes_log2))
     return err;
   if (g_coeffs == nullptr && g_x == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec = n_bases % 4 == 0 && aligned16(table_d) &&
-                   aligned16(table_d1) && aligned16(coeffs) &&
-                   aligned16(g_coeffs);
-#define LAUNCH(ROWS, VEC)                                                    \
-  spline_eval_bwd_kernel<ROWS, VEC>                                          \
-      <<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(             \
-          table_d, table_d1, coeffs, x, grad, g_coeffs, g_x, N, n_mesh - 1,  \
-          n_bases, lanes_log2)
-  FOR_ROWS_AND_VEC(LAUNCH)
-#undef LAUNCH
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (n_bases % 4 == 0 && aligned16(table_d) && aligned16(table_d1) &&
+      aligned16(coeffs) && aligned16(g_coeffs))
+    spline_eval_bwd_kernel<true><<<grid, THREADS, 0, s>>>(
+        table_d, table_d1, coeffs, x, grad, g_coeffs, g_x, N, n_mesh - 1,
+        n_bases, lanes_log2);
+  else
+    spline_eval_bwd_kernel<false><<<grid, THREADS, 0, s>>>(
+        table_d, table_d1, coeffs, x, grad, g_coeffs, g_x, N, n_mesh - 1,
+        n_bases, lanes_log2);
   return static_cast<int>(cudaGetLastError());
 }
 

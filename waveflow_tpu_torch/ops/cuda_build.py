@@ -55,7 +55,6 @@ class LaunchPlan(NamedTuple):
     smem_bytes: int           # dynamic shared memory per block
     regime: str               # the kernel's variant at this shape
     group: int = 1            # work items a block takes together
-    rows: int = 1             # work items a thread group keeps in flight
 
 
 def _nvcc() -> str:

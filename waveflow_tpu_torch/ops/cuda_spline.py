@@ -39,17 +39,12 @@ launches_bwd = 0      # the backward kernel
 # the kernels' constants (csrc/spline_eval.cu checks a plan against its own)
 THREADS = 256
 CHUNK = 4                     # consecutive bases a lane takes per load
-ROWS_IN_FLIGHT = (1, 2, 4)    # the instantiations the source holds
-# rows a lane group keeps in flight, forward and backward
-# (examples/kernel_sweep_torch.py)
-FORWARD_ROWS = 1
-BACKWARD_ROWS = 1
 
 # the C entry points of csrc/spline_eval.cu: (argtypes, restype)
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    'spline_eval_launch': ([_PTR] * 4 + [_INT] * 6 + [_PTR], _INT),
-    'spline_eval_bwd_launch': ([_PTR] * 7 + [_INT] * 6 + [_PTR], _INT),
+    'spline_eval_launch': ([_PTR] * 4 + [_INT] * 5 + [_PTR], _INT),
+    'spline_eval_bwd_launch': ([_PTR] * 7 + [_INT] * 5 + [_PTR], _INT),
     'spline_eval_error_string': ([_INT], ctypes.c_char_p)}
 
 
@@ -62,28 +57,22 @@ def lanes_per_row(n_bases: int) -> int:
 
 @functools.lru_cache(maxsize=256)
 def plan(N: int, n_bases: int, backward: bool = False,
-         lanes: int | None = None,
-         rows: int | None = None) -> cuda_build.LaunchPlan:
+         lanes: int | None = None) -> cuda_build.LaunchPlan:
     """The launch of csrc/spline_eval.cu for N rows of n_bases coefficients,
     forward or backward: ``group`` lanes share a row (4 consecutive bases
-    per lane and load), every lane group keeps ``rows`` rows in flight, a
-    256-thread block covers 256 / lanes * rows rows; no shared memory.
-    ``lanes`` and ``rows`` force the two (measurements only)."""
+    per lane and load), a 256-thread block covers 256 / lanes rows; no
+    shared memory.  ``lanes`` forces the lanes per row (measurements
+    only)."""
     if N < 1 or n_bases < 1:
         raise ValueError(f"spline_eval kernel needs N, n_bases >= 1, got "
                          f"N={N}, n_bases={n_bases}")
     if lanes is None:
         lanes = lanes_per_row(n_bases)
-    if rows is None:
-        rows = BACKWARD_ROWS if backward else FORWARD_ROWS
     if lanes < 1 or lanes > 32 or lanes & (lanes - 1):
         raise ValueError(f"lanes must be a power of two up to 32, got {lanes}")
-    if rows not in ROWS_IN_FLIGHT:
-        raise ValueError(f"rows must be one of {ROWS_IN_FLIGHT}, got {rows}")
-    per_block = THREADS // lanes * rows
+    per_block = THREADS // lanes
     return cuda_build.LaunchPlan(-(-N // per_block), THREADS, 0,
-                                 'backward' if backward else 'forward',
-                                 lanes, rows)
+                                 'backward' if backward else 'forward', lanes)
 
 
 def lerp_basis(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -170,8 +159,8 @@ def _raise_on(err: int, lib: ctypes.CDLL, what: str) -> None:
 
 
 def spline_eval_cuda(table: torch.Tensor, coeffs: torch.Tensor,
-                     x: torch.Tensor, lanes: int | None = None,
-                     rows: int | None = None) -> torch.Tensor:
+                     x: torch.Tensor,
+                     lanes: int | None = None) -> torch.Tensor:
     """Launch the forward kernel: table (n_mesh, n_bases), coeffs
     (..., n_bases), x (...,), all f32 on the card -> (...,).  The leading
     dims are one batch to the kernel; nothing is reshaped or copied unless
@@ -184,11 +173,11 @@ def spline_eval_cuda(table: torch.Tensor, coeffs: torch.Tensor,
     if N == 0:
         return out
     n_mesh, n_bases = table.shape
-    p = plan(N, n_bases, False, lanes, rows)
+    p = plan(N, n_bases, False, lanes)
     lib = cuda_build.bind('spline_eval', SIGNATURES)
     err = lib.spline_eval_launch(
         table.data_ptr(), coeffs.data_ptr(), x.data_ptr(), out.data_ptr(),
-        N, n_mesh, n_bases, p.group, p.rows, p.grid,
+        N, n_mesh, n_bases, p.group, p.grid,
         cuda_build.current_stream(x.device.index))
     launches += 1
     _raise_on(err, lib, 'spline_eval')
@@ -198,8 +187,8 @@ def spline_eval_cuda(table: torch.Tensor, coeffs: torch.Tensor,
 def spline_eval_bwd_cuda(table_d: torch.Tensor, table_d1: torch.Tensor | None,
                          coeffs: torch.Tensor, x: torch.Tensor,
                          grad: torch.Tensor, need_coeffs: bool = True,
-                         need_x: bool = True, lanes: int | None = None,
-                         rows: int | None = None) -> tuple:
+                         need_x: bool = True,
+                         lanes: int | None = None) -> tuple:
     """Launch the backward kernel, once for both gradients: (g_coeffs
     (..., n_bases) or None, g_x (...,) or None) as ``need_coeffs`` and
     ``need_x`` say.  ``table_d1`` is the order-(d+1) table, None at the top
@@ -224,14 +213,14 @@ def spline_eval_bwd_cuda(table_d: torch.Tensor, table_d1: torch.Tensor | None,
     g_x = torch.empty_like(x) if need_x else None
     if N == 0:
         return g_coeffs, g_x
-    p = plan(N, n_bases, True, lanes, rows)
+    p = plan(N, n_bases, True, lanes)
     lib = cuda_build.bind('spline_eval', SIGNATURES)
     err = lib.spline_eval_bwd_launch(
         table_d.data_ptr(), None if table_d1 is None else table_d1.data_ptr(),
         coeffs.data_ptr(), x.data_ptr(), grad.data_ptr(),
         g_coeffs.data_ptr() if need_coeffs else None,
         g_x.data_ptr() if need_x else None,
-        N, n_mesh, n_bases, p.group, p.rows, p.grid,
+        N, n_mesh, n_bases, p.group, p.grid,
         cuda_build.current_stream(x.device.index))
     launches_bwd += 1
     _raise_on(err, lib, 'spline_eval_bwd')
