@@ -20,17 +20,35 @@ Phases (any failure exits non-zero; nothing is caught):
                and on meshes that take the kernel's other branches;
                print each kernel's launch plan at those shapes;
   4. checkpoint — load the committed JAX flagship checkpoint, draw 65,536
-               ancestral walkers and compute the mean local energy, which
-               must agree with the JAX evaluation −1.815872(12);
+               ancestral walkers and compute the raw mean local energy,
+               which must lie within 5 combined stderr of the JAX
+               evaluation's raw mean (results/round5_quality.json);
   5. training — VMCTrainer at the flagship config with the CUDA basis-jet
                backend, 2 windows of 100 epochs at batch 256; every loss
                finite, K1 and K3 launched on that run;
-  6. density — train_density_model at the full width of the density
+  6. evaluation — the 100k checkpoint loaded into a 'poly_pallas' trainer,
+               evaluate_trainer at the JAX protocol (4,096 walkers, 250
+               warmup sweeps, 64 blocks × 25 sweeps, step 0.4, '1d' sort):
+               raw and clipped means within 5 combined stderr of the JAX
+               evaluation's, accept rate in [0.45, 0.55], K1 and K3
+               launched; one block profiled;
+  7. resume  — the 100k checkpoint with its Adam moments, window 10: 2
+               windows, save_checkpoint, a fresh trainer's load_checkpoint,
+               2 more windows, against 4 windows straight: losses and
+               parameters equal to the bit;
+  8. metropolis — resume results/he1d_metropolis_seed7 (its 256 walkers)
+               with sampler='metropolis' and train one window of 100
+               epochs: finite losses, mean accept rate in [0.3, 0.7], K3
+               launched; walkers/s beside the ancestral figure;
+  9. density — train_density_model at the full width of the density
                benchmark (MFlow, circles, 20,000 points), 200 epochs with a
                metric checkpoint every 100; losses finite and falling, K2
                and both K4 kernels launched on that run, metrics finite,
                the round trip closes, the card agrees with the CPU;
-  7. report  — one JSON line of kernels, then the final status line.
+ 10. report  — one JSON line of kernels, then the final status line.
+
+Each phase that drives a path sets the launch counts to 0 just before it
+and reads them just after.
 
 Imports torch and the port only.
 """
@@ -41,12 +59,15 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 CHECKPOINT = ROOT / 'results' / 'r5_flagship_fwd_batched_100k' / 'checkpoints'
-E_JAX = -1.815872          # JAX frozen-params Metropolis evaluation (RESULTS.md)
+METROPOLIS_RUN = ROOT / 'results' / 'he1d_metropolis_seed7'
+# the JAX package's frozen-params Metropolis evaluation of that checkpoint
+JAX_EVAL = ROOT / 'results' / 'round5_quality.json'
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12     # H100 SXM, f32 outside the tensor cores
 FLAGSHIP = dict(spline_degree=6, num_knots=23, n_mesh=2000)
@@ -648,9 +669,10 @@ def host_ms(torch, fn, n=20):
     return (time.perf_counter() - t) / n * 1e3
 
 
-def profile_window(torch, run, n_epochs, label):
-    """Profile ``run()`` (``n_epochs`` epochs): print the device's busy and
-    idle share of the wall time and the kernels that take most of it."""
+def profile_window(torch, run, n_epochs, label, unit='epochs'):
+    """Profile ``run()`` (``n_epochs`` epochs, or other ``unit``s): print the
+    device's busy and idle share of the wall time and the kernels that take
+    most of it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -662,16 +684,193 @@ def profile_window(torch, run, n_epochs, label):
                    if e.device_type == DeviceType.CUDA),
                   key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
-    print(f"{label}profiled {n_epochs} epochs: wall {wall_ms:.1f} ms, device "
+    print(f"{label}profiled {n_epochs} {unit}: wall {wall_ms:.1f} ms, device "
           f"busy {busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.4f}, "
           f"{sum(e.count for e in kern) / n_epochs:.0f} kernel launches per "
-          "epoch", flush=True)
+          f"{unit.rstrip('s')}", flush=True)
     # the eight largest, and the port's own kernels wherever they rank
     own = ('sampler_kernel', 'basis_jet_', 'spline_eval_kernel',
            'spline_eval_bwd_kernel')
     for e in kern[:8] + [e for e in kern[8:] if any(k in e.key for k in own)]:
-        print(f"  {e.self_device_time_total / 1e3 / n_epochs:8.4f} ms/epoch "
-              f"{e.count / n_epochs:6.1f}/epoch  {e.key[:90]}", flush=True)
+        print(f"  {e.self_device_time_total / 1e3 / n_epochs:8.4f} ms/{unit[0]} "
+              f"{e.count / n_epochs:6.1f}/{unit[0]}  {e.key[:90]}", flush=True)
+
+
+def reset_counts():
+    from waveflow_tpu_torch.ops import cuda_jet, cuda_sampler
+    cuda_sampler.launches = 0
+    cuda_jet.launches = 0
+
+
+def read_counts():
+    from waveflow_tpu_torch.ops import cuda_jet, cuda_sampler
+    return {'sampler': cuda_sampler.launches, 'basis_jet': cuda_jet.launches}
+
+
+def sigmas(value, stderr, ref):
+    """Distance of ``value`` ± ``stderr`` from the JAX figure ``ref`` = (mean,
+    stderr), in combined standard errors √(σ² + σ_jax²)."""
+    return abs(value - ref[0]) / math.hypot(stderr, ref[1])
+
+
+def evaluation_phase(torch, jax_raw, jax_clipped):
+    """The frozen-parameter Metropolis evaluation of the 100k checkpoint at
+    the JAX protocol, through ``evaluate_trainer``; then one block profiled
+    and the host time of one sweep and one E_L pass at 4,096 walkers."""
+    from waveflow_tpu_torch.vmc import (VMCConfig, VMCTrainer,
+                                        evaluate_energy, evaluate_trainer)
+    from waveflow_tpu_torch.vmc.metropolis import (make_metropolis_sampler,
+                                                   sector_projection)
+    trainer = VMCTrainer(VMCConfig(eval_backend='poly_pallas', device='cuda'))
+    if not trainer.load_checkpoint(str(CHECKPOINT.parent)):
+        fail(f"no checkpoint under {CHECKPOINT.parent}")
+    n_blocks, per_block, warmup, B = 64, 25, 250, 4096
+    reset_counts()
+    t0 = time.perf_counter()
+    ev = evaluate_trainer(trainer, n_blocks=n_blocks,
+                          sweeps_per_block=per_block, n_warmup_sweeps=warmup,
+                          batch_size=B)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    n_sweeps = warmup + n_blocks * per_block
+    d_raw = sigmas(ev.e_mean, ev.e_stderr, jax_raw)
+    d_clip = sigmas(ev.e_clipped, ev.e_clipped_stderr, jax_clipped)
+    print(f"evaluation (epoch {trainer.epoch}, {B} walkers, {warmup} warmup + "
+          f"{n_blocks} x {per_block} sweeps, step 0.4, '1d' sort): "
+          f"E = {ev.e_mean:.6f} +- {ev.e_stderr:.6f} (2x {ev.e_stderr_2x:.6f}, "
+          f"4x {ev.e_stderr_4x:.6f}), {d_raw:.2f} combined sigma from the JAX "
+          f"raw mean {jax_raw[0]} +- {jax_raw[1]} | clipped "
+          f"{ev.e_clipped:.6f} +- {ev.e_clipped_stderr:.6f}, {d_clip:.2f} "
+          f"combined sigma from the JAX clipped mean {jax_clipped[0]} +- "
+          f"{jax_clipped[1]} | median {ev.e_median:.6f} | accept rate "
+          f"{ev.accept_rate:.4f} | {wall:.2f} s wall, {n_sweeps / wall:.1f} "
+          f"sweeps/s | launches: sampler {launches['sampler']}, basis_jet "
+          f"{launches['basis_jet']}", flush=True)
+    if not (math.isfinite(ev.e_mean) and d_raw <= 5.0):
+        fail(f"evaluated mean {ev.e_mean} is {d_raw:.2f} combined sigma from "
+             f"the JAX raw mean {jax_raw}")
+    if not (math.isfinite(ev.e_clipped) and d_clip <= 5.0):
+        fail(f"evaluated clipped mean {ev.e_clipped} is {d_clip:.2f} combined "
+             f"sigma from the JAX clipped mean {jax_clipped}")
+    if not 0.45 <= ev.accept_rate <= 0.55:
+        fail(f"evaluation accept rate {ev.accept_rate} outside [0.45, 0.55]")
+    if min(launches.values()) == 0:
+        fail(f"a kernel of the path was not launched in evaluation: {launches}")
+
+    # where the time goes: one sweep and one E_L pass (host clock), one
+    # block of 25 sweeps + E_L profiled
+    model, gen = trainer.model, torch.Generator('cuda').manual_seed(3)
+    init_fn, step_fn, _ = make_metropolis_sampler(
+        model.log_pdf, bounds=(-10.0, 10.0),
+        proposal_map=sector_projection(True))
+    state = init_fn(model.sample(B, generator=gen), step_size=0.4)
+    ms_sweep = host_ms(torch, lambda: step_fn(state, gen))
+    with torch.no_grad():
+        ms_eloc = host_ms(torch, lambda: trainer.h_fn(state.positions), n=5)
+    print(f"evaluation stages (host clock, {B} walkers): one sweep "
+          f"{ms_sweep:.2f} ms | one E_L pass {ms_eloc:.2f} ms", flush=True)
+    profile_window(torch, lambda: evaluate_energy(
+        model.psi, trainer.h_fn, model.log_pdf, 10.0, state.positions, gen,
+        n_blocks=1, sweeps_per_block=per_block, n_warmup_sweeps=0), 1,
+        "evaluation block (25 sweeps + E_L, and the chain's first log_pdf) ",
+        unit='blocks')
+    return launches, dict(wall_s=wall, sweeps_per_s=n_sweeps / wall,
+                          ms_sweep=ms_sweep, ms_eloc=ms_eloc)
+
+
+def resume_phase(torch):
+    """Exact resume: from the 100k checkpoint with its Adam moments, 2
+    windows of 10 epochs, save, load into a fresh trainer, 2 more, against
+    4 windows straight.  Losses and final parameters equal to the bit."""
+    from waveflow_tpu_torch.vmc import VMCConfig, VMCTrainer
+    cfg = VMCConfig(batch_size=256, window=10, log_every=10,
+                    eval_backend='poly_pallas', device='cuda')
+
+    def loaded():
+        t = VMCTrainer(cfg)
+        if not t.load_checkpoint(str(CHECKPOINT.parent)):
+            fail(f"no checkpoint under {CHECKPOINT.parent}")
+        return t
+
+    reset_counts()
+    t0 = time.perf_counter()
+    straight = loaded()
+    straight.train(40, verbose=False)
+    first = loaded()
+    first.train(20, verbose=False)
+    with tempfile.TemporaryDirectory() as d:
+        first.save_checkpoint(d)
+        second = VMCTrainer(cfg)
+        if not second.load_checkpoint(d):
+            fail("the port's checkpoint did not load")
+    second.train(20, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    a, b = straight.losses[-40:], second.losses[-40:]
+    if second.epoch != straight.epoch or len(second.losses) != len(
+            straight.losses) or not all(math.isfinite(v) for v in b):
+        fail(f"resumed run at epoch {second.epoch} with {len(second.losses)} "
+             f"losses, straight at {straight.epoch} with "
+             f"{len(straight.losses)}")
+    pairs = list(zip(straight.model.parameters(), second.model.parameters()))
+    bitwise = a == b and all(torch.equal(x, y) for x, y in pairs)
+    rel = max([abs(x - y) / max(abs(x), 1e-30) for x, y in zip(a, b)]
+              + [((x - y).abs().max() / x.abs().max()).item() for x, y in pairs])
+    print(f"resume: 100k checkpoint + Adam moments, 2 + 2 windows of 10 "
+          f"epochs at batch 256 with a save / load between, against 4 "
+          f"straight: {'equal to the bit' if bitwise else 'NOT bitwise'} "
+          f"(largest relative difference {rel:.3e}; last loss "
+          f"{b[-1]:.6f}) | {wall:.2f} s wall for 80 epochs and 3 trainers | "
+          f"launches: sampler {launches['sampler']}, basis_jet "
+          f"{launches['basis_jet']}", flush=True)
+    # a path that is not deterministic on the card (ROADMAP Queue 3) is held
+    # to 1e-6 relative instead of the bit
+    if not (bitwise or rel <= 1e-6):
+        fail(f"the resumed run differs from the uninterrupted one by {rel:.3e}"
+             " relative (limit 1e-6 where the card is not deterministic)")
+    return launches, dict(wall_s=wall, bitwise=bitwise, max_rel_diff=rel)
+
+
+def metropolis_phase(torch, ancestral_wps):
+    """Metropolis training resumed from the JAX run he1d_metropolis_seed7:
+    its 256 walkers, step size and Adam moments, one window of 100 epochs
+    of 3 sweeps + one update each."""
+    from waveflow_tpu_torch.vmc import VMCConfig, VMCTrainer
+    t = VMCTrainer(VMCConfig(batch_size=256, window=100, log_every=100,
+                             sampler='metropolis', eval_backend='poly_pallas',
+                             device='cuda'))
+    if not t.load_checkpoint(str(METROPOLIS_RUN)):
+        fail(f"no checkpoint under {METROPOLIS_RUN}")
+    if t.mcmc_state is None or t.mcmc_state.positions.shape != (256, 2):
+        fail("the JAX run's Metropolis walkers did not load")
+    step0 = t.mcmc_state.step_size.item()
+    n0 = len(t.losses)
+    reset_counts()
+    t0 = time.perf_counter()
+    losses = t.train(100, verbose=True)[n0:]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    acc = sum(t.accept_rates) / len(t.accept_rates)
+    wps = 100 * 256 / wall
+    print(f"metropolis: epoch {t.epoch}, 100 epochs at batch 256 (3 sweeps "
+          f"each), losses finite: {all(math.isfinite(v) for v in losses)}, "
+          f"last {losses[-1]:.5f} | mean accept rate {acc:.4f}, step size "
+          f"{step0:.4f} -> {t.mcmc_state.step_size.item():.4f} | walkers/s "
+          f"{wps:.1f} (host clock; ancestral training {ancestral_wps:.1f}) | "
+          f"launches per epoch: sampler {launches['sampler'] / 100:g}, "
+          f"basis_jet {launches['basis_jet'] / 100:g}", flush=True)
+    if len(losses) != 100 or not all(math.isfinite(v) for v in losses):
+        fail("Metropolis training produced non-finite losses")
+    if not 0.3 <= acc <= 0.7:
+        fail(f"Metropolis mean accept rate {acc} outside [0.3, 0.7]")
+    if launches['basis_jet'] == 0:
+        fail("K3 was not launched in Metropolis training")
+    profile_window(torch, lambda: t.train(10, verbose=False), 10,
+                   "metropolis ")
+    return launches, dict(wall_s=wall, walkers_per_s=wps, accept_rate=acc)
 
 
 def density_phase(torch):
@@ -877,11 +1076,19 @@ def main() -> int:
     torch.cuda.synchronize()
     mean = e_loc.mean().item()
     stderr = (e_loc.std() / math.sqrt(e_loc.numel())).item()
-    print(f"checkpoint (epoch {ck['epoch']}): E = {mean:.6f} +- {stderr:.6f} "
-          f"over 65536 ancestral walkers ({time.perf_counter() - t0:.2f} s); "
-          f"JAX evaluation {E_JAX}", flush=True)
-    if not (math.isfinite(mean) and abs(mean - E_JAX) <= 5 * stderr + 2e-3):
-        fail(f"checkpoint energy {mean} outside {E_JAX} +- (5 stderr + 2e-3)")
+    # like with like: the raw mean against the JAX evaluation's raw mean
+    ref = json.loads(JAX_EVAL.read_text())['flagship_fwd_batched_100k']
+    jax_raw = (ref['eval_mean'], ref['eval_stderr'])
+    jax_clipped = (ref['eval_clipped'], ref['eval_clipped_stderr'])
+    d_raw = sigmas(mean, stderr, jax_raw)
+    print(f"checkpoint (epoch {ck['epoch']}): raw E = {mean:.6f} +- "
+          f"{stderr:.6f} over 65536 ancestral walkers "
+          f"({time.perf_counter() - t0:.2f} s); JAX evaluation raw mean "
+          f"{jax_raw[0]} +- {jax_raw[1]}: {d_raw:.2f} combined sigma",
+          flush=True)
+    if not (math.isfinite(mean) and d_raw <= 5.0):
+        fail(f"checkpoint energy {mean} is {d_raw:.2f} combined sigma from "
+             f"the JAX raw mean {jax_raw}")
 
     # ---- 5. training (the main path; counts reset just before) -------------
     trainer = VMCTrainer(VMCConfig(batch_size=256, window=100, log_every=100,
@@ -932,10 +1139,25 @@ def main() -> int:
           flush=True)
     profile_window(torch, lambda: trainer.train(10, verbose=False), 10, "")
 
-    # ---- 6. density (the second main path; counts reset just before) -------
-    launches.update(density_phase(torch))
+    # ---- 6-8. evaluation, resume, Metropolis training ----------------------
+    by_phase = {'train-256': dict(launches)}
+    for name, run in (
+            ('eval-4k', lambda: evaluation_phase(torch, jax_raw, jax_clipped)),
+            ('resume', lambda: resume_phase(torch)),
+            ('metropolis-256', lambda: metropolis_phase(torch, wps_second))):
+        t0 = time.perf_counter()
+        by_phase[name], _ = run()
+        print(f"phase {name}: {time.perf_counter() - t0:.1f} s wall", flush=True)
 
-    # ---- 7. report ---------------------------------------------------------
+    # ---- 9. density (the second main path; counts reset just before) -------
+    by_phase['density-20k'] = density_phase(torch)
+    launches.update(by_phase['density-20k'])
+
+    def by_path(name):
+        """A kernel's launches on each path that ran it."""
+        return {k: v[name] for k, v in by_phase.items() if v.get(name)}
+
+    # ---- 10. report --------------------------------------------------------
     # each row at the shape its main path gives the kernel: K1 and K3 at the
     # training batch of 256, K2 at the 20,000 model draws of a metric
     # checkpoint, K4 at the flattened (20,000, 2) training batch
@@ -951,6 +1173,7 @@ def main() -> int:
                     source='waveflow_tpu_torch/csrc/sampler.cu',
                     replaces='waveflow_tpu/ops/pallas_sampler.py:63',
                     launches=launches[name],
+                    launches_by_path=by_path(name),
                     max_abs_err=max(r['max_abs_err'] for r in rows.values()),
                     ms=row['ms'], device_ms=row['device_ms'],
                     plain_ms=row['plain_ms'],
@@ -966,6 +1189,7 @@ def main() -> int:
              source='waveflow_tpu_torch/csrc/basis_jet.cu',
              replaces='waveflow_tpu/ops/pallas_jet.py:63',
              launches=launches['basis_jet'],
+             launches_by_path=by_path('basis_jet'),
              max_abs_err=max(r['max_abs_err'] for r in k3.values()),
              ms=k3_row['ms'], device_ms=k3_row['device_ms'],
              plain_ms=k3_row['plain_ms'],
@@ -976,6 +1200,7 @@ def main() -> int:
              source='waveflow_tpu_torch/csrc/spline_eval.cu',
              replaces='waveflow_tpu/ops/pallas_spline.py:29',
              launches=launches['spline_eval'],
+             launches_by_path=by_path('spline_eval'),
              max_abs_err=max(r['max_abs_err'] for r in k4.values()),
              ms=k4_row['ms'], device_ms=k4_row['device_ms'],
              plain_ms=k4_row['plain_ms'],
@@ -985,6 +1210,7 @@ def main() -> int:
              source='waveflow_tpu_torch/csrc/spline_eval.cu',
              replaces='waveflow_tpu/ops/pallas_spline.py:29',
              launches=launches['spline_eval_bwd'],
+             launches_by_path=by_path('spline_eval_bwd'),
              max_abs_err=max(r['max_abs_err'] for r in k4b.values()),
              g_coeffs_abs_err=k4b_row['g_coeffs_abs_err'],
              g_x_abs_err=k4b_row['g_x_abs_err'],

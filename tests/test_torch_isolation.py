@@ -30,17 +30,29 @@ assert ck['epoch'] == 100000, ck['epoch']
 assert len(sd) == 28 and sd['conditioner.zero_params'].shape == (2, 28)
 from waveflow_tpu_torch.benchmark import get_dataset
 assert get_dataset('circles', 64).shape == (64, 2)
+from waveflow_tpu_torch.convert import mcmc_state_from_jax
+ck = load_jax_checkpoint(sys.argv[2])
+assert ck['epoch'] == 100000, ck['epoch']
+clip, (adam, scale) = ck['opt_state']
+assert type(adam).__name__ == 'ScaleByAdamState', type(adam)
+count, mu, nu = adam
+assert int(count) == 100000 and mu.shape == nu.shape == (32588,)
+assert [f.shape for f in ck['mcmc_state']] == [(256, 2), (256,), (), ()]
+state = mcmc_state_from_jax(ck['mcmc_state'], 'cpu')
+assert state.positions.shape == (256, 2) and state.step_size.ndim == 0
 print('ok')
 """
 
 
 def test_imports_and_checkpoint_without_jax():
     """(i) With jax, optax, scikit-learn and waveflow_tpu made unimportable,
-    every module of the port imports, the committed checkpoint loads and a
-    benchmark dataset is generated."""
+    every module of the port imports, the committed checkpoint loads, a
+    benchmark dataset is generated, and the Metropolis-trained checkpoint
+    loads with its flat Adam moments and its MetropolisState."""
     ckpt = ROOT / 'results' / 'r5_flagship_fwd_batched_100k' / 'checkpoints'
-    out = subprocess.run([sys.executable, '-c', SCRIPT, str(ckpt)], cwd=ROOT,
-                         capture_output=True, text=True, timeout=120)
+    metro = ROOT / 'results' / 'he1d_metropolis_seed7' / 'checkpoints'
+    out = subprocess.run([sys.executable, '-c', SCRIPT, str(ckpt), str(metro)],
+                         cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith('ok')
 
@@ -54,10 +66,11 @@ def _imported_roots(path: Path):
 
 
 def test_no_file_imports_jax_or_the_jax_package():
-    """(i) No file of the port, nor chip_smoke.py or the port's example
-    scripts, names jax, optax, sklearn or waveflow_tpu in an import."""
+    """(i) No file of the port, nor chip_smoke.py, bench_torch.py or the
+    port's example scripts, names jax, optax, sklearn or waveflow_tpu in an
+    import."""
     files = sorted((ROOT / 'waveflow_tpu_torch').rglob('*.py'))
-    files.append(ROOT / 'chip_smoke.py')
+    files.extend([ROOT / 'chip_smoke.py', ROOT / 'bench_torch.py'])
     files.extend(sorted((ROOT / 'examples').glob('*_torch.py')))
     assert len(files) > 20
     bad = [(str(f.relative_to(ROOT)), m) for f in files

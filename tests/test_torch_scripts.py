@@ -1,0 +1,63 @@
+"""The port's entry scripts run end to end on the CPU at a tiny size:
+training with a restart, the evaluation with its Metropolis pass, and the
+benchmark's JSON line."""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parents[1]
+TINY = ['--num-knots', '6', '--spline-degree', '3', '--n-flow-layers', '1']
+
+
+def _run(script, *args):
+    out = subprocess.run([sys.executable, str(ROOT / script), *args],
+                         cwd=ROOT, capture_output=True, text=True, timeout=300,
+                         env={**os.environ, 'OMP_NUM_THREADS': '2'})
+    assert out.returncode == 0, out.stderr[-3000:]
+    return out.stdout
+
+
+def test_run_restart_and_evaluate(tmp_path):
+    """run_vqmc_torch.py: 2 windows of 2 epochs with Metropolis walkers,
+    then --restart for 2 more (the trace continues to 8 epochs);
+    evaluate_vqmc_torch.py --mcmc-eval on the run: trace estimates, the ED
+    oracle and a finite blocked Metropolis energy."""
+    train = ['examples/run_vqmc_torch.py', '--device', 'cpu',
+             '--num-epochs', '4', '--window', '2', '--batch-size', '8',
+             '--log-every', '2', '--sampler', 'metropolis',
+             '--save-dir', str(tmp_path), *TINY]
+    first = _run(*train)
+    assert 'epoch 4 |' in first
+    assert np.load(tmp_path / 'loss.npy').shape == (4,)
+    second = _run(*train, '--restart')
+    assert 'epoch 8 |' in second
+    trace = np.load(tmp_path / 'loss.npy')
+    assert trace.shape == (8,) and np.isfinite(trace).all()
+    out = _run('examples/evaluate_vqmc_torch.py', '--save-dir', str(tmp_path),
+               '--mcmc-eval', '--device', 'cpu', '--eval-batch', '32',
+               '--eval-blocks', '4', '--eval-sweeps-per-block', '2', *TINY)
+    assert 'exact (ED, one grid)' in out
+    line = next(ln for ln in out.splitlines() if ln.startswith('<E_L>'))
+    assert np.isfinite(float(line.split('=')[1].split()[0]))
+    assert '128 samples' in line
+
+
+def test_bench_prints_its_fields():
+    """bench_torch.py at the flagship's widths, batch 8, one warmup window
+    and one timed window of 2 epochs on the CPU: one JSON line with
+    bench.py's fields, vs_baseline null, the device named in unit."""
+    out = _run('bench_torch.py', '--device', 'cpu', '--batch-size', '8',
+               '--window', '2', '--n-windows', '1')
+    result = json.loads(out.strip().splitlines()[-1])
+    assert set(result) == {'metric', 'value', 'unit', 'vs_baseline'}
+    assert result['metric'] == 'vmc_walker_steps_per_sec'
+    assert result['value'] > 0 and result['vs_baseline'] is None
+    assert result['unit'].endswith('; cpu)')

@@ -156,13 +156,13 @@ def test_trainer_divergence_recovery():
 
 
 @pytest.mark.parametrize('override', [
-    dict(sampler='metropolis'), dict(optimizer='sr'),
+    dict(sampler='mala'), dict(optimizer='sr'),
     dict(eval_backend='table'), dict(estimator='reference'),
-    dict(save_dir='/nonexistent'), dict(data_parallel=True),
+    dict(save_artifacts=True), dict(data_parallel=True),
     dict(clip_stat='median_abs'), dict(divergence_recovery=False)])
 def test_trainer_refuses_unported_config(override):
-    """Anything beyond ancestral + adam + clipped_score on one device raises
-    NotImplementedError instead of being ignored."""
+    """Anything beyond ancestral / metropolis + adam + clipped_score on one
+    device raises NotImplementedError instead of being ignored."""
     with pytest.raises(NotImplementedError):
         VMCTrainer(device='cpu', **override)
 

@@ -16,16 +16,17 @@ with dense weights kept in the JAX (fan_in, fan_out) layout.  Waveflow and
 MFlow params are the pair ``(transform_params, sp_params)``; Flow params
 are ``transform_params`` alone (its priors have none).
 ``load_jax_checkpoint`` reads a checkpoint pickle written by the JAX
-trainer without JAX or optax installed.
+trainer without JAX or optax installed; ``adam_state_from_jax`` and
+``mcmc_state_from_jax`` carry its optimizer moments and Metropolis walkers
+across.  Its PRNG key is not carried: the two packages' generators differ.
 """
 
 from __future__ import annotations
 
-import importlib
-import pickle
-
 import numpy as np
 import torch
+
+from waveflow_tpu_torch.utils.checkpoint import load_state
 
 
 def _tensor(a) -> torch.Tensor:
@@ -76,36 +77,78 @@ def params_from_jax(tree) -> dict:
 mflow_params_from_jax = params_from_jax
 
 
-class _Inert(tuple):
-    """Stand-in for a pickled optax/JAX class: keeps its arguments."""
-
-    def __new__(cls, *args, **kwargs):
-        return super().__new__(cls, args)
-
-
-class _CheckpointUnpickler(pickle.Unpickler):
-    _stubs: dict = {}
-
-    def find_class(self, module, name):
-        root = module.split('.')[0]
-        if root in ('optax', 'jax', 'jaxlib'):
-            key = f'{module}.{name}'
-            if key not in self._stubs:
-                self._stubs[key] = type(name, (_Inert,), {'__module__': module})
-            return self._stubs[key]
-        if module.startswith('numpy._core'):
-            try:
-                importlib.import_module(module)
-            except ImportError:          # numpy 1.x names it numpy.core
-                module = 'numpy.core' + module[len('numpy._core'):]
-        return super().find_class(module, name)
-
-
 def load_jax_checkpoint(path) -> dict:
     """Read a JAX trainer checkpoint (a pickle of numpy arrays whose
-    optimizer state references optax classes) with neither JAX nor optax
-    importable.  Returns {'params': pytree of numpy arrays, 'epoch': int}.
-    Only load checkpoints this project wrote: unpickling runs code."""
-    with open(path, 'rb') as f:
-        state = _CheckpointUnpickler(f).load()
-    return {'params': state['params'], 'epoch': int(state['epoch'])}
+    optimizer state references optax classes).  Returns {'params': pytree
+    of numpy arrays, 'epoch': int, 'opt_state': the optax state as nested
+    tuples, 'mcmc_state': tuple of numpy arrays or None}.  The PRNG key is
+    dropped: a run resumed in the port continues on the port's own stream."""
+    state = load_state(path)
+    if state is None:
+        raise FileNotFoundError(path)
+    mcmc = state.get('mcmc_state')
+    return {'params': state['params'], 'epoch': int(state['epoch']),
+            'opt_state': state.get('opt_state'),
+            'mcmc_state': (None if mcmc is None
+                           else tuple(np.asarray(f) for f in mcmc))}
+
+
+def _find_adam_state(tree):
+    """The ScaleByAdamState node of an optax state tree, or None."""
+    if type(tree).__name__ == 'ScaleByAdamState':
+        return tree
+    if isinstance(tree, tuple):
+        for node in tree:
+            found = _find_adam_state(node)
+            if found is not None:
+                return found
+    return None
+
+
+def adam_state_from_jax(opt_state, params_tree, named_parameters) -> dict:
+    """The JAX trainer's flat Adam moments as ``torch.optim.Adam`` state.
+
+    ``opt_state`` is ``optax.flatten(chain(clip_by_global_norm, adam))``'s
+    state (or ``optax.flatten(adam)``'s): one ``ScaleByAdamState(count, mu,
+    nu)`` whose moments are single vectors in ``ravel_pytree`` order —
+    tree-leaf order, each leaf C-raveled, the order ``params_from_jax``
+    walks.  Returns {parameter name: {'step', 'exp_avg', 'exp_avg_sq'}} for
+    every entry of ``named_parameters`` ((name, tensor) pairs), on each
+    tensor's device.  step = count: optax corrects the bias with count + 1
+    after its update, torch with step after its increment.  Raises
+    ValueError when the moments are not flat vectors of the parameter count
+    (a checkpoint from before the flatten change)."""
+    adam = _find_adam_state(opt_state)
+    named = dict(named_parameters)
+    leaves = params_from_jax(params_tree)
+    n_params = sum(v.numel() for v in leaves.values())
+    if adam is None:
+        raise ValueError("no ScaleByAdamState in the optimizer state")
+    count, mu, nu = adam
+    if not (isinstance(mu, np.ndarray) and mu.shape == (n_params,)):
+        raise ValueError(
+            "the Adam moments are not one flat vector of the "
+            f"{n_params} parameters (a pre-flatten checkpoint?)")
+    if set(leaves) != set(named):
+        raise ValueError(
+            f"parameter names differ: {sorted(set(leaves) ^ set(named))}")
+    out, at = {}, 0
+    for name, leaf in leaves.items():
+        p, n = named[name], leaf.numel()
+        moments = [torch.as_tensor(np.array(m[at:at + n], np.float32))
+                   .reshape(leaf.shape).to(p.device) for m in (mu, nu)]
+        out[name] = {'step': torch.tensor(float(count), dtype=torch.float32),
+                     'exp_avg': moments[0], 'exp_avg_sq': moments[1]}
+        at += n
+    return out
+
+
+def mcmc_state_from_jax(fields, device=None):
+    """A JAX ``MetropolisState`` (positions (B, D), log_prob (B,),
+    step_size (), accept_rate ()) as the port's, on ``device``."""
+    from waveflow_tpu_torch.vmc.metropolis import MetropolisState
+    if len(fields) != len(MetropolisState._fields):
+        raise NotImplementedError(
+            f"an MCMC state of {len(fields)} fields (MALA) is not ported")
+    return MetropolisState(*(torch.as_tensor(np.array(f, np.float32),
+                                             device=device) for f in fields))

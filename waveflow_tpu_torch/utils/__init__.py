@@ -1,0 +1,5 @@
+from waveflow_tpu_torch.utils.checkpoint import load_state, save_state
+from waveflow_tpu_torch.utils.observables import (
+    clipped_energy_estimate, median_energy_estimate, moving_average,
+    uniform_sliding_average, uniform_sliding_stdev,
+)

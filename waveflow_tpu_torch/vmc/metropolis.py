@@ -1,0 +1,171 @@
+"""Random-walk Metropolis walkers and the Metropolis-driven training window.
+
+Port of waveflow_tpu/vmc/metropolis.py: ``sector_projection``,
+``MetropolisState``, ``make_metropolis_sampler`` and
+``make_mcmc_train_window``, single device.  Gaussian proposals, projected
+into the fermionic sector, scored by the model's ``log_pdf`` (parameters
+live in the module), rejected with ``-inf`` outside the box, accepted when
+``log(u) < lp_prop − lp``; the step size adapts by Robbins-Monro toward a
+target acceptance rate.  All of it is plain PyTorch, as in the reference
+(plain ``jnp`` outside any Pallas kernel): the kernels on this path are the
+ones inside ``log_pdf`` (K3 under ``eval_backend='poly_pallas'``).
+
+Random draws come from an explicit ``torch.Generator``; every step also
+takes its proposal noise and accept uniforms explicitly, so a test can feed
+it the draws of the JAX package's own key.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+
+def sector_projection(sort_mode):
+    """Proposal projection onto the fermionic sector.
+
+    sort_mode: True / '1d' — coordinate sort (identical 1D fermions);
+    'paired2d' — sort electron (x, y) pairs by x (interleaved layout);
+    False / None — no projection (returns None)."""
+    if sort_mode in (True, '1d'):
+        return lambda x: torch.sort(x, dim=-1).values
+    if sort_mode == 'paired2d':
+        def sort_pairs(x):
+            xe = x.reshape(x.shape[0], -1, 2)
+            order = torch.argsort(xe[:, :, 0], dim=1, stable=True)
+            xe = torch.gather(xe, 1, order[:, :, None].expand_as(xe))
+            return xe.reshape(x.shape[0], -1)
+        return sort_pairs
+    return None
+
+
+class MetropolisState(NamedTuple):
+    positions: torch.Tensor     # (B, D)
+    log_prob: torch.Tensor      # (B,)
+    step_size: torch.Tensor     # ()
+    accept_rate: torch.Tensor   # () running acceptance estimate
+
+
+def make_metropolis_sampler(log_pdf, target_accept: float = 0.5,
+                            adapt_rate: float = 0.1,
+                            axis_name: str | None = None,
+                            bounds: tuple[float, float] | None = None,
+                            proposal_map=None):
+    """(init_fn, step_fn, run_fn) for random-walk Metropolis on
+    ``log_pdf(x (B, D)) -> (B,)``.
+
+    bounds: optional (lo, hi) box; proposals outside get log-prob −inf.
+    proposal_map: optional symmetric projection of every proposal (e.g.
+    the coordinate sort of identical fermions: the Gaussian proposal summed
+    over permutations is symmetric, so detailed balance holds on the
+    sorted quotient).  ``axis_name`` (collective adaptation over a device
+    mesh) is not ported."""
+    if axis_name is not None:
+        raise NotImplementedError(
+            "axis_name (collective step-size adaptation over a mesh) is not "
+            "ported; walkers run on one device")
+
+    @torch.no_grad()
+    def init_fn(positions: torch.Tensor, step_size=0.1) -> MetropolisState:
+        if proposal_map is not None:
+            positions = proposal_map(positions)
+        lp = log_pdf(positions)
+        return MetropolisState(
+            positions, lp,
+            torch.tensor(float(step_size), dtype=lp.dtype, device=lp.device),
+            torch.tensor(target_accept, dtype=lp.dtype, device=lp.device))
+
+    @torch.no_grad()
+    def step_fn(state: MetropolisState, generator=None, noise=None,
+                u=None) -> MetropolisState:
+        """One sweep.  ``noise`` (B, D) standard normals and ``u`` (B,)
+        uniforms on [0, 1) are drawn from ``generator`` unless given."""
+        pos = state.positions
+        if noise is None:
+            noise = torch.randn(pos.shape, generator=generator,
+                                dtype=pos.dtype, device=pos.device)
+        if u is None:
+            u = torch.rand(state.log_prob.shape, generator=generator,
+                           dtype=pos.dtype, device=pos.device)
+        proposal = pos + state.step_size * noise
+        if proposal_map is not None:
+            proposal = proposal_map(proposal)
+        lp_prop = log_pdf(proposal)
+        if bounds is not None:
+            lo, hi = bounds
+            inside = ((proposal >= lo) & (proposal <= hi)).all(-1)
+            lp_prop = torch.where(inside, lp_prop, float('-inf'))
+        accept = torch.log(u) < lp_prop - state.log_prob
+        new_pos = torch.where(accept[:, None], proposal, pos)
+        new_lp = torch.where(accept, lp_prop, state.log_prob)
+        acc_frac = accept.to(pos.dtype).mean()
+        # Robbins-Monro log-step adaptation toward the target acceptance
+        new_step = state.step_size * torch.exp(
+            adapt_rate * (acc_frac - target_accept))
+        new_rate = 0.9 * state.accept_rate + 0.1 * acc_frac
+        return MetropolisState(new_pos, new_lp, new_step, new_rate)
+
+    def run_fn(state: MetropolisState, n_steps: int, generator=None,
+               thin: int = 1):
+        """``n_steps`` sweeps: (final state, positions every ``thin``
+        sweeps, (n_steps // thin, B, D))."""
+        trace = []
+        for i in range(n_steps):
+            state = step_fn(state, generator)
+            if (i + 1) % thin == 0:
+                trace.append(state.positions)
+        return state, torch.stack(trace)
+
+    return init_fn, step_fn, run_fn
+
+
+def make_mcmc_train_window(step, log_pdf, box_length: float,
+                           n_sweeps: int = 10, target_accept: float = 0.5,
+                           pmean_axis: str | None = None,
+                           sort_proposals: bool | str = True,
+                           train_step=None):
+    """Metropolis-driven VMC training: walkers persist across epochs.
+
+    Each epoch runs ``n_sweeps`` random-walk Metropolis sweeps on |ψ|²
+    (proposals projected by ``sector_projection(sort_proposals)``), then one
+    update ``step(mstate.positions)``, then refreshes the walkers' log-probs
+    under the new parameters.  ``step`` is the port's train step
+    (vmc/estimators.py::make_train_step — the JAX signature's psi, h_fn,
+    optimizer, estimator and energy_clip are inside it).  ``pmean_axis``
+    (a mesh) and ``train_step`` (the SR / SPRING update) are not ported.
+
+    Returns (init_fn, run_window): ``run_window(mstate, n_epochs,
+    generator=None, noise=None, u=None) -> (losses (n_epochs,),
+    accept_rates (n_epochs,), mstate)``, the losses and the running accept
+    rate after each epoch's sweeps left on the device (no host sync inside
+    the window); ``noise`` (n_epochs, n_sweeps, B, D) and ``u`` (n_epochs,
+    n_sweeps, B) replace the generator's draws when given."""
+    if pmean_axis is not None:
+        raise NotImplementedError(
+            "pmean_axis (walkers sharded over a mesh) is not ported")
+    if train_step is not None:
+        raise NotImplementedError(
+            "a custom train_step (SR / SPRING) is not ported; the window "
+            "runs the adam step it is given")
+    init_fn, step_fn, _ = make_metropolis_sampler(
+        log_pdf, target_accept=target_accept,
+        bounds=(-box_length, box_length),
+        proposal_map=sector_projection(sort_proposals))
+
+    def run_window(mstate: MetropolisState, n_epochs: int, generator=None,
+                   noise=None, u=None):
+        losses, rates = [], []
+        for e in range(n_epochs):
+            for s in range(n_sweeps):
+                mstate = step_fn(
+                    mstate, generator,
+                    None if noise is None else noise[e, s],
+                    None if u is None else u[e, s])
+            rates.append(mstate.accept_rate)
+            losses.append(step(mstate.positions))
+            with torch.no_grad():
+                mstate = mstate._replace(log_prob=log_pdf(mstate.positions))
+        return torch.stack(losses), torch.stack(rates), mstate
+
+    return init_fn, run_window

@@ -1,27 +1,48 @@
-"""VMC training loop: the ancestral + adam subset of the JAX VMCTrainer.
+"""VMC training loop: the single-process surface of the JAX VMCTrainer.
 
-Port of waveflow_tpu/vmc/trainer.py for the main path: exact ancestral
-walkers, the 'clipped_score' estimator, adam after an optax-form global
-norm clip, single device, eval backends 'poly' and 'poly_pallas' (the
-latter runs the CUDA basis-jet kernel).  Everything else the JAX config
-offers — MCMC samplers, SR/SPRING, meshes, checkpoint save/resume and
-artifacts — raises ``NotImplementedError``.
+Port of waveflow_tpu/vmc/trainer.py: exact ancestral walkers or persistent
+Metropolis walkers (``sampler='metropolis'``, with the periodic ancestral
+refresh), the 'clipped_score' estimator, adam after an optax-form global
+norm clip, eval backends 'poly' and 'poly_pallas' (the latter runs the CUDA
+basis-jet kernel), checkpoint save / exact resume and divergence recovery.
+Everything else the JAX config offers — MALA, SR/SPRING, meshes, artifacts
+— raises ``NotImplementedError``.
+
+Checkpoints: ``save_checkpoint`` writes ``<save_dir>/checkpoints`` (params,
+the Adam state, the epoch, the walker generator's state and the Metropolis
+walkers, all as numpy) and ``loss.npy``; resuming from one continues the
+run bit for bit.  ``load_checkpoint`` also reads the JAX trainer's
+checkpoints (params, flat Adam moments, Metropolis walkers); the JAX PRNG
+key is not carried across, so a resumed JAX run continues on the port's
+stream seeded by ``config.seed``.  Unlike the JAX trainer, ``train`` writes
+only when ``config.save_dir`` is set (``resolved_save_dir()`` gives the
+JAX package's default for callers that want it).
 """
 
 from __future__ import annotations
 
 import copy
+import json
 import time
 from dataclasses import dataclass, fields
+from pathlib import Path
 
+import numpy as np
 import torch
 
 from waveflow_tpu_torch import resolve_device
+from waveflow_tpu_torch.convert import (
+    adam_state_from_jax, mcmc_state_from_jax, params_from_jax,
+)
 from waveflow_tpu_torch.models.factory import get_waveflow_model
 from waveflow_tpu_torch.physics import (
     construct_hamiltonian_function, system_catalogue,
 )
+from waveflow_tpu_torch.utils.checkpoint import load_state, save_state
 from waveflow_tpu_torch.vmc.estimators import make_train_step, run_window
+from waveflow_tpu_torch.vmc.metropolis import (
+    MetropolisState, make_mcmc_train_window,
+)
 
 
 @dataclass
@@ -46,10 +67,23 @@ class VMCConfig:
     sampling_backend: str = 'table'
     laplacian_mode: str = 'fwd_batched'
     seed: int = 2
+    # where train() writes checkpoints, loss.npy and system_info.json;
+    # None writes nothing
+    save_dir: str | None = None
     grad_clip: float | None = 10.0
     estimator: str = 'clipped_score'
     clip_stat: str = 'mean_abs'
+    # 'ancestral' (exact draws from |ψ|² every epoch) or 'metropolis'
+    # (persistent walkers, warm-started from one exact draw)
     sampler: str = 'ancestral'
+    mcmc_sweeps: int = 3                  # Metropolis sweeps per update
+    mcmc_step_size: float = 0.5           # initial proposal scale (adapts)
+    mcmc_target_accept: float = 0.5
+    # exact ancestral walker refresh for the Metropolis sampler, in epochs
+    # (rounded to whole windows; the adapted step size is kept): 'auto' =
+    # once per window for >= 3 electrons (trapping in nodal pockets, Li),
+    # never otherwise (the He flagship); an int sets it; None disables
+    mcmc_refresh_every: int | None | str = 'auto'
     optimizer: str = 'adam'
     ansatz: str = 'sorted'
     interactions: bool = True
@@ -59,14 +93,42 @@ class VMCConfig:
     divergence_recovery: bool = True
     device: str = 'cuda'
 
+    def resolved_save_dir(self) -> str:
+        if self.save_dir is not None:
+            return self.save_dir
+        return (f"./results/{self.system_name}_{self.n_space_dimension}d"
+                f"_L{self.box_length:g}box")
+
 
 _ONLY = {
     'n_space_dimension': (1,), 'xu_coord_type': ('mean',),
     'eval_backend': ('poly', 'poly_pallas'), 'sampling_backend': ('table',),
     'laplacian_mode': ('fwd_batched',), 'estimator': ('clipped_score',),
-    'sampler': ('ancestral',), 'optimizer': ('adam',), 'ansatz': ('sorted',),
-    'clip_stat': ('mean_abs',), 'divergence_recovery': (True,),
+    'sampler': ('ancestral', 'metropolis'), 'optimizer': ('adam',),
+    'ansatz': ('sorted',), 'clip_stat': ('mean_abs',),
+    'divergence_recovery': (True,),
 }
+
+
+def _to_numpy(tree):
+    """Tensors -> numpy arrays inside an optimizer state dict."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy().copy()
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_numpy(v) for v in tree]
+    return tree
+
+
+def _to_tensors(tree):
+    if isinstance(tree, np.ndarray):
+        return torch.as_tensor(tree)
+    if isinstance(tree, dict):
+        return {k: _to_tensors(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_tensors(v) for v in tree]
+    return tree
 
 
 class VMCTrainer:
@@ -78,7 +140,8 @@ class VMCTrainer:
         if unported:
             raise NotImplementedError(
                 f"VMCConfig fields {unported} are not ported to the PyTorch "
-                "trainer (ancestral + adam + clipped_score, single device)")
+                "trainer (ancestral / metropolis + adam + clipped_score, "
+                "single device)")
         config = config if config is not None else VMCConfig(**overrides)
         self.config = c = config
         for name, allowed in _ONLY.items():
@@ -90,6 +153,8 @@ class VMCTrainer:
         self.protons, self.n_particle = system_catalogue[
             c.n_space_dimension][c.system_name]
         self.input_dim = int(self.n_particle) * c.n_space_dimension
+        # the resolved coordinate map (vmc/evaluate.py derives the sector)
+        self.xu_coord_type = c.xu_coord_type
         init_gen = torch.Generator().manual_seed(c.seed)
         self.model = get_waveflow_model(
             self.input_dim, base_spline_degree=c.spline_degree,
@@ -108,30 +173,158 @@ class VMCTrainer:
             self.model.psi, self.h_fn, self.model.parameters(),
             c.learning_rate, grad_clip=c.grad_clip, estimator=c.estimator)
         self.generator = torch.Generator(self.device).manual_seed(c.seed + 1)
+        self.mcmc_state = None
+        if c.sampler == 'metropolis':
+            self.mcmc_init, self.mcmc_window = make_mcmc_train_window(
+                self.step, self.model.log_pdf, c.box_length,
+                n_sweeps=c.mcmc_sweeps, target_accept=c.mcmc_target_accept,
+                sort_proposals=self.xu_coord_type != 'independent')
         self.epoch = 0
         self.losses: list = []
+        # the Metropolis sampler's running accept rate after each epoch's
+        # sweeps, since construction (not checkpointed)
+        self.accept_rates: list = []
 
     def sample(self, num_samples: int) -> torch.Tensor:
         """Exact ancestral walkers from |ψ|² on the trainer's stream."""
         return self.model.sample(num_samples, generator=self.generator)
 
-    def _snapshot(self):
-        return (copy.deepcopy(self.model.state_dict()),
-                copy.deepcopy(self.step.optimizer.state_dict()))
+    def _init_mcmc_state(self, step_size: float | None = None):
+        """Metropolis walkers from one exact ancestral draw; ``step_size``
+        overrides the configured initial scale (a refresh keeps the
+        adapted one)."""
+        return self.mcmc_init(
+            self.sample(self.config.batch_size),
+            step_size=(self.config.mcmc_step_size if step_size is None
+                       else step_size))
 
-    def train(self, num_epochs: int | None = None, verbose: bool = True):
-        """Run ``num_epochs`` epochs in windows of ``config.window``; returns
-        the per-epoch losses (clipped batch-mean energies) so far."""
+    def _refresh_stride(self) -> int | None:
+        """Windows between exact walker refreshes, or None."""
+        c = self.config
+        every = c.mcmc_refresh_every
+        if every == 'auto':
+            every = c.window if int(self.n_particle) >= 3 else None
+        if c.sampler != 'metropolis' or not every:
+            return None
+        return max(1, round(every / c.window))
+
+    def _snapshot(self):
+        # Metropolis states are never written in place: a reference is a copy
+        return (copy.deepcopy(self.model.state_dict()),
+                copy.deepcopy(self.step.optimizer.state_dict()),
+                self.mcmc_state)
+
+    # ---- checkpointing ----------------------------------------------------
+
+    def save_checkpoint(self, save_dir: str):
+        """Write ``<save_dir>/checkpoints`` atomically and ``loss.npy``, the
+        per-epoch loss trace."""
+        path = Path(save_dir)
+        save_state(path / 'checkpoints', {
+            'params': {k: v.detach().cpu().numpy().copy()
+                       for k, v in self.model.state_dict().items()},
+            'optimizer': _to_numpy(self.step.optimizer.state_dict()),
+            'epoch': self.epoch,
+            'generator': self.generator.get_state().numpy().copy(),
+            'mcmc_state': (None if self.mcmc_state is None else
+                           [f.cpu().numpy().copy() for f in self.mcmc_state]),
+        })
+        np.save(path / 'loss.npy', np.asarray(self.losses))
+
+    def load_checkpoint(self, save_dir: str) -> bool:
+        """Restore from ``<save_dir>/checkpoints``, written by this trainer
+        or by the JAX trainer; False if there is none.
+
+        From a JAX checkpoint: params, the flat Adam moments (a pre-flatten
+        optimizer state re-initialises Adam, as the JAX trainer does), the
+        epoch and the Metropolis walkers; the walker generator restarts from
+        ``config.seed``, since the JAX PRNG key has no torch counterpart."""
+        state = load_state(Path(save_dir) / 'checkpoints')
+        if state is None:
+            return False
+        opt = self.step.optimizer
+        mcmc = state.get('mcmc_state')
+        if 'opt_state' in state:                       # the JAX trainer's
+            self.model.load_state_dict(params_from_jax(state['params']))
+            opt.state.clear()
+            try:
+                moments = adam_state_from_jax(
+                    state['opt_state'], state['params'],
+                    self.model.named_parameters())
+            except ValueError:
+                print("load_checkpoint: optimizer state structure changed "
+                      "(pre-flatten checkpoint?) — re-initializing adam "
+                      "moments", flush=True)
+            else:
+                for name, p in self.model.named_parameters():
+                    opt.state[p] = moments[name]
+            self.generator.manual_seed(self.config.seed + 1)
+            self.mcmc_state = (None if mcmc is None else
+                               mcmc_state_from_jax(mcmc, self.device))
+        else:
+            self.model.load_state_dict(
+                {k: torch.as_tensor(v) for k, v in state['params'].items()})
+            opt.load_state_dict(_to_tensors(state['optimizer']))
+            self.generator.set_state(torch.as_tensor(state['generator']))
+            self.mcmc_state = (None if mcmc is None else MetropolisState(
+                *(torch.as_tensor(f, device=self.device) for f in mcmc)))
+        self.epoch = int(state['epoch'])
+        loss_path = Path(save_dir) / 'loss.npy'
+        if loss_path.exists():
+            self.losses = np.load(loss_path).tolist()
+        return True
+
+    # ---- training ---------------------------------------------------------
+
+    def train(self, num_epochs: int | None = None, restart: bool = False,
+              verbose: bool = True):
+        """Run ``num_epochs`` epochs in windows of ``config.window`` (a last
+        shorter window takes the remainder); returns the per-epoch losses
+        (clipped batch-mean energies) so far.  ``restart`` first loads the
+        checkpoint under ``config.save_dir``.  With a save_dir, checkpoints
+        every ``round(log_every / window)`` windows and after the last."""
         c = self.config
         num_epochs = c.num_epochs if num_epochs is None else num_epochs
+        save_dir = c.save_dir
+        if restart:
+            if save_dir is None:
+                raise ValueError("restart=True needs config.save_dir")
+            self.load_checkpoint(save_dir)
+        if save_dir is not None:
+            Path(save_dir).mkdir(parents=True, exist_ok=True)
+            with open(Path(save_dir) / 'system_info.json', 'w') as f:
+                json.dump({
+                    'system_name': c.system_name,
+                    'box_length': c.box_length,
+                    'n_particle': int(self.n_particle),
+                    'n_space_dimension': c.n_space_dimension,
+                    'window': c.window,
+                    'batch_size': c.batch_size,
+                }, f, indent=4)
+        use_mcmc = c.sampler == 'metropolis'
+        if use_mcmc and self.mcmc_state is None:
+            self.mcmc_state = self._init_mcmc_state()
+        refresh_stride = self._refresh_stride()
+        log_stride = max(1, round(c.log_every / c.window))
         start, t0 = self.epoch, time.time()
         good = None
         n_windows = -(-num_epochs // c.window)
         for w in range(n_windows):
             length = min(c.window, num_epochs - w * c.window)
+            # the refresh follows the run's window count, not this call's,
+            # so a resumed run refreshes where an unbroken one does
+            g = self.epoch // c.window
+            if refresh_stride and g and g % refresh_stride == 0:
+                self.mcmc_state = self._init_mcmc_state(
+                    step_size=float(self.mcmc_state.step_size))
             if w % 10 == 0:
                 good = self._snapshot()
-            losses = run_window(self.step, self.sample, c.batch_size, length)
+            if use_mcmc:
+                losses, rates, mstate = self.mcmc_window(
+                    self.mcmc_state, length, self.generator)
+            else:
+                losses = run_window(self.step, self.sample, c.batch_size,
+                                    length)
             losses = losses.cpu()
             if not bool(torch.isfinite(losses).all()):
                 if verbose:
@@ -140,12 +333,22 @@ class VMCTrainer:
                 self.model.load_state_dict(good[0])
                 self.step.optimizer.load_state_dict(good[1])
                 self.generator.manual_seed(c.seed + 1 + 1000003 * (w + 1))
+                if use_mcmc:
+                    self.mcmc_state = (good[2] if good[2] is not None
+                                       else self._init_mcmc_state())
                 continue
+            if use_mcmc:
+                self.mcmc_state = mstate
+                self.accept_rates.extend(rates.cpu().tolist())
             self.losses.extend(losses.tolist())
             self.epoch += length
-            if verbose and (self.epoch % c.log_every < length
-                            or w == n_windows - 1):
+            last = w == n_windows - 1
+            if save_dir is not None and ((w + 1) % log_stride == 0 or last):
+                self.save_checkpoint(save_dir)
+            if verbose and (self.epoch % c.log_every < length or last):
                 rate = (self.epoch - start) / (time.time() - t0)
+                acc = (f" | accept {self.accept_rates[-1]:.3f}" if use_mcmc
+                       else "")
                 print(f"epoch {self.epoch} | loss {self.losses[-1]:.3f} | "
-                      f"{rate:.1f} steps/s", flush=True)
+                      f"{rate:.1f} steps/s{acc}", flush=True)
         return self.losses
