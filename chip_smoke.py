@@ -40,12 +40,28 @@ Phases (any failure exits non-zero; nothing is caught):
                with sampler='metropolis' and train one window of 100
                epochs: finite losses, mean accept rate in [0.3, 0.7], K3
                launched; walkers/s beside the ancestral figure;
-  9. density — train_density_model at the full width of the density
+  9. mala    — he1d_mala_s3 evaluated at the JAX protocol (clipped mean
+               within 5 combined stderr of the JAX figure; raw reported),
+               then resumed with sampler='mala' for one window of 100
+               epochs: finite losses, accept rate in [0.3, 0.7], K3
+               launched, walkers/s;
+ 10. spring, sr — r4_spring100k evaluated (raw and clipped gated) and
+               resumed with optimizer='spring' for 100 epochs (SPRING's
+               skipped / fallbacks counters, K3 launches per step, 10
+               epochs profiled); he1d_sr resumed with optimizer='sr' for 20
+               (2 more profiled);
+ 11. li      — r5_li_metro_refresh100_s3 (3 electrons) evaluated (raw and
+               clipped gated) and resumed for one Metropolis window of 20
+               epochs under the 'auto' refresh (K1 launched, 3 columns);
+ 12. vmap    — K3 under vmap(grad): SPRING's per-walker score matrix at 256
+               walkers, kernel against the plain core, one launch per jet
+               call;
+ 13. density — train_density_model at the full width of the density
                benchmark (MFlow, circles, 20,000 points), 200 epochs with a
                metric checkpoint every 100; losses finite and falling, K2
                and both K4 kernels launched on that run, metrics finite,
                the round trip closes, the card agrees with the CPU;
- 10. report  — one JSON line of kernels, then the final status line.
+ 14. report  — one JSON line of kernels, then the final status line.
 
 Each phase that drives a path sets the launch counts to 0 just before it
 and reads them just after.
@@ -66,8 +82,22 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 CHECKPOINT = ROOT / 'results' / 'r5_flagship_fwd_batched_100k' / 'checkpoints'
 METROPOLIS_RUN = ROOT / 'results' / 'he1d_metropolis_seed7'
-# the JAX package's frozen-params Metropolis evaluation of that checkpoint
+MALA_RUN = ROOT / 'results' / 'he1d_mala_s3'
+SPRING_RUN = ROOT / 'results' / 'r4_spring100k'
+SR_RUN = ROOT / 'results' / 'he1d_sr'
+LI_RUN = ROOT / 'results' / 'r5_li_metro_refresh100_s3'
+# the JAX package's frozen-params Metropolis evaluations of those
+# checkpoints: the flagship's and Li's, the SPRING run's, the MALA run's
 JAX_EVAL = ROOT / 'results' / 'round5_quality.json'
+JAX_EVAL_R4 = ROOT / 'results' / 'final_energies_r4.json'
+JAX_EVAL_MCMC = ROOT / 'results' / 'long_mcmc_runs.json'
+# the JAX runs' configurations (benchmarks/round4_quality.py SPRING,
+# benchmarks/round5_quality.py stage_li_refresh; he1d_sr: SR at lr 0.05)
+SPRING_CONFIG = dict(optimizer='spring', learning_rate=0.05,
+                     spring_momentum=0.9, sr_max_update_norm=0.3)
+SR_CONFIG = dict(optimizer='sr', learning_rate=0.05)
+LI_CONFIG = dict(system_name='Li', learning_rate=3e-4, sampler='metropolis',
+                 mcmc_sweeps=3, mcmc_refresh_every=100)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12     # H100 SXM, f32 outside the tensor cores
 FLAGSHIP = dict(spline_degree=6, num_knots=23, n_mesh=2000)
@@ -873,6 +903,168 @@ def metropolis_phase(torch, ancestral_wps):
     return launches, dict(wall_s=wall, walkers_per_s=wps, accept_rate=acc)
 
 
+def gate_phase(torch, label, run_dir, config, jax_raw, jax_clipped):
+    """The frozen-parameter evaluation of a committed JAX run at the JAX
+    protocol (4,096 walkers, 250 + 64 × 25 sweeps): raw and clipped means
+    within 5 combined stderr of the JAX figures (``jax_raw`` with a stderr
+    of None is reported, not gated)."""
+    from waveflow_tpu_torch.vmc import VMCConfig, VMCTrainer, evaluate_trainer
+    trainer = VMCTrainer(VMCConfig(eval_backend='poly_pallas', device='cuda',
+                                   **config))
+    if not trainer.load_checkpoint(str(run_dir)):
+        fail(f"no checkpoint under {run_dir}")
+    reset_counts()
+    t0 = time.perf_counter()
+    ev = evaluate_trainer(trainer)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    d_clip = sigmas(ev.e_clipped, ev.e_clipped_stderr, jax_clipped)
+    d_raw = (None if jax_raw[1] is None
+             else sigmas(ev.e_mean, ev.e_stderr, jax_raw))
+    raw_txt = ("not gated: the JAX figure has no stderr" if d_raw is None
+               else f"{d_raw:.2f} combined sigma")
+    print(f"{label} evaluation ({run_dir.name}, epoch {trainer.epoch}): raw "
+          f"E = {ev.e_mean:.6f} +- {ev.e_stderr:.6f} against the JAX raw "
+          f"{jax_raw[0]} +- {jax_raw[1]} ({raw_txt}) | clipped "
+          f"{ev.e_clipped:.6f} +- {ev.e_clipped_stderr:.6f} against "
+          f"{jax_clipped[0]} +- {jax_clipped[1]}: {d_clip:.2f} combined sigma "
+          f"| accept rate {ev.accept_rate:.4f} | {wall:.2f} s | launches: "
+          f"sampler {launches['sampler']}, basis_jet {launches['basis_jet']}",
+          flush=True)
+    if not (math.isfinite(ev.e_clipped) and d_clip <= 5.0):
+        fail(f"{label}: clipped mean {ev.e_clipped} is {d_clip:.2f} combined "
+             f"sigma from the JAX clipped mean {jax_clipped}")
+    if d_raw is not None and not (math.isfinite(ev.e_mean) and d_raw <= 5.0):
+        fail(f"{label}: raw mean {ev.e_mean} is {d_raw:.2f} combined sigma "
+             f"from the JAX raw mean {jax_raw}")
+    if min(launches.values()) == 0:
+        fail(f"a kernel of the path was not launched in {label}'s "
+             f"evaluation: {launches}")
+    return launches, dict(raw=ev.e_mean, raw_stderr=ev.e_stderr,
+                          clipped=ev.e_clipped,
+                          clipped_stderr=ev.e_clipped_stderr,
+                          raw_sigma=d_raw, clipped_sigma=d_clip,
+                          accept_rate=ev.accept_rate, wall_s=wall)
+
+
+def vmap_phase(torch):
+    """K3 under ``vmap(grad)``: SPRING's per-walker score matrix O of the
+    r4_spring100k parameters at 256 ancestral walkers, through the kernel
+    backend against the plain basis-jet core on the same walkers.  The
+    kernel runs once per jet call for the whole batch (4 jets in ψ: 3 IMADE
+    layers and the prior); O agrees with the plain core's to 1e-4 of the
+    largest entry."""
+    from waveflow_tpu_torch.convert import load_jax_checkpoint, params_from_jax
+    from waveflow_tpu_torch.models import get_waveflow_model
+    from waveflow_tpu_torch.vmc.sr import make_score_fn
+    params = params_from_jax(load_jax_checkpoint(
+        SPRING_RUN / 'checkpoints')['params'])
+    models = {}
+    for backend in ('poly_pallas', 'poly'):
+        m = get_waveflow_model(
+            2, base_spline_degree=FLAGSHIP['spline_degree'],
+            i_spline_degree=FLAGSHIP['spline_degree'],
+            n_prior_internal_knots=FLAGSHIP['num_knots'],
+            n_i_internal_knots=FLAGSHIP['num_knots'], i_spline_reg=0.05,
+            n_flow_layers=3, box_size=10.0, eval_backend=backend,
+            generator=torch.Generator().manual_seed(0), device='cuda')
+        m.load_state_dict(params)
+        models[backend] = make_score_fn(m)
+    batch = m.sample(256, generator=torch.Generator('cuda').manual_seed(4))
+    flatten, scores_k = models['poly_pallas']
+    flat = flatten()
+    reset_counts()
+    O_k = scores_k(flat, batch)
+    torch.cuda.synchronize()
+    per_call = read_counts()['basis_jet']
+    O_p = models['poly'][1](flat, batch)
+    err = (O_k - O_p).abs().max().item()
+    scale = O_p.abs().max().item()
+    ms_k = cuda_ms(torch, lambda: scores_k(flat, batch), reps=10)
+    ms_p = cuda_ms(torch, lambda: models['poly'][1](flat, batch), reps=10)
+    print(f"K3 under vmap(grad): score matrix {tuple(O_k.shape)} of "
+          f"r4_spring100k at 256 walkers, kernel against the plain "
+          f"core: max|dO| {err:.3e} (largest |O| {scale:.3e}, limit 1e-4 of "
+          f"it) | K3 launches per score matrix {per_call} (4 jet calls) | "
+          f"{ms_k:.2f} ms per score matrix ({ms_p:.2f} with the plain core)",
+          flush=True)
+    if not (torch.isfinite(O_k).all() and err <= 1e-4 * scale):
+        fail(f"K3 under vmap(grad) disagrees with the plain core: {err:.3e}")
+    if per_call != 4:
+        fail(f"the score matrix launched K3 {per_call} times, not once per "
+             "jet call (4)")
+    return dict(max_abs_err=err, max_abs_O=scale, launches_per_call=per_call,
+                ms=ms_k, plain_ms=ms_p)
+
+
+def window_phase(torch, label, run_dir, config, n_epochs, profile=0):
+    """One training window resumed from a committed JAX run at batch 256
+    with the kernel backend: finite losses, walkers/s (host clock), the
+    MCMC accept rate, SPRING's counters, launches per epoch; ``profile``
+    further epochs under the profiler."""
+    from waveflow_tpu_torch.vmc import VMCConfig, VMCTrainer
+    t = VMCTrainer(VMCConfig(batch_size=256, window=n_epochs,
+                             log_every=n_epochs, eval_backend='poly_pallas',
+                             device='cuda', **config))
+    if not t.load_checkpoint(str(run_dir)):
+        fail(f"no checkpoint under {run_dir}")
+    opt0 = t.step.optimizer.state_dict()
+    spring = isinstance(opt0, dict) and 'delta' in opt0
+    counters0 = ({k: int(v) for k, v in opt0.items() if k != 'delta'}
+                 if spring else None)
+    n0 = len(t.losses)
+    reset_counts()
+    t0 = time.perf_counter()
+    losses = t.train(n_epochs, verbose=False)[n0:]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    wps = n_epochs * 256 / wall
+    out = dict(walkers_per_s=wps, wall_s=wall, last_loss=losses[-1],
+               launches_per_epoch={k: v / n_epochs
+                                   for k, v in launches.items()})
+    extra = ""
+    if t.accept_rates:
+        out['accept_rate'] = sum(t.accept_rates) / len(t.accept_rates)
+        extra += f" | mean accept rate {out['accept_rate']:.4f}"
+    if counters0 is not None:
+        out['counters'] = {k: int(v) for k, v in
+                           t.step.optimizer.state_dict().items()
+                           if k != 'delta'}
+        extra += f" | counters {counters0} -> {out['counters']}"
+    print(f"{label}: {run_dir.name} resumed at epoch {t.epoch - n_epochs}, "
+          f"{n_epochs} epochs at batch 256, last loss {losses[-1]:.5f} | "
+          f"walkers/s {wps:.1f} (host clock){extra} | launches per epoch: "
+          f"sampler {launches['sampler'] / n_epochs:g}, basis_jet "
+          f"{launches['basis_jet'] / n_epochs:g}", flush=True)
+    if len(losses) != n_epochs or not all(math.isfinite(v) for v in losses):
+        fail(f"{label} produced non-finite losses")
+    if 'accept_rate' in out and not 0.3 <= out['accept_rate'] <= 0.7:
+        fail(f"{label} mean accept rate {out['accept_rate']} outside "
+             "[0.3, 0.7]")
+    if launches['basis_jet'] == 0:
+        fail(f"K3 was not launched in {label}")
+    if profile:
+        profile_window(torch, lambda: t.train(profile, verbose=False),
+                       profile, f"{label} ")
+    return launches, out
+
+
+def li_window_phase(torch):
+    """Li (3 electrons) resumed from r5_li_metro_refresh100_s3 with its
+    configuration, one Metropolis window of 20 epochs under the 'auto'
+    refresh (one exact ancestral refresh of the walkers per window for >= 3
+    electrons): K1 launched on an MCMC path, 3 columns per refresh."""
+    launches, out = window_phase(torch, 'li-256', LI_RUN,
+                                 dict(LI_CONFIG, mcmc_refresh_every='auto'),
+                                 20)
+    if launches['sampler'] != 3:
+        fail(f"the Li window's refresh launched K1 {launches['sampler']} "
+             "times, not 3 (one per column)")
+    return launches, out
+
+
 def density_phase(torch):
     """The density-estimation path at full width: MFlow trained by MLE on
     20,000 'circles' points, 200 epochs, a metric checkpoint every 100.
@@ -988,6 +1180,7 @@ def density_phase(torch):
 
 def main() -> int:
     import torch
+    t_start = time.perf_counter()
 
     # ---- 1. device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1141,15 +1334,42 @@ def main() -> int:
 
     # ---- 6-8. evaluation, resume, Metropolis training ----------------------
     by_phase = {'train-256': dict(launches)}
+    r4 = json.loads(JAX_EVAL_R4.read_text())[f'results/{SPRING_RUN.name}']
+    mcmc = json.loads(JAX_EVAL_MCMC.read_text())[MALA_RUN.name]
+    li = json.loads(JAX_EVAL.read_text())['li_metro_refresh100_s3']
     for name, run in (
             ('eval-4k', lambda: evaluation_phase(torch, jax_raw, jax_clipped)),
             ('resume', lambda: resume_phase(torch)),
-            ('metropolis-256', lambda: metropolis_phase(torch, wps_second))):
+            ('metropolis-256', lambda: metropolis_phase(torch, wps_second)),
+            # ---- 9-12. MALA, SPRING, SR, Li: windows and the JAX gates ----
+            ('mala-eval', lambda: gate_phase(
+                torch, 'mala', MALA_RUN, dict(sampler='mala'),
+                (mcmc['eval_mean'], None),
+                (mcmc['eval_clipped'], mcmc['eval_clipped_stderr']))),
+            ('mala-256', lambda: window_phase(
+                torch, 'mala-256', MALA_RUN, dict(sampler='mala'), 100)),
+            ('spring-eval', lambda: gate_phase(
+                torch, 'spring', SPRING_RUN, SPRING_CONFIG,
+                (r4['e_mean'], r4['e_stderr']),
+                (r4['e_clipped'], r4['e_clipped_stderr']))),
+            ('spring-256', lambda: window_phase(
+                torch, 'spring-256', SPRING_RUN, SPRING_CONFIG, 100,
+                profile=10)),
+            ('sr-256', lambda: window_phase(
+                torch, 'sr-256', SR_RUN, SR_CONFIG, 20, profile=2)),
+            ('li-eval', lambda: gate_phase(
+                torch, 'li', LI_RUN, LI_CONFIG,
+                (li['eval_mean'], li['eval_stderr']),
+                (li['eval_clipped'], li['eval_clipped_stderr']))),
+            ('li-256', lambda: li_window_phase(torch))):
         t0 = time.perf_counter()
         by_phase[name], _ = run()
         print(f"phase {name}: {time.perf_counter() - t0:.1f} s wall", flush=True)
+    t0 = time.perf_counter()
+    vmap_row = vmap_phase(torch)
+    print(f"phase vmap: {time.perf_counter() - t0:.1f} s wall", flush=True)
 
-    # ---- 9. density (the second main path; counts reset just before) -------
+    # ---- 13. density (the second main path; counts reset just before) ------
     by_phase['density-20k'] = density_phase(torch)
     launches.update(by_phase['density-20k'])
 
@@ -1157,7 +1377,7 @@ def main() -> int:
         """A kernel's launches on each path that ran it."""
         return {k: v[name] for k, v in by_phase.items() if v.get(name)}
 
-    # ---- 10. report --------------------------------------------------------
+    # ---- 14. report --------------------------------------------------------
     # each row at the shape its main path gives the kernel: K1 and K3 at the
     # training batch of 256, K2 at the 20,000 model draws of a metric
     # checkpoint, K4 at the flattened (20,000, 2) training batch
@@ -1195,7 +1415,8 @@ def main() -> int:
              plain_ms=k3_row['plain_ms'],
              bound_ms=k3_row['bound_ms'], bound_by=k3_row['bound_by'],
              library_ms=k3_row['library_ms'],
-             library_device_ms=k3_row['library_device_ms']),
+             library_device_ms=k3_row['library_device_ms'],
+             vmap_grad=vmap_row),
         dict(name='spline_eval', route='cuda',
              source='waveflow_tpu_torch/csrc/spline_eval.cu',
              replaces='waveflow_tpu/ops/pallas_spline.py:29',
@@ -1219,6 +1440,8 @@ def main() -> int:
              bound_ms=k4b_row['bound_ms'], bound_by=k4b_row['bound_by'],
              library_ms=None),
     ]
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall, the "
+          "build included", flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

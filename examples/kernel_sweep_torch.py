@@ -11,13 +11,19 @@ Each point is first held against the kernel's plain version (the tolerances
 of chip_smoke.py), then timed twice: back-to-back calls by CUDA events (host
 path included) and the kernel alone by the profiler's device time.
 
-One more part, timed only:
+Two more parts, timed only:
   host    the host path of K4's wrappers in pieces (allocation, ctypes
-          call, stream getter, checks, Function.apply), host clock per call.
+          call, stream getter, checks, Function.apply), host clock per call;
+  inverse the exact table inverse's two forms (ops/inverse.py: dense, and
+          node bisection) at the IMADE inverse's shapes (I-splines of the
+          flagship on the 2000-point mesh, one column of the model's own
+          conditioner, batch 256 to 65,536), by CUDA events in turns (dense,
+          bisection, bisection, dense), with their largest difference —
+          where DENSE_INVERSE_MAX_ELEMENTS_CUDA comes from.
 
 Usage (needs a CUDA card and nvcc; a few seconds after the build):
   python examples/kernel_sweep_torch.py [--check-only] [--out FILE.json]
-      [--only jet,sampler,sampler_linear,spline,host]
+      [--only jet,sampler,sampler_linear,spline,host,inverse]
 """
 
 import argparse
@@ -243,6 +249,53 @@ def host_path_pieces(gen):
     return rows
 
 
+def sweep_inverse(gen):
+    """Dense against node-bisection exact inverse per batch, and the
+    smallest swept batch from which bisection is the faster."""
+    from waveflow_tpu_torch.bijections import IMADE, masked_conditioner
+    from waveflow_tpu_torch.ops.inverse import (
+        DENSE_INVERSE_MAX_ELEMENTS_CUDA, exact_node_bisect_inverse,
+        exact_table_inverse)
+    layer = IMADE(masked_conditioner(), 2,
+                  spline_degree=FLAGSHIP['spline_degree'],
+                  n_internal_knots=FLAGSHIP['num_knots'],
+                  spline_regularization=0.05,
+                  n_spline_base_mesh_points=FLAGSHIP['n_mesh'],
+                  generator=torch.Generator().manual_seed(0), device='cuda')
+    ev = layer.ev
+    rows, crossover = [], None
+    for B in (256, 1024, 4096, 8192, 16384, 32768, 65536, 131072, 262144):
+        with torch.no_grad():
+            sp = layer.spline_params(
+                torch.rand((B, 2), generator=gen, device='cuda'))[:, 0]
+        y = torch.rand((B,), generator=gen, device='cuda')
+
+        def dense():
+            return exact_table_inverse(ev, sp, y)
+
+        def bisect():
+            return exact_node_bisect_inverse(ev, sp, y)
+
+        err = (dense() - bisect()).abs().max().item()
+        ms = {'dense': [], 'bisect': []}
+        for name, fn in (('dense', dense), ('bisect', bisect),
+                         ('bisect', bisect), ('dense', dense)):
+            ms[name].append(cuda_ms(torch, fn, reps=20))
+        d_ms, b_ms = (sum(v) / 2 for v in (ms['dense'], ms['bisect']))
+        if crossover is None and b_ms < d_ms:
+            crossover = B
+        row = dict(part='inverse', B=B, elements=B * ev.n_mesh,
+                   max_abs_diff=err, dense_ms=d_ms, bisect_ms=b_ms,
+                   dense_takes=B * ev.n_mesh <= DENSE_INVERSE_MAX_ELEMENTS_CUDA)
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    print(f"inverse: node bisection is faster from B = {crossover} "
+          f"({None if crossover is None else crossover * ev.n_mesh} "
+          f"elements) of the swept batches; DENSE_INVERSE_MAX_ELEMENTS_CUDA "
+          f"= {DENSE_INVERSE_MAX_ELEMENTS_CUDA}", flush=True)
+    return rows
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument('--check-only', action='store_true',
@@ -270,7 +323,8 @@ def main():
              'sampler': lambda: sweep_sampler(gen, timed, 'squared'),
              'sampler_linear': lambda: sweep_sampler(gen, timed, 'linear'),
              'spline': lambda: sweep_spline(gen, timed),
-             'host': lambda: host_path_pieces(gen)}
+             'host': lambda: host_path_pieces(gen),
+             'inverse': lambda: sweep_inverse(gen)}
     rows = []
     for part in args.only.split(','):
         if part not in parts:

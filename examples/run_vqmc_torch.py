@@ -1,9 +1,11 @@
-"""He-1d VMC training on the PyTorch/CUDA port (cf. examples/run_vqmc.py).
+"""1D VMC training on the PyTorch/CUDA port (cf. examples/run_vqmc.py).
 
 Usage:
   python examples/run_vqmc_torch.py --system He --box-length 10 \
       --batch-size 256 --num-epochs 100000 --eval-backend poly_pallas
   python examples/run_vqmc_torch.py ... --restart       # resume --save-dir
+  python examples/run_vqmc_torch.py ... --sampler mala --optimizer spring \
+      --learning-rate 0.05 --spring-momentum 0.9
 
 Checkpoints go to --save-dir (default: the JAX package's
 ./results/<system>_<d>d_L<box>box) every --log-every epochs and at the end;
@@ -43,10 +45,22 @@ def main(argv=None):
                    help="'poly' (plain PyTorch basis jet) or 'poly_pallas' "
                         "(the CUDA basis-jet kernel)")
     p.add_argument('--sampler', default='ancestral',
-                   choices=['ancestral', 'metropolis'],
-                   help='walker source: exact ancestral draws from |psi|^2 '
-                        'or persistent Metropolis walkers')
-    p.add_argument('--mcmc-sweeps', type=int, default=3)
+                   choices=['ancestral', 'metropolis', 'mala'],
+                   help='walker source: exact ancestral draws from |psi|^2, '
+                        'or persistent Metropolis or MALA (Langevin) walkers')
+    p.add_argument('--optimizer', default='adam',
+                   choices=['adam', 'sr', 'spring'],
+                   help="'sr' = stochastic reconfiguration by CG; 'spring' = "
+                        "min-SR / SPRING (sample-space solve + momentum); "
+                        "natural-gradient learning rates are typically "
+                        "1e-2..1e-1")
+    p.add_argument('--mcmc-sweeps', type=int, default=3,
+                   help='Metropolis / MALA sweeps between parameter updates')
+    p.add_argument('--spring-momentum', type=float, default=0.9,
+                   help="momentum for --optimizer spring (SPRING's mu)")
+    p.add_argument('--sr-max-update-norm', type=float, default=0.3,
+                   help='trust region for sr / spring: cap ||lr*delta||_2 '
+                        '(0 disables)')
     p.add_argument('--mcmc-refresh-every', type=int, default=-1,
                    help='refresh the Metropolis walkers with exact ancestral '
                         'draws every N epochs; -1 = auto (once per window '
@@ -63,6 +77,9 @@ def main(argv=None):
                     log_every=args.log_every, save_dir=args.save_dir,
                     seed=args.seed,
                     eval_backend=args.eval_backend, sampler=args.sampler,
+                    optimizer=args.optimizer,
+                    spring_momentum=args.spring_momentum,
+                    sr_max_update_norm=args.sr_max_update_norm or None,
                     mcmc_sweeps=args.mcmc_sweeps,
                     mcmc_refresh_every=('auto' if args.mcmc_refresh_every < 0
                                         else (args.mcmc_refresh_every or None)),

@@ -40,6 +40,9 @@ assert int(count) == 100000 and mu.shape == nu.shape == (32588,)
 assert [f.shape for f in ck['mcmc_state']] == [(256, 2), (256,), (), ()]
 state = mcmc_state_from_jax(ck['mcmc_state'], 'cpu')
 assert state.positions.shape == (256, 2) and state.step_size.ndim == 0
+ck = load_jax_checkpoint(sys.argv[3])
+state = mcmc_state_from_jax(ck['mcmc_state'], 'cpu')
+assert type(state).__name__ == 'MALAState' and state.grad.shape == (256, 2)
 print('ok')
 """
 
@@ -48,10 +51,13 @@ def test_imports_and_checkpoint_without_jax():
     """(i) With jax, optax, scikit-learn and waveflow_tpu made unimportable,
     every module of the port imports, the committed checkpoint loads, a
     benchmark dataset is generated, and the Metropolis-trained checkpoint
-    loads with its flat Adam moments and its MetropolisState."""
+    loads with its flat Adam moments and its MetropolisState, and the MALA
+    run's 5-field MALAState."""
     ckpt = ROOT / 'results' / 'r5_flagship_fwd_batched_100k' / 'checkpoints'
     metro = ROOT / 'results' / 'he1d_metropolis_seed7' / 'checkpoints'
-    out = subprocess.run([sys.executable, '-c', SCRIPT, str(ckpt), str(metro)],
+    mala = ROOT / 'results' / 'he1d_mala_s3' / 'checkpoints'
+    out = subprocess.run([sys.executable, '-c', SCRIPT, str(ckpt), str(metro),
+                          str(mala)],
                          cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith('ok')

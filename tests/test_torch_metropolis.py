@@ -146,7 +146,7 @@ def test_unported_arguments_raise():
         make_metropolis_sampler(lambda x: x.sum(-1), axis_name='walkers')
     with pytest.raises(NotImplementedError):
         make_mcmc_train_window(None, lambda x: x.sum(-1), BOX,
-                               train_step=lambda *a: None)
+                               pmean_axis='walkers')
 
 
 def test_train_window_matches_jax():

@@ -238,6 +238,26 @@ def test_table_inverse(method):
             got.numpy())
 
 
+@pytest.mark.parametrize('cuda,batch,form', [
+    (False, 4096, 'dense'), (False, 4200, 'bisect'), (True, 8192, 'dense'),
+    (True, 65536, 'dense'), (True, 131072, 'bisect')])
+def test_inverse_form_follows_the_device(monkeypatch, cuda, batch, form):
+    """batched_monotone_inverse on the 2000-point mesh: CPU tensors switch
+    to node bisection above the JAX package's 2**23 elements (4,194
+    walkers); CUDA tensors above DENSE_INVERSE_MAX_ELEMENTS_CUDA, the
+    crossover measured on the H100 (dense faster through 65,536 walkers,
+    bisection from 131,072)."""
+    from types import SimpleNamespace
+    from waveflow_tpu_torch.ops import inverse
+    monkeypatch.setattr(inverse, 'exact_table_inverse', lambda *a: 'dense')
+    monkeypatch.setattr(inverse, 'exact_node_bisect_inverse',
+                        lambda *a: 'bisect')
+    y = SimpleNamespace(numel=lambda: batch, is_cuda=cuda)
+    got = inverse.batched_monotone_inverse(SimpleNamespace(n_mesh=2000),
+                                           None, y)
+    assert got == form
+
+
 @pytest.mark.parametrize('kind,norm', [('I', 'sum'), ('B', 'l2')])
 def test_boundary_projector_and_bias_remover(kind, norm):
     """Constraint projection and (I-spline) bias removal against JAX;

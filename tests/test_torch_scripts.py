@@ -50,6 +50,23 @@ def test_run_restart_and_evaluate(tmp_path):
     assert '128 samples' in line
 
 
+def test_run_mala_with_spring(tmp_path):
+    """run_vqmc_torch.py --sampler mala --optimizer spring: one window of 2
+    epochs at lr 0.05; the checkpoint carries the 5-field MALA walkers and
+    SPRING's state, with its step count."""
+    from waveflow_tpu_torch.utils import load_state
+    out = _run('examples/run_vqmc_torch.py', '--device', 'cpu',
+               '--num-epochs', '2', '--window', '2', '--batch-size', '8',
+               '--log-every', '2', '--sampler', 'mala', '--optimizer',
+               'spring', '--learning-rate', '0.05', '--spring-momentum',
+               '0.5', '--save-dir', str(tmp_path), *TINY)
+    assert 'epoch 2 |' in out and 'accept' in out
+    state = load_state(tmp_path / 'checkpoints')
+    assert len(state['mcmc_state']) == 5
+    assert int(state['optimizer']['step']) == 2
+    assert np.isfinite(np.load(tmp_path / 'loss.npy')).all()
+
+
 def test_bench_prints_its_fields():
     """bench_torch.py at the flagship's widths, batch 8, one warmup window
     and one timed window of 2 epochs on the CPU: one JSON line with

@@ -156,13 +156,14 @@ def test_trainer_divergence_recovery():
 
 
 @pytest.mark.parametrize('override', [
-    dict(sampler='mala'), dict(optimizer='sr'),
+    dict(laplacian_mode='hvp'), dict(ansatz='antisym'),
     dict(eval_backend='table'), dict(estimator='reference'),
     dict(save_artifacts=True), dict(data_parallel=True),
     dict(clip_stat='median_abs'), dict(divergence_recovery=False)])
 def test_trainer_refuses_unported_config(override):
-    """Anything beyond ancestral / metropolis + adam + clipped_score on one
-    device raises NotImplementedError instead of being ignored."""
+    """Anything beyond ancestral / metropolis / mala + adam / sr / spring +
+    clipped_score on one device raises NotImplementedError instead of being
+    ignored."""
     with pytest.raises(NotImplementedError):
         VMCTrainer(device='cpu', **override)
 
@@ -172,3 +173,71 @@ def test_sampling_backend_poly_raises():
     ignores it under eval_backend='table')."""
     with pytest.raises(NotImplementedError):
         get_waveflow_model(2, **SMALL, sampling_backend='poly', device='cpu')
+
+
+@pytest.mark.parametrize('n,log_every,saved', [(15, 12, [10, 12, 15]),
+                                                (7, 3, [3, 6, 7])])
+def test_train_runs_whole_windows_then_ancestral_epochs(tmp_path, n,
+                                                        log_every, saved):
+    """train(n) at window 10 with sampler='metropolis', as the JAX trainer:
+    n // 10 whole windows with the sampler, then the remainder — all of n
+    when n < 10 — as single epochs of exact ancestral walkers through the
+    train step, leaving the walkers as the last window left them (never
+    drawn when no window ran); checkpoints after every round(log_every /
+    window) windows, at single epochs with epoch % log_every == 0, and at
+    the end."""
+    t = VMCTrainer(VMCConfig(batch_size=8, window=10, log_every=log_every,
+                             num_knots=8, n_flow_layers=1, spline_degree=4,
+                             n_spline_base_mesh_points=400,
+                             sampler='metropolis', save_dir=str(tmp_path),
+                             device='cpu'))
+    windows, steps, epochs = [], [], []
+    real_window, real_step, real_save = t.mcmc_window, t.step, t.save_checkpoint
+
+    def window(mstate, n_epochs, generator=None):
+        out = real_window(mstate, n_epochs, generator)
+        windows.append(out[2])
+        return out
+
+    def step(batch):
+        steps.append(batch)
+        return real_step(batch)
+
+    step.optimizer = real_step.optimizer
+    t.mcmc_window, t.step = window, step
+    t.save_checkpoint = lambda d: epochs.append(t.epoch) or real_save(d)
+    losses = t.train(n, verbose=False)
+    assert t.epoch == n and len(losses) == n and np.isfinite(losses).all()
+    assert len(windows) == n // 10 and len(t.accept_rates) == 10 * (n // 10)
+    # the window's own updates go through t.mcmc_window's step, so the
+    # wrapper sees exactly the single ancestral epochs
+    assert len(steps) == n % 10
+    assert t.mcmc_state is (windows[-1] if windows else None)
+    assert epochs == saved
+    assert np.load(tmp_path / 'loss.npy').shape == (n,)
+
+
+def test_epoch_after_a_diverged_window_follows_jax():
+    """train(6) at window 2 whose second window diverges: it is dropped
+    (its losses too), and the epoch after the third is start + 3 × 2 = 6 —
+    the JAX trainer's start + (w + 1) × window, which counts a dropped
+    window once a later one succeeds."""
+    cfg = VMCConfig(batch_size=8, window=2, num_knots=8, n_flow_layers=1,
+                    spline_degree=4, n_spline_base_mesh_points=400,
+                    device='cpu')
+    t = VMCTrainer(cfg)
+    real_step, calls, epochs = t.step, [], []
+
+    def diverging_step(batch):
+        calls.append(1)
+        if len(calls) in (3, 4):                  # the whole second window
+            return torch.tensor(float('nan'))
+        epochs.append(t.epoch)
+        return real_step(batch)
+
+    diverging_step.optimizer = real_step.optimizer
+    t.step = diverging_step
+    losses = t.train(6, verbose=False)
+    assert len(calls) == 6 and t.epoch == 6
+    assert len(losses) == 4 and np.isfinite(losses).all()
+    assert epochs == [0, 0, 2, 2]                 # the third window starts at 2

@@ -17,8 +17,9 @@ MFlow params are the pair ``(transform_params, sp_params)``; Flow params
 are ``transform_params`` alone (its priors have none).
 ``load_jax_checkpoint`` reads a checkpoint pickle written by the JAX
 trainer without JAX or optax installed; ``adam_state_from_jax`` and
-``mcmc_state_from_jax`` carry its optimizer moments and Metropolis walkers
-across.  Its PRNG key is not carried: the two packages' generators differ.
+``mcmc_state_from_jax`` carry its optimizer moments and Metropolis or MALA
+walkers across; ``ravel_order`` gives the flat parameter layout of its
+natural-gradient states.  Its PRNG key is not carried: the two packages' generators differ.
 """
 
 from __future__ import annotations
@@ -105,6 +106,22 @@ def _find_adam_state(tree):
     return None
 
 
+def ravel_order(names) -> list:
+    """State-dict names in JAX ``ravel_pytree`` order — tree-leaf order,
+    the order ``params_from_jax`` writes: the transform layers by index,
+    then the prior's conditioner; inside a conditioner the MLP's (W, b)
+    pairs by layer, then ``zero_params``.  The natural-gradient steps lay
+    their flat parameter vector out in this order (vmc/sr.py), so that a
+    JAX SPRING state lands on the right parameters."""
+    def key(name):
+        parts = name.split('.')
+        head = (0, int(parts[2])) if parts[0] == 'transform' else (1, 0)
+        if parts[-1] == 'zero_params':
+            return head + (1, 0, 0)
+        return head + (0, int(parts[-1]), 0 if parts[-2] == 'W' else 1)
+    return sorted(names, key=key)
+
+
 def adam_state_from_jax(opt_state, params_tree, named_parameters) -> dict:
     """The JAX trainer's flat Adam moments as ``torch.optim.Adam`` state.
 
@@ -145,10 +162,15 @@ def adam_state_from_jax(opt_state, params_tree, named_parameters) -> dict:
 
 def mcmc_state_from_jax(fields, device=None):
     """A JAX ``MetropolisState`` (positions (B, D), log_prob (B,),
-    step_size (), accept_rate ()) as the port's, on ``device``."""
+    step_size (), accept_rate ()) or ``MALAState`` (positions, log_prob,
+    grad (B, D), step_size, accept_rate) as the port's, on ``device`` —
+    told apart by the number of fields, as the JAX trainer does."""
+    from waveflow_tpu_torch.vmc.mala import MALAState
     from waveflow_tpu_torch.vmc.metropolis import MetropolisState
-    if len(fields) != len(MetropolisState._fields):
-        raise NotImplementedError(
-            f"an MCMC state of {len(fields)} fields (MALA) is not ported")
-    return MetropolisState(*(torch.as_tensor(np.array(f, np.float32),
-                                             device=device) for f in fields))
+    kind = MALAState if len(fields) == len(MALAState._fields) \
+        else MetropolisState
+    if len(fields) != len(kind._fields):
+        raise ValueError(f"an MCMC state of {len(fields)} fields is neither "
+                         "a MetropolisState nor a MALAState")
+    return kind(*(torch.as_tensor(np.array(f, np.float32), device=device)
+                  for f in fields))

@@ -97,6 +97,10 @@ class Waveflow(nn.Module):
         amps = torch.where(self.constrained, amps / math.sqrt(2.0), amps)
         return torch.prod(amps, dim=-1) * torch.exp(0.5 * log_det)
 
+    # torch.func.functional_call runs a module's forward: ψ of given
+    # parameters (the natural-gradient steps, vmc/sr.py)
+    forward = psi
+
     def log_pdf(self, x: torch.Tensor) -> torch.Tensor:
         """log |ψ(x)|² (up to LOG_TOL): (B, D) -> (B,)."""
         amps, log_det = self._amplitudes(x)

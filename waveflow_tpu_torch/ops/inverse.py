@@ -21,8 +21,13 @@ import torch
 
 from waveflow_tpu_torch.ops.spline_eval import SplineEvaluator
 
-# above this many (batch x n_mesh) elements the node-bisection form is used
+# above this many (batch x n_mesh) elements the node-bisection form is used:
+# on CPU tensors the JAX package's crossover (measured on a TPU v5e); on
+# CUDA tensors the crossover measured on an H100 at the IMADE inverse's
+# shapes by examples/kernel_sweep_torch.py --only inverse (2000-point mesh:
+# dense faster through 65,536 walkers, bisection from 131,072)
 DENSE_INVERSE_MAX_ELEMENTS = 2 ** 23
+DENSE_INVERSE_MAX_ELEMENTS_CUDA = 2 ** 27
 
 
 def _in_cell_solve(j, g_l, g_r, y, n_cells):
@@ -68,8 +73,11 @@ def batched_monotone_inverse(evaluator: SplineEvaluator,
                              y: torch.Tensor) -> torch.Tensor:
     """Solve f(x) = y for x in [0,1], f monotone increasing per sample —
     the JAX ``method='exact'``: the dense form up to
-    DENSE_INVERSE_MAX_ELEMENTS (batch x n_mesh) elements, node bisection
-    above.  The evaluator-only bisection method is not ported."""
-    if y.numel() * evaluator.n_mesh > DENSE_INVERSE_MAX_ELEMENTS:
+    DENSE_INVERSE_MAX_ELEMENTS (batch x n_mesh) elements on the CPU,
+    DENSE_INVERSE_MAX_ELEMENTS_CUDA on the card, node bisection above.  The
+    evaluator-only bisection method is not ported."""
+    limit = (DENSE_INVERSE_MAX_ELEMENTS_CUDA if y.is_cuda
+             else DENSE_INVERSE_MAX_ELEMENTS)
+    if y.numel() * evaluator.n_mesh > limit:
         return exact_node_bisect_inverse(evaluator, coeffs, y)
     return exact_table_inverse(evaluator, coeffs, y)

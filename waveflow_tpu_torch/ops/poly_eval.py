@@ -98,7 +98,9 @@ class _BasisJet(torch.autograd.Function):
     custom JVP (poly_eval.py:217-228): the x-tangent of the jet is the
     shifted jet ITSELF, taken from the saved output — nested forward-mode
     Laplacians and parameter cotangents reuse the one core call.  The top
-    order's x-tangent is truncated, as in the JAX package."""
+    order's x-tangent is truncated, as in the JAX package.  Under
+    ``torch.func.vmap`` (the per-walker score matrix of SPRING) the batch
+    folds into x's shape: one core call per jet, not one per walker."""
 
     @staticmethod
     def forward(x, ev):
@@ -128,6 +130,13 @@ class _BasisJet(torch.autograd.Function):
     def backward(ctx, grad_out):
         (out,) = ctx.saved_tensors
         return (grad_out * _shift(out)).sum((-2, -1)), None
+
+    @staticmethod
+    def vmap(info, in_dims, x, ev):
+        # the jet is elementwise in x: the vmapped dimension is one more
+        # leading dimension of x, so the whole batch is one core call (one
+        # K3 launch) and the output keeps it where x has it
+        return _BasisJet.apply(x, ev), in_dims[0]
 
 
 class PolySplineEvaluator:

@@ -5,6 +5,7 @@ from waveflow_tpu_torch.vmc.metropolis import (
     MetropolisState, make_mcmc_train_window, make_metropolis_sampler,
     sector_projection,
 )
+from waveflow_tpu_torch.vmc.mala import MALAState, make_mala_sampler
 from waveflow_tpu_torch.vmc.evaluate import (
     EnergyEvaluation, block_statistics, evaluate_energy, evaluate_trainer,
 )

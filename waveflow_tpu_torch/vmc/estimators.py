@@ -37,13 +37,22 @@ def _median(x: torch.Tensor) -> torch.Tensor:
     return 0.5 * (s[(n - 1) // 2] + s[n // 2])
 
 
+def clip_local_energies(e_loc: torch.Tensor,
+                        clip_scale: float = 5.0) -> torch.Tensor:
+    """E_L clipped to median ± clip_scale × mean|E_L − median| (the JAX
+    default ``clip_stat='mean_abs'``; 'median_abs' is not ported)."""
+    center = _median(e_loc)
+    mad = (e_loc - center).abs().mean()
+    return torch.clamp(e_loc, center - clip_scale * mad,
+                       center + clip_scale * mad)
+
+
 def make_loss_fn(psi, h_fn, estimator: str = 'clipped_score',
                  clip_scale: float = 5.0):
     """loss(batch) -> scalar whose value is the clipped batch-mean energy and
     whose gradient is the clipped score-function estimator.
 
-    The clip window is median ± clip_scale × mean|E_L − median| (the JAX
-    default ``clip_stat='mean_abs'``; 'median_abs' is not ported)."""
+    The clip window is ``clip_local_energies``'s."""
     if estimator != 'clipped_score':
         raise NotImplementedError(
             f"estimator {estimator!r} is not ported; only 'clipped_score'")
@@ -52,11 +61,8 @@ def make_loss_fn(psi, h_fn, estimator: str = 'clipped_score',
         psi_val = psi(batch)
         with torch.no_grad():
             energies = h_fn(batch)[:, 0]
-            e_loc = energies / _safe_psi(psi_val)
-            center = _median(e_loc)
-            mad = (e_loc - center).abs().mean()
-            e_c = torch.clamp(e_loc, center - clip_scale * mad,
-                              center + clip_scale * mad)
+            e_c = clip_local_energies(energies / _safe_psi(psi_val),
+                                      clip_scale)
             e_c_mean = e_c.mean()
             weights = e_c - e_c_mean
         log_abs_psi = torch.log(psi_val.abs() + PSI_EPS)

@@ -1,0 +1,170 @@
+"""Metropolis-adjusted Langevin (MALA) walkers and the MALA training window.
+
+Port of waveflow_tpu/vmc/mala.py, single device.  Proposals
+
+    x' = x + (ε²/2) ∇log p(x) + ε ξ
+
+with the drift clipped elementwise at ±``grad_clip`` and the full
+asymmetric-kernel Metropolis correction; proposals outside the box get
+log-prob −inf; the step size adapts by Robbins-Monro toward a target
+acceptance rate.  Plain PyTorch, as in the reference: the kernels on this
+path are the ones inside ``log_pdf`` (K3 under ``eval_backend='poly_pallas'``,
+whose backward supplies the drift).
+
+Walkers are independent, so one backward pass of the SUMMED log-density
+gives every walker's ∇ₓ log p.  Random draws come from an explicit
+``torch.Generator``; every step also takes its proposal noise and accept
+uniforms explicitly, so a test can feed it the draws of the JAX package's
+own key.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from waveflow_tpu_torch.vmc.metropolis import sector_projection
+
+
+class MALAState(NamedTuple):
+    positions: torch.Tensor     # (B, D)
+    log_prob: torch.Tensor      # (B,)
+    grad: torch.Tensor          # (B, D) clipped ∇ log p at positions
+    step_size: torch.Tensor     # () proposal scale ε
+    accept_rate: torch.Tensor   # () running acceptance estimate
+
+
+def make_mala_sampler(log_pdf, target_accept: float = 0.574,
+                      adapt_rate: float = 0.05,
+                      axis_name: str | None = None,
+                      bounds: tuple[float, float] | None = None,
+                      grad_clip: float = 1e3):
+    """(init_fn, step_fn, run_fn) for MALA on ``log_pdf(x (B, D)) -> (B,)``.
+
+    ``grad_clip`` bounds the drift elementwise: near a node of ψ the
+    gradient of log ψ² diverges, and the accept test keeps the chain exact
+    whatever the clip does to the proposal.  ``axis_name`` (collective
+    adaptation over a device mesh) is not ported."""
+    if axis_name is not None:
+        raise NotImplementedError(
+            "axis_name (collective step-size adaptation over a mesh) is not "
+            "ported; walkers run on one device")
+
+    def lp_grad(x: torch.Tensor):
+        with torch.enable_grad():
+            xr = x.detach().requires_grad_()
+            lp = log_pdf(xr)
+            (g,) = torch.autograd.grad(lp.sum(), xr)
+        return lp.detach(), torch.clamp(g, -grad_clip, grad_clip)
+
+    def init_fn(positions: torch.Tensor, step_size=0.1) -> MALAState:
+        lp, g = lp_grad(positions)
+        return MALAState(
+            positions, lp, g,
+            torch.as_tensor(step_size, dtype=lp.dtype, device=lp.device),
+            torch.tensor(target_accept, dtype=lp.dtype, device=lp.device))
+
+    def step_fn(state: MALAState, generator=None, noise=None, u=None,
+                adapt: bool = True) -> MALAState:
+        """One sweep.  ``noise`` (B, D) standard normals and ``u`` (B,)
+        uniforms on [0, 1) are drawn from ``generator`` unless given;
+        ``adapt=False`` keeps the step size (a frozen kernel)."""
+        pos = state.positions
+        if noise is None:
+            noise = torch.randn(pos.shape, generator=generator,
+                                dtype=pos.dtype, device=pos.device)
+        if u is None:
+            u = torch.rand(state.log_prob.shape, generator=generator,
+                           dtype=pos.dtype, device=pos.device)
+        eps = state.step_size
+        mean_fwd = pos + 0.5 * eps ** 2 * state.grad
+        proposal = mean_fwd + eps * noise
+        lp_prop, grad_prop = lp_grad(proposal)
+        if bounds is not None:
+            lo, hi = bounds
+            inside = ((proposal >= lo) & (proposal <= hi)).all(-1)
+            lp_prop = torch.where(inside, lp_prop, float('-inf'))
+        # asymmetric-kernel correction log q(x | x') − log q(x' | x); a
+        # non-finite drift at the proposal makes the ratio NaN, which
+        # rejects, and torch.where keeps it out of the state
+        mean_rev = proposal + 0.5 * eps ** 2 * grad_prop
+        log_q_fwd = -((proposal - mean_fwd) ** 2).sum(-1) / (2 * eps ** 2)
+        log_q_rev = -((pos - mean_rev) ** 2).sum(-1) / (2 * eps ** 2)
+        log_ratio = lp_prop - state.log_prob + log_q_rev - log_q_fwd
+        accept = torch.log(u) < log_ratio
+        new_pos = torch.where(accept[:, None], proposal, pos)
+        new_lp = torch.where(accept, lp_prop, state.log_prob)
+        new_grad = torch.where(accept[:, None], grad_prop, state.grad)
+        acc_frac = accept.to(pos.dtype).mean()
+        new_step = (eps * torch.exp(adapt_rate * (acc_frac - target_accept))
+                    if adapt else eps)
+        new_rate = 0.9 * state.accept_rate + 0.1 * acc_frac
+        return MALAState(new_pos, new_lp, new_grad, new_step, new_rate)
+
+    def run_fn(state: MALAState, n_steps: int, generator=None,
+               thin: int = 1, n_warmup: int = 0):
+        """``n_warmup`` adaptive sweeps, then ``n_steps`` recorded sweeps —
+        from the frozen kernel when ``n_warmup`` > 0, adapting throughout
+        when it is 0 (the training mode).  Returns (final state, positions
+        of the recorded sweeps 0, thin, 2·thin, ...)."""
+        for _ in range(n_warmup):
+            state = step_fn(state, generator)
+        trace = []
+        for _ in range(n_steps):
+            state = step_fn(state, generator, adapt=n_warmup == 0)
+            trace.append(state.positions)
+        return state, torch.stack(trace)[::thin]
+
+    return init_fn, step_fn, run_fn
+
+
+def make_mala_train_window(step, log_pdf, box_length: float,
+                           n_sweeps: int = 10, target_accept: float = 0.574,
+                           pmean_axis: str | None = None,
+                           sort_fermions: bool | str = True,
+                           train_step=None):
+    """MALA-driven VMC training: walkers persist across epochs (the
+    contract of ``metropolis.make_mcmc_train_window``).
+
+    Unlike random-walk Metropolis, the chain runs in the FULL coordinate
+    space on the permutation-symmetrised density log_pdf(proj(x)), proj =
+    ``sector_projection(sort_fermions)`` (a sort carries the gradient back
+    to the unsorted coordinates); walkers are projected only when handed to
+    the update ``step(batch) -> loss`` (the port's adam step, or the SR /
+    SPRING step of vmc/sr.py; ``train_step`` replaces ``step`` when given).
+    After each update the walkers' log-probs AND drifts are recomputed under
+    the new parameters.  ``pmean_axis`` (a mesh) is not ported.
+
+    Returns (init_fn, run_window): ``run_window(mstate, n_epochs,
+    generator=None, noise=None, u=None) -> (losses (n_epochs,),
+    accept_rates (n_epochs,), mstate)``, left on the device (no host read
+    inside the window); ``noise`` (n_epochs, n_sweeps, B, D) and ``u``
+    (n_epochs, n_sweeps, B) replace the generator's draws when given."""
+    if pmean_axis is not None:
+        raise NotImplementedError(
+            "pmean_axis (walkers sharded over a mesh) is not ported")
+    if train_step is not None:
+        step = train_step
+    proj = sector_projection(sort_fermions)
+    to_sector = proj if proj is not None else (lambda x: x)
+    init_fn, step_fn, _ = make_mala_sampler(
+        lambda x: log_pdf(to_sector(x)), target_accept=target_accept,
+        bounds=(-box_length, box_length))
+
+    def run_window(mstate: MALAState, n_epochs: int, generator=None,
+                   noise=None, u=None):
+        losses, rates = [], []
+        for e in range(n_epochs):
+            for s in range(n_sweeps):
+                mstate = step_fn(
+                    mstate, generator,
+                    None if noise is None else noise[e, s],
+                    None if u is None else u[e, s])
+            rates.append(mstate.accept_rate)
+            losses.append(step(to_sector(mstate.positions)))
+            fresh = init_fn(mstate.positions, mstate.step_size)
+            mstate = mstate._replace(log_prob=fresh.log_prob, grad=fresh.grad)
+        return torch.stack(losses), torch.stack(rates), mstate
+
+    return init_fn, run_window

@@ -108,14 +108,13 @@ def make_metropolis_sampler(log_pdf, target_accept: float = 0.5,
 
     def run_fn(state: MetropolisState, n_steps: int, generator=None,
                thin: int = 1):
-        """``n_steps`` sweeps: (final state, positions every ``thin``
-        sweeps, (n_steps // thin, B, D))."""
+        """``n_steps`` sweeps: (final state, positions after sweeps 0,
+        thin, 2·thin, ... — the reference's ``trace[::thin]``)."""
         trace = []
-        for i in range(n_steps):
+        for _ in range(n_steps):
             state = step_fn(state, generator)
-            if (i + 1) % thin == 0:
-                trace.append(state.positions)
-        return state, torch.stack(trace)
+            trace.append(state.positions)
+        return state, torch.stack(trace)[::thin]
 
     return init_fn, step_fn, run_fn
 
@@ -132,8 +131,9 @@ def make_mcmc_train_window(step, log_pdf, box_length: float,
     update ``step(mstate.positions)``, then refreshes the walkers' log-probs
     under the new parameters.  ``step`` is the port's train step
     (vmc/estimators.py::make_train_step — the JAX signature's psi, h_fn,
-    optimizer, estimator and energy_clip are inside it).  ``pmean_axis``
-    (a mesh) and ``train_step`` (the SR / SPRING update) are not ported.
+    optimizer, estimator and energy_clip are inside it); ``train_step`` (an
+    SR / SPRING step of vmc/sr.py) replaces it when given, as in the JAX
+    package.  ``pmean_axis`` (a mesh) is not ported.
 
     Returns (init_fn, run_window): ``run_window(mstate, n_epochs,
     generator=None, noise=None, u=None) -> (losses (n_epochs,),
@@ -145,9 +145,7 @@ def make_mcmc_train_window(step, log_pdf, box_length: float,
         raise NotImplementedError(
             "pmean_axis (walkers sharded over a mesh) is not ported")
     if train_step is not None:
-        raise NotImplementedError(
-            "a custom train_step (SR / SPRING) is not ported; the window "
-            "runs the adam step it is given")
+        step = train_step
     init_fn, step_fn, _ = make_metropolis_sampler(
         log_pdf, target_accept=target_accept,
         bounds=(-box_length, box_length),

@@ -1,0 +1,300 @@
+"""Stochastic reconfiguration (SR) and SPRING natural-gradient VMC updates.
+
+Port of waveflow_tpu/vmc/sr.py, single device.  Both precondition the
+energy gradient g = 2 E[(E_L^clip − Ē) O] with the quantum geometric tensor
+S = E[O Oᵀ] − E[O] E[O]ᵀ, O = ∂_θ log|ψ|:
+
+* SR (``make_sr_train_step``) solves (S + λ) δ = g by matrix-free conjugate
+  gradients, each S·v one ``torch.func.jvp`` and one ``torch.func.vjp`` of
+  log|ψ| with respect to the parameters;
+* SPRING (``make_spring_train_step``) solves the same update in sample
+  space, δ = Ōᵀ (Ō Ōᵀ + Bλ)⁻¹ ζ + μ δ_prev, from the per-walker score matrix
+  Ō = ``vmap(grad(log|ψ|))`` over the walkers, one (B, B) Cholesky with a
+  retry ladder at 10× and 100× damping, and momentum μ.
+
+Both steps have the port's step contract, ``step(batch) -> loss`` with the
+parameters living in the model, and keep their optimizer state behind
+``step.optimizer`` with the ``state_dict`` / ``load_state_dict`` interface
+of a ``torch.optim`` optimizer: SR's is ``()``, SPRING's the dict
+{'delta': flat previous update, 'step', 'skipped', 'fallbacks'} of device
+tensors, its flat vector in the JAX ``ravel_pytree`` order
+(``convert.ravel_order``) so that a JAX SPRING state resumes.  No step reads
+the device from the host.  Plain PyTorch, as in the reference; the kernels
+on this path are the ones inside ψ (K3 under ``eval_backend='poly_pallas'``,
+one launch per jet call for the whole vmapped batch).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch.func import functional_call
+
+from waveflow_tpu_torch.convert import ravel_order
+from waveflow_tpu_torch.vmc.estimators import (
+    PSI_EPS, _median, _safe_psi, clip_local_energies, run_window,
+)
+
+
+def _vdot(xs, ys) -> torch.Tensor:
+    """Σ over leaves of ⟨x, y⟩ (jax's ``_vdot_real_tree`` on real leaves)."""
+    return sum(torch.vdot(x.reshape(-1), y.reshape(-1)) for x, y in zip(xs, ys))
+
+
+def _norm_cap(delta, learning_rate: float, max_update_norm: float | None):
+    """Trust region on a list of tensors: shrink δ so ‖lr·δ‖₂ ≤
+    max_update_norm.  A non-finite solve zeroes the step (the batch is
+    skipped, not the run): non-finite entries become 0 and a non-finite
+    scale becomes 0."""
+    if max_update_norm is None:
+        return delta
+    scale = torch.clamp(
+        max_update_norm / (learning_rate * torch.sqrt(_vdot(delta, delta))
+                           + 1e-30), max=1.0)
+    scale = torch.where(torch.isfinite(scale), scale, 0.0)
+    return [scale * torch.where(torch.isfinite(d), d, 0.0) for d in delta]
+
+
+def cg(matvec, b, maxiter: int, tol: float = 1e-5):
+    """``jax.scipy.sparse.linalg.cg(matvec, b, maxiter=maxiter)`` on a list
+    of tensors, from x₀ = 0: stops once ‖r‖² ≤ tol² ‖b‖² or after
+    ``maxiter`` iterations, with the reference's inner products and update
+    order.  The stop is a mask (x, r, p and ‖r‖² frozen once it holds), so
+    no iteration reads the device from the host; the iterations after it
+    are computed and dropped."""
+    x = [torch.zeros_like(v) for v in b]
+    r, p = list(b), list(b)                 # r₀ = b − A(0) = b
+    gamma = _vdot(r, r)
+    atol2 = torch.square(torch.tensor(tol, dtype=gamma.dtype)) * gamma
+    for _ in range(maxiter):
+        active = gamma > atol2
+        ap = matvec(p)
+        alpha = gamma / _vdot(p, ap)
+        x_new = [xi + alpha * pi for xi, pi in zip(x, p)]
+        r_new = [ri - alpha * ai for ri, ai in zip(r, ap)]
+        gamma_new = _vdot(r_new, r_new)
+        beta = gamma_new / gamma
+        p_new = [ri + beta * pi for ri, pi in zip(r_new, p)]
+        x = [torch.where(active, a, o) for a, o in zip(x_new, x)]
+        r = [torch.where(active, a, o) for a, o in zip(r_new, r)]
+        p = [torch.where(active, a, o) for a, o in zip(p_new, p)]
+        gamma = torch.where(active, gamma_new, gamma)
+    return x
+
+
+class StepState:
+    """A natural-gradient step's optimizer state behind the ``state_dict``
+    / ``load_state_dict`` interface of ``torch.optim``, which the trainer
+    snapshots, saves and restores for every optimizer alike.  ``state`` is
+    ``()`` (SR) or a dict of tensors (SPRING), replaced — never written in
+    place — by every step."""
+
+    def __init__(self, state, device=None):
+        self.device = device
+        self.state = state
+
+    def state_dict(self):
+        return self.state
+
+    def load_state_dict(self, state):
+        """Tensors, or numpy arrays (checkpoints), onto the step's device."""
+        if isinstance(state, dict):
+            state = {k: v.to(self.device) if isinstance(v, torch.Tensor)
+                     else torch.tensor(v, device=self.device)
+                     for k, v in state.items()}
+        self.state = state
+
+
+def _layout(model):
+    """The model's parameter names and parameters in ravel order."""
+    named = dict(model.named_parameters())
+    names = ravel_order(list(named))
+    return names, [named[n] for n in names]
+
+
+def make_score_fn(model):
+    """(flatten, scores): ``flatten()`` is the model's parameters as one
+    detached vector in ravel order, ``scores(flat, batch)`` the per-walker
+    score matrix O[i] = ∂ log(|ψ(x_i)| + PSI_EPS) / ∂θ at θ = flat, (B, P),
+    by ``vmap(grad(...))`` over the walkers — one vmapped backward, in
+    which every basis-jet call is one core call for all walkers (the jet's
+    vmap rule).  The parameters off the path (zero_params) get zero
+    columns, as in JAX."""
+    names, params = _layout(model)
+    shapes = [p.shape for p in params]
+    sizes = [p.numel() for p in params]
+
+    def flatten():
+        return torch.cat([p.detach().reshape(-1) for p in params])
+
+    def log_abs_psi_flat(flat, x):
+        p = {n: t.view(s) for n, t, s in zip(names, flat.split(sizes),
+                                             shapes)}
+        return torch.log(torch.abs(functional_call(
+            model, p, (x[None],)))[0] + PSI_EPS)
+
+    return flatten, torch.func.vmap(torch.func.grad(log_abs_psi_flat),
+                                    in_dims=(None, 0))
+
+
+def _local_energies(model, h_fn, batch, clip_scale):
+    with torch.no_grad():
+        energies = h_fn(batch)[:, 0]
+        return clip_local_energies(energies / _safe_psi(model.psi(batch)),
+                                   clip_scale)
+
+
+def make_sr_train_step(model, h_fn, learning_rate: float,
+                       damping: float = 1e-3, cg_iters: int = 20,
+                       clip_scale: float = 5.0, pmean_axis=None,
+                       max_update_norm: float | None = None):
+    """step(batch) -> loss: one SR update of ``model``'s parameters.
+
+    g = 2 E[(E_L^clip − Ē) O] and Ō = E[O] by the vjp of log|ψ| over the
+    batch; δ = CG(S + λ, g) with S·v = E[O (O·v)] − Ō (Ō·v); δ capped by
+    ``_norm_cap``; θ ← θ − lr·δ.  ``step.optimizer`` holds the state
+    ``()``.  ``pmean_axis`` (a mesh) is not ported."""
+    if pmean_axis is not None:
+        raise NotImplementedError(
+            "pmean_axis (walkers sharded over a mesh) is not ported")
+    names, params = _layout(model)
+
+    def log_abs_psi(p, batch):
+        return torch.log(torch.abs(functional_call(model, p, (batch,)))
+                         + PSI_EPS)
+
+    def step(batch: torch.Tensor) -> torch.Tensor:
+        B = batch.shape[0]
+        p0 = {n: p.detach() for n, p in zip(names, params)}
+        e_c = _local_energies(model, h_fn, batch, clip_scale)
+        e_mean = e_c.mean()
+        w = e_c - e_mean                          # centred clipped energies
+
+        def f(p):
+            return log_abs_psi(p, batch)
+
+        _, vjp_fn = torch.func.vjp(f, p0)
+
+        def batch_mean_vjp(cotangent):
+            out = vjp_fn(cotangent / B)[0]
+            return [out[n] for n in names]
+
+        g = batch_mean_vjp(2.0 * w)               # 2 E[(E_L − Ē) O]
+        o_bar = batch_mean_vjp(torch.ones_like(w))   # E[O]
+
+        def s_mv(v):
+            # (O·v) per walker by one jvp, then E[O (O·v)] by one vjp
+            _, ov = torch.func.jvp(f, (p0,), (dict(zip(names, v)),))
+            first = batch_mean_vjp(ov)
+            obar_dot_v = _vdot(o_bar, v)
+            return [fi - ob * obar_dot_v + damping * vi
+                    for fi, ob, vi in zip(first, o_bar, v)]
+
+        with torch.no_grad():
+            delta = _norm_cap(cg(s_mv, g, cg_iters), learning_rate,
+                              max_update_norm)
+            for p, d in zip(params, delta):
+                p.copy_(p - learning_rate * d)
+        return e_mean
+
+    step.optimizer = StepState(())
+    return step
+
+
+def make_spring_train_step(model, h_fn, learning_rate: float,
+                           damping: float = 1e-3, momentum: float = 0.99,
+                           clip_scale: float = 5.0, pmean_axis=None,
+                           max_update_norm: float | None = None,
+                           score_row_clip: float | None = 10.0,
+                           score_row_clip_warmup: int | None = 1000):
+    """step(batch) -> loss: one min-SR / SPRING update of ``model``'s
+    parameters (the reference's docstring has the derivation).
+
+    O = vmap(grad(log|ψ|)) over the walkers on the flat parameter vector
+    (B, P); while ``step < score_row_clip_warmup`` rows with ‖O_i‖ above
+    ``score_row_clip`` × their median are shrunk onto that ball; O and
+    2E_L^clip are centred; ζ = ε − O (μ δ_prev); x = (O Oᵀ + mBλ)⁻¹ ζ by
+    Cholesky at m = 1, else 10, else 100 (a failed factorisation reads as
+    NaN, as in JAX, and counts one ``fallbacks`` when m = 1 fails);
+    δ = Oᵀx + μ δ_prev, zeroed when not finite (one ``skipped``), capped by
+    ``_norm_cap``, applied and stored.  ``pmean_axis`` is not ported."""
+    if pmean_axis is not None:
+        raise NotImplementedError(
+            "pmean_axis (walkers sharded over a mesh) is not ported")
+    _, params = _layout(model)
+    sizes = [p.numel() for p in params]
+    device = params[0].device
+    flatten, scores = make_score_fn(model)
+
+    def step(batch: torch.Tensor) -> torch.Tensor:
+        state = step.optimizer.state
+        flat0 = flatten()
+        e_c = _local_energies(model, h_fn, batch, clip_scale)
+        O = scores(flat0, batch).detach()                   # (B, P)
+        with torch.no_grad():
+            B = O.shape[0]
+            if score_row_clip is not None:
+                rn = torch.linalg.vector_norm(O, dim=1)
+                cap = score_row_clip * _median(rn)
+                if score_row_clip_warmup is not None:
+                    cap = torch.where(state['step'] < score_row_clip_warmup,
+                                      cap, float('inf'))
+                O = O * torch.clamp(cap / (rn + 1e-30), max=1.0)[:, None]
+            O = O - O.mean(0, keepdim=True)
+            eps = 2.0 * e_c
+            eps = eps - eps.mean()
+            prev = momentum * state['delta']
+            zeta = eps - O @ prev
+            gram0 = O @ O.T                                 # (B, B), full f32
+            eye = torch.eye(B, dtype=O.dtype, device=O.device)
+            grams = torch.stack([gram0 + (mult * B * damping) * eye
+                                 for mult in (1.0, 10.0, 100.0)])
+            L, info = torch.linalg.cholesky_ex(grams)
+            xs = torch.cholesky_solve(
+                zeta.expand(3, B)[..., None], L)[..., 0]    # (3, B)
+            xs = torch.where((info == 0)[:, None], xs, float('nan'))
+            ok = torch.isfinite(xs).all(-1)
+            fell_back = ~ok[0]
+            x = torch.where(ok[0], xs[0], torch.where(ok[1], xs[1], xs[2]))
+            delta = O.T @ x + prev
+            finite = torch.isfinite(delta).all()
+            delta = torch.where(finite, delta, 0.0)
+            (delta,) = _norm_cap([delta], learning_rate, max_update_norm)
+            new_flat = flat0 - learning_rate * delta
+            for p, t in zip(params, new_flat.split(sizes)):
+                p.copy_(t.view(p.shape))
+            step.optimizer.state = {
+                'delta': delta,
+                'step': state['step'] + 1,
+                'skipped': state['skipped'] + (~finite).to(torch.int32),
+                'fallbacks': state['fallbacks'] + fell_back.to(torch.int32)}
+        return e_c.mean()
+
+    def init_state():
+        zero = torch.zeros((), dtype=torch.int32, device=device)
+        return {'delta': torch.zeros(sum(sizes), device=device),
+                'step': zero, 'skipped': zero.clone(),
+                'fallbacks': zero.clone()}
+
+    step.init_state = init_state
+    step.n_params = sum(sizes)
+    step.optimizer = StepState(init_state(), device)
+    return step
+
+
+def make_sr_train_window(model, h_fn, sample_fn, learning_rate: float,
+                         batch_size: int, window: int,
+                         damping: float = 1e-3, cg_iters: int = 20,
+                         pmean_axis=None,
+                         max_update_norm: float | None = None):
+    """``run_window() -> losses (window,)``: ``window`` epochs of exact
+    draws ``sample_fn(batch_size)`` and one SR update each, the losses left
+    on the device.  The update is ``run_window.step``."""
+    step = make_sr_train_step(model, h_fn, learning_rate, damping=damping,
+                              cg_iters=cg_iters, pmean_axis=pmean_axis,
+                              max_update_norm=max_update_norm)
+
+    def run():
+        return run_window(step, sample_fn, batch_size, window)
+
+    run.step = step
+    return run

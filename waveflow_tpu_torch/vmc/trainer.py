@@ -1,22 +1,28 @@
 """VMC training loop: the single-process surface of the JAX VMCTrainer.
 
-Port of waveflow_tpu/vmc/trainer.py: exact ancestral walkers or persistent
-Metropolis walkers (``sampler='metropolis'``, with the periodic ancestral
-refresh), the 'clipped_score' estimator, adam after an optax-form global
-norm clip, eval backends 'poly' and 'poly_pallas' (the latter runs the CUDA
-basis-jet kernel), checkpoint save / exact resume and divergence recovery.
-Everything else the JAX config offers — MALA, SR/SPRING, meshes, artifacts
-— raises ``NotImplementedError``.
+Port of waveflow_tpu/vmc/trainer.py on one device: exact ancestral
+walkers, or persistent Metropolis or MALA walkers (``sampler='metropolis'``
+/ ``'mala'``, with the periodic ancestral refresh); the 'clipped_score'
+estimator with adam after an optax-form global norm clip, or the SR / SPRING
+natural-gradient updates (``optimizer='sr'`` / ``'spring'``, vmc/sr.py);
+eval backends 'poly' and 'poly_pallas' (the latter runs the CUDA basis-jet
+kernel); checkpoint save / exact resume and divergence recovery.
+Everything else the JAX config offers — meshes, artifacts, 2D, the antisym
+ansatz, other estimators — raises ``NotImplementedError``.
 
-Checkpoints: ``save_checkpoint`` writes ``<save_dir>/checkpoints`` (params,
-the Adam state, the epoch, the walker generator's state and the Metropolis
-walkers, all as numpy) and ``loss.npy``; resuming from one continues the
-run bit for bit.  ``load_checkpoint`` also reads the JAX trainer's
-checkpoints (params, flat Adam moments, Metropolis walkers); the JAX PRNG
-key is not carried across, so a resumed JAX run continues on the port's
-stream seeded by ``config.seed``.  Unlike the JAX trainer, ``train`` writes
-only when ``config.save_dir`` is set (``resolved_save_dir()`` gives the
-JAX package's default for callers that want it).
+Every train step keeps its optimizer state behind ``step.optimizer``'s
+``state_dict`` / ``load_state_dict`` (torch's Adam, or vmc/sr.py's
+``StepState``).  Checkpoints: ``save_checkpoint`` writes
+``<save_dir>/checkpoints`` (params, that state, the epoch, the walker
+generator's state and the MCMC walkers, all as numpy) and ``loss.npy``;
+resuming from one continues the run bit for bit.  ``load_checkpoint`` also
+reads the JAX trainer's checkpoints (params; flat Adam moments, a SPRING
+state in either of its forms, or SR's ``()``; Metropolis or MALA walkers);
+the JAX PRNG key is not carried across, so a resumed JAX run continues on
+the port's stream seeded by ``config.seed``.  Unlike the JAX trainer,
+``train`` writes only when ``config.save_dir`` is set
+(``resolved_save_dir()`` gives the JAX package's default for callers that
+want it).
 """
 
 from __future__ import annotations
@@ -40,8 +46,12 @@ from waveflow_tpu_torch.physics import (
 )
 from waveflow_tpu_torch.utils.checkpoint import load_state, save_state
 from waveflow_tpu_torch.vmc.estimators import make_train_step, run_window
+from waveflow_tpu_torch.vmc.mala import MALAState, make_mala_train_window
 from waveflow_tpu_torch.vmc.metropolis import (
     MetropolisState, make_mcmc_train_window,
+)
+from waveflow_tpu_torch.vmc.sr import (
+    make_spring_train_step, make_sr_train_step,
 )
 
 
@@ -73,18 +83,29 @@ class VMCConfig:
     grad_clip: float | None = 10.0
     estimator: str = 'clipped_score'
     clip_stat: str = 'mean_abs'
-    # 'ancestral' (exact draws from |ψ|² every epoch) or 'metropolis'
-    # (persistent walkers, warm-started from one exact draw)
+    # 'ancestral' (exact draws from |ψ|² every epoch), 'metropolis' or
+    # 'mala' (persistent walkers, warm-started from one exact draw)
     sampler: str = 'ancestral'
-    mcmc_sweeps: int = 3                  # Metropolis sweeps per update
+    mcmc_sweeps: int = 3                  # MCMC sweeps per update
     mcmc_step_size: float = 0.5           # initial proposal scale (adapts)
     mcmc_target_accept: float = 0.5
-    # exact ancestral walker refresh for the Metropolis sampler, in epochs
+    # exact ancestral walker refresh for the MCMC samplers, in epochs
     # (rounded to whole windows; the adapted step size is kept): 'auto' =
     # once per window for >= 3 electrons (trapping in nodal pockets, Li),
     # never otherwise (the He flagship); an int sets it; None disables
     mcmc_refresh_every: int | None | str = 'auto'
+    # 'adam', or the natural-gradient 'sr' (matrix-free CG) and 'spring'
+    # (sample-space Cholesky with momentum), vmc/sr.py
     optimizer: str = 'adam'
+    sr_damping: float = 1e-3
+    sr_cg_iters: int = 20
+    spring_momentum: float = 0.9
+    # SPRING's score-row clip (rows above clip x median shrunk) for the
+    # first `warmup` updates; None disables / keeps it always on
+    score_row_clip: float | None = 10.0
+    score_row_clip_warmup: int | None = 1000
+    # trust region of the natural-gradient updates: ||lr*delta||_2 capped
+    sr_max_update_norm: float | None = 0.3
     ansatz: str = 'sorted'
     interactions: bool = True
     # on a non-finite loss window, restore the last good state (snapshot
@@ -104,7 +125,8 @@ _ONLY = {
     'n_space_dimension': (1,), 'xu_coord_type': ('mean',),
     'eval_backend': ('poly', 'poly_pallas'), 'sampling_backend': ('table',),
     'laplacian_mode': ('fwd_batched',), 'estimator': ('clipped_score',),
-    'sampler': ('ancestral', 'metropolis'), 'optimizer': ('adam',),
+    'sampler': ('ancestral', 'metropolis', 'mala'),
+    'optimizer': ('adam', 'sr', 'spring'),
     'ansatz': ('sorted',), 'clip_stat': ('mean_abs',),
     'divergence_recovery': (True,),
 }
@@ -140,8 +162,8 @@ class VMCTrainer:
         if unported:
             raise NotImplementedError(
                 f"VMCConfig fields {unported} are not ported to the PyTorch "
-                "trainer (ancestral / metropolis + adam + clipped_score, "
-                "single device)")
+                "trainer (ancestral / metropolis / mala + adam / sr / spring "
+                "+ clipped_score, single device)")
         config = config if config is not None else VMCConfig(**overrides)
         self.config = c = config
         for name, allowed in _ONLY.items():
@@ -169,20 +191,38 @@ class VMCTrainer:
             self.model.psi, protons=self.protons,
             n_space_dimensions=c.n_space_dimension,
             laplacian_mode=c.laplacian_mode, interactions=c.interactions)
-        self.step = make_train_step(
-            self.model.psi, self.h_fn, self.model.parameters(),
-            c.learning_rate, grad_clip=c.grad_clip, estimator=c.estimator)
+        ng = dict(damping=c.sr_damping, max_update_norm=c.sr_max_update_norm)
+        if c.optimizer == 'sr':
+            self.step = make_sr_train_step(
+                self.model, self.h_fn, c.learning_rate,
+                cg_iters=c.sr_cg_iters, **ng)
+        elif c.optimizer == 'spring':
+            self.step = make_spring_train_step(
+                self.model, self.h_fn, c.learning_rate,
+                momentum=c.spring_momentum, score_row_clip=c.score_row_clip,
+                score_row_clip_warmup=c.score_row_clip_warmup, **ng)
+        else:
+            self.step = make_train_step(
+                self.model.psi, self.h_fn, self.model.parameters(),
+                c.learning_rate, grad_clip=c.grad_clip,
+                estimator=c.estimator)
         self.generator = torch.Generator(self.device).manual_seed(c.seed + 1)
         self.mcmc_state = None
-        if c.sampler == 'metropolis':
+        sort = self.xu_coord_type != 'independent'
+        mcmc_kw = dict(n_sweeps=c.mcmc_sweeps,
+                       target_accept=c.mcmc_target_accept)
+        if c.sampler == 'mala':
+            self.mcmc_init, self.mcmc_window = make_mala_train_window(
+                self.step, self.model.log_pdf, c.box_length,
+                sort_fermions=sort, **mcmc_kw)
+        elif c.sampler == 'metropolis':
             self.mcmc_init, self.mcmc_window = make_mcmc_train_window(
                 self.step, self.model.log_pdf, c.box_length,
-                n_sweeps=c.mcmc_sweeps, target_accept=c.mcmc_target_accept,
-                sort_proposals=self.xu_coord_type != 'independent')
+                sort_proposals=sort, **mcmc_kw)
         self.epoch = 0
         self.losses: list = []
-        # the Metropolis sampler's running accept rate after each epoch's
-        # sweeps, since construction (not checkpointed)
+        # the MCMC sampler's running accept rate after each epoch's sweeps,
+        # since construction (not checkpointed)
         self.accept_rates: list = []
 
     def sample(self, num_samples: int) -> torch.Tensor:
@@ -190,7 +230,7 @@ class VMCTrainer:
         return self.model.sample(num_samples, generator=self.generator)
 
     def _init_mcmc_state(self, step_size: float | None = None):
-        """Metropolis walkers from one exact ancestral draw; ``step_size``
+        """MCMC walkers from one exact ancestral draw; ``step_size``
         overrides the configured initial scale (a refresh keeps the
         adapted one)."""
         return self.mcmc_init(
@@ -204,12 +244,12 @@ class VMCTrainer:
         every = c.mcmc_refresh_every
         if every == 'auto':
             every = c.window if int(self.n_particle) >= 3 else None
-        if c.sampler != 'metropolis' or not every:
+        if c.sampler == 'ancestral' or not every:
             return None
         return max(1, round(every / c.window))
 
     def _snapshot(self):
-        # Metropolis states are never written in place: a reference is a copy
+        # MCMC states are never written in place: a reference is a copy
         return (copy.deepcopy(self.model.state_dict()),
                 copy.deepcopy(self.step.optimizer.state_dict()),
                 self.mcmc_state)
@@ -231,42 +271,82 @@ class VMCTrainer:
         })
         np.save(path / 'loss.npy', np.asarray(self.losses))
 
-    def load_checkpoint(self, save_dir: str) -> bool:
-        """Restore from ``<save_dir>/checkpoints``, written by this trainer
-        or by the JAX trainer; False if there is none.
-
-        From a JAX checkpoint: params, the flat Adam moments (a pre-flatten
-        optimizer state re-initialises Adam, as the JAX trainer does), the
-        epoch and the Metropolis walkers; the walker generator restarts from
-        ``config.seed``, since the JAX PRNG key has no torch counterpart."""
-        state = load_state(Path(save_dir) / 'checkpoints')
-        if state is None:
-            return False
-        opt = self.step.optimizer
-        mcmc = state.get('mcmc_state')
-        if 'opt_state' in state:                       # the JAX trainer's
-            self.model.load_state_dict(params_from_jax(state['params']))
+    def _load_optimizer(self, saved, epoch: int, jax_params=None):
+        """A checkpoint's optimizer state into this trainer's step, read as
+        ``waveflow_tpu/vmc/trainer.py::load_checkpoint`` reads the JAX
+        forms: the port's own state dict, or (``jax_params`` given) the
+        JAX trainer's flat Adam moments, SPRING dict or pre-round-4 flat
+        delta.  An Adam trainer re-initialises its moments on any other
+        form, with the JAX trainer's notice; a SPRING trainer raises
+        ValueError on one it cannot take; SR keeps no state."""
+        opt, kind = self.step.optimizer, self.config.optimizer
+        if kind == 'adam':
             opt.state.clear()
             try:
-                moments = adam_state_from_jax(
-                    state['opt_state'], state['params'],
-                    self.model.named_parameters())
+                if jax_params is not None:
+                    moments = adam_state_from_jax(
+                        saved, jax_params, self.model.named_parameters())
+                    for name, p in self.model.named_parameters():
+                        opt.state[p] = moments[name]
+                elif isinstance(saved, dict) and 'param_groups' in saved:
+                    opt.load_state_dict(_to_tensors(saved))
+                else:
+                    raise ValueError("not an Adam state")
             except ValueError:
                 print("load_checkpoint: optimizer state structure changed "
                       "(pre-flatten checkpoint?) — re-initializing adam "
                       "moments", flush=True)
-            else:
-                for name, p in self.model.named_parameters():
-                    opt.state[p] = moments[name]
+        elif kind == 'spring':
+            fresh = self.step.init_state()
+            if isinstance(saved, dict) and 'delta' in saved:
+                # the dict state; counters added since are filled in
+                opt.load_state_dict({**fresh, **saved})
+                return
+            # before round 4 the JAX state was the flat delta alone:
+            # migrated with step := epoch, so the row-clip warmup does not
+            # run again
+            n = self.step.n_params
+            if not (isinstance(saved, np.ndarray) and saved.ndim == 1
+                    and saved.size == n):
+                raise ValueError(
+                    "checkpoint optimizer state does not match the "
+                    "configured 'spring' optimizer (expected a flat delta "
+                    f"vector of size {n}, got {type(saved).__name__}) — was "
+                    "this checkpoint written with a different optimizer "
+                    "(e.g. adam)?")
+            opt.load_state_dict({
+                **fresh, 'delta': saved,
+                'step': torch.tensor(epoch, dtype=torch.int32)})
+
+    def load_checkpoint(self, save_dir: str) -> bool:
+        """Restore from ``<save_dir>/checkpoints``, written by this trainer
+        or by the JAX trainer; False if there is none.
+
+        The optimizer state is read by ``_load_optimizer`` (another
+        optimizer's state re-initialises Adam and fails a SPRING trainer,
+        as in the JAX trainer).  From a JAX checkpoint: params, the
+        optimizer state, the epoch and the Metropolis or MALA walkers; the
+        walker generator restarts from ``config.seed``, since the JAX PRNG
+        key has no torch counterpart."""
+        state = load_state(Path(save_dir) / 'checkpoints')
+        if state is None:
+            return False
+        mcmc = state.get('mcmc_state')
+        if 'opt_state' in state:                       # the JAX trainer's
+            self.model.load_state_dict(params_from_jax(state['params']))
+            self._load_optimizer(state['opt_state'], int(state['epoch']),
+                                 jax_params=state['params'])
             self.generator.manual_seed(self.config.seed + 1)
             self.mcmc_state = (None if mcmc is None else
                                mcmc_state_from_jax(mcmc, self.device))
         else:
             self.model.load_state_dict(
                 {k: torch.as_tensor(v) for k, v in state['params'].items()})
-            opt.load_state_dict(_to_tensors(state['optimizer']))
+            self._load_optimizer(state['optimizer'], int(state['epoch']))
             self.generator.set_state(torch.as_tensor(state['generator']))
-            self.mcmc_state = (None if mcmc is None else MetropolisState(
+            kind = MALAState if mcmc is not None and len(mcmc) == len(
+                MALAState._fields) else MetropolisState
+            self.mcmc_state = (None if mcmc is None else kind(
                 *(torch.as_tensor(f, device=self.device) for f in mcmc)))
         self.epoch = int(state['epoch'])
         loss_path = Path(save_dir) / 'loss.npy'
@@ -278,11 +358,26 @@ class VMCTrainer:
 
     def train(self, num_epochs: int | None = None, restart: bool = False,
               verbose: bool = True):
-        """Run ``num_epochs`` epochs in windows of ``config.window`` (a last
-        shorter window takes the remainder); returns the per-epoch losses
-        (clipped batch-mean energies) so far.  ``restart`` first loads the
-        checkpoint under ``config.save_dir``.  With a save_dir, checkpoints
-        every ``round(log_every / window)`` windows and after the last."""
+        """Run ``num_epochs`` epochs as the JAX trainer does: whole windows
+        of ``config.window`` epochs with the configured sampler, then the
+        remainder — all of ``num_epochs`` when it is below one window — as
+        single epochs of exact ancestral walkers through the configured
+        train step, whatever the sampler (exact draws from |ψ|² suit any);
+        the MCMC walkers are left as they are by those epochs.  Returns the
+        per-epoch losses (clipped batch-mean energies) so far.  ``restart``
+        first loads the checkpoint under ``config.save_dir``.
+
+        A window with a non-finite loss is dropped (parameters, optimizer
+        state and walkers restored from the last snapshot, the walker stream
+        reseeded), and after a good window the epoch is start + (w + 1) ×
+        window, w the window's index in this call: a dropped window's epochs
+        count once a later window succeeds, as in the JAX trainer; the loss
+        trace keeps the good windows' losses only.
+
+        Checkpoints are written only when ``config.save_dir`` is set (the
+        JAX trainer always writes, to ``resolved_save_dir()``): every
+        ``round(log_every / window)`` windows, at single epochs with
+        ``epoch % log_every == 0``, and once at the end."""
         c = self.config
         num_epochs = c.num_epochs if num_epochs is None else num_epochs
         save_dir = c.save_dir
@@ -301,19 +396,38 @@ class VMCTrainer:
                     'window': c.window,
                     'batch_size': c.batch_size,
                 }, f, indent=4)
-        use_mcmc = c.sampler == 'metropolis'
+        start, t0 = self.epoch, time.time()
+        n_windows, rem = divmod(num_epochs, c.window)
+        if n_windows:
+            self._train_windows(n_windows, start, t0, verbose)
+        for epoch in range(self.epoch + 1, self.epoch + rem + 1):
+            self.epoch = epoch
+            loss = float(self.step(self.sample(c.batch_size)))
+            self.losses.append(loss)
+            if epoch % c.log_every == 0:
+                if save_dir is not None:
+                    self.save_checkpoint(save_dir)
+                if verbose:
+                    rate = (epoch - start) / (time.time() - t0)
+                    print(f"epoch {epoch} | loss {loss:.3f} | {rate:.1f} "
+                          "steps/s", flush=True)
+        if save_dir is not None:
+            self.save_checkpoint(save_dir)
+        return self.losses
+
+    def _train_windows(self, n_windows: int, start: int, t0: float,
+                       verbose: bool):
+        c = self.config
+        use_mcmc = c.sampler != 'ancestral'
         if use_mcmc and self.mcmc_state is None:
             self.mcmc_state = self._init_mcmc_state()
         refresh_stride = self._refresh_stride()
         log_stride = max(1, round(c.log_every / c.window))
-        start, t0 = self.epoch, time.time()
         good = None
-        n_windows = -(-num_epochs // c.window)
         for w in range(n_windows):
-            length = min(c.window, num_epochs - w * c.window)
             # the refresh follows the run's window count, not this call's,
             # so a resumed run refreshes where an unbroken one does
-            g = self.epoch // c.window
+            g = (start + w * c.window) // c.window
             if refresh_stride and g and g % refresh_stride == 0:
                 self.mcmc_state = self._init_mcmc_state(
                     step_size=float(self.mcmc_state.step_size))
@@ -321,10 +435,10 @@ class VMCTrainer:
                 good = self._snapshot()
             if use_mcmc:
                 losses, rates, mstate = self.mcmc_window(
-                    self.mcmc_state, length, self.generator)
+                    self.mcmc_state, c.window, self.generator)
             else:
                 losses = run_window(self.step, self.sample, c.batch_size,
-                                    length)
+                                    c.window)
             losses = losses.cpu()
             if not bool(torch.isfinite(losses).all()):
                 if verbose:
@@ -341,14 +455,12 @@ class VMCTrainer:
                 self.mcmc_state = mstate
                 self.accept_rates.extend(rates.cpu().tolist())
             self.losses.extend(losses.tolist())
-            self.epoch += length
-            last = w == n_windows - 1
-            if save_dir is not None and ((w + 1) % log_stride == 0 or last):
-                self.save_checkpoint(save_dir)
-            if verbose and (self.epoch % c.log_every < length or last):
+            self.epoch = start + (w + 1) * c.window
+            if c.save_dir is not None and (w + 1) % log_stride == 0:
+                self.save_checkpoint(c.save_dir)
+            if verbose and ((w + 1) % log_stride == 0 or w == n_windows - 1):
                 rate = (self.epoch - start) / (time.time() - t0)
                 acc = (f" | accept {self.accept_rates[-1]:.3f}" if use_mcmc
                        else "")
                 print(f"epoch {self.epoch} | loss {self.losses[-1]:.3f} | "
                       f"{rate:.1f} steps/s{acc}", flush=True)
-        return self.losses
