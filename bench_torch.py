@@ -3,7 +3,8 @@ L=10 flagship config (the counterpart of bench.py, which stays the JAX
 package's).
 
     python3 bench_torch.py                 # on the card
-    python3 bench_torch.py --device cpu --batch-size 8 --window 2 --n-windows 1
+    python3 bench_torch.py --device cpu --batch-size 8 --window 2 \
+        --n-windows 1 --n-ref-windows 1
 
 Prints ONE JSON line with bench.py's fields: {"metric", "value", "unit",
 "vs_baseline"}.  value = walkers/s at batch 256 with
@@ -11,10 +12,15 @@ Prints ONE JSON line with bench.py's fields: {"metric", "value", "unit",
 windows of 100 epochs after one warmup window, as bench.py's time_windows
 does; unit names the device.
 
-vs_baseline is null.  bench.py divides by results/reference_anchor.json,
-a figure taken on a TPU that is no baseline for this card, and otherwise by
-its reimplementation of the reference design (dense-Hessian Laplacian and
-the 'reference' estimator), which the port does not have yet.
+vs_baseline = dt(reference design) / dt(main path), both timed in this
+call on the same device: the reference design is bench.py's fallback
+baseline, the reference's algorithm (``laplacian_mode='dense'``, the
+full-Hessian trace, and ``estimator='reference'``, the custom-derivative
+local energy with its running baseline) on the same model, backend and
+windows, timed over 3 windows after one warmup window.  vs_baseline > 1
+means the main path is faster.  bench.py's first choice,
+results/reference_anchor.json, is a figure taken on a TPU and no
+baseline for this card; it is not read.
 """
 
 import argparse
@@ -32,11 +38,16 @@ from waveflow_tpu_torch.vmc import VMCConfig, VMCTrainer
 
 
 def build(batch_size=256, window=100, eval_backend='poly_pallas',
-          device='cuda'):
+          device='cuda', laplacian_mode='fwd_batched',
+          estimator='clipped_score'):
     """The flagship trainer (VMCConfig's defaults: He, L=10, 3 × IMADE,
-    degree-6 splines with 23 knots, adam 1e-4 after a clip of 10)."""
+    degree-6 splines with 23 knots, adam 1e-4 after a clip of 10);
+    ``laplacian_mode='dense', estimator='reference'`` is the reference
+    design."""
     return VMCTrainer(VMCConfig(batch_size=batch_size, window=window,
-                                eval_backend=eval_backend, device=device))
+                                eval_backend=eval_backend,
+                                laplacian_mode=laplacian_mode,
+                                estimator=estimator, device=device))
 
 
 def _sync(device):
@@ -72,16 +83,21 @@ def main(argv=None):
     p.add_argument('--batch-size', type=int, default=256)
     p.add_argument('--window', type=int, default=100)
     p.add_argument('--n-windows', type=int, default=5)
+    p.add_argument('--n-ref-windows', type=int, default=3,
+                   help="timed windows of the reference design")
     args = p.parse_args(argv)
     trainer = build(args.batch_size, args.window, device=args.device)
     dt, _ = time_windows(trainer, args.n_windows)
+    reference = build(args.batch_size, args.window, device=args.device,
+                      laplacian_mode='dense', estimator='reference')
+    dt_ref, _ = time_windows(reference, args.n_ref_windows)
     print(json.dumps({
         "metric": "vmc_walker_steps_per_sec",
         "value": round(args.batch_size / dt, 1),
         "unit": (f"walkers/s (He-1d L=10, batch {args.batch_size}, "
                  "sample+train epoch, eval_backend poly_pallas; "
                  f"{device_name(trainer.device)})"),
-        "vs_baseline": None,
+        "vs_baseline": round(dt_ref / dt, 3),
     }))
 
 

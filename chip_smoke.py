@@ -55,13 +55,29 @@ Phases (any failure exits non-zero; nothing is caught):
                epochs under the 'auto' refresh (K1 launched, 3 columns);
  12. vmap    — K3 under vmap(grad): SPRING's per-walker score matrix at 256
                walkers, kernel against the plain core, one launch per jet
-               call;
- 13. density — train_density_model at the full width of the density
+               call, K3's device time in it against its bound;
+ 13. lap-forms — Hψ of the 100k checkpoint at 4,096 walkers under every
+               Laplacian form on the kernel backend ('fwd' per walker,
+               'hvp', 'dense' against 'fwd_batched'; eps = 0.1 against the
+               plain core), K3 launched by each, launches and ms per pass;
+ 14. reference-grad — the 'reference' loss's parameter gradient at 256
+               walkers, kernel against plain core, under 'fwd_batched' and
+               'dense';
+ 15. reference-256 — the reference design ('reference' + 'dense', adam)
+               and 'reference' on 'fwd_batched' from the 100k checkpoint,
+               one window of 20 epochs each: finite losses, the baseline
+               equal to the window's mean loss, walkers/s, 5 epochs
+               profiled;
+ 16. poly-sample — sampling_backend='poly' at 65,536 walkers: the draws
+               against the float64 CDF of the polynomial density, the raw
+               mean of one E_L pass against the JAX raw mean; sample times
+               and a window of 100 epochs for 'poly' and 'table';
+ 17. density — train_density_model at the full width of the density
                benchmark (MFlow, circles, 20,000 points), 200 epochs with a
                metric checkpoint every 100; losses finite and falling, K2
                and both K4 kernels launched on that run, metrics finite,
                the round trip closes, the card agrees with the CPU;
- 14. report  — one JSON line of kernels, then the final status line.
+ 18. report  — one JSON line of kernels, then the final status line.
 
 Each phase that drives a path sets the launch counts to 0 just before it
 and reads them just after.
@@ -98,6 +114,20 @@ SPRING_CONFIG = dict(optimizer='spring', learning_rate=0.05,
 SR_CONFIG = dict(optimizer='sr', learning_rate=0.05)
 LI_CONFIG = dict(system_name='Li', learning_rate=3e-4, sampler='metropolis',
                  mcmc_sweeps=3, mcmc_refresh_every=100)
+# lap-forms gates, relative to max|Hψ| over the batch, fixed from a
+# float64 CPU run of the 100k checkpoint at 2,048 walkers
+# (tests/test_torch_hamiltonian.py::test_laplacian_forms_against_float64):
+# every f32 analytic form lies within 2e-4 of the float64 Hψ (9.9e-5
+# measured), so two forms agree to twice that; the f32 finite difference
+# (eps 0.1) lies within 1e-3 of its float64 value (6.7e-4 measured), so
+# the kernel and the plain core agree to twice that
+LAP_FORMS_RTOL = 4e-4
+LAP_FD_RTOL = 2e-3
+# poly-sample gate: |F64(x) − u| of 'poly' draws against the float64 CDF of
+# the polynomial density; on the CPU the flagship's conditional rows read
+# 3.5e-7 (the port) and 2.1e-6 (JAX's f32 path)
+# (tests/test_torch_poly_sampler.py)
+POLY_QUANTILE_TOL = 1e-5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12     # H100 SXM, f32 outside the tensor cores
 FLAGSHIP = dict(spline_degree=6, num_knots=23, n_mesh=2000)
@@ -195,6 +225,34 @@ def quantile_err(torch, table_t, c, u, x, kind):
     else:
         in_cell = h * (a * s + 0.5 * dd * s * s)
     return ((at(cdf) + in_cell) / cdf[..., -1] - u.double()).abs()
+
+
+def poly_quantile_err(torch, ev, c, u, x):
+    """|F(x) − u| in float64 for draws x of the POLYNOMIAL density (c · T)²
+    of a poly evaluator ``ev`` (the density ``sample_squared_amplitude_poly``
+    inverts): exact cell masses h · lᵀ H l and the exact in-cell
+    antiderivative, all in float64."""
+    M, K = ev.n_cells, ev.ncoef
+    h = 1.0 / M
+    P = (c.double() @ ev.A.double()).reshape(c.shape[:-1] + (M, K))
+    k = torch.arange(K, device=P.device, dtype=torch.float64)
+    H = 1.0 / (k[:, None] + k[None, :] + 1.0)
+    m = torch.clamp(h * torch.einsum('...mk,kl,...ml->...m', P, H, P),
+                    min=0.0)
+    cdf = torch.cat([torch.zeros_like(m[..., :1]), torch.cumsum(m, -1)], -1)
+    xd = x.double()
+    j = torch.clamp(torch.floor(xd * M).long(), 0, M - 1)
+    s = xd * M - j
+    l = torch.gather(P, -2, j[..., None, None].expand(
+        j.shape + (1, K)))[..., 0, :]
+    sq = torch.zeros(l.shape[:-1] + (2 * K - 1,), dtype=torch.float64,
+                     device=l.device)
+    for k1 in range(K):
+        sq[..., k1:k1 + K] += l[..., k1:k1 + 1] * l
+    powers = s[..., None] ** torch.arange(1, 2 * K, device=s.device)
+    F = h * (sq / torch.arange(1, 2 * K, device=s.device) * powers).sum(-1)
+    below = torch.gather(cdf, -1, j[..., None])[..., 0] + F
+    return (below / cdf[..., -1] - u.double()).abs()
 
 
 def check_sampler(torch, gen, kind, ev, coeffs_of, B_max):
@@ -956,20 +1014,12 @@ def vmap_phase(torch):
     layers and the prior); O agrees with the plain core's to 1e-4 of the
     largest entry."""
     from waveflow_tpu_torch.convert import load_jax_checkpoint, params_from_jax
-    from waveflow_tpu_torch.models import get_waveflow_model
     from waveflow_tpu_torch.vmc.sr import make_score_fn
     params = params_from_jax(load_jax_checkpoint(
         SPRING_RUN / 'checkpoints')['params'])
     models = {}
     for backend in ('poly_pallas', 'poly'):
-        m = get_waveflow_model(
-            2, base_spline_degree=FLAGSHIP['spline_degree'],
-            i_spline_degree=FLAGSHIP['spline_degree'],
-            n_prior_internal_knots=FLAGSHIP['num_knots'],
-            n_i_internal_knots=FLAGSHIP['num_knots'], i_spline_reg=0.05,
-            n_flow_layers=3, box_size=10.0, eval_backend=backend,
-            generator=torch.Generator().manual_seed(0), device='cuda')
-        m.load_state_dict(params)
+        m = flagship_model(torch, params, backend)
         models[backend] = make_score_fn(m)
     batch = m.sample(256, generator=torch.Generator('cuda').manual_seed(4))
     flatten, scores_k = models['poly_pallas']
@@ -983,11 +1033,15 @@ def vmap_phase(torch):
     scale = O_p.abs().max().item()
     ms_k = cuda_ms(torch, lambda: scores_k(flat, batch), reps=10)
     ms_p = cuda_ms(torch, lambda: models['poly'][1](flat, batch), reps=10)
+    k3_dev_ms = k3_device_ms(torch, lambda: scores_k(flat, batch), per_call)
+    k3_bound, k3_by = k3_bound_ms(2 * 256)
     print(f"K3 under vmap(grad): score matrix {tuple(O_k.shape)} of "
           f"r4_spring100k at 256 walkers, kernel against the plain "
           f"core: max|dO| {err:.3e} (largest |O| {scale:.3e}, limit 1e-4 of "
           f"it) | K3 launches per score matrix {per_call} (4 jet calls) | "
-          f"{ms_k:.2f} ms per score matrix ({ms_p:.2f} with the plain core)",
+          f"{ms_k:.2f} ms per score matrix ({ms_p:.2f} with the plain core) "
+          f"| K3 device time {k3_dev_ms:.4f} ms per score matrix (4 launches "
+          f"at R = 512; profiler), bound {k3_bound:.5f} ms ({k3_by})",
           flush=True)
     if not (torch.isfinite(O_k).all() and err <= 1e-4 * scale):
         fail(f"K3 under vmap(grad) disagrees with the plain core: {err:.3e}")
@@ -995,7 +1049,48 @@ def vmap_phase(torch):
         fail(f"the score matrix launched K3 {per_call} times, not once per "
              "jet call (4)")
     return dict(max_abs_err=err, max_abs_O=scale, launches_per_call=per_call,
-                ms=ms_k, plain_ms=ms_p)
+                ms=ms_k, plain_ms=ms_p, k3_device_ms=k3_dev_ms,
+                k3_bound_ms=k3_bound, k3_bound_by=k3_by)
+
+
+def k3_bound_ms(R: int):
+    """The bound of ψ's four basis jets at R sites each (3 IMADE layers on
+    the 29-basis I-spline jet, the prior on the 28-basis OB jet), as
+    check_basis_jet counts one: x read, A_jet read, the jet written; 2
+    operations per multiply-add of the local polynomial."""
+    from waveflow_tpu_torch import ops
+    deg, knots, mesh = (FLAGSHIP[k] for k in ('spline_degree', 'num_knots',
+                                              'n_mesh'))
+    n_bytes = n_ops = 0
+    for kind, use_ob, count in (('I', False, 3), ('B', True, 1)):
+        ev = ops.make_poly_evaluator(ops.get_tables(kind, deg, knots,
+                                                    n_mesh=mesh),
+                                     use_ob=use_ob, jet_backend='pallas',
+                                     device='cuda')
+        A = ev.A_jet
+        N = A.shape[1]
+        n_bytes += count * 4 * (R + A.numel() + R * N)
+        n_ops += count * 2 * R * N * ev.ncoef
+    return bound_ms(n_bytes, n_ops)
+
+
+def k3_device_ms(torch, fn, expected: int) -> float:
+    """K3's own device time in one call of ``fn`` (profiler), summed over
+    its ``expected`` launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and 'basis_jet' in e.key]
+    if sum(e.count for e in kern) != expected:
+        fail(f"the profiler saw {sum(e.count for e in kern)} K3 launches, "
+             f"not {expected}")
+    return sum(e.self_device_time_total for e in kern) / 1e3
 
 
 def window_phase(torch, label, run_dir, config, n_epochs, profile=0):
@@ -1063,6 +1158,287 @@ def li_window_phase(torch):
         fail(f"the Li window's refresh launched K1 {launches['sampler']} "
              "times, not 3 (one per column)")
     return launches, out
+
+
+def flagship_model(torch, params, eval_backend, sampling_backend='table'):
+    """The flagship Waveflow on the card with the given parameters."""
+    from waveflow_tpu_torch.models import get_waveflow_model
+    m = get_waveflow_model(
+        2, base_spline_degree=FLAGSHIP['spline_degree'],
+        i_spline_degree=FLAGSHIP['spline_degree'],
+        n_prior_internal_knots=FLAGSHIP['num_knots'],
+        n_i_internal_knots=FLAGSHIP['num_knots'], i_spline_reg=0.05,
+        n_flow_layers=3, box_size=10.0, eval_backend=eval_backend,
+        sampling_backend=sampling_backend,
+        generator=torch.Generator().manual_seed(0), device='cuda')
+    m.load_state_dict(params)
+    return m
+
+
+def he_hamiltonian(model, mode, eps=0.0):
+    from waveflow_tpu_torch.physics import (
+        construct_hamiltonian_function, system_catalogue)
+    return construct_hamiltonian_function(
+        model.psi, protons=system_catalogue[1]['He'][0],
+        n_space_dimensions=1, eps=eps, laplacian_mode=mode)
+
+
+def counted(torch, fn):
+    """(fn(), the kernel launches it made), synchronised."""
+    before = read_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v - before[k] for k, v in read_counts().items()}
+
+
+LAP_FORMS = (('fwd_batched', 0.0), ('fwd', 0.0), ('hvp', 0.0),
+             ('dense', 0.0), ('fwd', 0.1))
+
+
+def lap_forms_phase(torch, params):
+    """Hψ of the 100k checkpoint at 4,096 ancestral walkers under every
+    Laplacian form on the kernel backend: 'fwd' (per walker, K3 through its
+    vmap rule), 'hvp', 'dense' against 'fwd_batched' within
+    LAP_FORMS_RTOL of max|Hψ|; the finite difference (eps 0.1) against the
+    same form on the plain core within LAP_FD_RTOL, and its O(ε²) gap to
+    the analytic form reported.  K3 launched by every form, K3 launches
+    and ms (CUDA events) per Hψ pass reported."""
+    mk = flagship_model(torch, params, 'poly_pallas')
+    mp = flagship_model(torch, params, 'poly')
+    x = mk.sample(4096, generator=torch.Generator('cuda').manual_seed(11))
+    reset_counts()
+    hs, rows = {}, {}
+    with torch.no_grad():
+        for mode, eps in LAP_FORMS:
+            h = he_hamiltonian(mk, mode, eps)
+            v, n = counted(torch, lambda: h(x)[:, 0])
+            name = f"{mode}{' eps=0.1' if eps else ''}"
+            hs[name] = v
+            rows[name] = dict(k3_per_pass=n['basis_jet'],
+                              k1_per_pass=n['sampler'],
+                              ms=cuda_ms(torch, lambda: h(x), reps=5,
+                                         warmup=1))
+        launches = read_counts()
+        h_fd_plain = he_hamiltonian(mp, 'fwd', 0.1)
+        fd_plain, n_plain = counted(torch, lambda: h_fd_plain(x)[:, 0])
+        fd_plain_ms = cuda_ms(torch, lambda: h_fd_plain(x), reps=5, warmup=1)
+    ref = hs['fwd_batched']
+    scale = ref.abs().max().item()
+    for name, v in hs.items():
+        row = rows[name]
+        if name.endswith('eps=0.1'):
+            row['rel_err'] = (v - fd_plain).abs().max().item() / scale
+            row['gap_to_analytic'] = (v - ref).abs().max().item() / scale
+            row['plain_ms'] = fd_plain_ms
+            limit, against = LAP_FD_RTOL, "the plain core's"
+        else:
+            row['rel_err'] = (v - ref).abs().max().item() / scale
+            limit, against = LAP_FORMS_RTOL, "'fwd_batched''s"
+        extra = (f"; O(eps^2) gap to the analytic form "
+                 f"{row['gap_to_analytic']:.3e}, plain core "
+                 f"{fd_plain_ms:.2f} ms" if 'gap_to_analytic' in row else "")
+        print(f"lap-forms {name}: max|dHpsi| {row['rel_err']:.3e} of "
+              f"max|Hpsi| {scale:.4f} against {against} (limit {limit:g}) | "
+              f"K3 {row['k3_per_pass']} and K1 {row['k1_per_pass']} launches "
+              f"per Hpsi pass at 4096 walkers | {row['ms']:.2f} ms per pass"
+              f"{extra}", flush=True)
+        if not (torch.isfinite(v).all() and row['rel_err'] <= limit):
+            fail(f"lap-forms: {name} disagrees by {row['rel_err']:.3e} of "
+                 f"max|Hpsi| (limit {limit:g})")
+        if row['k3_per_pass'] == 0:
+            fail(f"lap-forms: {name} did not launch K3 on a CUDA tensor")
+    if n_plain['basis_jet']:
+        fail("the plain core launched K3")
+    return launches, rows
+
+
+REF_GRAD_RTOL = 1e-3
+
+
+def reference_grad_phase(torch, params):
+    """The 'reference' loss's parameter gradient (reverse mode through the
+    Laplacian and local_energy's rule) at 256 ancestral walkers and baseline
+    −1.8 on the kernel backend against the plain core, under 'fwd_batched'
+    and 'dense': relative global-norm error within REF_GRAD_RTOL, every
+    entry finite; K3 launches and ms (CUDA events) per gradient."""
+    from waveflow_tpu_torch.vmc import make_loss_fn
+    models = {'kernel': flagship_model(torch, params, 'poly_pallas'),
+              'plain': flagship_model(torch, params, 'poly')}
+    x = models['kernel'].sample(
+        256, generator=torch.Generator('cuda').manual_seed(12))
+    baseline = torch.tensor(-1.8, device='cuda')
+    reset_counts()
+    rows = {}
+    for mode in ('fwd_batched', 'dense'):
+        flat, row = {}, {}
+        for name, m in models.items():
+            loss_fn = make_loss_fn(m.psi, he_hamiltonian(m, mode),
+                                   estimator='reference')
+            ps = list(m.parameters())
+
+            def grad():
+                g = torch.autograd.grad(loss_fn(x, baseline), ps,
+                                        allow_unused=True)
+                return torch.cat([torch.zeros_like(p).ravel() if gi is None
+                                  else gi.ravel() for p, gi in zip(ps, g)])
+
+            flat[name], n = counted(torch, grad)
+            row[f'{name}_ms'] = cuda_ms(torch, grad, reps=3, warmup=1)
+            row[f'{name}_k3'] = n['basis_jet']
+        gk, gp = flat['kernel'], flat['plain']
+        row['rel_err'] = ((gk - gp).norm() / gp.norm()).item()
+        rows[mode] = row
+        print(f"reference-grad {mode}: |dg| / |g| {row['rel_err']:.3e} "
+              f"kernel against plain core (limit {REF_GRAD_RTOL:g}), |g| "
+              f"{gp.norm().item():.4e} over {gp.numel()} entries | K3 "
+              f"{row['kernel_k3']} launches per gradient | "
+              f"{row['kernel_ms']:.2f} ms per gradient (plain core "
+              f"{row['plain_ms']:.2f})", flush=True)
+        if not (torch.isfinite(gk).all() and row['rel_err'] <= REF_GRAD_RTOL):
+            fail(f"reference-grad {mode}: the kernel's gradient is "
+                 f"{row['rel_err']:.3e} from the plain core's")
+        if row['kernel_k3'] == 0 or row['plain_k3']:
+            fail(f"reference-grad {mode}: K3 launches {row}")
+    return read_counts(), rows
+
+
+def reference_window_phase(torch):
+    """The reference design — estimator='reference' with
+    laplacian_mode='dense', adam, ancestral walkers, the kernel backend —
+    from the 100k checkpoint: one window of 20 epochs at batch 256, then
+    5 epochs profiled; and one window of 20 of 'reference' on
+    'fwd_batched'.  Every loss finite; the window's baseline equal to the
+    bit to the mean of its losses; walkers/s and launches per epoch."""
+    from waveflow_tpu_torch.vmc import VMCConfig, VMCTrainer
+    rows, total = {}, {'sampler': 0, 'basis_jet': 0}
+    for mode in ('dense', 'fwd_batched'):
+        t = VMCTrainer(VMCConfig(batch_size=256, window=20, log_every=20,
+                                 estimator='reference', laplacian_mode=mode,
+                                 eval_backend='poly_pallas', device='cuda'))
+        if not t.load_checkpoint(str(CHECKPOINT.parent)):
+            fail(f"no checkpoint under {CHECKPOINT.parent}")
+        n0 = len(t.losses)
+        reset_counts()
+        t0 = time.perf_counter()
+        t.train(20, verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        losses = t.losses[n0:]
+        mean = torch.tensor(losses, device='cuda').mean()
+        wps = 20 * 256 / wall
+        rows[mode] = dict(walkers_per_s=wps, wall_s=wall, last_loss=losses[-1],
+                          launches_per_epoch={k: v / 20
+                                              for k, v in launches.items()})
+        print(f"reference-256 {mode}: 20 epochs at batch 256 from the 100k "
+              f"checkpoint, losses finite: "
+              f"{all(math.isfinite(v) for v in losses)}, last "
+              f"{losses[-1]:.5f}, baseline {t.baseline.item():.6f} "
+              f"(= the window's mean loss: {torch.equal(t.baseline, mean)}) "
+              f"| walkers/s {wps:.1f} (host clock) | launches per epoch: "
+              f"sampler {launches['sampler'] / 20:g}, basis_jet "
+              f"{launches['basis_jet'] / 20:g}", flush=True)
+        if len(losses) != 20 or not all(math.isfinite(v) for v in losses):
+            fail(f"reference-256 {mode} produced non-finite losses")
+        if not torch.equal(t.baseline, mean):
+            fail(f"reference-256 {mode}: baseline {t.baseline.item()} is not "
+                 f"the window's mean loss {mean.item()}")
+        if min(launches.values()) == 0:
+            fail(f"a kernel of the path was not launched in reference-256 "
+                 f"{mode}: {launches}")
+        total = {k: total[k] + v for k, v in launches.items()}
+        if mode == 'dense':
+            profile_window(torch, lambda: t.train(5, verbose=False), 5,
+                           "reference-256 dense ")
+    return total, rows
+
+
+# the tails of the uniforms in the poly-sample phase
+U_TAILS = (0.0, 1e-7, 1e-4, 1.0 - 1e-7, 1.0 - 1e-4)
+
+
+def poly_sample_phase(torch, params, jax_raw):
+    """sampling_backend='poly' (the exact poly-density sampler) under
+    'poly_pallas' at 65,536 walkers from the 100k checkpoint: each prior
+    column's draws within POLY_QUANTILE_TOL of their uniforms under the
+    float64 CDF of the polynomial density (tails included), the model's
+    ``sample`` giving the same walkers with no K1 launch, and the raw mean
+    of one E_L pass over 65,536 other draws (the seed of phase 4's, no
+    forced tails) within 5 combined stderr of the JAX raw mean.  Then ms
+    (CUDA events) per sample(256) and sample(65,536) for 'poly' and
+    'table', and one window of 100 epochs at batch 256 with each."""
+    from waveflow_tpu_torch.ops import sample_squared_amplitude_poly
+    from waveflow_tpu_torch.vmc import VMCConfig, VMCTrainer
+    models = {'poly': flagship_model(torch, params, 'poly_pallas', 'poly'),
+              'table': flagship_model(torch, params, 'poly_pallas')}
+    m = models['poly']
+    B = 65536
+    u = torch.rand((2, B), generator=torch.Generator('cuda').manual_seed(13),
+                   device='cuda')
+    u[:, :len(U_TAILS)] = torch.tensor(U_TAILS, device='cuda')
+    reset_counts()
+    with torch.no_grad():
+        outputs = torch.zeros((B, 2), device='cuda')
+        q_err = []
+        for i in range(2):
+            c = m.ob_coeffs(outputs)[:, i]
+            col = sample_squared_amplitude_poly(m.fwd_ob, c, u[i])
+            q_err.append(poly_quantile_err(torch, m.fwd_ob, c, u[i],
+                                           col).max().item())
+            outputs[:, i] = col
+        x_cols = m.transform.inverse(outputs)[0]
+        x, n_sample = counted(torch, lambda: m.sample(B, u=u))
+        # the energy on draws without the forced tails (a draw at u = 0
+        # sits on ψ's zero at the box edge, where E_L is unbounded)
+        xe = m.sample(B, generator=torch.Generator('cuda').manual_seed(7))
+        e_loc = he_hamiltonian(m, 'fwd_batched')(xe)[:, 0] / m.psi(xe)
+    launches = read_counts()
+    mean = e_loc.mean().item()
+    stderr = (e_loc.std() / math.sqrt(B)).item()
+    d_raw = sigmas(mean, stderr, jax_raw)
+    print(f"poly-sample: |F64(x) - u| of the prior columns at {B} walkers "
+          f"(tails {U_TAILS} included): {q_err[0]:.3e}, {q_err[1]:.3e} "
+          f"(limit {POLY_QUANTILE_TOL:g}) | sample() equal to the column "
+          f"loop: {torch.equal(x, x_cols)}, K1 launches in it "
+          f"{n_sample['sampler']} | raw E = {mean:.6f} +- {stderr:.6f} over "
+          f"one E_L pass; JAX evaluation raw mean {jax_raw[0]} +- "
+          f"{jax_raw[1]}: {d_raw:.2f} combined sigma", flush=True)
+    if max(q_err) > POLY_QUANTILE_TOL:
+        fail(f"poly-sample: draws {max(q_err):.3e} from their quantiles")
+    if not torch.equal(x, x_cols) or n_sample['sampler']:
+        fail("poly-sample: the model's sample did not take the poly sampler")
+    if not (math.isfinite(mean) and d_raw <= 5.0):
+        fail(f"poly-sample: raw mean {mean} is {d_raw:.2f} combined sigma "
+             f"from the JAX raw mean {jax_raw}")
+    timing = {}
+    with torch.no_grad():
+        for name, mm in models.items():
+            g = torch.Generator('cuda').manual_seed(14)
+            timing[name] = [cuda_ms(torch, lambda: mm.sample(n, generator=g),
+                                    reps=reps, warmup=1)
+                            for n, reps in ((256, 20), (B, 5))]
+    for name in models:
+        t = VMCTrainer(VMCConfig(batch_size=256, window=100, log_every=100,
+                                 sampling_backend=name,
+                                 eval_backend='poly_pallas', device='cuda'))
+        if not t.load_checkpoint(str(CHECKPOINT.parent)):
+            fail(f"no checkpoint under {CHECKPOINT.parent}")
+        n0 = len(t.losses)
+        t0 = time.perf_counter()
+        t.train(100, verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        losses = t.losses[n0:]
+        if len(losses) != 100 or not all(math.isfinite(v) for v in losses):
+            fail(f"poly-sample: the {name} window produced non-finite losses")
+        timing[name].append(100 * 256 / wall)
+        print(f"poly-sample {name}: sample(256) {timing[name][0]:.3f} ms, "
+              f"sample({B}) {timing[name][1]:.3f} ms (CUDA events) | one "
+              f"window of 100 epochs at batch 256: walkers/s "
+              f"{timing[name][2]:.1f} (host clock), last loss "
+              f"{losses[-1]:.5f}", flush=True)
+    return launches, dict(quantile_err=q_err, raw=mean, raw_stderr=stderr,
+                          raw_sigma=d_raw, timing=timing)
 
 
 def density_phase(torch):
@@ -1200,11 +1576,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from waveflow_tpu_torch import ops
     from waveflow_tpu_torch.convert import load_jax_checkpoint, params_from_jax
-    from waveflow_tpu_torch.models import get_waveflow_model
     from waveflow_tpu_torch.benchmark.density import get_benchmark_model
     from waveflow_tpu_torch.ops import cuda_build, cuda_jet, cuda_sampler
-    from waveflow_tpu_torch.physics import (
-        construct_hamiltonian_function, system_catalogue)
     from waveflow_tpu_torch.vmc import VMCConfig, VMCTrainer
 
     # ---- 2. build ---------------------------------------------------------
@@ -1223,13 +1596,8 @@ def main() -> int:
     tabs_b = ops.get_tables('B', deg, knots, n_mesh=mesh)
     tabs_i = ops.get_tables('I', deg, knots, n_mesh=mesh)
     ck = load_jax_checkpoint(CHECKPOINT)
-    model = get_waveflow_model(
-        2, base_spline_degree=deg, i_spline_degree=deg,
-        n_prior_internal_knots=knots, n_i_internal_knots=knots,
-        i_spline_reg=0.05, n_flow_layers=3, box_size=10.0,
-        eval_backend='poly_pallas', generator=torch.Generator().manual_seed(0),
-        device='cuda')
-    model.load_state_dict(params_from_jax(ck['params']))
+    params = params_from_jax(ck['params'])
+    model = flagship_model(torch, params, 'poly_pallas')
     gen = torch.Generator('cuda').manual_seed(0)
     k1 = check_sampler(torch, gen, 'squared', model.ev_ob, model.ob_coeffs,
                        65536)
@@ -1259,9 +1627,7 @@ def main() -> int:
         print(f"launch plan {name}: " + "; ".join(parts), flush=True)
 
     # ---- 4. checkpoint ----------------------------------------------------
-    protons, _ = system_catalogue[1]['He']
-    h_fn = construct_hamiltonian_function(model.psi, protons=protons,
-                                          n_space_dimensions=1)
+    h_fn = he_hamiltonian(model, 'fwd_batched')
     t0 = time.perf_counter()
     with torch.no_grad():
         x = model.sample(65536, generator=torch.Generator('cuda').manual_seed(7))
@@ -1325,7 +1691,7 @@ def main() -> int:
     with torch.no_grad():
         ms_sample = host_ms(torch, lambda: trainer.sample(256))
         ms_energy = host_ms(torch, lambda: trainer.h_fn(batch))
-    ms_step = host_ms(torch, lambda: trainer.step(batch))
+    ms_step = host_ms(torch, lambda: trainer.step(batch, trainer.baseline))
     print(f"epoch stages (host clock, batch 256): sample {ms_sample:.2f} ms | "
           f"energy (nested-jvp Laplacian) {ms_energy:.2f} ms | train step "
           f"(loss incl. energy, backward, clip, adam) {ms_step:.2f} ms",
@@ -1369,7 +1735,19 @@ def main() -> int:
     vmap_row = vmap_phase(torch)
     print(f"phase vmap: {time.perf_counter() - t0:.1f} s wall", flush=True)
 
-    # ---- 13. density (the second main path; counts reset just before) ------
+    # ---- 13-16. the Laplacian forms, the reference design, poly sampling ---
+    rows = {}
+    for name, run in (
+            ('lap-forms', lambda: lap_forms_phase(torch, params)),
+            ('reference-grad', lambda: reference_grad_phase(torch, params)),
+            ('reference-256', lambda: reference_window_phase(torch)),
+            ('poly-sample', lambda: poly_sample_phase(torch, params,
+                                                      jax_raw))):
+        t0 = time.perf_counter()
+        by_phase[name], rows[name] = run()
+        print(f"phase {name}: {time.perf_counter() - t0:.1f} s wall", flush=True)
+
+    # ---- 17. density (the second main path; counts reset just before) ------
     by_phase['density-20k'] = density_phase(torch)
     launches.update(by_phase['density-20k'])
 
@@ -1377,7 +1755,7 @@ def main() -> int:
         """A kernel's launches on each path that ran it."""
         return {k: v[name] for k, v in by_phase.items() if v.get(name)}
 
-    # ---- 14. report --------------------------------------------------------
+    # ---- 18. report --------------------------------------------------------
     # each row at the shape its main path gives the kernel: K1 and K3 at the
     # training batch of 256, K2 at the 20,000 model draws of a metric
     # checkpoint, K4 at the flattened (20,000, 2) training batch
@@ -1416,7 +1794,8 @@ def main() -> int:
              bound_ms=k3_row['bound_ms'], bound_by=k3_row['bound_by'],
              library_ms=k3_row['library_ms'],
              library_device_ms=k3_row['library_device_ms'],
-             vmap_grad=vmap_row),
+             vmap_grad=vmap_row, laplacian_forms=rows['lap-forms'],
+             reference_grad=rows['reference-grad']),
         dict(name='spline_eval', route='cuda',
              source='waveflow_tpu_torch/csrc/spline_eval.cu',
              replaces='waveflow_tpu/ops/pallas_spline.py:29',

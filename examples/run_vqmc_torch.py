@@ -6,6 +6,7 @@ Usage:
   python examples/run_vqmc_torch.py ... --restart       # resume --save-dir
   python examples/run_vqmc_torch.py ... --sampler mala --optimizer spring \
       --learning-rate 0.05 --spring-momentum 0.9
+  python examples/run_vqmc_torch.py ... --estimator reference  # with baseline
 
 Checkpoints go to --save-dir (default: the JAX package's
 ./results/<system>_<d>d_L<box>box) every --log-every epochs and at the end;
@@ -40,6 +41,8 @@ def main(argv=None):
     p.add_argument('--save-dir', default=None)
     p.add_argument('--restart', action='store_true')
     p.add_argument('--seed', type=int, default=2)
+    p.add_argument('--estimator', default='clipped_score',
+                   choices=['clipped_score', 'reference'])
     p.add_argument('--eval-backend', default='poly',
                    choices=['poly', 'poly_pallas'],
                    help="'poly' (plain PyTorch basis jet) or 'poly_pallas' "
@@ -75,7 +78,7 @@ def main(argv=None):
                     spline_degree=args.spline_degree, num_knots=args.num_knots,
                     n_flow_layers=args.n_flow_layers,
                     log_every=args.log_every, save_dir=args.save_dir,
-                    seed=args.seed,
+                    seed=args.seed, estimator=args.estimator,
                     eval_backend=args.eval_backend, sampler=args.sampler,
                     optimizer=args.optimizer,
                     spring_momentum=args.spring_momentum,

@@ -96,7 +96,7 @@ def test_jax_checkpoint_one_step_matches_jax():
             assert not opt.state[p]['exp_avg_sq'].any()
     batch = t.model.sample(64, generator=torch.Generator().manual_seed(5))
     before = {k: v.detach().clone() for k, v in named.items()}
-    loss = t.step(batch)
+    loss = t.step(batch, torch.zeros(()))
 
     jt = JVMCTrainer(JVMCConfig(compilation_cache_dir=None))
     assert jt.load_checkpoint(str(FLAGSHIP_DIR))

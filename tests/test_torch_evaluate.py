@@ -97,7 +97,8 @@ def test_evaluation_matches_jax():
                            device='cpu')
     m.load_state_dict(params_from_jax(jparams))
     h = construct_hamiltonian_function(m.psi, protons=protons,
-                                       n_space_dimensions=1)
+                                       n_space_dimensions=1,
+                                       laplacian_mode='fwd_batched')
     gen = torch.Generator().manual_seed(7)
     x0 = m.sample(256, generator=gen)
     kw = dict(n_blocks=16, sweeps_per_block=5, n_warmup_sweeps=20)

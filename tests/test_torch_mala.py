@@ -185,7 +185,8 @@ def test_window_matches_jax(small):
     u = torch.stack([d[1] for d in draws])[None]
 
     h = construct_hamiltonian_function(m.psi, protons=protons,
-                                       n_space_dimensions=1)
+                                       n_space_dimensions=1,
+                                       laplacian_mode='fwd_batched')
     step = make_train_step(m.psi, h, m.parameters(), lr, grad_clip=10.0)
     moments = adam_state_from_jax(jax.device_get(opt_state),
                                   jax.device_get(jparams),
@@ -198,9 +199,10 @@ def test_window_matches_jax(small):
     t_state = init_fn(torch.as_tensor(x), step_size=0.5)
     np.testing.assert_allclose(t_state.grad.numpy(), np.asarray(mstate.grad),
                                rtol=1e-5, atol=1e-5)
-    t_losses, t_rates, t_m = run_window(_to_torch(mstate), 1, noise=noise,
-                                        u=u)
+    t_losses, t_base, t_rates, t_m = run_window(
+        _to_torch(mstate), 1, torch.zeros(()), noise=noise, u=u)
     assert t_losses.shape == (1,) and t_rates.shape == (1,)
+    assert torch.equal(t_base, t_losses.mean())      # the next baseline
     assert t_losses[0].item() == pytest.approx(float(losses[0]), rel=1e-4)
     np.testing.assert_allclose(t_m.positions.numpy(),
                                np.asarray(new_m.positions), rtol=1e-5,
@@ -296,7 +298,8 @@ def test_li_matches_jax():
     m.load_state_dict(sd)
     assert m.constrained.tolist() == [True, True, False]
     h = construct_hamiltonian_function(m.psi, protons=protons,
-                                       n_space_dimensions=1)
+                                       n_space_dimensions=1,
+                                       laplacian_mode='fwd_batched')
     with torch.no_grad():
         xt = torch.as_tensor(x)
         psi, lp = m.psi(xt), m.log_pdf(xt)

@@ -194,7 +194,8 @@ def test_train_window_matches_jax():
         u.append(np.asarray(jax.random.uniform(k_acc, (B,))))
 
     h = construct_hamiltonian_function(m.psi, protons=protons,
-                                       n_space_dimensions=1)
+                                       n_space_dimensions=1,
+                                       laplacian_mode='fwd_batched')
     step = make_train_step(m.psi, h, m.parameters(), lr, grad_clip=10.0)
     moments = adam_state_from_jax(jax.device_get(opt_state),
                                   jax.device_get(jparams),
@@ -204,10 +205,12 @@ def test_train_window_matches_jax():
     before = {k: v.detach().clone() for k, v in m.named_parameters()}
     _, run_window = make_mcmc_train_window(step, m.log_pdf, BOX,
                                            n_sweeps=n_sweeps)
-    t_losses, t_rates, t_m = run_window(
-        _state_to_torch(mstate), 1, noise=torch.as_tensor(np.stack(noise)[None]),
+    t_losses, t_base, t_rates, t_m = run_window(
+        _state_to_torch(mstate), 1, torch.zeros(()),
+        noise=torch.as_tensor(np.stack(noise)[None]),
         u=torch.as_tensor(np.stack(u)[None]))
     assert t_losses.shape == (1,) and t_rates.shape == (1,)
+    assert torch.equal(t_base, t_losses.mean())      # the next baseline
     assert t_losses[0].item() == pytest.approx(float(losses[0]), rel=1e-4)
     np.testing.assert_allclose(t_m.positions.numpy(),
                                np.asarray(new_m.positions), rtol=1e-6, atol=1e-6)
@@ -238,14 +241,15 @@ def test_trainer_divergence_restores_walkers():
     good = [p.detach().clone() for p in t.model.parameters()]
     real_window, calls = t.mcmc_window, []
 
-    def diverging(mstate, n_epochs, generator=None):
+    def diverging(mstate, n_epochs, baseline, generator=None):
         calls.append(mstate)
-        losses, rates, new = real_window(mstate, n_epochs, generator)
+        losses, base, rates, new = real_window(mstate, n_epochs, baseline,
+                                               generator)
         if len(calls) == 1:
             with torch.no_grad():
                 next(t.model.parameters()).fill_(float('nan'))
             losses = losses * float('nan')
-        return losses, rates, new
+        return losses, base, rates, new
 
     t.mcmc_window = diverging
     t.train(2, verbose=False)

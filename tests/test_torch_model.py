@@ -142,7 +142,8 @@ def test_local_energy(flagship):
         p, xx))(flagship['jparams'], x))
     m = flagship['models']['poly_pallas']
     h = construct_hamiltonian_function(m.psi, protons=protons,
-                                       n_space_dimensions=1)
+                                       n_space_dimensions=1,
+                                       laplacian_mode='fwd_batched')
     with torch.no_grad():
         xt = torch.as_tensor(x)
         e_loc = (h(xt)[:, 0] / m.psi(xt)).numpy()

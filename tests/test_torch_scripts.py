@@ -67,14 +67,28 @@ def test_run_mala_with_spring(tmp_path):
     assert np.isfinite(np.load(tmp_path / 'loss.npy')).all()
 
 
+def test_run_reference_estimator(tmp_path):
+    """run_vqmc_torch.py --estimator reference: 2 windows of 2 epochs and
+    one single epoch (5 epochs), finite losses in the trace."""
+    out = _run('examples/run_vqmc_torch.py', '--device', 'cpu',
+               '--num-epochs', '5', '--window', '2', '--batch-size', '8',
+               '--log-every', '2', '--estimator', 'reference',
+               '--save-dir', str(tmp_path), *TINY)
+    assert 'epoch 4 |' in out
+    trace = np.load(tmp_path / 'loss.npy')
+    assert trace.shape == (5,) and np.isfinite(trace).all()
+
+
 def test_bench_prints_its_fields():
     """bench_torch.py at the flagship's widths, batch 8, one warmup window
-    and one timed window of 2 epochs on the CPU: one JSON line with
-    bench.py's fields, vs_baseline null, the device named in unit."""
+    and one timed window of 2 epochs on the CPU for the main path and for
+    the reference design: one JSON line with bench.py's fields,
+    vs_baseline the positive ratio of the two times, the device named in
+    unit."""
     out = _run('bench_torch.py', '--device', 'cpu', '--batch-size', '8',
-               '--window', '2', '--n-windows', '1')
+               '--window', '2', '--n-windows', '1', '--n-ref-windows', '1')
     result = json.loads(out.strip().splitlines()[-1])
     assert set(result) == {'metric', 'value', 'unit', 'vs_baseline'}
     assert result['metric'] == 'vmc_walker_steps_per_sec'
-    assert result['value'] > 0 and result['vs_baseline'] is None
+    assert result['value'] > 0 and result['vs_baseline'] > 0
     assert result['unit'].endswith('; cpu)')

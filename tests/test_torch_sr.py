@@ -56,7 +56,8 @@ def _pair(kw, run=None, seed=3, B=32):
                            device='cpu')
     m.load_state_dict(params_from_jax(jax.device_get(jparams)))
     h = construct_hamiltonian_function(m.psi, protons=PROTONS,
-                                       n_space_dimensions=1)
+                                       n_space_dimensions=1,
+                                       laplacian_mode='fwd_batched')
     x = np.array(jax.jit(jsample, static_argnums=2)(
         jax.random.PRNGKey(5), jparams, B))
     return jparams, jpsi, jh, m, h, x
@@ -207,7 +208,7 @@ def test_sr_step_matches_jax(flagship_sr):
     t_step = make_sr_train_step(m, h, 0.05, damping=1e-3, cg_iters=20,
                                 max_update_norm=0.3)
     before = {k: v.detach().clone() for k, v in m.named_parameters()}
-    loss = t_step(torch.as_tensor(x))
+    loss = t_step(torch.as_tensor(x), torch.zeros(()))
     assert t_step.optimizer.state_dict() == ()
     assert loss.item() == pytest.approx(float(jloss), rel=1e-4)
     ref = params_from_jax(jax.device_get(new))
@@ -260,7 +261,7 @@ def test_spring_step_matches_jax():
         t_step = make_spring_train_step(m, energies, 0.05, momentum=0.9,
                                         max_update_norm=0.3)
         t_step.optimizer.load_state_dict(dict(jstate))
-        loss = t_step(torch.as_tensor(x))
+        loss = t_step(torch.as_tensor(x), torch.zeros(()))
         assert loss.item() == pytest.approx(float(jloss), rel=1e-4)
         got = t_step.optimizer.state_dict()
         for k in ('step', 'skipped', 'fallbacks'):
@@ -287,7 +288,7 @@ def test_spring_failed_cholesky_counts_like_jax(small):
     t_step = make_spring_train_step(m, h, 0.05, damping=-1.0, momentum=0.9,
                                     max_update_norm=0.3)
     before = [p.detach().clone() for p in m.parameters()]
-    t_step(torch.as_tensor(x))
+    t_step(torch.as_tensor(x), torch.zeros(()))
     got = t_step.optimizer.state_dict()
     for k in ('step', 'skipped', 'fallbacks'):
         assert int(got[k]) == int(jstate[k]) == 1, k
@@ -331,15 +332,17 @@ def test_trainer_loads_every_jax_optimizer_form(run, optimizer):
 
 def test_sr_train_window(small):
     """make_sr_train_window: ``window`` epochs of exact draws and one SR
-    update each; the losses stay on the device, finite, and the
-    parameters move."""
+    update each; the losses stay on the device, finite, the next baseline
+    is their mean (the one handed in is unused), and the parameters
+    move."""
     _, _, _, m, h, _ = small
     gen = torch.Generator().manual_seed(9)
     run = make_sr_train_window(m, h, lambda n: m.sample(n, generator=gen),
                                0.05, 8, 2, cg_iters=3, max_update_norm=0.3)
     before = [p.detach().clone() for p in m.parameters()]
-    losses = run()
+    losses, baseline = run(torch.tensor(0.5))
     assert losses.shape == (2,) and torch.isfinite(losses).all()
+    assert torch.equal(baseline, losses.mean())
     assert run.step.optimizer.state_dict() == ()
     assert any(not torch.equal(a, b) for a, b in zip(before, m.parameters()))
 

@@ -92,9 +92,10 @@ def test_train_step_matches_jax():
                            device='cpu')
     m.load_state_dict(params_from_jax(jparams))
     h = construct_hamiltonian_function(m.psi, protons=protons,
-                                       n_space_dimensions=1)
+                                       n_space_dimensions=1,
+                                       laplacian_mode='fwd_batched')
     step = make_train_step(m.psi, h, m.parameters(), lr, grad_clip=10.0)
-    t_loss = step(torch.as_tensor(np.array(batch)))
+    t_loss = step(torch.as_tensor(np.array(batch)), torch.zeros(()))
     assert t_loss.item() == pytest.approx(float(loss), rel=1e-4)
 
     ref_g = params_from_jax(jax.device_get(jgrads))
@@ -138,13 +139,13 @@ def test_trainer_divergence_recovery():
     good = [p.detach().clone() for p in t.model.parameters()]
     real_step, calls = t.step, []
 
-    def diverging_step(batch):
+    def diverging_step(batch, baseline):
         calls.append(1)
         if len(calls) <= 2:                    # the whole first window
             with torch.no_grad():
                 next(t.model.parameters()).fill_(float('nan'))
             return torch.tensor(float('nan'))
-        return real_step(batch)
+        return real_step(batch, baseline)
 
     diverging_step.optimizer = real_step.optimizer
     t.step = diverging_step
@@ -156,23 +157,24 @@ def test_trainer_divergence_recovery():
 
 
 @pytest.mark.parametrize('override', [
-    dict(laplacian_mode='hvp'), dict(ansatz='antisym'),
-    dict(eval_backend='table'), dict(estimator='reference'),
+    dict(n_space_dimension=2), dict(ansatz='antisym'),
+    dict(eval_backend='table'), dict(xu_coord_type='independent'),
     dict(save_artifacts=True), dict(data_parallel=True),
-    dict(clip_stat='median_abs'), dict(divergence_recovery=False)])
+    dict(xu_coord_type='paired2d'), dict(divergence_recovery=False)])
 def test_trainer_refuses_unported_config(override):
-    """Anything beyond ancestral / metropolis / mala + adam / sr / spring +
-    clipped_score on one device raises NotImplementedError instead of being
-    ignored."""
+    """Anything beyond the 1D 'mean' map, ancestral / metropolis / mala +
+    adam / sr / spring on one device raises NotImplementedError instead of
+    being ignored."""
     with pytest.raises(NotImplementedError):
         VMCTrainer(device='cpu', **override)
 
 
 def test_sampling_backend_poly_raises():
-    """The port refuses sampling_backend='poly' (the JAX package silently
-    ignores it under eval_backend='table')."""
-    with pytest.raises(NotImplementedError):
-        get_waveflow_model(2, **SMALL, sampling_backend='poly', device='cpu')
+    """The port refuses sampling_backend='poly' under a table eval backend,
+    where the JAX package silently ignores it (and draws from the table)."""
+    with pytest.raises(NotImplementedError, match="sampling_backend='poly'"):
+        get_waveflow_model(2, **SMALL, eval_backend='table',
+                           sampling_backend='poly', device='cpu')
 
 
 @pytest.mark.parametrize('n,log_every,saved', [(15, 12, [10, 12, 15]),
@@ -194,14 +196,14 @@ def test_train_runs_whole_windows_then_ancestral_epochs(tmp_path, n,
     windows, steps, epochs = [], [], []
     real_window, real_step, real_save = t.mcmc_window, t.step, t.save_checkpoint
 
-    def window(mstate, n_epochs, generator=None):
-        out = real_window(mstate, n_epochs, generator)
-        windows.append(out[2])
+    def window(mstate, n_epochs, baseline, generator=None):
+        out = real_window(mstate, n_epochs, baseline, generator)
+        windows.append(out[3])
         return out
 
-    def step(batch):
+    def step(batch, baseline):
         steps.append(batch)
-        return real_step(batch)
+        return real_step(batch, baseline)
 
     step.optimizer = real_step.optimizer
     t.mcmc_window, t.step = window, step
@@ -228,12 +230,12 @@ def test_epoch_after_a_diverged_window_follows_jax():
     t = VMCTrainer(cfg)
     real_step, calls, epochs = t.step, [], []
 
-    def diverging_step(batch):
+    def diverging_step(batch, baseline):
         calls.append(1)
         if len(calls) in (3, 4):                  # the whole second window
             return torch.tensor(float('nan'))
         epochs.append(t.epoch)
-        return real_step(batch)
+        return real_step(batch, baseline)
 
     diverging_step.optimizer = real_step.optimizer
     t.step = diverging_step

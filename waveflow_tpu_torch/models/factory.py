@@ -17,7 +17,9 @@ from waveflow_tpu_torch.bijections import (
     BoxTransform, IMADE, Reverse, Serial, masked_conditioner,
 )
 from waveflow_tpu_torch.models.mflow import MFlow
-from waveflow_tpu_torch.models.waveflow import Waveflow
+from waveflow_tpu_torch.models.waveflow import (
+    Waveflow, check_sampling_backend,
+)
 
 
 def get_model(input_dim, base_spline_degree=5, i_spline_degree=5,
@@ -60,15 +62,18 @@ def get_model(input_dim, base_spline_degree=5, i_spline_degree=5,
 
 def get_waveflow_model(n_dimension, base_spline_degree=5, i_spline_degree=5,
                        n_prior_internal_knots=16, n_i_internal_knots=16,
-                       i_spline_reg=0.0, n_flow_layers=1, box_size=1.0,
+                       i_spline_reg=0.0, i_spline_reverse_fun_tol=1e-6,
+                       n_flow_layers=1, box_size=1.0,
                        xu_coord_type='mean', n_spline_base_mesh_points=2000,
                        eval_backend='poly', sampling_backend='table', *,
                        generator: torch.Generator | None = None,
                        device=None) -> Waveflow:
     """Waveflow ψ: BoxTransform + n × (IMADE + Reverse) over a squared
     orthonormal-B-spline prior.  The gap dimensions 0..n-2 of the 'mean'
-    map carry the left-edge zero boundary.  Weights are drawn from
+    map carry the left-edge zero boundary.  ``i_spline_reverse_fun_tol``
+    is accepted and unused, as in ``get_model``.  Weights are drawn from
     ``generator`` (CPU generator; seed it for reproducible inits)."""
+    check_sampling_backend(eval_backend, sampling_backend)
     device = resolve_device(device)
     layers = [BoxTransform(box_size, xu_coord_type=xu_coord_type)]
     for _ in range(n_flow_layers):

@@ -1,7 +1,7 @@
 """Waveflow — the square-flow wavefunction ansatz.
 
 Port of waveflow_tpu/models/waveflow.py with the 'poly' amplitude
-backends and the 'table' sampling density:
+backends and both sampling densities:
 
     ψ(x) = [ Π_i  c_i(u_{<i}) · OB(u_i) ] · exp(½ log|det J_T(x)|),
     u = T(x) ∈ [0,1]^n (BoxTransform + IMADE stack),
@@ -24,10 +24,23 @@ from torch import nn
 from waveflow_tpu_torch import resolve_device
 from waveflow_tpu_torch.ops import (
     get_tables, make_boundary_projector, make_evaluator, make_poly_evaluator,
-    sample_squared_amplitude,
+    sample_squared_amplitude, sample_squared_amplitude_poly,
 )
 
 LOG_TOL = 1e-7
+
+
+def check_sampling_backend(eval_backend: str, sampling_backend: str):
+    """'table' or 'poly'; 'poly' only under a poly eval backend (the JAX
+    package ignores it under eval_backend='table' and draws from the table;
+    the port refuses what it does not do)."""
+    if sampling_backend not in ('table', 'poly'):
+        raise ValueError(f"unknown sampling_backend {sampling_backend!r}")
+    if sampling_backend == 'poly' and eval_backend not in ('poly',
+                                                           'poly_pallas'):
+        raise NotImplementedError(
+            "sampling_backend='poly' needs a poly eval backend ('poly' or "
+            f"'poly_pallas'), not {eval_backend!r}")
 
 
 class Waveflow(nn.Module):
@@ -42,16 +55,12 @@ class Waveflow(nn.Module):
                  eval_backend: str = 'poly', sampling_backend: str = 'table',
                  *, generator: torch.Generator | None = None, device=None):
         super().__init__()
+        check_sampling_backend(eval_backend, sampling_backend)
         if eval_backend not in ('poly', 'poly_pallas'):
             raise NotImplementedError(
                 f"eval_backend {eval_backend!r} is not ported; use 'poly' or "
                 "'poly_pallas'")
-        if sampling_backend != 'table':
-            # the JAX package ignores 'poly' under eval_backend='table';
-            # the port refuses what it does not do
-            raise NotImplementedError(
-                f"sampling_backend {sampling_backend!r} is not ported; only "
-                "'table'")
+        self.sampling_backend = sampling_backend
         device = resolve_device(device)
         self.device = device
         self.input_dim = input_dim
@@ -79,7 +88,8 @@ class Waveflow(nn.Module):
 
     def ob_coeffs(self, u: torch.Tensor) -> torch.Tensor:
         """Conditional OB coefficients with unit L2 norm: (B, D, n_bases)."""
-        c = self.project(self.conditioner(u)) @ self.ob_to_b
+        w = self.project(self.conditioner(u))
+        c = w @ self.ob_to_b.to(w.dtype)
         return c / torch.sqrt((c ** 2).sum(-1, keepdim=True))
 
     def _amplitudes(self, x: torch.Tensor):
@@ -123,6 +133,9 @@ class Waveflow(nn.Module):
         outputs = torch.zeros((num_samples, D), device=self.device)
         for i_col in range(D):
             c = self.ob_coeffs(outputs)[:, i_col]
-            col = sample_squared_amplitude(self.ev_ob, c, u[i_col])
+            if self.sampling_backend == 'poly':
+                col = sample_squared_amplitude_poly(self.fwd_ob, c, u[i_col])
+            else:
+                col = sample_squared_amplitude(self.ev_ob, c, u[i_col])
             outputs = torch.where(cols == i_col, col[:, None], outputs)
         return self.transform.inverse(outputs)[0]

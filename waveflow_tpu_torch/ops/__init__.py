@@ -6,6 +6,7 @@ from waveflow_tpu_torch.ops.spline_tables import (
 from waveflow_tpu_torch.ops.spline_eval import SplineEvaluator, make_evaluator
 from waveflow_tpu_torch.ops.poly_eval import (
     PolySplineEvaluator, build_local_polynomials, make_poly_evaluator,
+    sample_squared_amplitude_poly,
 )
 from waveflow_tpu_torch.ops.boundary import (
     make_boundary_projector, make_bias_remover,

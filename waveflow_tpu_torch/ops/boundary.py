@@ -79,7 +79,7 @@ def make_boundary_projector(evaluator: SplineEvaluator,
 
     def project(weights: torch.Tensor) -> torch.Tensor:
         """weights: (..., n_bases) -> constrained + renormalized weights."""
-        w = weights @ A_t
+        w = weights @ A_t.to(weights.dtype)
         if affine_b:
             w = w + b_t
         if normalization == 'sum':

@@ -44,7 +44,8 @@ last_plan = None      # the LaunchPlan of the latest launch
 
 def basis_jet_plain(x: torch.Tensor, A_jet: torch.Tensor, n_cells: int,
                     ncoef: int) -> torch.Tensor:
-    """Plain PyTorch core: x (...,) -> (..., A_jet.shape[1])."""
+    """Plain PyTorch core: x (...,) -> (..., A_jet.shape[1]), in x's
+    dtype (a float64 x takes the f32 A_jet in float64)."""
     pos = x * n_cells
     idx = torch.clamp(torch.floor(pos), 0, n_cells - 1)
     s = torch.clamp(pos - idx, 0.0, 1.0)
@@ -55,7 +56,7 @@ def basis_jet_plain(x: torch.Tensor, A_jet: torch.Tensor, n_cells: int,
     powers = torch.stack(pows, dim=-1)                     # (..., ncoef)
     W = (onehot[..., :, None] * powers[..., None, :]).reshape(
         x.shape + (n_cells * ncoef,))
-    return W @ A_jet
+    return W @ A_jet.to(W.dtype)
 
 
 @functools.lru_cache(maxsize=256)

@@ -22,6 +22,7 @@ from torch.autograd.forward_ad import _set_fwd_grad_enabled
 
 from waveflow_tpu_torch import resolve_device
 from waveflow_tpu_torch.ops import cuda_jet
+from waveflow_tpu_torch.ops.sampling import _locate_in_masses
 from waveflow_tpu_torch.ops.spline_tables import (
     BSplineTables, SplineTables, b_basis_with_derivs, i_basis_with_derivs,
     m_basis_with_derivs, make_knots,
@@ -229,6 +230,68 @@ class PolySplineEvaluator:
             dv = dv * s_c + v
             v = v * s_c + local[..., k]
         return v + dv * ds, (dv + d2v * ds) * self.n_cells
+
+
+def sample_squared_amplitude_poly(ev: PolySplineEvaluator,
+                                  coeffs: torch.Tensor, u: torch.Tensor,
+                                  n_bisect: int = 12,
+                                  n_newton: int = 3) -> torch.Tensor:
+    """Exact inverse-CDF draw from p(x) ∝ (w·T(x))² under the POLYNOMIAL
+    density — the one the poly backends' ψ / log_pdf / E_L evaluate (JAX
+    ``poly_eval.py:307-386``); the table sampler draws from the
+    piecewise-linear table interpolant instead, ~3.3e-3 away.
+
+      1. local polynomials per cell l = c @ A: (B, n_cells, ncoef);
+      2. exact cell masses h · lᵀ H l, H[k1, k2] = 1/(k1 + k2 + 1);
+      3. the cell by the prefix-sum locate of ops/sampling.py, then the
+         in-cell solve of the exact antiderivative F(s) = h Σ_m (l*l)_m
+         s^{m+1}/(m+1): ``n_bisect`` bracketing steps, then ``n_newton``
+         Newton steps clipped to the bracket.
+
+    coeffs (..., n_bases), u (...,) uniforms in [0, 1) -> (...,) in [0, 1].
+    Plain PyTorch at full f32 precision (the JAX package computes it
+    outside any Pallas kernel)."""
+    K, M = ev.ncoef, ev.n_cells
+    h = 1.0 / M
+    P = (coeffs @ ev.A.to(coeffs.dtype)).reshape(coeffs.shape[:-1] + (M, K))
+    k = torch.arange(K, dtype=torch.float64, device=P.device)
+    H = (1.0 / (k[:, None] + k[None, :] + 1.0)).to(P.dtype)
+    masses = torch.clamp(h * torch.einsum('...mk,kl,...ml->...m', P, H, P),
+                         min=0.0)
+    j, q = _locate_in_masses(masses, u)
+    l = torch.gather(P, -2, j[..., None, None].expand(
+        j.shape + (1, K)))[..., 0, :]                      # (..., K)
+    # squared-polynomial coefficients (l*l)_m = Σ_{k1+k2=m} l_k1 l_k2
+    sq = [torch.zeros_like(l[..., 0])] * (2 * K - 1)
+    for k1 in range(K):
+        for k2 in range(K):
+            sq[k1 + k2] = sq[k1 + k2] + l[..., k1] * l[..., k2]
+
+    def F(s):
+        """h ∫₀^s p(t)² dt — Horner on the antiderivative."""
+        v = sq[2 * K - 2] / (2 * K - 1)
+        for m in range(2 * K - 3, -1, -1):
+            v = v * s + sq[m] / (m + 1)
+        return h * v * s
+
+    def dF(s):
+        v = sq[2 * K - 2]
+        for m in range(2 * K - 3, -1, -1):
+            v = v * s + sq[m]
+        return h * v
+
+    lo = torch.zeros_like(q)
+    hi = torch.ones_like(q)
+    for _ in range(n_bisect):
+        mid = 0.5 * (lo + hi)
+        gt = F(mid) > q
+        lo = torch.where(gt, lo, mid)
+        hi = torch.where(gt, mid, hi)
+    s = 0.5 * (lo + hi)
+    for _ in range(n_newton):
+        s = torch.minimum(torch.maximum(
+            s - (F(s) - q) / torch.clamp(dF(s), min=1e-14), lo), hi)
+    return (j + s) * h
 
 
 _POLY_CACHE: dict = {}

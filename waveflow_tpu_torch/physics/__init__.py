@@ -1,7 +1,8 @@
 from waveflow_tpu_torch.physics.systems import system_catalogue
 from waveflow_tpu_torch.physics.hamiltonian import (
-    construct_hamiltonian_function, get_potential,
-    laplacian_and_value_batched,
+    construct_hamiltonian_function, get_potential, laplacian,
+    laplacian_and_value, laplacian_and_value_batched,
+    laplacian_dense_hessian, laplacian_hvp, laplacian_numerical,
 )
 from waveflow_tpu_torch.physics.fermion import (
     abs2rel, inversion_count, parity, rel2abs, sort_and_parity,

@@ -1,5 +1,6 @@
 from waveflow_tpu_torch.vmc.estimators import (
-    make_loss_fn, make_train_step, run_window,
+    local_energy, loss_fn_uniform, make_loss_fn, make_policy_gradient_step,
+    make_train_step, run_window,
 )
 from waveflow_tpu_torch.vmc.metropolis import (
     MetropolisState, make_mcmc_train_window, make_metropolis_sampler,

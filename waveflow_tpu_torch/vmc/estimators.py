@@ -1,10 +1,17 @@
-"""VMC loss, train step and window loop: the 'clipped_score' estimator.
+"""VMC losses, train step and window loop.
 
-Port of waveflow_tpu/vmc/estimators.py (``_safe_psi``, the
-``clipped_score`` loss, the train step, the window loop).  The gradient is
-the score-only estimator 2 E[(E_L − E) ∂ log|ψ|] with E_L clipped to a
-batch-adaptive window around the batch median; E_L carries no gradient,
-so the Laplacian runs outside autograd.
+Port of waveflow_tpu/vmc/estimators.py: ``_safe_psi``, ``local_energy``
+(the reference's custom-derivative local energy), the 'clipped_score' and
+'reference' losses, the train step, the window loop with its running
+baseline, and the parity variants ``loss_fn_uniform`` and
+``make_policy_gradient_step``.
+
+'clipped_score' (the default) is the score-only estimator
+2 E[(E_L − E) ∂ log|ψ|] with E_L clipped to a batch-adaptive window around
+the batch median; E_L carries no gradient, so the Laplacian runs outside
+autograd.  'reference' differentiates E_L = Hψ/ψ itself — reverse mode
+through the Laplacian — with the score term 2 ψ̇ (E_L − b)/ψ against the
+running baseline b added by ``local_energy``'s derivative rules.
 
 Two places where PyTorch's defaults differ from the JAX reference:
   * median — ``torch.median`` returns the LOWER middle value of an even
@@ -19,6 +26,7 @@ Two places where PyTorch's defaults differ from the JAX reference:
 from __future__ import annotations
 
 import torch
+from torch.func import functional_call
 
 PSI_EPS = 1e-8
 
@@ -29,6 +37,60 @@ def _safe_psi(psi_val: torch.Tensor) -> torch.Tensor:
     return sign * torch.clamp(psi_val.abs(), min=PSI_EPS)
 
 
+def _sum_to(g: torch.Tensor, shape) -> torch.Tensor:
+    """A broadcast cotangent summed back to an input's shape."""
+    return g if g.shape == shape else g.sum_to_size(shape)
+
+
+class _LocalEnergy(torch.autograd.Function):
+    """E_L = E / ψ_s with the reference's derivative (vqmc.py:208; JAX
+    ``estimators.py:43-52``): Ė_L = 2 ψ̇ (E_L − b)/ψ_s + (Ė ψ_s − E ψ̇)/ψ_s²,
+    ψ_s = ``_safe_psi(ψ)``.  The rule divides by ψ_s and does not
+    differentiate the clamp inside it; the baseline b gets no derivative.
+    ``jvp`` is that rule; ``backward`` its transpose."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(energies, psi_val, baseline):
+        return energies / _safe_psi(psi_val)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        energies, psi_val, baseline = inputs
+        ctx.save_for_backward(energies, psi_val, baseline, output)
+        ctx.save_for_forward(energies, psi_val, baseline, output)
+        ctx.shapes = (energies.shape, psi_val.shape)
+
+    @staticmethod
+    def jvp(ctx, t_energies, t_psi, _):
+        energies, psi_val, baseline, e_loc = ctx.saved_tensors
+        psi_s = _safe_psi(psi_val)
+        t_energies = (torch.zeros_like(energies) if t_energies is None
+                      else t_energies)
+        t_psi = torch.zeros_like(psi_val) if t_psi is None else t_psi
+        return (2 * t_psi * (e_loc - baseline) / psi_s
+                + (t_energies * psi_s - energies * t_psi) / psi_s ** 2)
+
+    @staticmethod
+    def backward(ctx, g):
+        energies, psi_val, baseline, e_loc = ctx.saved_tensors
+        psi_s = _safe_psi(psi_val)
+        g_energies = g / psi_s
+        g_psi = g * (2 * (e_loc - baseline) / psi_s - energies / psi_s ** 2)
+        e_shape, p_shape = ctx.shapes
+        return _sum_to(g_energies, e_shape), _sum_to(g_psi, p_shape), None
+
+
+def local_energy(energies: torch.Tensor, psi_val: torch.Tensor,
+                 baseline) -> torch.Tensor:
+    """E_L = E / ``_safe_psi(ψ)`` whose derivative carries the score term
+    against ``baseline`` (``_LocalEnergy``)."""
+    baseline = torch.as_tensor(baseline, dtype=energies.dtype,
+                               device=energies.device)
+    return _LocalEnergy.apply(energies, psi_val, baseline)
+
+
 def _median(x: torch.Tensor) -> torch.Tensor:
     """jnp.median: the mean of the two middle order statistics of an even
     count (``torch.median`` returns the lower one)."""
@@ -37,32 +99,51 @@ def _median(x: torch.Tensor) -> torch.Tensor:
     return 0.5 * (s[(n - 1) // 2] + s[n // 2])
 
 
-def clip_local_energies(e_loc: torch.Tensor,
-                        clip_scale: float = 5.0) -> torch.Tensor:
-    """E_L clipped to median ± clip_scale × mean|E_L − median| (the JAX
-    default ``clip_stat='mean_abs'``; 'median_abs' is not ported)."""
+def clip_local_energies(e_loc: torch.Tensor, clip_scale: float = 5.0,
+                        clip_stat: str = 'mean_abs') -> torch.Tensor:
+    """E_L clipped to median ± clip_scale × dev, dev = mean|E_L − median|
+    (``clip_stat='mean_abs'``, the JAX default) or median|E_L − median|
+    ('median_abs', the conventional MAD; jnp's median)."""
+    if clip_stat not in ('mean_abs', 'median_abs'):
+        raise ValueError(f"unknown clip_stat {clip_stat!r}")
     center = _median(e_loc)
-    mad = (e_loc - center).abs().mean()
+    dev = (e_loc - center).abs()
+    mad = dev.mean() if clip_stat == 'mean_abs' else _median(dev)
     return torch.clamp(e_loc, center - clip_scale * mad,
                        center + clip_scale * mad)
 
 
 def make_loss_fn(psi, h_fn, estimator: str = 'clipped_score',
-                 clip_scale: float = 5.0):
-    """loss(batch) -> scalar whose value is the clipped batch-mean energy and
-    whose gradient is the clipped score-function estimator.
+                 clip_scale: float = 5.0, energy_clip: float | None = None,
+                 clip_stat: str = 'mean_abs'):
+    """loss(batch, baseline) -> scalar.
 
-    The clip window is ``clip_local_energies``'s."""
+    'clipped_score': value = the clipped batch-mean energy, gradient = the
+    clipped score-function estimator (clip window of
+    ``clip_local_energies(..., clip_stat)``); the baseline is unused.
+    'reference': the mean of ``local_energy`` (optionally clamped to
+    ±``energy_clip`` in value and gradient), whose gradient differentiates
+    Hψ/ψ and adds the score term against ``baseline``."""
+    if estimator == 'reference':
+        def loss_fn(batch: torch.Tensor, baseline) -> torch.Tensor:
+            psi_val = psi(batch)[:, None]
+            e_loc = local_energy(h_fn(batch), psi_val, baseline)
+            if energy_clip is not None:
+                e_loc = torch.clamp(e_loc, -energy_clip, energy_clip)
+            return e_loc.mean()
+        return loss_fn
+
     if estimator != 'clipped_score':
-        raise NotImplementedError(
-            f"estimator {estimator!r} is not ported; only 'clipped_score'")
+        raise ValueError(f"unknown estimator {estimator!r}")
+    if clip_stat not in ('mean_abs', 'median_abs'):
+        raise ValueError(f"unknown clip_stat {clip_stat!r}")
 
-    def loss_fn(batch: torch.Tensor) -> torch.Tensor:
+    def loss_fn(batch: torch.Tensor, baseline) -> torch.Tensor:
         psi_val = psi(batch)
         with torch.no_grad():
             energies = h_fn(batch)[:, 0]
             e_c = clip_local_energies(energies / _safe_psi(psi_val),
-                                      clip_scale)
+                                      clip_scale, clip_stat)
             e_c_mean = e_c.mean()
             weights = e_c - e_c_mean
         log_abs_psi = torch.log(psi_val.abs() + PSI_EPS)
@@ -86,19 +167,22 @@ def clip_by_global_norm(params, max_norm: float) -> None:
 
 def make_train_step(psi, h_fn, params, learning_rate: float,
                     grad_clip: float | None = 10.0,
-                    estimator: str = 'clipped_score'):
-    """step(batch) -> loss: one estimator gradient, the optax-form global
-    norm clip, and one Adam update (eps 1e-8 outside the square root, the
-    optax placement) on ``params``.  ``step.optimizer`` holds the Adam
-    state."""
+                    estimator: str = 'clipped_score',
+                    energy_clip: float | None = None,
+                    clip_stat: str = 'mean_abs'):
+    """step(batch, baseline) -> loss: one estimator gradient, the
+    optax-form global norm clip, and one Adam update (eps 1e-8 outside the
+    square root, the optax placement) on ``params``.  ``step.optimizer``
+    holds the Adam state."""
     params = list(params)
-    loss_fn = make_loss_fn(psi, h_fn, estimator=estimator)
+    loss_fn = make_loss_fn(psi, h_fn, estimator=estimator,
+                           energy_clip=energy_clip, clip_stat=clip_stat)
     optimizer = torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999),
                                  eps=1e-8)
 
-    def step(batch: torch.Tensor) -> torch.Tensor:
+    def step(batch: torch.Tensor, baseline) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(batch)
+        loss = loss_fn(batch, baseline)
         loss.backward()
         if grad_clip is not None:
             clip_by_global_norm(params, grad_clip)
@@ -109,7 +193,77 @@ def make_train_step(psi, h_fn, params, learning_rate: float,
     return step
 
 
-def run_window(step, sample_fn, batch_size: int, window: int) -> torch.Tensor:
-    """``window`` sample + update epochs; returns the (window,) losses,
-    left on the device (no host sync inside the window)."""
-    return torch.stack([step(sample_fn(batch_size)) for _ in range(window)])
+def run_window(step, sample_fn, batch_size: int, window: int, baseline):
+    """``window`` sample + update epochs against ``baseline``; returns the
+    (window,) losses and the next baseline, their mean, both left on the
+    device (no host sync inside the window; JAX ``make_window_from_step``)."""
+    losses = torch.stack([step(sample_fn(batch_size), baseline)
+                          for _ in range(window)])
+    return losses, losses.mean()
+
+
+# --- parity variants -------------------------------------------------------
+
+def loss_fn_uniform(psi, h_fn, batch: torch.Tensor) -> torch.Tensor:
+    """Uniform-sampling Rayleigh quotient E[ψ Hψ] / E[ψ²] with the
+    denominator held constant (vqmc.py:143-148)."""
+    psi_val = psi(batch)[:, None]
+    return (psi_val * h_fn(batch)).mean() / (psi_val ** 2).mean().detach()
+
+
+class _LogPdf(torch.nn.Module):
+    """``model.log_pdf`` as a module's forward, for ``functional_call``."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.model = model
+
+    def forward(self, x):
+        return self.model.log_pdf(x)
+
+
+def make_policy_gradient_step(model, h_fn, optimizer,
+                              clip_energy: float = 100.0,
+                              clip_grad: float = 10.0):
+    """step(batch, baseline) -> loss: the explicit energy-gradient +
+    REINFORCE estimator (vqmc.py:172-189), one ``optimizer.step()`` on
+    ``model``'s parameters (the JAX ``psi`` / ``log_pdf`` are
+    ``model.psi`` / ``model.log_pdf``; ``optimizer`` is a torch optimizer
+    over ``model.parameters()``).
+
+    grad = ∂ mean(Hψ/ψ) + mean_i[∂ log p(x_i) (E_L,i − b)] leaf by leaf,
+    each leaf's per-walker Jacobian weighted as JAX's ``pdf_term``
+    (E_L of shape (B, 1) for a leaf of < 2 dimensions, (B, 1, 1)
+    otherwise, then broadcast), clipped elementwise to ±clip_grad; the
+    loss is mean(clip(E_L, ±clip_energy)).  No ``_safe_psi`` guard, as in
+    the reference."""
+    named = dict(model.named_parameters())
+    names = list(named)
+    log_pdf_module = _LogPdf(model)
+
+    def log_pdf_of(p, batch):
+        return functional_call(log_pdf_module,
+                               {f'model.{n}': t for n, t in p.items()},
+                               (batch,))
+
+    def step(batch: torch.Tensor, baseline) -> torch.Tensor:
+        psi_val = model.psi(batch)[:, None]
+        energies = h_fn(batch)
+        energy_loss = (energies / psi_val).mean()
+        energy_grad = torch.autograd.grad(
+            energy_loss, [named[n] for n in names], allow_unused=True)
+        e_loc = (energies / psi_val).detach()
+        p0 = {n: named[n].detach() for n in names}
+        jac = torch.func.jacrev(lambda p: log_pdf_of(p, batch))(p0)
+        with torch.no_grad():
+            for n, g_e in zip(names, energy_grad):
+                g = jac[n]
+                w = e_loc if g.ndim < 3 else e_loc[:, None]
+                pdf = (g * (w - baseline)).mean(0)
+                g_e = torch.zeros_like(pdf) if g_e is None else g_e
+                named[n].grad = torch.clamp(g_e + pdf, -clip_grad, clip_grad)
+        optimizer.step()
+        return torch.clamp(e_loc, -clip_energy, clip_energy).mean()
+
+    step.optimizer = optimizer
+    return step

@@ -131,14 +131,16 @@ def make_mala_train_window(step, log_pdf, box_length: float,
     space on the permutation-symmetrised density log_pdf(proj(x)), proj =
     ``sector_projection(sort_fermions)`` (a sort carries the gradient back
     to the unsorted coordinates); walkers are projected only when handed to
-    the update ``step(batch) -> loss`` (the port's adam step, or the SR /
-    SPRING step of vmc/sr.py; ``train_step`` replaces ``step`` when given).
+    the update ``step(batch, baseline) -> loss`` (the port's adam step, or
+    the SR / SPRING step of vmc/sr.py; ``train_step`` replaces ``step`` when
+    given).
     After each update the walkers' log-probs AND drifts are recomputed under
     the new parameters.  ``pmean_axis`` (a mesh) is not ported.
 
-    Returns (init_fn, run_window): ``run_window(mstate, n_epochs,
-    generator=None, noise=None, u=None) -> (losses (n_epochs,),
-    accept_rates (n_epochs,), mstate)``, left on the device (no host read
+    Returns (init_fn, run_window): ``run_window(mstate, n_epochs, baseline,
+    generator=None, noise=None, u=None) -> (losses (n_epochs,), the next
+    baseline losses.mean(), accept_rates (n_epochs,), mstate)``, left on
+    the device (no host read
     inside the window); ``noise`` (n_epochs, n_sweeps, B, D) and ``u``
     (n_epochs, n_sweeps, B) replace the generator's draws when given."""
     if pmean_axis is not None:
@@ -152,8 +154,8 @@ def make_mala_train_window(step, log_pdf, box_length: float,
         lambda x: log_pdf(to_sector(x)), target_accept=target_accept,
         bounds=(-box_length, box_length))
 
-    def run_window(mstate: MALAState, n_epochs: int, generator=None,
-                   noise=None, u=None):
+    def run_window(mstate: MALAState, n_epochs: int, baseline,
+                   generator=None, noise=None, u=None):
         losses, rates = [], []
         for e in range(n_epochs):
             for s in range(n_sweeps):
@@ -162,9 +164,10 @@ def make_mala_train_window(step, log_pdf, box_length: float,
                     None if noise is None else noise[e, s],
                     None if u is None else u[e, s])
             rates.append(mstate.accept_rate)
-            losses.append(step(to_sector(mstate.positions)))
+            losses.append(step(to_sector(mstate.positions), baseline))
             fresh = init_fn(mstate.positions, mstate.step_size)
             mstate = mstate._replace(log_prob=fresh.log_prob, grad=fresh.grad)
-        return torch.stack(losses), torch.stack(rates), mstate
+        losses = torch.stack(losses)
+        return losses, losses.mean(), torch.stack(rates), mstate
 
     return init_fn, run_window

@@ -128,19 +128,21 @@ def make_mcmc_train_window(step, log_pdf, box_length: float,
 
     Each epoch runs ``n_sweeps`` random-walk Metropolis sweeps on |ψ|²
     (proposals projected by ``sector_projection(sort_proposals)``), then one
-    update ``step(mstate.positions)``, then refreshes the walkers' log-probs
-    under the new parameters.  ``step`` is the port's train step
+    update ``step(mstate.positions, baseline)``, then refreshes the
+    walkers' log-probs under the new parameters.  ``step`` is the port's
+    train step
     (vmc/estimators.py::make_train_step — the JAX signature's psi, h_fn,
     optimizer, estimator and energy_clip are inside it); ``train_step`` (an
     SR / SPRING step of vmc/sr.py) replaces it when given, as in the JAX
     package.  ``pmean_axis`` (a mesh) is not ported.
 
-    Returns (init_fn, run_window): ``run_window(mstate, n_epochs,
-    generator=None, noise=None, u=None) -> (losses (n_epochs,),
-    accept_rates (n_epochs,), mstate)``, the losses and the running accept
-    rate after each epoch's sweeps left on the device (no host sync inside
-    the window); ``noise`` (n_epochs, n_sweeps, B, D) and ``u`` (n_epochs,
-    n_sweeps, B) replace the generator's draws when given."""
+    Returns (init_fn, run_window): ``run_window(mstate, n_epochs, baseline,
+    generator=None, noise=None, u=None) -> (losses (n_epochs,), the next
+    baseline losses.mean(), accept_rates (n_epochs,), mstate)``, the
+    losses, the baseline and the running accept rate after each epoch's
+    sweeps left on the device (no host sync inside the window); ``noise``
+    (n_epochs, n_sweeps, B, D) and ``u`` (n_epochs, n_sweeps, B) replace
+    the generator's draws when given."""
     if pmean_axis is not None:
         raise NotImplementedError(
             "pmean_axis (walkers sharded over a mesh) is not ported")
@@ -151,8 +153,8 @@ def make_mcmc_train_window(step, log_pdf, box_length: float,
         bounds=(-box_length, box_length),
         proposal_map=sector_projection(sort_proposals))
 
-    def run_window(mstate: MetropolisState, n_epochs: int, generator=None,
-                   noise=None, u=None):
+    def run_window(mstate: MetropolisState, n_epochs: int, baseline,
+                   generator=None, noise=None, u=None):
         losses, rates = [], []
         for e in range(n_epochs):
             for s in range(n_sweeps):
@@ -161,9 +163,10 @@ def make_mcmc_train_window(step, log_pdf, box_length: float,
                     None if noise is None else noise[e, s],
                     None if u is None else u[e, s])
             rates.append(mstate.accept_rate)
-            losses.append(step(mstate.positions))
+            losses.append(step(mstate.positions, baseline))
             with torch.no_grad():
                 mstate = mstate._replace(log_prob=log_pdf(mstate.positions))
-        return torch.stack(losses), torch.stack(rates), mstate
+        losses = torch.stack(losses)
+        return losses, losses.mean(), torch.stack(rates), mstate
 
     return init_fn, run_window

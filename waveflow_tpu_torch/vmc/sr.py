@@ -12,8 +12,9 @@ S = E[O Oᵀ] − E[O] E[O]ᵀ, O = ∂_θ log|ψ|:
   Ō = ``vmap(grad(log|ψ|))`` over the walkers, one (B, B) Cholesky with a
   retry ladder at 10× and 100× damping, and momentum μ.
 
-Both steps have the port's step contract, ``step(batch) -> loss`` with the
-parameters living in the model, and keep their optimizer state behind
+Both steps have the port's step contract, ``step(batch, baseline) -> loss``
+with the parameters living in the model (the baseline is ignored, as in
+JAX), and keep their optimizer state behind
 ``step.optimizer`` with the ``state_dict`` / ``load_state_dict`` interface
 of a ``torch.optim`` optimizer: SR's is ``()``, SPRING's the dict
 {'delta': flat previous update, 'step', 'skipped', 'fallbacks'} of device
@@ -147,7 +148,8 @@ def make_sr_train_step(model, h_fn, learning_rate: float,
                        damping: float = 1e-3, cg_iters: int = 20,
                        clip_scale: float = 5.0, pmean_axis=None,
                        max_update_norm: float | None = None):
-    """step(batch) -> loss: one SR update of ``model``'s parameters.
+    """step(batch, baseline) -> loss: one SR update of ``model``'s
+    parameters (``baseline`` ignored).
 
     g = 2 E[(E_L^clip − Ē) O] and Ō = E[O] by the vjp of log|ψ| over the
     batch; δ = CG(S + λ, g) with S·v = E[O (O·v)] − Ō (Ō·v); δ capped by
@@ -162,7 +164,7 @@ def make_sr_train_step(model, h_fn, learning_rate: float,
         return torch.log(torch.abs(functional_call(model, p, (batch,)))
                          + PSI_EPS)
 
-    def step(batch: torch.Tensor) -> torch.Tensor:
+    def step(batch: torch.Tensor, baseline) -> torch.Tensor:
         B = batch.shape[0]
         p0 = {n: p.detach() for n, p in zip(names, params)}
         e_c = _local_energies(model, h_fn, batch, clip_scale)
@@ -206,8 +208,9 @@ def make_spring_train_step(model, h_fn, learning_rate: float,
                            max_update_norm: float | None = None,
                            score_row_clip: float | None = 10.0,
                            score_row_clip_warmup: int | None = 1000):
-    """step(batch) -> loss: one min-SR / SPRING update of ``model``'s
-    parameters (the reference's docstring has the derivation).
+    """step(batch, baseline) -> loss: one min-SR / SPRING update of
+    ``model``'s parameters (``baseline`` ignored; the reference's docstring
+    has the derivation).
 
     O = vmap(grad(log|ψ|)) over the walkers on the flat parameter vector
     (B, P); while ``step < score_row_clip_warmup`` rows with ‖O_i‖ above
@@ -225,7 +228,7 @@ def make_spring_train_step(model, h_fn, learning_rate: float,
     device = params[0].device
     flatten, scores = make_score_fn(model)
 
-    def step(batch: torch.Tensor) -> torch.Tensor:
+    def step(batch: torch.Tensor, baseline) -> torch.Tensor:
         state = step.optimizer.state
         flat0 = flatten()
         e_c = _local_energies(model, h_fn, batch, clip_scale)
@@ -286,15 +289,16 @@ def make_sr_train_window(model, h_fn, sample_fn, learning_rate: float,
                          damping: float = 1e-3, cg_iters: int = 20,
                          pmean_axis=None,
                          max_update_norm: float | None = None):
-    """``run_window() -> losses (window,)``: ``window`` epochs of exact
-    draws ``sample_fn(batch_size)`` and one SR update each, the losses left
-    on the device.  The update is ``run_window.step``."""
+    """``run_window(baseline) -> (losses (window,), next baseline)``:
+    ``window`` epochs of exact draws ``sample_fn(batch_size)`` and one SR
+    update each (the baseline passed through, unused), left on the device.
+    The update is ``run_window.step``."""
     step = make_sr_train_step(model, h_fn, learning_rate, damping=damping,
                               cg_iters=cg_iters, pmean_axis=pmean_axis,
                               max_update_norm=max_update_norm)
 
-    def run():
-        return run_window(step, sample_fn, batch_size, window)
+    def run(baseline):
+        return run_window(step, sample_fn, batch_size, window, baseline)
 
     run.step = step
     return run

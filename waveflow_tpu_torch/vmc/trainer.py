@@ -1,14 +1,23 @@
 """VMC training loop: the single-process surface of the JAX VMCTrainer.
 
 Port of waveflow_tpu/vmc/trainer.py on one device: exact ancestral
-walkers, or persistent Metropolis or MALA walkers (``sampler='metropolis'``
-/ ``'mala'``, with the periodic ancestral refresh); the 'clipped_score'
-estimator with adam after an optax-form global norm clip, or the SR / SPRING
-natural-gradient updates (``optimizer='sr'`` / ``'spring'``, vmc/sr.py);
-eval backends 'poly' and 'poly_pallas' (the latter runs the CUDA basis-jet
-kernel); checkpoint save / exact resume and divergence recovery.
-Everything else the JAX config offers — meshes, artifacts, 2D, the antisym
-ansatz, other estimators — raises ``NotImplementedError``.
+walkers ('table' or exact 'poly' sampling density), or persistent
+Metropolis or MALA walkers (``sampler='metropolis'`` / ``'mala'``, with the
+periodic ancestral refresh); the 'clipped_score' (either clip statistic)
+or 'reference' estimator with adam after an optax-form global norm clip,
+or the SR / SPRING natural-gradient updates (``optimizer='sr'`` /
+``'spring'``, vmc/sr.py); every Laplacian form; eval backends 'poly' and
+'poly_pallas' (the latter runs the CUDA basis-jet kernel); checkpoint save
+/ exact resume and divergence recovery.  Everything else the JAX config
+offers — meshes, artifacts, 2D, the antisym ansatz — raises
+``NotImplementedError``, as do the combinations the JAX trainer accepts
+and silently ignores (``_check_combination``).
+
+The running baseline of the 'reference' estimator follows the JAX
+trainer: zero at every ``train`` call, each good window's mean loss after
+it, zero after a divergence recovery, and on the per-epoch path the host
+mean of the last ``window`` losses whenever ``epoch % window == 0``.  It is
+``self.baseline`` and, as in JAX, not checkpointed.
 
 Every train step keeps its optimizer state behind ``step.optimizer``'s
 ``state_dict`` / ``load_state_dict`` (torch's Adam, or vmc/sr.py's
@@ -70,18 +79,33 @@ class VMCConfig:
     num_knots: int = 23
     n_flow_layers: int = 3
     i_spline_reg: float = 0.05
+    # accepted and unused: the IMADE inverse is the exact table inverse
+    i_spline_reverse_fun_tol: float = 1e-6
     n_spline_base_mesh_points: int = 2000
     # 'poly' (plain PyTorch basis jet) or 'poly_pallas' (the CUDA basis-jet
     # kernel on the card; the name is the JAX package's)
     eval_backend: str = 'poly'
+    # ancestral density: 'table' (inverse CDF of the table interpolant, K1
+    # on the card) or 'poly' (the exact polynomial density ψ evaluates)
     sampling_backend: str = 'table'
+    # 'fwd_batched', 'fwd' (per walker; runs as 'fwd_batched' under
+    # 'poly_pallas', as in JAX), 'hvp' or 'dense' (physics/hamiltonian.py)
     laplacian_mode: str = 'fwd_batched'
     seed: int = 2
     # where train() writes checkpoints, loss.npy and system_info.json;
     # None writes nothing
     save_dir: str | None = None
+    # JAX's jax_default_matmul_precision, mapped onto the process-wide
+    # torch.set_float32_matmul_precision: 'highest' -> 'highest' (the
+    # package's pin); 'high' -> 'high'; 'default' / 'bfloat16' ->
+    # 'medium'; None leaves the setting alone
+    matmul_precision: str | None = 'highest'
     grad_clip: float | None = 10.0
+    # 'clipped_score' or 'reference' (the custom-derivative local energy
+    # with the running baseline; energy_clip clamps it to ±energy_clip)
     estimator: str = 'clipped_score'
+    energy_clip: float | None = None
+    # the clip window's deviation statistic: 'mean_abs' or 'median_abs'
     clip_stat: str = 'mean_abs'
     # 'ancestral' (exact draws from |ψ|² every epoch), 'metropolis' or
     # 'mala' (persistent walkers, warm-started from one exact draw)
@@ -112,6 +136,8 @@ class VMCConfig:
     # every 10 windows) and continue with a reseeded walker stream; always
     # on (False is not ported)
     divergence_recovery: bool = True
+    # accepted, no effect: there is no XLA executable cache to keep
+    compilation_cache_dir: str | None = None
     device: str = 'cuda'
 
     def resolved_save_dir(self) -> str:
@@ -123,13 +149,39 @@ class VMCConfig:
 
 _ONLY = {
     'n_space_dimension': (1,), 'xu_coord_type': ('mean',),
-    'eval_backend': ('poly', 'poly_pallas'), 'sampling_backend': ('table',),
-    'laplacian_mode': ('fwd_batched',), 'estimator': ('clipped_score',),
+    'eval_backend': ('poly', 'poly_pallas'),
+    'sampling_backend': ('table', 'poly'),
+    'laplacian_mode': ('fwd_batched', 'fwd', 'hvp', 'dense'),
+    'estimator': ('clipped_score', 'reference'),
     'sampler': ('ancestral', 'metropolis', 'mala'),
     'optimizer': ('adam', 'sr', 'spring'),
-    'ansatz': ('sorted',), 'clip_stat': ('mean_abs',),
+    'ansatz': ('sorted',), 'clip_stat': ('mean_abs', 'median_abs'),
     'divergence_recovery': (True,),
 }
+
+# VMCConfig.matmul_precision (JAX's names) -> torch's float32 matmul setting
+MATMUL_PRECISION = {'highest': 'highest', 'high': 'high',
+                    'default': 'medium', 'bfloat16': 'medium'}
+
+
+def _check_combination(c: VMCConfig):
+    """Refuse what the JAX trainer accepts and silently ignores: the SR and
+    SPRING steps take no estimator, clip statistic or energy clip, and the
+    JAX MCMC windows build their adam step without ``clip_stat``."""
+    if c.optimizer != 'adam' and (c.estimator != 'clipped_score'
+                                  or c.clip_stat != 'mean_abs'
+                                  or c.energy_clip is not None):
+        raise NotImplementedError(
+            f"optimizer={c.optimizer!r} takes no estimator, clip_stat or "
+            "energy_clip (the JAX trainer ignores them there)")
+    if c.sampler != 'ancestral' and c.clip_stat != 'mean_abs':
+        raise NotImplementedError(
+            f"clip_stat={c.clip_stat!r} with sampler={c.sampler!r}: the JAX "
+            "MCMC windows ignore clip_stat")
+    if c.matmul_precision and c.matmul_precision not in MATMUL_PRECISION:
+        raise ValueError(
+            f"unknown matmul_precision {c.matmul_precision!r}; one of "
+            f"{sorted(MATMUL_PRECISION)}")
 
 
 def _to_numpy(tree):
@@ -162,8 +214,8 @@ class VMCTrainer:
         if unported:
             raise NotImplementedError(
                 f"VMCConfig fields {unported} are not ported to the PyTorch "
-                "trainer (ancestral / metropolis / mala + adam / sr / spring "
-                "+ clipped_score, single device)")
+                "trainer (ancestral / metropolis / mala + adam / sr / spring, "
+                "single device)")
         config = config if config is not None else VMCConfig(**overrides)
         self.config = c = config
         for name, allowed in _ONLY.items():
@@ -171,6 +223,10 @@ class VMCTrainer:
                 raise NotImplementedError(
                     f"{name}={getattr(c, name)!r} is not ported; "
                     f"supported: {allowed}")
+        _check_combination(c)
+        if c.matmul_precision:
+            torch.set_float32_matmul_precision(
+                MATMUL_PRECISION[c.matmul_precision])
         self.device = resolve_device(c.device)
         self.protons, self.n_particle = system_catalogue[
             c.n_space_dimension][c.system_name]
@@ -182,15 +238,23 @@ class VMCTrainer:
             self.input_dim, base_spline_degree=c.spline_degree,
             i_spline_degree=c.spline_degree,
             n_prior_internal_knots=c.num_knots, n_i_internal_knots=c.num_knots,
-            i_spline_reg=c.i_spline_reg, n_flow_layers=c.n_flow_layers,
+            i_spline_reg=c.i_spline_reg,
+            i_spline_reverse_fun_tol=c.i_spline_reverse_fun_tol,
+            n_flow_layers=c.n_flow_layers,
             box_size=c.box_length, xu_coord_type=c.xu_coord_type,
             n_spline_base_mesh_points=c.n_spline_base_mesh_points,
             eval_backend=c.eval_backend, sampling_backend=c.sampling_backend,
             generator=init_gen, device=self.device)
+        # the per-walker 'fwd' runs at batch level under the kernel backend
+        # (JAX trainer.py:281-283; the Hamiltonian itself keeps the mode)
+        lap_mode = c.laplacian_mode
+        if c.eval_backend == 'poly_pallas' and lap_mode == 'fwd':
+            lap_mode = 'fwd_batched'
+        self.laplacian_mode = lap_mode
         self.h_fn = construct_hamiltonian_function(
             self.model.psi, protons=self.protons,
-            n_space_dimensions=c.n_space_dimension,
-            laplacian_mode=c.laplacian_mode, interactions=c.interactions)
+            n_space_dimensions=c.n_space_dimension, eps=0.0,
+            laplacian_mode=lap_mode, interactions=c.interactions)
         ng = dict(damping=c.sr_damping, max_update_norm=c.sr_max_update_norm)
         if c.optimizer == 'sr':
             self.step = make_sr_train_step(
@@ -205,7 +269,8 @@ class VMCTrainer:
             self.step = make_train_step(
                 self.model.psi, self.h_fn, self.model.parameters(),
                 c.learning_rate, grad_clip=c.grad_clip,
-                estimator=c.estimator)
+                estimator=c.estimator, energy_clip=c.energy_clip,
+                clip_stat=c.clip_stat)
         self.generator = torch.Generator(self.device).manual_seed(c.seed + 1)
         self.mcmc_state = None
         sort = self.xu_coord_type != 'independent'
@@ -221,9 +286,14 @@ class VMCTrainer:
                 sort_proposals=sort, **mcmc_kw)
         self.epoch = 0
         self.losses: list = []
+        # the estimator's running baseline (JAX's life cycle; not saved)
+        self.baseline = self._zero_baseline()
         # the MCMC sampler's running accept rate after each epoch's sweeps,
         # since construction (not checkpointed)
         self.accept_rates: list = []
+
+    def _zero_baseline(self) -> torch.Tensor:
+        return torch.zeros((), device=self.device)
 
     def sample(self, num_samples: int) -> torch.Tensor:
         """Exact ancestral walkers from |ψ|² on the trainer's stream."""
@@ -357,15 +427,21 @@ class VMCTrainer:
     # ---- training ---------------------------------------------------------
 
     def train(self, num_epochs: int | None = None, restart: bool = False,
-              verbose: bool = True):
+              callback=None, verbose: bool = True):
         """Run ``num_epochs`` epochs as the JAX trainer does: whole windows
         of ``config.window`` epochs with the configured sampler, then the
-        remainder — all of ``num_epochs`` when it is below one window — as
-        single epochs of exact ancestral walkers through the configured
-        train step, whatever the sampler (exact draws from |ψ|² suit any);
-        the MCMC walkers are left as they are by those epochs.  Returns the
-        per-epoch losses (clipped batch-mean energies) so far.  ``restart``
-        first loads the checkpoint under ``config.save_dir``.
+        remainder — all of ``num_epochs`` when it is below one window, and
+        every epoch when ``callback`` is given — as single epochs of exact
+        ancestral walkers through the configured train step, whatever the
+        sampler (exact draws from |ψ|² suit any); the MCMC walkers are left
+        as they are by those epochs.  ``callback(trainer, epoch, loss)``
+        runs after each such epoch.  Returns the per-epoch losses (batch
+        energy estimates) so far.  ``restart`` first loads the checkpoint
+        under ``config.save_dir``.
+
+        The baseline starts at zero; a good window sets it to its mean
+        loss, a dropped window back to zero, and a single epoch with
+        ``epoch % window == 0`` to the mean of the last ``window`` losses.
 
         A window with a non-finite loss is dropped (parameters, optimizer
         state and walkers restored from the last snapshot, the walker stream
@@ -396,14 +472,21 @@ class VMCTrainer:
                     'window': c.window,
                     'batch_size': c.batch_size,
                 }, f, indent=4)
+        self.baseline = self._zero_baseline()
         start, t0 = self.epoch, time.time()
         n_windows, rem = divmod(num_epochs, c.window)
+        if callback is not None:
+            n_windows, rem = 0, num_epochs
         if n_windows:
             self._train_windows(n_windows, start, t0, verbose)
         for epoch in range(self.epoch + 1, self.epoch + rem + 1):
             self.epoch = epoch
-            loss = float(self.step(self.sample(c.batch_size)))
+            loss = float(self.step(self.sample(c.batch_size), self.baseline))
             self.losses.append(loss)
+            if epoch % c.window == 0:
+                self.baseline = torch.tensor(
+                    np.mean(self.losses[-c.window:]), dtype=torch.float32,
+                    device=self.device)
             if epoch % c.log_every == 0:
                 if save_dir is not None:
                     self.save_checkpoint(save_dir)
@@ -411,6 +494,8 @@ class VMCTrainer:
                     rate = (epoch - start) / (time.time() - t0)
                     print(f"epoch {epoch} | loss {loss:.3f} | {rate:.1f} "
                           "steps/s", flush=True)
+            if callback is not None:
+                callback(self, epoch, loss)
         if save_dir is not None:
             self.save_checkpoint(save_dir)
         return self.losses
@@ -434,11 +519,12 @@ class VMCTrainer:
             if w % 10 == 0:
                 good = self._snapshot()
             if use_mcmc:
-                losses, rates, mstate = self.mcmc_window(
-                    self.mcmc_state, c.window, self.generator)
+                losses, baseline, rates, mstate = self.mcmc_window(
+                    self.mcmc_state, c.window, self.baseline, self.generator)
             else:
-                losses = run_window(self.step, self.sample, c.batch_size,
-                                    c.window)
+                losses, baseline = run_window(self.step, self.sample,
+                                              c.batch_size, c.window,
+                                              self.baseline)
             losses = losses.cpu()
             if not bool(torch.isfinite(losses).all()):
                 if verbose:
@@ -450,7 +536,9 @@ class VMCTrainer:
                 if use_mcmc:
                     self.mcmc_state = (good[2] if good[2] is not None
                                        else self._init_mcmc_state())
+                self.baseline = self._zero_baseline()
                 continue
+            self.baseline = baseline
             if use_mcmc:
                 self.mcmc_state = mstate
                 self.accept_rates.extend(rates.cpu().tolist())
