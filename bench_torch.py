@@ -3,6 +3,7 @@ L=10 flagship config (the counterpart of bench.py, which stays the JAX
 package's).
 
     python3 bench_torch.py                 # on the card
+    python3 bench_torch.py --eager         # every window eager (the A/B)
     python3 bench_torch.py --device cpu --batch-size 8 --window 2 \
         --n-windows 1 --n-ref-windows 1
 
@@ -10,7 +11,9 @@ Prints ONE JSON line with bench.py's fields: {"metric", "value", "unit",
 "vs_baseline"}.  value = walkers/s at batch 256 with
 ``eval_backend='poly_pallas'`` (the CUDA basis-jet kernel), timed over 5
 windows of 100 epochs after one warmup window, as bench.py's time_windows
-does; unit names the device.
+does; unit names the device.  On the card every window of both designs
+is a replayed CUDA graph of one epoch (vmc/graphs.py); ``--eager`` runs
+them op by op instead, for the graph-against-eager A/B in one call.
 
 vs_baseline = dt(reference design) / dt(main path), both timed in this
 call on the same device: the reference design is bench.py's fallback
@@ -39,15 +42,16 @@ from waveflow_tpu_torch.vmc import VMCConfig, VMCTrainer
 
 def build(batch_size=256, window=100, eval_backend='poly_pallas',
           device='cuda', laplacian_mode='fwd_batched',
-          estimator='clipped_score'):
+          estimator='clipped_score', graph=None):
     """The flagship trainer (VMCConfig's defaults: He, L=10, 3 × IMADE,
     degree-6 splines with 23 knots, adam 1e-4 after a clip of 10);
     ``laplacian_mode='dense', estimator='reference'`` is the reference
-    design."""
+    design; ``graph`` as in ``VMCTrainer``."""
     return VMCTrainer(VMCConfig(batch_size=batch_size, window=window,
                                 eval_backend=eval_backend,
                                 laplacian_mode=laplacian_mode,
-                                estimator=estimator, device=device))
+                                estimator=estimator, device=device),
+                      graph=graph)
 
 
 def _sync(device):
@@ -85,17 +89,23 @@ def main(argv=None):
     p.add_argument('--n-windows', type=int, default=5)
     p.add_argument('--n-ref-windows', type=int, default=3,
                    help="timed windows of the reference design")
+    p.add_argument('--eager', action='store_true',
+                   help="run every window op by op, not as a CUDA graph")
     args = p.parse_args(argv)
-    trainer = build(args.batch_size, args.window, device=args.device)
+    graph = False if args.eager else None
+    trainer = build(args.batch_size, args.window, device=args.device,
+                    graph=graph)
     dt, _ = time_windows(trainer, args.n_windows)
     reference = build(args.batch_size, args.window, device=args.device,
-                      laplacian_mode='dense', estimator='reference')
+                      laplacian_mode='dense', estimator='reference',
+                      graph=graph)
     dt_ref, _ = time_windows(reference, args.n_ref_windows)
     print(json.dumps({
         "metric": "vmc_walker_steps_per_sec",
         "value": round(args.batch_size / dt, 1),
         "unit": (f"walkers/s (He-1d L=10, batch {args.batch_size}, "
-                 "sample+train epoch, eval_backend poly_pallas; "
+                 "sample+train epoch, eval_backend poly_pallas, "
+                 f"{'CUDA graph' if trainer.graph else 'eager'} windows; "
                  f"{device_name(trainer.device)})"),
         "vs_baseline": round(dt_ref / dt, 3),
     }))

@@ -24,14 +24,30 @@ Phases (any failure exits non-zero; nothing is caught):
                which must lie within 5 combined stderr of the JAX
                evaluation's raw mean (results/round5_quality.json);
   5. training — VMCTrainer at the flagship config with the CUDA basis-jet
-               backend, 2 windows of 100 epochs at batch 256; every loss
-               finite, K1 and K3 launched on that run;
+               backend, 2 windows of 100 epochs at batch 256, each window
+               a replayed CUDA graph of one epoch; every loss finite, K1
+               and K3 launched on that run; 10 replayed epochs profiled;
+     graph-train — the ancestral adam window as a CUDA graph against its
+               eager twin (graph=False) from the 100k checkpoint, for
+               train-256, the 'reference' estimator on 'fwd_batched' and
+               reference-256 ('reference' + 'dense'): turns eager, graph,
+               graph, eager of 2 windows of GRAPH_WINDOW epochs (CUDA
+               events); losses, parameters, Adam state, baseline and
+               generator equal to the bit (or within GRAPH_MAX_REL; the
+               'dense' graph to the bit against a second eager run, and
+               within DENSE_MAX_REL kind by kind against the first),
+               launches per epoch equal; 10 replayed epochs profiled;
   6. evaluation — the 100k checkpoint loaded into a 'poly_pallas' trainer,
                evaluate_trainer at the JAX protocol (4,096 walkers, 250
                warmup sweeps, 64 blocks × 25 sweeps, step 0.4, '1d' sort):
                raw and clipped means within 5 combined stderr of the JAX
                evaluation's, accept rate in [0.45, 0.55], K1 and K3
-               launched; one block profiled;
+               launched, through the graphed evaluation; one eager block
+               profiled;
+     graph-eval — eval-4k graphed against eager, turns graph, eager, graph
+               (CUDA events): every field of the evaluation equal to the
+               bit (or within GRAPH_MAX_REL), launches equal; 5 replays of
+               evaluate_energy's own block graph timed and 5 profiled;
   7. resume  — the 100k checkpoint with its Adam moments, window 10: 2
                windows, save_checkpoint, a fresh trainer's load_checkpoint,
                2 more windows, against 4 windows straight: losses and
@@ -40,6 +56,9 @@ Phases (any failure exits non-zero; nothing is caught):
                with sampler='metropolis' and train one window of 100
                epochs: finite losses, mean accept rate in [0.3, 0.7], K3
                launched; walkers/s beside the ancestral figure;
+     graph-metropolis — the Metropolis adam window as a CUDA graph against
+               its eager twin from he1d_metropolis_seed7, as graph-train
+               (walkers and accept rates compared too);
   9. mala    — he1d_mala_s3 evaluated at the JAX protocol (clipped mean
                within 5 combined stderr of the JAX figure; raw reported),
                then resumed with sampler='mala' for one window of 100
@@ -80,13 +99,20 @@ Phases (any failure exits non-zero; nothing is caught):
  18. report  — one JSON line of kernels, then the final status line.
 
 Each phase that drives a path sets the launch counts to 0 just before it
-and reads them just after.
+and reads them just after.  A replayed graph's launches are counted by
+vmc/graphs.py, once per replay, as the capture counted them.
+
+    python3 chip_smoke.py --only graph-train,graph-eval
+
+runs the build and the named phases of ``phase_table`` alone (no kernels
+line).
 
 Imports torch and the port only.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import subprocess
@@ -757,10 +783,11 @@ def host_ms(torch, fn, n=20):
     return (time.perf_counter() - t) / n * 1e3
 
 
-def profile_window(torch, run, n_epochs, label, unit='epochs'):
+def profile_window(torch, run, n_epochs, label, unit='epochs', top=8):
     """Profile ``run()`` (``n_epochs`` epochs, or other ``unit``s): print the
-    device's busy and idle share of the wall time and the kernels that take
-    most of it."""
+    device's busy and idle share of the wall time and the ``top`` kernels
+    that take most of it; return those figures.  A replayed CUDA graph's
+    kernels are reported one by one, as eager launches are."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -772,16 +799,22 @@ def profile_window(torch, run, n_epochs, label, unit='epochs'):
                    if e.device_type == DeviceType.CUDA),
                   key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    n_kernels = sum(e.count for e in kern) / n_epochs
     print(f"{label}profiled {n_epochs} {unit}: wall {wall_ms:.1f} ms, device "
           f"busy {busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.4f}, "
-          f"{sum(e.count for e in kern) / n_epochs:.0f} kernel launches per "
-          f"{unit.rstrip('s')}", flush=True)
-    # the eight largest, and the port's own kernels wherever they rank
+          f"{n_kernels:.0f} kernel launches per {unit.rstrip('s')}",
+          flush=True)
+    if not kern:
+        fail(f"{label}: the profiler saw no kernel")
+    # the largest, and the port's own kernels wherever they rank
     own = ('sampler_kernel', 'basis_jet_', 'spline_eval_kernel',
            'spline_eval_bwd_kernel')
-    for e in kern[:8] + [e for e in kern[8:] if any(k in e.key for k in own)]:
+    for e in kern[:top] + [e for e in kern[top:]
+                           if any(k in e.key for k in own)]:
         print(f"  {e.self_device_time_total / 1e3 / n_epochs:8.4f} ms/{unit[0]} "
               f"{e.count / n_epochs:6.1f}/{unit[0]}  {e.key[:90]}", flush=True)
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms,
+                idle=1 - busy_ms / wall_ms, launches_per_unit=n_kernels)
 
 
 def reset_counts():
@@ -860,9 +893,10 @@ def evaluation_phase(torch, jax_raw, jax_clipped):
           f"{ms_sweep:.2f} ms | one E_L pass {ms_eloc:.2f} ms", flush=True)
     profile_window(torch, lambda: evaluate_energy(
         model.psi, trainer.h_fn, model.log_pdf, 10.0, state.positions, gen,
-        n_blocks=1, sweeps_per_block=per_block, n_warmup_sweeps=0), 1,
-        "evaluation block (25 sweeps + E_L, and the chain's first log_pdf) ",
-        unit='blocks')
+        n_blocks=1, sweeps_per_block=per_block, n_warmup_sweeps=0,
+        graph=False), 1,
+        "eager evaluation block (25 sweeps + E_L, and the chain's first "
+        "log_pdf) ", unit='blocks')
     return launches, dict(wall_s=wall, sweeps_per_s=n_sweeps / wall,
                           ms_sweep=ms_sweep, ms_eloc=ms_eloc)
 
@@ -947,7 +981,8 @@ def metropolis_phase(torch, ancestral_wps):
           f"each), losses finite: {all(math.isfinite(v) for v in losses)}, "
           f"last {losses[-1]:.5f} | mean accept rate {acc:.4f}, step size "
           f"{step0:.4f} -> {t.mcmc_state.step_size.item():.4f} | walkers/s "
-          f"{wps:.1f} (host clock; ancestral training {ancestral_wps:.1f}) | "
+          f"{wps:.1f} (host clock; ancestral training "
+          f"{'not run' if ancestral_wps is None else f'{ancestral_wps:.1f}'}) | "
           f"launches per epoch: sampler {launches['sampler'] / 100:g}, "
           f"basis_jet {launches['basis_jet'] / 100:g}", flush=True)
     if len(losses) != 100 or not all(math.isfinite(v) for v in losses):
@@ -956,9 +991,298 @@ def metropolis_phase(torch, ancestral_wps):
         fail(f"Metropolis mean accept rate {acc} outside [0.3, 0.7]")
     if launches['basis_jet'] == 0:
         fail("K3 was not launched in Metropolis training")
-    profile_window(torch, lambda: t.train(10, verbose=False), 10,
-                   "metropolis ")
+    profile_window(torch, lambda: t.mcmc_window(t.mcmc_state, 10, t.baseline,
+                                                t.generator), 10,
+                   "metropolis window ")
     return launches, dict(wall_s=wall, walkers_per_s=wps, accept_rate=acc)
+
+
+# the graph-against-eager phases: epochs per window (each turn trains two
+# windows, so the second hands the 'reference' loss a non-zero baseline)
+GRAPH_WINDOW = 10
+# a graphed run against its eager twin, where the card is not bitwise: the
+# largest relative difference allowed, as the resume phase allows (ROADMAP
+# Queue 3 names any difference met)
+GRAPH_MAX_REL = 1e-6
+# the reference design's 'dense' path: its first eager run in a process has
+# parted from later runs from the same state (ROADMAP Queue 3), so its graph
+# is held to the bit against a second eager run, and against the first
+# within these limits by kind, each just above what two eager runs from one
+# state read on the card (40 epochs: losses 1.5e-8 to 5.8e-8, baseline
+# 1.3e-7 to 2.0e-7, parameters and Adam's moments 1.4e-4 to 2.4e-3, the
+# generator to the bit)
+DENSE_MAX_REL = {'losses': 1e-6, 'baseline': 1e-6, 'generator': 0.0,
+                 'param': 5e-3, 'adam': 5e-3}
+
+
+def events_ms(torch, fn):
+    """(fn(), the ms between CUDA events recorded around it)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def trainer_tensors(torch, t):
+    """What a trainer carries from window to window, by name: losses,
+    baseline, parameters, Adam state, generator, walkers, accept rates."""
+    out = {'losses': torch.tensor(t.losses, dtype=torch.float64),
+           'baseline': t.baseline, 'generator': t.generator.get_state()}
+    out.update({f'param {k}': v for k, v in t.model.state_dict().items()})
+    for i, st in t.step.optimizer.state_dict()['state'].items():
+        out.update({f'adam {i} {k}': v for k, v in st.items()})
+    if t.mcmc_state is not None:
+        out.update({f'walkers {k}': v for k, v in
+                    zip(t.mcmc_state._fields, t.mcmc_state)})
+        out['accept_rates'] = torch.tensor(t.accept_rates,
+                                           dtype=torch.float64)
+    return out
+
+
+def compare_twins(torch, a, b):
+    """(equal to the bit, largest relative difference, that difference by
+    the first word of the names) of two dicts of tensors with the same
+    names; a tensor's difference is relative to its largest entry."""
+    if a.keys() != b.keys():
+        fail(f"twins carry different tensors: {sorted(a.keys() ^ b.keys())}")
+    bitwise, by_group = True, {}
+    for k in a:
+        x, y = a[k].detach().cpu(), b[k].detach().cpu()
+        bitwise &= torch.equal(x, y)
+        if x.numel():
+            x, y = x.double(), y.double()
+            diff = (x - y).abs().max().item()
+            group = k.split()[0]
+            by_group[group] = max(by_group.get(group, 0.0),
+                                  diff / max(x.abs().max().item(), 1e-30))
+    return bitwise, max(by_group.values(), default=0.0), by_group
+
+
+def graph_twins(torch, label, make, window_call, limits=None):
+    """A trainer on the graph path and its eager twin (``graph=False``),
+    both from one state (``make(graph)``): turns of two windows of
+    GRAPH_WINDOW epochs in the order eager, graph, graph, eager, each timed
+    by CUDA events with its kernel launches counted (the first graph turn
+    holds the warm-up epoch and the capture); then everything the two
+    carry compared (to the bit, or within GRAPH_MAX_REL), launches per
+    epoch compared, and 10 epochs of ``window_call(trainer, 10)`` (the
+    graph replayed) profiled.  ``limits`` (a path whose first eager run
+    may part from later ones) holds each kind of tensor to its own limit
+    instead; then a second eager trainer takes the eager turns too, the
+    graph must equal it to the bit, and the two eager runs are compared
+    with each other (the path's own nondeterminism)."""
+    eager, graphed = make(False), make(None)
+    control = None if limits is None else make(False)
+    if eager.graph or not graphed.graph:
+        fail(f"{label}: the twins' graph flags are {eager.graph}, "
+             f"{graphed.graph}")
+    n_turn = 2 * GRAPH_WINDOW
+    ms = {'eager': [], 'graph': []}
+    counts = {kind: {'sampler': 0, 'basis_jet': 0} for kind in ms}
+    for kind, t in (('eager', eager), ('graph', graphed), ('graph', graphed),
+                    ('eager', eager)):
+        reset_counts()
+        _, dt = events_ms(torch, lambda: t.train(n_turn, verbose=False))
+        ms[kind].append(dt)
+        counts[kind] = {k: counts[kind][k] + v
+                        for k, v in read_counts().items()}
+        if kind == 'eager' and control is not None:
+            control.train(n_turn, verbose=False)
+    n_ep = 2 * n_turn
+    per_epoch = {kind: {k: v / n_ep for k, v in c.items()}
+                 for kind, c in counts.items()}
+    bitwise, rel, by_group = compare_twins(
+        torch, trainer_tensors(torch, eager), trainer_tensors(torch, graphed))
+    own = to_control = None
+    if control is not None:
+        held = trainer_tensors(torch, control)
+        own = compare_twins(torch, trainer_tensors(torch, eager), held)
+        to_control = compare_twins(torch, held,
+                                   trainer_tensors(torch, graphed))
+        for name, got in (('eager against a second eager run', own),
+                          ('graph against the second eager run', to_control)):
+            print(f"{label}: {name} from the same state: "
+                  f"{'equal to the bit' if got[0] else 'NOT bitwise'} "
+                  f"(largest relative difference {got[1]:.3e}; by kind "
+                  f"{ {k: f'{v:.2e}' for k, v in got[2].items()} })",
+                  flush=True)
+    losses = graphed.losses[-n_ep:]
+    B = graphed.config.batch_size
+    eager_ms = sum(ms['eager']) / n_ep
+    graph_ms = ms['graph'][1] / n_turn
+    first_ms = ms['graph'][0] / n_turn
+    out = dict(eager_ms_per_epoch=eager_ms, graph_ms_per_epoch=graph_ms,
+               graph_first_turn_ms_per_epoch=first_ms,
+               eager_walkers_per_s=B / eager_ms * 1e3,
+               graph_walkers_per_s=B / graph_ms * 1e3,
+               speedup=eager_ms / graph_ms, turns_ms=ms, bitwise=bitwise,
+               max_rel_diff=rel, rel_diff_by_group=by_group,
+               launches_per_epoch=per_epoch,
+               eager_against_eager=None if own is None else own[2],
+               graph_against_control=None if to_control is None else dict(
+                   bitwise=to_control[0], by_group=to_control[2]))
+    if graphed.accept_rates:
+        out['accept_rate'] = sum(graphed.accept_rates[-n_ep:]) / n_ep
+    print(f"{label}: eager, graph, graph, eager turns of 2 x "
+          f"{GRAPH_WINDOW} epochs at batch {B} (CUDA events): "
+          f"{' / '.join(f'{v:.1f}' for v in ms['eager'][:1] + ms['graph'] + ms['eager'][1:])} ms "
+          f"| eager {eager_ms:.3f} ms per epoch, {out['eager_walkers_per_s']:.1f}"
+          f" walkers/s | graph {graph_ms:.3f} ms per epoch (replays; "
+          f"first turn {first_ms:.3f} with the warm-up and the capture), "
+          f"{out['graph_walkers_per_s']:.1f} walkers/s, {out['speedup']:.2f}x "
+          f"| graph against eager after {n_ep} epochs: "
+          f"{'equal to the bit' if bitwise else 'NOT bitwise'} (largest "
+          f"relative difference {rel:.3e}; by kind "
+          f"{ {k: f'{v:.2e}' for k, v in by_group.items()} }) | launches per epoch eager "
+          f"{per_epoch['eager']}, graph {per_epoch['graph']}"
+          + (f" | mean accept rate {out['accept_rate']:.4f}"
+             if 'accept_rate' in out else ""), flush=True)
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"{label}: the graphed run produced non-finite losses")
+    over = {k: v for k, v in by_group.items()
+            if v > (GRAPH_MAX_REL if limits is None else limits[k])}
+    if not bitwise and over:
+        fail(f"{label}: the graph differs from its eager twin by {over} "
+             f"relative (limits {limits or GRAPH_MAX_REL})")
+    if to_control is not None and not to_control[0]:
+        fail(f"{label}: the graph differs from the second eager run by "
+             f"{to_control[2]} relative (it must equal it to the bit)")
+    if per_epoch['graph'] != per_epoch['eager']:
+        fail(f"{label}: launches per epoch differ: {per_epoch}")
+    if counts['graph']['basis_jet'] == 0:
+        fail(f"{label}: K3 was not launched by the graph's replays")
+    out['profile'] = prof = profile_window(
+        torch, lambda: window_call(graphed, 10), 10,
+        f"{label} graphed window ", top=10)
+    # the profiler slows the host's side of a replay: the idle share of an
+    # unprofiled replay is the profiled busy time against the events' time
+    out['idle_unprofiled'] = 1 - prof['busy_ms'] / 10 / graph_ms
+    print(f"{label}: device busy {prof['busy_ms'] / 10:.3f} ms per replayed "
+          f"epoch (profiler) against {graph_ms:.3f} ms per epoch unprofiled "
+          f"(CUDA events): idle share {out['idle_unprofiled']:.4f}",
+          flush=True)
+    return counts['graph'], out
+
+
+def graph_train_phase(torch):
+    """The ancestral adam window as a CUDA graph against its eager twin,
+    from the 100k checkpoint with its Adam moments: train-256 (the main
+    path), the 'reference' estimator on the main path's Laplacian (its
+    running baseline through the graph's buffer, held to the bit) and
+    reference-256 (the reference design, 'reference' + 'dense')."""
+    from waveflow_tpu_torch.vmc import VMCConfig, VMCTrainer
+    rows, total = {}, {'sampler': 0, 'basis_jet': 0}
+    for label, extra, limits in (
+            ('train-256', {}, None),
+            ('reference-256 fwd_batched', dict(estimator='reference'), None),
+            ('reference-256', dict(estimator='reference',
+                                   laplacian_mode='dense'), DENSE_MAX_REL)):
+        def make(graph, extra=extra):
+            t = VMCTrainer(VMCConfig(batch_size=256, window=GRAPH_WINDOW,
+                                     log_every=GRAPH_WINDOW,
+                                     eval_backend='poly_pallas',
+                                     device='cuda', **extra), graph=graph)
+            if not t.load_checkpoint(str(CHECKPOINT.parent)):
+                fail(f"no checkpoint under {CHECKPOINT.parent}")
+            return t
+        launches, rows[label] = graph_twins(
+            torch, f"graph-train {label}", make,
+            lambda t, n: t.train_window(n, t.baseline), limits)
+        if launches['sampler'] == 0:
+            fail(f"graph-train {label}: K1 was not launched by the replays")
+        total = {k: total[k] + v for k, v in launches.items()}
+    return total, rows
+
+
+def graph_metropolis_phase(torch):
+    """The Metropolis adam window as a CUDA graph against its eager twin,
+    from he1d_metropolis_seed7 with its walkers and Adam moments."""
+    from waveflow_tpu_torch.vmc import VMCConfig, VMCTrainer
+
+    def make(graph):
+        t = VMCTrainer(VMCConfig(batch_size=256, window=GRAPH_WINDOW,
+                                 log_every=GRAPH_WINDOW, sampler='metropolis',
+                                 eval_backend='poly_pallas', device='cuda'),
+                       graph=graph)
+        if not t.load_checkpoint(str(METROPOLIS_RUN)):
+            fail(f"no checkpoint under {METROPOLIS_RUN}")
+        return t
+    launches, row = graph_twins(
+        torch, "graph-metropolis metropolis-256", make,
+        lambda t, n: t.mcmc_window(t.mcmc_state, n, t.baseline, t.generator))
+    return launches, {'metropolis-256': row}
+
+
+def graph_eval_phase(torch):
+    """eval-4k as two CUDA graphs against the eager evaluation: the 100k
+    checkpoint at the JAX protocol, turns graph, eager, graph (CUDA
+    events), every field of the evaluation compared, launches compared;
+    then the block graph of ``evaluation_windows`` (25 frozen sweeps + the
+    E_L pass and its row) captured, 5 replays timed and 5 profiled."""
+    from waveflow_tpu_torch.vmc import VMCConfig, VMCTrainer, evaluate_trainer
+    from waveflow_tpu_torch.vmc.evaluate import evaluation_windows
+    trainer = VMCTrainer(VMCConfig(eval_backend='poly_pallas', device='cuda'))
+    if not trainer.load_checkpoint(str(CHECKPOINT.parent)):
+        fail(f"no checkpoint under {CHECKPOINT.parent}")
+    runs, ms, counts = [], [], []
+    for graph in (None, False, None):
+        reset_counts()
+        ev, dt = events_ms(torch, lambda: evaluate_trainer(trainer,
+                                                           graph=graph))
+        runs.append(ev)
+        ms.append(dt)
+        counts.append(read_counts())
+    (g1, e, g2) = runs
+
+    def fields(ev):
+        # the fields left NaN (no clip ladder) compare as equal
+        return {f: torch.as_tensor(getattr(ev, f), dtype=torch.float64)
+                .nan_to_num() for f in ev._fields}
+    bitwise, rel, _ = compare_twins(torch, fields(e), fields(g1))
+    same_graphs = compare_twins(torch, fields(g1), fields(g2))[0]
+    n_sweeps = 250 + 64 * 25
+    print(f"graph-eval eval-4k (4096 walkers, 250 + 64 x 25 sweeps; turns "
+          f"graph, eager, graph, CUDA events): {ms[0] / 1e3:.3f} / "
+          f"{ms[1] / 1e3:.3f} / {ms[2] / 1e3:.3f} s, sweeps/s graph "
+          f"{n_sweeps / ms[2] * 1e3:.1f} against eager "
+          f"{n_sweeps / ms[1] * 1e3:.1f} ({ms[1] / ms[2]:.2f}x) | graph "
+          f"against eager: {'equal to the bit' if bitwise else 'NOT bitwise'}"
+          f" (largest relative difference {rel:.3e}; raw {g1.e_mean:.6f} "
+          f"+- {g1.e_stderr:.6f}, clipped {g1.e_clipped:.6f}); the two "
+          f"graphed runs equal: {same_graphs} | launches graph {counts[0]}, "
+          f"eager {counts[1]}", flush=True)
+    if not (bitwise or rel <= GRAPH_MAX_REL) or not same_graphs:
+        fail(f"graph-eval: the graphed evaluation differs from the eager one "
+             f"by {rel:.3e} relative (limit {GRAPH_MAX_REL:g}), or from "
+             "itself")
+    if counts[0] != counts[1] or counts[0] != counts[2]:
+        fail(f"graph-eval: launches differ: {counts}")
+
+    # the shipped block graph alone (evaluation_windows, as evaluate_energy
+    # builds it): one warm-up block and the capture, then 5 replays timed
+    # by CUDA events and 5 profiled
+    model, gen = trainer.model, torch.Generator('cuda').manual_seed(3)
+    _, blocks = evaluation_windows(model.psi, trainer.h_fn, model.log_pdf,
+                                   10.0, model.sample(4096, generator=gen),
+                                   gen)
+    blocks.window(1)
+    _, replay_ms = events_ms(torch, lambda: blocks.window(5))
+    prof = profile_window(torch, lambda: blocks.window(5), 5,
+                          "graph-eval block (25 sweeps + E_L) ",
+                          unit='blocks')
+    prof['idle_unprofiled'] = 1 - prof['busy_ms'] / replay_ms
+    print(f"graph-eval: device busy {prof['busy_ms'] / 5:.3f} ms per "
+          f"replayed block (profiler) against {replay_ms / 5:.3f} ms per "
+          f"block unprofiled (CUDA events): idle share "
+          f"{prof['idle_unprofiled']:.4f}", flush=True)
+    return counts[0], dict(graph_s=ms[2] / 1e3, graph_first_s=ms[0] / 1e3,
+                           eager_s=ms[1] / 1e3,
+                           graph_sweeps_per_s=n_sweeps / ms[2] * 1e3,
+                           eager_sweeps_per_s=n_sweeps / ms[1] * 1e3,
+                           bitwise=bitwise, max_rel_diff=rel, profile=prof)
 
 
 def gate_phase(torch, label, run_dir, config, jax_raw, jax_clipped):
@@ -1554,7 +1878,82 @@ def density_phase(torch):
     return launches
 
 
-def main() -> int:
+def phase_table(torch, params, jax_raw, jax_clipped, ancestral_wps=None):
+    """Phases 6-16 in order, as (name, run): run() -> (the kernel launches
+    on that path, or None, and the phase's figures)."""
+    r4 = json.loads(JAX_EVAL_R4.read_text())[f'results/{SPRING_RUN.name}']
+    mcmc = json.loads(JAX_EVAL_MCMC.read_text())[MALA_RUN.name]
+    li = json.loads(JAX_EVAL.read_text())['li_metro_refresh100_s3']
+    return (
+        # ---- 6-8. graphs against eager, evaluation, resume, Metropolis ----
+        ('graph-train', lambda: graph_train_phase(torch)),
+        ('eval-4k', lambda: evaluation_phase(torch, jax_raw, jax_clipped)),
+        ('graph-eval', lambda: graph_eval_phase(torch)),
+        ('resume', lambda: resume_phase(torch)),
+        ('metropolis-256', lambda: metropolis_phase(torch, ancestral_wps)),
+        ('graph-metropolis', lambda: graph_metropolis_phase(torch)),
+        # ---- 9-12. MALA, SPRING, SR, Li: windows and the JAX gates ----
+        ('mala-eval', lambda: gate_phase(
+            torch, 'mala', MALA_RUN, dict(sampler='mala'),
+            (mcmc['eval_mean'], None),
+            (mcmc['eval_clipped'], mcmc['eval_clipped_stderr']))),
+        ('mala-256', lambda: window_phase(
+            torch, 'mala-256', MALA_RUN, dict(sampler='mala'), 100)),
+        ('spring-eval', lambda: gate_phase(
+            torch, 'spring', SPRING_RUN, SPRING_CONFIG,
+            (r4['e_mean'], r4['e_stderr']),
+            (r4['e_clipped'], r4['e_clipped_stderr']))),
+        ('spring-256', lambda: window_phase(
+            torch, 'spring-256', SPRING_RUN, SPRING_CONFIG, 100,
+            profile=10)),
+        ('sr-256', lambda: window_phase(
+            torch, 'sr-256', SR_RUN, SR_CONFIG, 20, profile=2)),
+        ('li-eval', lambda: gate_phase(
+            torch, 'li', LI_RUN, LI_CONFIG,
+            (li['eval_mean'], li['eval_stderr']),
+            (li['eval_clipped'], li['eval_clipped_stderr']))),
+        ('li-256', lambda: li_window_phase(torch)),
+        ('vmap', lambda: (None, vmap_phase(torch))),
+        # ---- 13-16. the Laplacian forms, the reference design, poly ----
+        ('lap-forms', lambda: lap_forms_phase(torch, params)),
+        ('reference-grad', lambda: reference_grad_phase(torch, params)),
+        ('reference-256', lambda: reference_window_phase(torch)),
+        ('poly-sample', lambda: poly_sample_phase(torch, params, jax_raw)))
+
+
+def partial_run(torch, only, params, jax_raw, jax_clipped, kind, t_start):
+    """``--only``: the named phases of the table, then the status line."""
+    table = phase_table(torch, params, jax_raw, jax_clipped)
+    names = {name for name, _ in table}
+    unknown = sorted(only - names)
+    if unknown:
+        fail(f"--only: no phase named {unknown}; phases: {sorted(names)}")
+    for name, run in table:
+        if name in only:
+            t0 = time.perf_counter()
+            run()
+            print(f"phase {name}: {time.perf_counter() - t0:.1f} s wall",
+                  flush=True)
+    print(f"chip_smoke --only: {time.perf_counter() - t_start:.1f} s wall, "
+          "the build included; no kernels line in a partial run", flush=True)
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': kind,
+        'count': torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        description="Drive the port's paths on one card and check them.")
+    parser.add_argument(
+        '--only', default=None,
+        help="comma-separated phases of the table (phase_table: "
+             "graph-train, eval-4k, graph-eval, resume, metropolis-256, "
+             "graph-metropolis, mala-eval, ..., poly-sample) to run alone "
+             "after the build; a partial run prints no kernels line")
+    args = parser.parse_args(argv)
+    only = None if args.only is None else set(args.only.split(','))
+
     import torch
     t_start = time.perf_counter()
 
@@ -1590,14 +1989,23 @@ def main() -> int:
             if any(w in line for w in ('Compiling entry', 'registers', 'spill')):
                 print(f"    {line.strip()}", flush=True)
 
+    ck = load_jax_checkpoint(CHECKPOINT)
+    params = params_from_jax(ck['params'])
+    model = flagship_model(torch, params, 'poly_pallas')
+    # like with like: raw means against the JAX evaluation's raw mean,
+    # clipped against clipped
+    ref = json.loads(JAX_EVAL.read_text())['flagship_fwd_batched_100k']
+    jax_raw = (ref['eval_mean'], ref['eval_stderr'])
+    jax_clipped = (ref['eval_clipped'], ref['eval_clipped_stderr'])
+    if only is not None:
+        return partial_run(torch, only, params, jax_raw, jax_clipped,
+                           kind, t_start)
+
     # ---- 3. kernels against their plain versions --------------------------
     deg, knots, mesh = (FLAGSHIP[k] for k in ('spline_degree', 'num_knots',
                                               'n_mesh'))
     tabs_b = ops.get_tables('B', deg, knots, n_mesh=mesh)
     tabs_i = ops.get_tables('I', deg, knots, n_mesh=mesh)
-    ck = load_jax_checkpoint(CHECKPOINT)
-    params = params_from_jax(ck['params'])
-    model = flagship_model(torch, params, 'poly_pallas')
     gen = torch.Generator('cuda').manual_seed(0)
     k1 = check_sampler(torch, gen, 'squared', model.ev_ob, model.ob_coeffs,
                        65536)
@@ -1635,10 +2043,6 @@ def main() -> int:
     torch.cuda.synchronize()
     mean = e_loc.mean().item()
     stderr = (e_loc.std() / math.sqrt(e_loc.numel())).item()
-    # like with like: the raw mean against the JAX evaluation's raw mean
-    ref = json.loads(JAX_EVAL.read_text())['flagship_fwd_batched_100k']
-    jax_raw = (ref['eval_mean'], ref['eval_stderr'])
-    jax_clipped = (ref['eval_clipped'], ref['eval_clipped_stderr'])
     d_raw = sigmas(mean, stderr, jax_raw)
     print(f"checkpoint (epoch {ck['epoch']}): raw E = {mean:.6f} +- "
           f"{stderr:.6f} over 65536 ancestral walkers "
@@ -1696,56 +2100,20 @@ def main() -> int:
           f"energy (nested-jvp Laplacian) {ms_energy:.2f} ms | train step "
           f"(loss incl. energy, backward, clip, adam) {ms_step:.2f} ms",
           flush=True)
-    profile_window(torch, lambda: trainer.train(10, verbose=False), 10, "")
+    profile_window(torch, lambda: trainer.train_window(10, trainer.baseline),
+                   10, "graphed window: ", top=10)
 
-    # ---- 6-8. evaluation, resume, Metropolis training ----------------------
+    # ---- 6-16: the phase table ---------------------------------------------
     by_phase = {'train-256': dict(launches)}
-    r4 = json.loads(JAX_EVAL_R4.read_text())[f'results/{SPRING_RUN.name}']
-    mcmc = json.loads(JAX_EVAL_MCMC.read_text())[MALA_RUN.name]
-    li = json.loads(JAX_EVAL.read_text())['li_metro_refresh100_s3']
-    for name, run in (
-            ('eval-4k', lambda: evaluation_phase(torch, jax_raw, jax_clipped)),
-            ('resume', lambda: resume_phase(torch)),
-            ('metropolis-256', lambda: metropolis_phase(torch, wps_second)),
-            # ---- 9-12. MALA, SPRING, SR, Li: windows and the JAX gates ----
-            ('mala-eval', lambda: gate_phase(
-                torch, 'mala', MALA_RUN, dict(sampler='mala'),
-                (mcmc['eval_mean'], None),
-                (mcmc['eval_clipped'], mcmc['eval_clipped_stderr']))),
-            ('mala-256', lambda: window_phase(
-                torch, 'mala-256', MALA_RUN, dict(sampler='mala'), 100)),
-            ('spring-eval', lambda: gate_phase(
-                torch, 'spring', SPRING_RUN, SPRING_CONFIG,
-                (r4['e_mean'], r4['e_stderr']),
-                (r4['e_clipped'], r4['e_clipped_stderr']))),
-            ('spring-256', lambda: window_phase(
-                torch, 'spring-256', SPRING_RUN, SPRING_CONFIG, 100,
-                profile=10)),
-            ('sr-256', lambda: window_phase(
-                torch, 'sr-256', SR_RUN, SR_CONFIG, 20, profile=2)),
-            ('li-eval', lambda: gate_phase(
-                torch, 'li', LI_RUN, LI_CONFIG,
-                (li['eval_mean'], li['eval_stderr']),
-                (li['eval_clipped'], li['eval_clipped_stderr']))),
-            ('li-256', lambda: li_window_phase(torch))):
-        t0 = time.perf_counter()
-        by_phase[name], _ = run()
-        print(f"phase {name}: {time.perf_counter() - t0:.1f} s wall", flush=True)
-    t0 = time.perf_counter()
-    vmap_row = vmap_phase(torch)
-    print(f"phase vmap: {time.perf_counter() - t0:.1f} s wall", flush=True)
-
-    # ---- 13-16. the Laplacian forms, the reference design, poly sampling ---
     rows = {}
-    for name, run in (
-            ('lap-forms', lambda: lap_forms_phase(torch, params)),
-            ('reference-grad', lambda: reference_grad_phase(torch, params)),
-            ('reference-256', lambda: reference_window_phase(torch)),
-            ('poly-sample', lambda: poly_sample_phase(torch, params,
-                                                      jax_raw))):
+    for name, run in phase_table(torch, params, jax_raw, jax_clipped,
+                                 wps_second):
         t0 = time.perf_counter()
-        by_phase[name], rows[name] = run()
+        launches_of, rows[name] = run()
+        if launches_of is not None:
+            by_phase[name] = launches_of
         print(f"phase {name}: {time.perf_counter() - t0:.1f} s wall", flush=True)
+    vmap_row = rows['vmap']
 
     # ---- 17. density (the second main path; counts reset just before) ------
     by_phase['density-20k'] = density_phase(torch)

@@ -122,7 +122,8 @@ def ravel_order(names) -> list:
     return sorted(names, key=key)
 
 
-def adam_state_from_jax(opt_state, params_tree, named_parameters) -> dict:
+def adam_state_from_jax(opt_state, params_tree, named_parameters,
+                        capturable: bool = False) -> dict:
     """The JAX trainer's flat Adam moments as ``torch.optim.Adam`` state.
 
     ``opt_state`` is ``optax.flatten(chain(clip_by_global_norm, adam))``'s
@@ -132,9 +133,11 @@ def adam_state_from_jax(opt_state, params_tree, named_parameters) -> dict:
     walks.  Returns {parameter name: {'step', 'exp_avg', 'exp_avg_sq'}} for
     every entry of ``named_parameters`` ((name, tensor) pairs), on each
     tensor's device.  step = count: optax corrects the bias with count + 1
-    after its update, torch with step after its increment.  Raises
-    ValueError when the moments are not flat vectors of the parameter count
-    (a checkpoint from before the flatten change)."""
+    after its update, torch with step after its increment; it is a float32
+    host tensor, or with ``capturable`` (the form of a capturable Adam,
+    whose count lives on the card) a float32 tensor on the parameter's
+    device.  Raises ValueError when the moments are not flat vectors of
+    the parameter count (a checkpoint from before the flatten change)."""
     adam = _find_adam_state(opt_state)
     named = dict(named_parameters)
     leaves = params_from_jax(params_tree)
@@ -154,7 +157,9 @@ def adam_state_from_jax(opt_state, params_tree, named_parameters) -> dict:
         p, n = named[name], leaf.numel()
         moments = [torch.as_tensor(np.array(m[at:at + n], np.float32))
                    .reshape(leaf.shape).to(p.device) for m in (mu, nu)]
-        out[name] = {'step': torch.tensor(float(count), dtype=torch.float32),
+        step = torch.tensor(float(count), dtype=torch.float32,
+                            device=p.device if capturable else None)
+        out[name] = {'step': step,
                      'exp_avg': moments[0], 'exp_avg_sq': moments[1]}
         at += n
     return out

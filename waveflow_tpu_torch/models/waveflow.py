@@ -105,7 +105,13 @@ class Waveflow(nn.Module):
         """ψ(x): (B, D) box coordinates -> (B,)."""
         amps, log_det = self._amplitudes(x)
         amps = torch.where(self.constrained, amps / math.sqrt(2.0), amps)
-        return torch.prod(amps, dim=-1) * torch.exp(0.5 * log_det)
+        # the product over coordinates as explicit multiplications, in
+        # order: torch.prod's backward counts zero factors on the host,
+        # which a CUDA graph cannot capture (vmc/graphs.py)
+        prod = amps[..., 0]
+        for i in range(1, amps.shape[-1]):
+            prod = prod * amps[..., i]
+        return prod * torch.exp(0.5 * log_det)
 
     # torch.func.functional_call runs a module's forward: ψ of given
     # parameters (the natural-gradient steps, vmc/sr.py)

@@ -17,3 +17,24 @@ from waveflow_tpu_torch.ops.inverse import (
 from waveflow_tpu_torch.ops.sampling import (
     sample_linear_density, sample_squared_amplitude,
 )
+from waveflow_tpu_torch.ops import cuda_jet, cuda_sampler, cuda_spline
+
+# the kernel wrappers' launch counters, as (module, attribute): each wrapper
+# adds one where it launches its kernel; a replayed CUDA graph launches
+# without passing through them, so vmc/graphs.py adds a replay's count here
+LAUNCH_COUNTERS = ((cuda_jet, 'launches'), (cuda_sampler, 'launches'),
+                   (cuda_sampler, 'launches_linear'), (cuda_spline, 'launches'),
+                   (cuda_spline, 'launches_bwd'))
+
+
+def read_launches() -> tuple:
+    return tuple(getattr(m, a) for m, a in LAUNCH_COUNTERS)
+
+
+def set_launches(counts) -> None:
+    for (m, a), n in zip(LAUNCH_COUNTERS, counts):
+        setattr(m, a, n)
+
+
+def add_launches(counts) -> None:
+    set_launches(a + b for a, b in zip(read_launches(), counts))

@@ -6,6 +6,9 @@ Port of waveflow_tpu/vmc/estimators.py: ``_safe_psi``, ``local_energy``
 baseline, and the parity variants ``loss_fn_uniform`` and
 ``make_policy_gradient_step``.
 
+On a CUDA device the window runs as a replayed CUDA graph of one epoch
+(``TrainWindow``, vmc/graphs.py), the counterpart of JAX's jitted scan.
+
 'clipped_score' (the default) is the score-only estimator
 2 E[(E_L − E) ∂ log|ψ|] with E_L clipped to a batch-adaptive window around
 the batch median; E_L carries no gradient, so the Laplacian runs outside
@@ -27,6 +30,8 @@ from __future__ import annotations
 
 import torch
 from torch.func import functional_call
+
+from waveflow_tpu_torch.vmc import graphs
 
 PSI_EPS = 1e-8
 
@@ -173,12 +178,17 @@ def make_train_step(psi, h_fn, params, learning_rate: float,
     """step(batch, baseline) -> loss: one estimator gradient, the
     optax-form global norm clip, and one Adam update (eps 1e-8 outside the
     square root, the optax placement) on ``params``.  ``step.optimizer``
-    holds the Adam state."""
+    holds the Adam state.
+
+    On a CUDA device Adam is ``capturable`` (its step count lives on the
+    device, so an update can be captured in a CUDA graph), whether or not
+    the window runs as a graph, so that the two compare like with like;
+    on the CPU it is not (torch refuses a capturable Adam there)."""
     params = list(params)
     loss_fn = make_loss_fn(psi, h_fn, estimator=estimator,
                            energy_clip=energy_clip, clip_stat=clip_stat)
     optimizer = torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999),
-                                 eps=1e-8)
+                                 eps=1e-8, capturable=params[0].is_cuda)
 
     def step(batch: torch.Tensor, baseline) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
@@ -196,10 +206,43 @@ def make_train_step(psi, h_fn, params, learning_rate: float,
 def run_window(step, sample_fn, batch_size: int, window: int, baseline):
     """``window`` sample + update epochs against ``baseline``; returns the
     (window,) losses and the next baseline, their mean, both left on the
-    device (no host sync inside the window; JAX ``make_window_from_step``)."""
+    device (no host sync inside the window; JAX ``make_window_from_step``).
+    ``TrainWindow`` is the same window as a replayed CUDA graph."""
     losses = torch.stack([step(sample_fn(batch_size), baseline)
                           for _ in range(window)])
     return losses, losses.mean()
+
+
+class TrainWindow:
+    """``run_window`` on a CUDA device as an object that keeps its CUDA
+    graph across windows: ``window(n, baseline) -> (losses,
+    losses.mean())``; ``generators`` are the CUDA generators ``sample_fn``
+    draws from.
+
+    The graphed epoch is ``loss ← step(sample_fn(batch_size), baseline)``
+    over static tensors: the baseline is copied into a 0-d buffer before
+    each window, and each epoch's loss leaves through its slot.  The first
+    window's first epoch runs eagerly and the capture follows it
+    (vmc/graphs.py); ``reset()`` drops the capture, as a swap of the
+    optimizer's state tensors requires."""
+
+    def __init__(self, step, sample_fn, batch_size: int, device,
+                 generators=()):
+        graphs.use_graph(True, device)
+        self.baseline = torch.zeros((), device=device)
+        loss = torch.zeros((), device=device)
+
+        def epoch():
+            loss.copy_(step(sample_fn(batch_size), self.baseline))
+        self.epochs = graphs.EpochGraph(epoch, (loss,), generators)
+
+    def reset(self) -> None:
+        self.epochs.reset()
+
+    def __call__(self, window: int, baseline):
+        self.baseline.copy_(baseline)
+        losses, = self.epochs.window(window)
+        return losses, losses.mean()
 
 
 # --- parity variants -------------------------------------------------------

@@ -22,9 +22,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from waveflow_tpu_torch.vmc import graphs
 from waveflow_tpu_torch.vmc.estimators import _median, _safe_psi
 from waveflow_tpu_torch.vmc.metropolis import (
-    make_metropolis_sampler, sector_projection,
+    MetropolisState, make_metropolis_sampler, sector_projection,
 )
 
 LADDER = (1.0, 2.0, 4.0, 8.0)
@@ -114,7 +115,8 @@ def evaluate_energy(psi, h_fn, log_pdf, box_length: float,
                     n_warmup_sweeps: int = 250, step_size: float = 0.4,
                     sort_fermions: bool | str = True,
                     clip_scale: float = 5.0,
-                    clip_ladder: bool = False) -> EnergyEvaluation:
+                    clip_ladder: bool = False,
+                    graph: bool | None = None) -> EnergyEvaluation:
     """Blocked Metropolis estimate of ⟨E_L⟩ at FROZEN parameters (those of
     the module behind ``psi`` / ``h_fn`` / ``log_pdf``).
 
@@ -122,47 +124,83 @@ def evaluate_energy(psi, h_fn, log_pdf, box_length: float,
     chain in stationarity (warmup then decorrelates the step-size
     adaptation, which is frozen before measurement).  Every draw comes from
     ``generator``.  sort_fermions: True / '1d', 'paired2d' or False, as in
-    ``sector_projection``."""
-    init_fn, step_fn, _ = make_metropolis_sampler(
-        log_pdf, bounds=(-box_length, box_length),
-        proposal_map=sector_projection(sort_fermions))
-    state = init_fn(positions, step_size=step_size)
-    for _ in range(n_warmup_sweeps):
-        state = step_fn(state, generator)
-    blocks = []
-    with torch.no_grad():
-        for _ in range(n_blocks):
-            for _ in range(sweeps_per_block):
-                # adaptation frozen: the recorded chain uses a fixed kernel
-                state = step_fn(state, generator)._replace(
-                    step_size=state.step_size)
-            x = state.positions
-            e = h_fn(x)[:, 0] / _safe_psi(psi(x))
-            center = _median(e)
-            mad = (e - center).abs().mean()
-            row = [e.mean(), center,
-                   torch.clamp(e, center - clip_scale * mad,
-                               center + clip_scale * mad).mean(),
-                   state.accept_rate]
-            if clip_ladder:
-                row += [torch.clamp(e, center - clip_scale * m * mad,
-                                    center + clip_scale * m * mad).mean()
-                        for m in LADDER]
-            blocks.append(torch.stack(row))
-    table = torch.stack(blocks).cpu().numpy()           # one host read
+    ``sector_projection``.  ``graph`` as in ``evaluation_windows``."""
+    warmup, blocks = evaluation_windows(
+        psi, h_fn, log_pdf, box_length, positions, generator,
+        sweeps_per_block=sweeps_per_block, step_size=step_size,
+        sort_fermions=sort_fermions, clip_scale=clip_scale,
+        clip_ladder=clip_ladder, graph=graph)
+    warmup.window(n_warmup_sweeps)
+    del warmup                                 # a graph's memory pool with it
+    table, = blocks.window(n_blocks)
+    table = table.cpu().numpy()                         # one host read
     return block_statistics(
         table[:, 0], table[:, 1], table[:, 2], table[:, 3],
         table[:, 4:] if clip_ladder else None,
         n_walkers=int(positions.shape[0]), clip_scale=clip_scale)
 
 
+def evaluation_windows(psi, h_fn, log_pdf, box_length: float,
+                       positions: torch.Tensor, generator=None,
+                       sweeps_per_block: int = 25, step_size: float = 0.4,
+                       sort_fermions: bool | str = True,
+                       clip_scale: float = 5.0, clip_ladder: bool = False,
+                       graph: bool | None = None):
+    """(warmup, blocks): JAX's two dispatches of ``evaluate_energy`` over
+    one static Metropolis state started at ``positions`` (vmc/graphs.py).
+    ``warmup.window(n)`` runs n adaptive sweeps; ``blocks.window(n)``
+    returns the (n, columns) block values on the device, a block being
+    ``sweeps_per_block`` frozen-step sweeps and the E_L pass: raw mean,
+    median, clipped mean, accept rate, then the clip ladder's means.
+
+    ``graph`` (default: on a CUDA device) replays each as a CUDA graph:
+    one of a warmup sweep, one of a measurement block."""
+    init_fn, step_fn, _ = make_metropolis_sampler(
+        log_pdf, bounds=(-box_length, box_length),
+        proposal_map=sector_projection(sort_fermions))
+    walkers = tuple(f.clone() for f in init_fn(positions, step_size=step_size))
+    row = torch.empty(4 + len(LADDER) * clip_ladder, device=positions.device)
+
+    def sweep():
+        graphs.copy_into(walkers, step_fn(MetropolisState(*walkers), generator))
+
+    @torch.no_grad()
+    def block():
+        state = MetropolisState(*walkers)
+        # adaptation frozen: the recorded chain uses a fixed kernel
+        for _ in range(sweeps_per_block):
+            state = step_fn(state, generator)._replace(
+                step_size=state.step_size)
+        x = state.positions
+        e = h_fn(x)[:, 0] / _safe_psi(psi(x))
+        center = _median(e)
+        mad = (e - center).abs().mean()
+        values = [e.mean(), center,
+                  torch.clamp(e, center - clip_scale * mad,
+                              center + clip_scale * mad).mean(),
+                  state.accept_rate]
+        if clip_ladder:
+            values += [torch.clamp(e, center - clip_scale * m * mad,
+                                   center + clip_scale * m * mad).mean()
+                       for m in LADDER]
+        row.copy_(torch.stack(values))
+        graphs.copy_into(walkers, state)
+
+    if graphs.use_graph(graph, positions.device):
+        gens = () if generator is None else (generator,)
+        return (graphs.EpochGraph(sweep, generators=gens),
+                graphs.EpochGraph(block, (row,), gens))
+    return graphs.Epochs(sweep), graphs.Epochs(block, (row,))
+
+
 def evaluate_trainer(trainer, n_blocks: int = 64, sweeps_per_block: int = 25,
                      n_warmup_sweeps: int = 250, batch_size: int | None = None,
-                     seed: int = 7, clip_ladder: bool = False
-                     ) -> EnergyEvaluation:
+                     seed: int = 7, clip_ladder: bool = False,
+                     graph: bool | None = None) -> EnergyEvaluation:
     """Frozen-parameter evaluation of a (possibly checkpoint-restored)
     VMCTrainer, warm-started from exact ancestral draws; every draw comes
-    from one generator on the trainer's device seeded by ``seed``."""
+    from one generator on the trainer's device seeded by ``seed``.
+    ``graph`` as in ``evaluate_energy``."""
     c = trainer.config
     B = batch_size or max(4096, c.batch_size)
     generator = torch.Generator(trainer.device).manual_seed(seed)
@@ -179,4 +217,4 @@ def evaluate_trainer(trainer, n_blocks: int = 64, sweeps_per_block: int = 25,
         trainer.model.psi, trainer.h_fn, trainer.model.log_pdf,
         c.box_length, positions, generator, n_blocks=n_blocks,
         sweeps_per_block=sweeps_per_block, n_warmup_sweeps=n_warmup_sweeps,
-        sort_fermions=sort_fermions, clip_ladder=clip_ladder)
+        sort_fermions=sort_fermions, clip_ladder=clip_ladder, graph=graph)

@@ -21,6 +21,8 @@ from typing import NamedTuple
 
 import torch
 
+from waveflow_tpu_torch.vmc import graphs
+
 
 def sector_projection(sort_mode):
     """Proposal projection onto the fermionic sector.
@@ -123,7 +125,7 @@ def make_mcmc_train_window(step, log_pdf, box_length: float,
                            n_sweeps: int = 10, target_accept: float = 0.5,
                            pmean_axis: str | None = None,
                            sort_proposals: bool | str = True,
-                           train_step=None):
+                           train_step=None, graph: bool | None = None):
     """Metropolis-driven VMC training: walkers persist across epochs.
 
     Each epoch runs ``n_sweeps`` random-walk Metropolis sweeps on |ψ|²
@@ -142,7 +144,9 @@ def make_mcmc_train_window(step, log_pdf, box_length: float,
     losses, the baseline and the running accept rate after each epoch's
     sweeps left on the device (no host sync inside the window); ``noise``
     (n_epochs, n_sweeps, B, D) and ``u`` (n_epochs, n_sweeps, B) replace
-    the generator's draws when given."""
+    the generator's draws when given.  ``graph`` (default: on a CUDA
+    device) runs the epochs as a replayed CUDA graph (``MCMCTrainWindow``);
+    explicit draws take ``graph=False``."""
     if pmean_axis is not None:
         raise NotImplementedError(
             "pmean_axis (walkers sharded over a mesh) is not ported")
@@ -152,21 +156,79 @@ def make_mcmc_train_window(step, log_pdf, box_length: float,
         log_pdf, target_accept=target_accept,
         bounds=(-box_length, box_length),
         proposal_map=sector_projection(sort_proposals))
+    return init_fn, MCMCTrainWindow(step, step_fn, log_pdf, n_sweeps, graph)
 
-    def run_window(mstate: MetropolisState, n_epochs: int, baseline,
-                   generator=None, noise=None, u=None):
+
+class MCMCTrainWindow:
+    """The Metropolis window of ``make_mcmc_train_window``; on a CUDA
+    device one epoch — the sweeps, the update, the log-prob refresh — is a
+    CUDA graph over static walkers kept across windows (vmc/graphs.py).
+
+    Each window copies the walkers it is handed and the baseline into the
+    static tensors, replays one epoch per call, copies each epoch's loss
+    and accept rate out of their slots, and returns copies of the static
+    walkers (a state the caller holds is never written later).  A new
+    generator or walker shape captures again; ``reset()`` drops the
+    capture, as a swap of the optimizer's state tensors requires."""
+
+    def __init__(self, step, step_fn, log_pdf, n_sweeps: int,
+                 graph: bool | None = None):
+        self.step, self.step_fn, self.log_pdf = step, step_fn, log_pdf
+        self.n_sweeps, self.graph = n_sweeps, graph
+        self.reset()
+
+    def reset(self) -> None:
+        self.static = self.epochs = self.key = None
+
+    def __call__(self, mstate: MetropolisState, n_epochs: int, baseline,
+                 generator=None, noise=None, u=None):
+        if graphs.use_graph(self.graph, mstate.positions.device):
+            if noise is not None or u is not None:
+                raise ValueError("explicit noise / u run eagerly: pass "
+                                 "graph=False with them")
+            return self._graphed(mstate, n_epochs, baseline, generator)
         losses, rates = [], []
         for e in range(n_epochs):
-            for s in range(n_sweeps):
-                mstate = step_fn(
+            for s in range(self.n_sweeps):
+                mstate = self.step_fn(
                     mstate, generator,
                     None if noise is None else noise[e, s],
                     None if u is None else u[e, s])
             rates.append(mstate.accept_rate)
-            losses.append(step(mstate.positions, baseline))
+            losses.append(self.step(mstate.positions, baseline))
             with torch.no_grad():
-                mstate = mstate._replace(log_prob=log_pdf(mstate.positions))
+                mstate = mstate._replace(log_prob=self.log_pdf(mstate.positions))
         losses = torch.stack(losses)
         return losses, losses.mean(), torch.stack(rates), mstate
 
-    return init_fn, run_window
+    def _build(self, mstate, generator) -> None:
+        """Static walkers, baseline and slots for the loss and the accept
+        rate, and the epoch over them."""
+        walkers = tuple(f.clone() for f in mstate)
+        baseline, loss, rate = (torch.zeros((), device=mstate.positions.device)
+                                for _ in range(3))
+
+        def epoch():
+            m = MetropolisState(*walkers)
+            for _ in range(self.n_sweeps):
+                m = self.step_fn(m, generator)
+            rate.copy_(m.accept_rate)
+            loss.copy_(self.step(m.positions, baseline))
+            with torch.no_grad():
+                m = m._replace(log_prob=self.log_pdf(m.positions))
+            graphs.copy_into(walkers, m)
+        self.static = (walkers, baseline)
+        self.epochs = graphs.EpochGraph(
+            epoch, (loss, rate), () if generator is None else (generator,))
+
+    def _graphed(self, mstate, n_epochs: int, baseline, generator):
+        key = (tuple(mstate.positions.shape), generator)
+        if self.key != key:
+            self._build(mstate, generator)
+            self.key = key
+        walkers, static_baseline = self.static
+        graphs.copy_into(walkers, mstate)
+        static_baseline.copy_(baseline)
+        losses, rates = self.epochs.window(n_epochs)
+        out = MetropolisState(*(f.clone() for f in walkers))
+        return losses, losses.mean(), rates, out

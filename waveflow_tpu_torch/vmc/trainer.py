@@ -19,6 +19,13 @@ it, zero after a divergence recovery, and on the per-epoch path the host
 mean of the last ``window`` losses whenever ``epoch % window == 0``.  It is
 ``self.baseline`` and, as in JAX, not checkpointed.
 
+On a CUDA device the adam windows with ancestral or Metropolis walkers run
+as replayed CUDA graphs of one epoch (``graph_windows`` says which pairs;
+vmc/graphs.py), captured at the first window and kept across windows; a
+swap of the optimizer's state tensors (a divergence recovery, a checkpoint
+load) drops the capture.  MALA, SR and SPRING, and the single epochs after
+the last window, run eagerly.
+
 Every train step keeps its optimizer state behind ``step.optimizer``'s
 ``state_dict`` / ``load_state_dict`` (torch's Adam, or vmc/sr.py's
 ``StepState``).  Checkpoints: ``save_checkpoint`` writes
@@ -54,7 +61,10 @@ from waveflow_tpu_torch.physics import (
     construct_hamiltonian_function, system_catalogue,
 )
 from waveflow_tpu_torch.utils.checkpoint import load_state, save_state
-from waveflow_tpu_torch.vmc.estimators import make_train_step, run_window
+from waveflow_tpu_torch.vmc import graphs
+from waveflow_tpu_torch.vmc.estimators import (
+    TrainWindow, make_train_step, run_window,
+)
 from waveflow_tpu_torch.vmc.mala import MALAState, make_mala_train_window
 from waveflow_tpu_torch.vmc.metropolis import (
     MetropolisState, make_mcmc_train_window,
@@ -184,6 +194,28 @@ def _check_combination(c: VMCConfig):
             f"{sorted(MATMUL_PRECISION)}")
 
 
+# the (optimizer, sampler) pairs whose windows run as CUDA graphs; the rest
+# stay eager on the card (ROADMAP Queue 1 lists why, pair by pair)
+GRAPHED = (('adam', 'ancestral'), ('adam', 'metropolis'))
+
+
+def graph_windows(config: VMCConfig, device, graph: bool | None = None
+                  ) -> bool:
+    """Whether a trainer runs its windows as replayed CUDA graphs:
+    ``graph=None`` means yes for the ``GRAPHED`` pairs on a CUDA device;
+    ``graph=True`` raises ValueError on the CPU and NotImplementedError
+    for a pair that runs eagerly; ``graph=False`` runs every window
+    eagerly (the A/B of chip_smoke.py and bench_torch.py)."""
+    pair = (config.optimizer, config.sampler)
+    if pair in GRAPHED:
+        return graphs.use_graph(graph, device)
+    if graph:
+        raise NotImplementedError(
+            f"optimizer={pair[0]!r} with sampler={pair[1]!r} runs eagerly; "
+            f"graphed pairs: {GRAPHED}")
+    return False
+
+
 def _to_numpy(tree):
     """Tensors -> numpy arrays inside an optimizer state dict."""
     if isinstance(tree, torch.Tensor):
@@ -206,9 +238,11 @@ def _to_tensors(tree):
 
 
 class VMCTrainer:
-    """Builds the model + Hamiltonian and runs the sample/update loop."""
+    """Builds the model + Hamiltonian and runs the sample/update loop.
+    ``graph`` as in ``graph_windows``."""
 
-    def __init__(self, config: VMCConfig | None = None, **overrides):
+    def __init__(self, config: VMCConfig | None = None, *,
+                 graph: bool | None = None, **overrides):
         known = {f.name for f in fields(VMCConfig)}
         unported = sorted(set(overrides) - known)
         if unported:
@@ -272,6 +306,9 @@ class VMCTrainer:
                 estimator=c.estimator, energy_clip=c.energy_clip,
                 clip_stat=c.clip_stat)
         self.generator = torch.Generator(self.device).manual_seed(c.seed + 1)
+        self.graph = graph_windows(c, self.device, graph)
+        # the windows that hold a CUDA graph (dropped by _drop_graphs)
+        self._graphed = []
         self.mcmc_state = None
         sort = self.xu_coord_type != 'independent'
         mcmc_kw = dict(n_sweeps=c.mcmc_sweeps,
@@ -283,7 +320,13 @@ class VMCTrainer:
         elif c.sampler == 'metropolis':
             self.mcmc_init, self.mcmc_window = make_mcmc_train_window(
                 self.step, self.model.log_pdf, c.box_length,
-                sort_proposals=sort, **mcmc_kw)
+                sort_proposals=sort, graph=self.graph, **mcmc_kw)
+            self._graphed.append(self.mcmc_window)
+        elif self.graph:
+            self.train_window = TrainWindow(
+                self.step, self.sample, c.batch_size, self.device,
+                (self.generator,))
+            self._graphed.append(self.train_window)
         self.epoch = 0
         self.losses: list = []
         # the estimator's running baseline (JAX's life cycle; not saved)
@@ -291,6 +334,12 @@ class VMCTrainer:
         # the MCMC sampler's running accept rate after each epoch's sweeps,
         # since construction (not checkpointed)
         self.accept_rates: list = []
+
+    def _drop_graphs(self) -> None:
+        """Forget the captured windows: the optimizer's state tensors were
+        swapped for others, so the next window captures again."""
+        for window in self._graphed:
+            window.reset()
 
     def _zero_baseline(self) -> torch.Tensor:
         return torch.zeros((), device=self.device)
@@ -352,14 +401,22 @@ class VMCTrainer:
         opt, kind = self.step.optimizer, self.config.optimizer
         if kind == 'adam':
             opt.state.clear()
+            capturable = opt.defaults['capturable']
             try:
                 if jax_params is not None:
                     moments = adam_state_from_jax(
-                        saved, jax_params, self.model.named_parameters())
+                        saved, jax_params, self.model.named_parameters(),
+                        capturable=capturable)
                     for name, p in self.model.named_parameters():
                         opt.state[p] = moments[name]
                 elif isinstance(saved, dict) and 'param_groups' in saved:
-                    opt.load_state_dict(_to_tensors(saved))
+                    # the device decides the form, not the saved groups
+                    # (Adam takes them over): a capturable step count
+                    # lives on the card, the CPU's stays a host tensor
+                    saved = _to_tensors(saved)
+                    for g in saved['param_groups']:
+                        g['capturable'] = capturable
+                    opt.load_state_dict(saved)
                 else:
                     raise ValueError("not an Adam state")
             except ValueError:
@@ -418,6 +475,7 @@ class VMCTrainer:
                 MALAState._fields) else MetropolisState
             self.mcmc_state = (None if mcmc is None else kind(
                 *(torch.as_tensor(f, device=self.device) for f in mcmc)))
+        self._drop_graphs()
         self.epoch = int(state['epoch'])
         loss_path = Path(save_dir) / 'loss.npy'
         if loss_path.exists():
@@ -521,6 +579,8 @@ class VMCTrainer:
             if use_mcmc:
                 losses, baseline, rates, mstate = self.mcmc_window(
                     self.mcmc_state, c.window, self.baseline, self.generator)
+            elif self.graph:
+                losses, baseline = self.train_window(c.window, self.baseline)
             else:
                 losses, baseline = run_window(self.step, self.sample,
                                               c.batch_size, c.window,
@@ -532,6 +592,7 @@ class VMCTrainer:
                           "good state", flush=True)
                 self.model.load_state_dict(good[0])
                 self.step.optimizer.load_state_dict(good[1])
+                self._drop_graphs()
                 self.generator.manual_seed(c.seed + 1 + 1000003 * (w + 1))
                 if use_mcmc:
                     self.mcmc_state = (good[2] if good[2] is not None
