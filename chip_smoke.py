@@ -29,13 +29,13 @@ Phases (any failure exits non-zero; nothing is caught):
                and K3 launched on that run; 10 replayed epochs profiled;
      graph-train — the ancestral adam window as a CUDA graph against its
                eager twin (graph=False) from the 100k checkpoint, for
-               train-256, the 'reference' estimator on 'fwd_batched' and
-               reference-256 ('reference' + 'dense'): turns eager, graph,
-               graph, eager of 2 windows of GRAPH_WINDOW epochs (CUDA
-               events); losses, parameters, Adam state, baseline and
-               generator equal to the bit (or within GRAPH_MAX_REL; the
-               'dense' graph to the bit against a second eager run, and
-               within DENSE_MAX_REL kind by kind against the first),
+               train-256, reference-256 ('reference' + 'dense', right after
+               train-256, where its first eager run of a process used to
+               part from later ones) and the 'reference' estimator on
+               'fwd_batched': turns eager, graph, graph, eager of 2 windows
+               of GRAPH_WINDOW epochs (CUDA events); losses, parameters,
+               Adam state, baseline and generator equal to the bit (or
+               within GRAPH_MAX_REL),
                launches per epoch equal; 10 replayed epochs profiled;
   6. evaluation — the 100k checkpoint loaded into a 'poly_pallas' trainer,
                evaluate_trainer at the JAX protocol (4,096 walkers, 250
@@ -91,12 +91,32 @@ Phases (any failure exits non-zero; nothing is caught):
                against the float64 CDF of the polynomial density, the raw
                mean of one E_L pass against the JAX raw mean; sample times
                and a window of 100 epochs for 'poly' and 'table';
- 17. density — train_density_model at the full width of the density
+ 17. antisym-eval — r5_he2d2e_antisym (the antisymmetrized He-2d-2e, 2!
+               permuted copies of φ per walker) at the JAX protocol: raw
+               and clipped within 5 combined stderr of the JAX figures,
+               accept rate in [0.45, 0.55], K1 (the permuted warm start)
+               and K3 launched, K3 at 4 launches per coordinate per Hψ
+               pass, peak device memory; fidelity_2d_2e against the
+               two-state ED40 subspace within 1e-4 of the JAX figure;
+ 18. box3-2d-eval — r5_box3_2d_antisym (3 free electrons, 6 permuted
+               copies) the same way, beside the analytic energy;
+ 19. paired2d-eval — r4_he2d2e_lr3e-4_decay (the 'paired2d' x-sorted
+               sector, its sector projection) the same way;
+ 20. h2d-fidelity — results/h_2d (one electron, 'independent' map):
+               fidelity_2d_1e against the 120²-grid ED within 1e-4 of the
+               JAX figure, the ED energy printed;
+ 21. graph-antisym — the antisym Metropolis adam window from
+               r5_he2d2e_antisym at lr 3e-5 as a CUDA graph against its
+               eager twin, as graph-train (walkers and accept rates to the
+               bit too), then one graphed window of 100 epochs;
+ 22. paired2d-256 — the paired2d ancestral adam window from the r4 run the
+               same way (K1 4 launches per epoch, one per column);
+ 23. density — train_density_model at the full width of the density
                benchmark (MFlow, circles, 20,000 points), 200 epochs with a
                metric checkpoint every 100; losses finite and falling, K2
                and both K4 kernels launched on that run, metrics finite,
                the round trip closes, the card agrees with the CPU;
- 18. report  — one JSON line of kernels, then the final status line.
+ 24. report  — one JSON line of kernels, then the final status line.
 
 Each phase that drives a path sets the launch counts to 0 just before it
 and reads them just after.  A replayed graph's launches are counted by
@@ -128,11 +148,24 @@ MALA_RUN = ROOT / 'results' / 'he1d_mala_s3'
 SPRING_RUN = ROOT / 'results' / 'r4_spring100k'
 SR_RUN = ROOT / 'results' / 'he1d_sr'
 LI_RUN = ROOT / 'results' / 'r5_li_metro_refresh100_s3'
+# the 2D runs (L = 5, default widths): the antisymmetrized He-2d-2e and
+# box3-2d (benchmarks/round5_quality.py stage_antisym and
+# stage_antisym2d_free: Metropolis, lr 3e-4 then 3e-5), the paired2d He-2d
+# (benchmarks/round4_quality.py stage_he2d2e: ancestral, the same lr
+# schedule) and the 1-electron H-2d ('independent' map, ancestral)
+ANTISYM_RUN = ROOT / 'results' / 'r5_he2d2e_antisym'
+BOX3_RUN = ROOT / 'results' / 'r5_box3_2d_antisym'
+PAIRED2D_RUN = ROOT / 'results' / 'r4_he2d2e_lr3e-4_decay'
+H2D_RUN = ROOT / 'results' / 'h_2d'
+# the n_grid = 40 ED of He-2d-2e, its two degenerate ground states
+ED40_HE = ROOT / 'results' / 'ed40_He_2d2e.npz'
 # the JAX package's frozen-params Metropolis evaluations of those
-# checkpoints: the flagship's and Li's, the SPRING run's, the MALA run's
+# checkpoints: the flagship's, Li's and the 2D runs', the SPRING run's, the
+# MALA run's, the paired2d run's
 JAX_EVAL = ROOT / 'results' / 'round5_quality.json'
 JAX_EVAL_R4 = ROOT / 'results' / 'final_energies_r4.json'
 JAX_EVAL_MCMC = ROOT / 'results' / 'long_mcmc_runs.json'
+JAX_EVAL_2D_R4 = ROOT / 'results' / 'round4_quality.json'
 # the JAX runs' configurations (benchmarks/round4_quality.py SPRING,
 # benchmarks/round5_quality.py stage_li_refresh; he1d_sr: SR at lr 0.05)
 SPRING_CONFIG = dict(optimizer='spring', learning_rate=0.05,
@@ -140,6 +173,18 @@ SPRING_CONFIG = dict(optimizer='spring', learning_rate=0.05,
 SR_CONFIG = dict(optimizer='sr', learning_rate=0.05)
 LI_CONFIG = dict(system_name='Li', learning_rate=3e-4, sampler='metropolis',
                  mcmc_sweeps=3, mcmc_refresh_every=100)
+# the 2D runs at their final learning rate
+BOX_2D = dict(n_space_dimension=2, box_length=5.0, learning_rate=3e-5)
+ANTISYM_CONFIG = dict(BOX_2D, system_name='He', ansatz='antisym',
+                      sampler='metropolis')
+BOX3_CONFIG = dict(BOX_2D, system_name='box3', ansatz='antisym',
+                   sampler='metropolis', interactions=False)
+PAIRED2D_CONFIG = dict(BOX_2D, system_name='He')
+H2D_CONFIG = dict(BOX_2D, system_name='H')
+# fidelity gates: the port's overlap within this of the JAX figure
+FIDELITY_TOL = 1e-4
+# the grid of H-2d's ED state that its fidelity was taken on (RESULTS.md)
+H2D_ED_GRID = 120
 # lap-forms gates, relative to max|Hψ| over the batch, fixed from a
 # float64 CPU run of the 100k checkpoint at 2,048 walkers
 # (tests/test_torch_hamiltonian.py::test_laplacian_forms_against_float64):
@@ -1004,15 +1049,6 @@ GRAPH_WINDOW = 10
 # largest relative difference allowed, as the resume phase allows (ROADMAP
 # Queue 3 names any difference met)
 GRAPH_MAX_REL = 1e-6
-# the reference design's 'dense' path: its first eager run in a process has
-# parted from later runs from the same state (ROADMAP Queue 3), so its graph
-# is held to the bit against a second eager run, and against the first
-# within these limits by kind, each just above what two eager runs from one
-# state read on the card (40 epochs: losses 1.5e-8 to 5.8e-8, baseline
-# 1.3e-7 to 2.0e-7, parameters and Adam's moments 1.4e-4 to 2.4e-3, the
-# generator to the bit)
-DENSE_MAX_REL = {'losses': 1e-6, 'baseline': 1e-6, 'generator': 0.0,
-                 'param': 5e-3, 'adam': 5e-3}
 
 
 def events_ms(torch, fn):
@@ -1061,7 +1097,7 @@ def compare_twins(torch, a, b):
     return bitwise, max(by_group.values(), default=0.0), by_group
 
 
-def graph_twins(torch, label, make, window_call, limits=None):
+def graph_twins(torch, label, make, window_call):
     """A trainer on the graph path and its eager twin (``graph=False``),
     both from one state (``make(graph)``): turns of two windows of
     GRAPH_WINDOW epochs in the order eager, graph, graph, eager, each timed
@@ -1069,13 +1105,8 @@ def graph_twins(torch, label, make, window_call, limits=None):
     holds the warm-up epoch and the capture); then everything the two
     carry compared (to the bit, or within GRAPH_MAX_REL), launches per
     epoch compared, and 10 epochs of ``window_call(trainer, 10)`` (the
-    graph replayed) profiled.  ``limits`` (a path whose first eager run
-    may part from later ones) holds each kind of tensor to its own limit
-    instead; then a second eager trainer takes the eager turns too, the
-    graph must equal it to the bit, and the two eager runs are compared
-    with each other (the path's own nondeterminism)."""
+    graph replayed) profiled."""
     eager, graphed = make(False), make(None)
-    control = None if limits is None else make(False)
     if eager.graph or not graphed.graph:
         fail(f"{label}: the twins' graph flags are {eager.graph}, "
              f"{graphed.graph}")
@@ -1089,26 +1120,11 @@ def graph_twins(torch, label, make, window_call, limits=None):
         ms[kind].append(dt)
         counts[kind] = {k: counts[kind][k] + v
                         for k, v in read_counts().items()}
-        if kind == 'eager' and control is not None:
-            control.train(n_turn, verbose=False)
     n_ep = 2 * n_turn
     per_epoch = {kind: {k: v / n_ep for k, v in c.items()}
                  for kind, c in counts.items()}
     bitwise, rel, by_group = compare_twins(
         torch, trainer_tensors(torch, eager), trainer_tensors(torch, graphed))
-    own = to_control = None
-    if control is not None:
-        held = trainer_tensors(torch, control)
-        own = compare_twins(torch, trainer_tensors(torch, eager), held)
-        to_control = compare_twins(torch, held,
-                                   trainer_tensors(torch, graphed))
-        for name, got in (('eager against a second eager run', own),
-                          ('graph against the second eager run', to_control)):
-            print(f"{label}: {name} from the same state: "
-                  f"{'equal to the bit' if got[0] else 'NOT bitwise'} "
-                  f"(largest relative difference {got[1]:.3e}; by kind "
-                  f"{ {k: f'{v:.2e}' for k, v in got[2].items()} })",
-                  flush=True)
     losses = graphed.losses[-n_ep:]
     B = graphed.config.batch_size
     eager_ms = sum(ms['eager']) / n_ep
@@ -1120,10 +1136,7 @@ def graph_twins(torch, label, make, window_call, limits=None):
                graph_walkers_per_s=B / graph_ms * 1e3,
                speedup=eager_ms / graph_ms, turns_ms=ms, bitwise=bitwise,
                max_rel_diff=rel, rel_diff_by_group=by_group,
-               launches_per_epoch=per_epoch,
-               eager_against_eager=None if own is None else own[2],
-               graph_against_control=None if to_control is None else dict(
-                   bitwise=to_control[0], by_group=to_control[2]))
+               launches_per_epoch=per_epoch)
     if graphed.accept_rates:
         out['accept_rate'] = sum(graphed.accept_rates[-n_ep:]) / n_ep
     print(f"{label}: eager, graph, graph, eager turns of 2 x "
@@ -1142,14 +1155,9 @@ def graph_twins(torch, label, make, window_call, limits=None):
              if 'accept_rate' in out else ""), flush=True)
     if not all(math.isfinite(v) for v in losses):
         fail(f"{label}: the graphed run produced non-finite losses")
-    over = {k: v for k, v in by_group.items()
-            if v > (GRAPH_MAX_REL if limits is None else limits[k])}
-    if not bitwise and over:
-        fail(f"{label}: the graph differs from its eager twin by {over} "
-             f"relative (limits {limits or GRAPH_MAX_REL})")
-    if to_control is not None and not to_control[0]:
-        fail(f"{label}: the graph differs from the second eager run by "
-             f"{to_control[2]} relative (it must equal it to the bit)")
+    if not (bitwise or rel <= GRAPH_MAX_REL):
+        fail(f"{label}: the graph differs from its eager twin by {by_group} "
+             f"relative (limit {GRAPH_MAX_REL:g})")
     if per_epoch['graph'] != per_epoch['eager']:
         fail(f"{label}: launches per epoch differ: {per_epoch}")
     if counts['graph']['basis_jet'] == 0:
@@ -1170,16 +1178,18 @@ def graph_twins(torch, label, make, window_call, limits=None):
 def graph_train_phase(torch):
     """The ancestral adam window as a CUDA graph against its eager twin,
     from the 100k checkpoint with its Adam moments: train-256 (the main
-    path), the 'reference' estimator on the main path's Laplacian (its
-    running baseline through the graph's buffer, held to the bit) and
-    reference-256 (the reference design, 'reference' + 'dense')."""
+    path), reference-256 (the reference design, 'reference' + 'dense';
+    its backward runs on the calling thread, vmc/estimators.py, so its first
+    run of a process equals later ones) and the 'reference' estimator on
+    the main path's Laplacian (its running baseline through the graph's
+    buffer)."""
     from waveflow_tpu_torch.vmc import VMCConfig, VMCTrainer
     rows, total = {}, {'sampler': 0, 'basis_jet': 0}
-    for label, extra, limits in (
-            ('train-256', {}, None),
-            ('reference-256 fwd_batched', dict(estimator='reference'), None),
+    for label, extra in (
+            ('train-256', {}),
             ('reference-256', dict(estimator='reference',
-                                   laplacian_mode='dense'), DENSE_MAX_REL)):
+                                   laplacian_mode='dense')),
+            ('reference-256 fwd_batched', dict(estimator='reference'))):
         def make(graph, extra=extra):
             t = VMCTrainer(VMCConfig(batch_size=256, window=GRAPH_WINDOW,
                                      log_every=GRAPH_WINDOW,
@@ -1190,7 +1200,7 @@ def graph_train_phase(torch):
             return t
         launches, rows[label] = graph_twins(
             torch, f"graph-train {label}", make,
-            lambda t, n: t.train_window(n, t.baseline), limits)
+            lambda t, n: t.train_window(n, t.baseline))
         if launches['sampler'] == 0:
             fail(f"graph-train {label}: K1 was not launched by the replays")
         total = {k: total[k] + v for k, v in launches.items()}
@@ -1878,12 +1888,168 @@ def density_phase(torch):
     return launches
 
 
+def eval_2d_phase(torch, label, run_dir, config, jax_row, fidelity=None):
+    """A committed 2D run evaluated at the JAX protocol (4,096 walkers, 250
+    + 64 × 25 sweeps, step 0.4, the sector of its resolved coordinate map):
+    raw and clipped means within 5 combined stderr of ``jax_row``'s, the
+    accept rate in [0.45, 0.55], K1 (the warm start) and K3 launched; K3's
+    launches per Hψ pass at 4,096 walkers, which the permuted batch of the
+    antisym ansatz widens and does not multiply: 4 jets (3 IMADE layers and
+    the prior) per coordinate; the peak device memory of the evaluation,
+    in all and above what was allocated before it.
+    ``fidelity`` = (the ED40 npz, the JAX figure): ``fidelity_2d_2e``
+    against the ED's ground subspace within FIDELITY_TOL."""
+    from waveflow_tpu_torch.vmc import VMCConfig, VMCTrainer, evaluate_trainer
+    trainer = VMCTrainer(VMCConfig(eval_backend='poly_pallas', device='cuda',
+                                   **config))
+    if not trainer.load_checkpoint(str(run_dir)):
+        fail(f"no checkpoint under {run_dir}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    reset_counts()
+    t0 = time.perf_counter()
+    ev = evaluate_trainer(trainer)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    jax_raw = (jax_row['eval_mean'], jax_row['eval_stderr'])
+    jax_clipped = (jax_row['eval_clipped'], jax_row['eval_clipped_stderr'])
+    d_raw = sigmas(ev.e_mean, ev.e_stderr, jax_raw)
+    d_clip = sigmas(ev.e_clipped, ev.e_clipped_stderr, jax_clipped)
+    x = trainer.model.sample(4096,
+                             generator=torch.Generator('cuda').manual_seed(5))
+    with torch.no_grad():
+        _, per_pass = counted(torch, lambda: trainer.h_fn(x))
+    D = trainer.input_dim
+    out = dict(raw=ev.e_mean, raw_stderr=ev.e_stderr, clipped=ev.e_clipped,
+               clipped_stderr=ev.e_clipped_stderr, raw_sigma=d_raw,
+               clipped_sigma=d_clip, accept_rate=ev.accept_rate, wall_s=wall,
+               peak_memory_bytes=peak, eval_memory_bytes=peak - before,
+               k3_per_pass=per_pass['basis_jet'],
+               ansatz=trainer.ansatz, xu_coord_type=trainer.xu_coord_type)
+    if 'exact_analytic' in jax_row:
+        out['analytic'] = jax_row['exact_analytic']
+    print(f"{label} ({run_dir.name}, epoch {trainer.epoch}, {trainer.ansatz} "
+          f"on '{trainer.xu_coord_type}', {D} coordinates; 4096 walkers, 250 "
+          f"+ 64 x 25 sweeps): raw E = {ev.e_mean:.6f} +- {ev.e_stderr:.6f} "
+          f"against the JAX raw {jax_raw[0]} +- {jax_raw[1]}: {d_raw:.2f} "
+          f"combined sigma | clipped {ev.e_clipped:.6f} +- "
+          f"{ev.e_clipped_stderr:.6f} against {jax_clipped[0]} +- "
+          f"{jax_clipped[1]}: {d_clip:.2f} combined sigma"
+          + (f" | analytic {out['analytic']}" if 'analytic' in out else "")
+          + f" | accept rate {ev.accept_rate:.4f} | {wall:.2f} s wall | peak "
+          f"device memory {peak / 2**30:.3f} GiB, the evaluation's own "
+          f"{(peak - before) / 2**30:.3f} GiB | launches: sampler "
+          f"{launches['sampler']}, basis_jet {launches['basis_jet']} | K3 per "
+          f"H psi pass at 4096 walkers {per_pass['basis_jet']}", flush=True)
+    if not (math.isfinite(ev.e_mean) and d_raw <= 5.0):
+        fail(f"{label}: raw mean {ev.e_mean} is {d_raw:.2f} combined sigma "
+             f"from the JAX raw mean {jax_raw}")
+    if not (math.isfinite(ev.e_clipped) and d_clip <= 5.0):
+        fail(f"{label}: clipped mean {ev.e_clipped} is {d_clip:.2f} combined "
+             f"sigma from the JAX clipped mean {jax_clipped}")
+    if not 0.45 <= ev.accept_rate <= 0.55:
+        fail(f"{label}: accept rate {ev.accept_rate} outside [0.45, 0.55]")
+    if min(launches.values()) == 0:
+        fail(f"a kernel of the path was not launched in {label}: {launches}")
+    if per_pass['basis_jet'] != 4 * D:
+        fail(f"{label}: {per_pass['basis_jet']} K3 launches per H psi pass, "
+             f"not 4 per coordinate ({4 * D})")
+    if fidelity is not None:
+        import numpy as np
+        from waveflow_tpu_torch.utils import fidelity_2d_2e
+        ed_path, ref = fidelity
+        ed = np.load(ed_path)
+        t0 = time.perf_counter()
+        fid = fidelity_2d_2e(trainer.model.psi, ed['psi'], ed['sites'],
+                             ed['x'], device='cuda')
+        out.update(fidelity=fid, fidelity_s=time.perf_counter() - t0)
+        print(f"{label}: fidelity against the {ed['psi'].shape[1]}-state "
+              f"ED40 ground subspace ({ed['psi'].shape[0]} pairs) {fid:.6f}, "
+              f"JAX {ref} ({out['fidelity_s']:.1f} s)", flush=True)
+        if not abs(fid - ref) <= FIDELITY_TOL:
+            fail(f"{label}: fidelity {fid} is not within {FIDELITY_TOL} of "
+                 f"the JAX figure {ref}")
+    return launches, out
+
+
+def h2d_fidelity_phase(torch):
+    """The 1-electron H-2d run ('independent' map): ``fidelity_2d_1e``
+    against the ground state of the 2D grid ED it was judged on, within
+    FIDELITY_TOL of the JAX figure (results/h_2d/fidelity.txt); K3 launched
+    by the ψ blocks."""
+    from waveflow_tpu_torch.physics import exact_ground_state_2d_1e
+    from waveflow_tpu_torch.utils import fidelity_2d_1e
+    from waveflow_tpu_torch.vmc import VMCConfig, VMCTrainer
+    # "overlap 0.999942" and "ED energy -0.430352"
+    ref = dict(line.split(maxsplit=1) for line in
+               (H2D_RUN / 'fidelity.txt').read_text().splitlines())
+    jax_fid = float(ref['overlap'])
+    trainer = VMCTrainer(VMCConfig(eval_backend='poly_pallas', device='cuda',
+                                   **H2D_CONFIG))
+    if not trainer.load_checkpoint(str(H2D_RUN)):
+        fail(f"no checkpoint under {H2D_RUN}")
+    e_ed, psi_grid, x = exact_ground_state_2d_1e(
+        trainer.protons, trainer.config.box_length, n_grid=H2D_ED_GRID)
+    reset_counts()
+    t0 = time.perf_counter()
+    fid = fidelity_2d_1e(trainer.model.psi, psi_grid, x, device='cuda')
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    print(f"h2d-fidelity ({H2D_RUN.name}, epoch {trainer.epoch}, "
+          f"'{trainer.xu_coord_type}' map): fidelity {fid:.6f} against the "
+          f"{H2D_ED_GRID}^2-grid ED state, JAX {jax_fid} | ED energy "
+          f"{e_ed:.6f} (JAX run: {ref['ED'].split()[-1]}) | {wall:.2f} s | "
+          f"launches: basis_jet {launches['basis_jet']}", flush=True)
+    if not abs(fid - jax_fid) <= FIDELITY_TOL:
+        fail(f"h2d-fidelity: {fid} is not within {FIDELITY_TOL} of the JAX "
+             f"figure {jax_fid}")
+    if launches['basis_jet'] == 0:
+        fail("h2d-fidelity: K3 was not launched")
+    return launches, dict(fidelity=fid, ed_energy=e_ed, wall_s=wall)
+
+
+def graph_2d_phase(torch, label, run_dir, config, window_call, k1_per_epoch):
+    """A 2D window as a CUDA graph against its eager twin from a committed
+    run (``graph_twins``: turns eager, graph, graph, eager of 2 windows of
+    GRAPH_WINDOW epochs, everything to the bit, launches per epoch equal,
+    10 replays profiled), K1's launches per epoch held to
+    ``k1_per_epoch``; then one graphed window of 100 epochs timed by CUDA
+    events."""
+    from waveflow_tpu_torch.vmc import VMCConfig, VMCTrainer
+
+    def make(graph, window=GRAPH_WINDOW):
+        t = VMCTrainer(VMCConfig(batch_size=256, window=window,
+                                 log_every=window, eval_backend='poly_pallas',
+                                 device='cuda', **config), graph=graph)
+        if not t.load_checkpoint(str(run_dir)):
+            fail(f"no checkpoint under {run_dir}")
+        return t
+    launches, row = graph_twins(torch, label, make, window_call)
+    k1 = row['launches_per_epoch']['graph']['sampler']
+    if k1 != k1_per_epoch:
+        fail(f"{label}: K1 launched {k1} times per epoch, not {k1_per_epoch}")
+    t = make(None, window=100)
+    t.train(100, verbose=False)                  # warm-up epoch and capture
+    _, ms = events_ms(torch, lambda: t.train(100, verbose=False))
+    row['window_100_ms_per_epoch'] = ms / 100
+    row['window_100_walkers_per_s'] = 100 * 256 / ms * 1e3
+    print(f"{label}: one graphed window of 100 epochs at batch 256 (CUDA "
+          f"events): {ms / 100:.3f} ms per epoch, "
+          f"{row['window_100_walkers_per_s']:.1f} walkers/s", flush=True)
+    return launches, row
+
+
 def phase_table(torch, params, jax_raw, jax_clipped, ancestral_wps=None):
-    """Phases 6-16 in order, as (name, run): run() -> (the kernel launches
+    """Phases 6-22 in order, as (name, run): run() -> (the kernel launches
     on that path, or None, and the phase's figures)."""
     r4 = json.loads(JAX_EVAL_R4.read_text())[f'results/{SPRING_RUN.name}']
     mcmc = json.loads(JAX_EVAL_MCMC.read_text())[MALA_RUN.name]
-    li = json.loads(JAX_EVAL.read_text())['li_metro_refresh100_s3']
+    r5 = json.loads(JAX_EVAL.read_text())
+    li = r5['li_metro_refresh100_s3']
+    paired2d = json.loads(JAX_EVAL_2D_R4.read_text())['he2d2e_lr3e-4_decay']
     return (
         # ---- 6-8. graphs against eager, evaluation, resume, Metropolis ----
         ('graph-train', lambda: graph_train_phase(torch)),
@@ -1918,7 +2084,25 @@ def phase_table(torch, params, jax_raw, jax_clipped, ancestral_wps=None):
         ('lap-forms', lambda: lap_forms_phase(torch, params)),
         ('reference-grad', lambda: reference_grad_phase(torch, params)),
         ('reference-256', lambda: reference_window_phase(torch)),
-        ('poly-sample', lambda: poly_sample_phase(torch, params, jax_raw)))
+        ('poly-sample', lambda: poly_sample_phase(torch, params, jax_raw)),
+        # ---- 17-22. two dimensions and the antisym ansatz ----
+        ('antisym-eval', lambda: eval_2d_phase(
+            torch, 'antisym-eval', ANTISYM_RUN, ANTISYM_CONFIG,
+            r5['he2d2e_antisym'],
+            fidelity=(ED40_HE, r5['he2d2e_antisym']['fidelity_ed40']))),
+        ('box3-2d-eval', lambda: eval_2d_phase(
+            torch, 'box3-2d-eval', BOX3_RUN, BOX3_CONFIG,
+            r5['box3_2d_antisym'])),
+        ('paired2d-eval', lambda: eval_2d_phase(
+            torch, 'paired2d-eval', PAIRED2D_RUN, PAIRED2D_CONFIG, paired2d)),
+        ('h2d-fidelity', lambda: h2d_fidelity_phase(torch)),
+        ('graph-antisym', lambda: graph_2d_phase(
+            torch, 'graph-antisym', ANTISYM_RUN, ANTISYM_CONFIG,
+            lambda t, n: t.mcmc_window(t.mcmc_state, n, t.baseline,
+                                       t.generator), 0)),
+        ('paired2d-256', lambda: graph_2d_phase(
+            torch, 'paired2d-256', PAIRED2D_RUN, PAIRED2D_CONFIG,
+            lambda t, n: t.train_window(n, t.baseline), 4)))
 
 
 def partial_run(torch, only, params, jax_raw, jax_clipped, kind, t_start):
@@ -1949,7 +2133,8 @@ def main(argv=None) -> int:
         '--only', default=None,
         help="comma-separated phases of the table (phase_table: "
              "graph-train, eval-4k, graph-eval, resume, metropolis-256, "
-             "graph-metropolis, mala-eval, ..., poly-sample) to run alone "
+             "graph-metropolis, mala-eval, ..., poly-sample, antisym-eval, "
+             "..., paired2d-256) to run alone "
              "after the build; a partial run prints no kernels line")
     args = parser.parse_args(argv)
     only = None if args.only is None else set(args.only.split(','))
@@ -2103,7 +2288,7 @@ def main(argv=None) -> int:
     profile_window(torch, lambda: trainer.train_window(10, trainer.baseline),
                    10, "graphed window: ", top=10)
 
-    # ---- 6-16: the phase table ---------------------------------------------
+    # ---- 6-22: the phase table ---------------------------------------------
     by_phase = {'train-256': dict(launches)}
     rows = {}
     for name, run in phase_table(torch, params, jax_raw, jax_clipped,
@@ -2115,7 +2300,7 @@ def main(argv=None) -> int:
         print(f"phase {name}: {time.perf_counter() - t0:.1f} s wall", flush=True)
     vmap_row = rows['vmap']
 
-    # ---- 17. density (the second main path; counts reset just before) ------
+    # ---- 23. density (the second main path; counts reset just before) ------
     by_phase['density-20k'] = density_phase(torch)
     launches.update(by_phase['density-20k'])
 
@@ -2123,7 +2308,7 @@ def main(argv=None) -> int:
         """A kernel's launches on each path that ran it."""
         return {k: v[name] for k, v in by_phase.items() if v.get(name)}
 
-    # ---- 18. report --------------------------------------------------------
+    # ---- 24. report --------------------------------------------------------
     # each row at the shape its main path gives the kernel: K1 and K3 at the
     # training batch of 256, K2 at the 20,000 model draws of a metric
     # checkpoint, K4 at the flattened (20,000, 2) training batch

@@ -5,10 +5,19 @@ frozen-parameter blocked Metropolis energy (cf. examples/evaluate_vqmc.py).
 Usage:
   python examples/evaluate_vqmc_torch.py --save-dir results/r5_flagship_fwd_batched_100k \
       --mcmc-eval --eval-backend poly_pallas
+  python examples/evaluate_vqmc_torch.py --save-dir results/h_2d --system H \
+      --n-space-dimension 2 --box-length 5 --ed-grid 120 --fidelity
+  python examples/evaluate_vqmc_torch.py --save-dir results/r5_box2_2d_antisym \
+      --system box2 --n-space-dimension 2 --box-length 5 --ansatz antisym \
+      --no-interactions --mcmc-eval --eval-backend poly_pallas
 
 --save-dir may hold a run of examples/run_vqmc_torch.py or of the JAX
-package's examples/run_vqmc.py.  The Metropolis evaluation runs on the card
-unless --device cpu.
+package's examples/run_vqmc.py.  Oracles: 1D grid ED (or its Richardson
+extrapolation); in 2D, the grid ED of one electron, the committed n_grid =
+40 ED of two (results/ed40_<system>_2d2e.npz), or with --no-interactions
+the analytic free-fermion energy.  --fidelity adds the overlap of ψ with
+the ED state (2D: one electron, or the two-electron ED cache's ground
+subspace).  The model runs on the card unless --device cpu.
 """
 
 import argparse
@@ -21,7 +30,8 @@ import numpy as np
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from waveflow_tpu_torch.physics import (
-    exact_free_fermion_energy, exact_ground_state_1d,
+    exact_free_fermion_energy, exact_free_fermion_energy_2d,
+    exact_ground_state_1d, exact_ground_state_2d_1e,
     richardson_ground_energy_1d, system_catalogue)
 from waveflow_tpu_torch.utils import (
     clipped_energy_estimate, median_energy_estimate, uniform_sliding_average,
@@ -32,6 +42,10 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument('--save-dir', required=True)
     p.add_argument('--system', default='He')
+    p.add_argument('--n-space-dimension', type=int, default=1,
+                   help='2 selects the 2D oracles: grid ED of one electron, '
+                        'the committed ED40 cache of two, the analytic '
+                        'free-fermion energy with --no-interactions')
     p.add_argument('--box-length', type=float, default=10.0)
     p.add_argument('--clip', type=float, default=100.0)
     p.add_argument('--tail-fraction', type=float, default=0.2)
@@ -42,9 +56,20 @@ def main(argv=None):
                    help="'ed': exact diagonalization on one grid (carries "
                         "O(h^2) over-binding); 'richardson': the two-grid "
                         "h^2 extrapolation (slower)")
+    p.add_argument('--ed-grid', type=int, default=200,
+                   help='grid points per side of the 2D one-electron ED')
+    p.add_argument('--ed-cache', default=None,
+                   help='2D two-electron ED cache (.npz with evals, psi, '
+                        'sites, x); default results/ed40_<system>_2d2e.npz')
     p.add_argument('--mcmc-eval', action='store_true',
                    help='frozen-params blocked Metropolis estimate (runs the '
                         'model; pass the training hyperparameters)')
+    p.add_argument('--fidelity', action='store_true',
+                   help='|<psi|psi_ED>| on the ED grid (2D: one electron, '
+                        'or two with the ED cache)')
+    p.add_argument('--ansatz', default='sorted', choices=['sorted', 'antisym'],
+                   help="the run's ansatz ('antisym' evaluates on "
+                        "Metropolis walkers)")
     p.add_argument('--num-knots', type=int, default=23)
     p.add_argument('--spline-degree', type=int, default=6)
     p.add_argument('--n-flow-layers', type=int, default=3)
@@ -72,13 +97,34 @@ def main(argv=None):
     sliding = uniform_sliding_average(trace, window)[-1]
     sliding_sd = uniform_sliding_stdev(trace, window)[-1]
 
-    protons, n_el = system_catalogue[1][args.system]
+    dim = args.n_space_dimension
+    protons, n_el = system_catalogue[dim][args.system]
+    ed_state = None
     if args.no_interactions:
         if np.asarray(protons).size:
             raise SystemExit('--no-interactions oracle requires a protonless '
                              'box system (box2/box3)')
-        exact, oracle = (exact_free_fermion_energy(n_el, args.box_length),
-                         'free fermions, analytic')
+        free = exact_free_fermion_energy_2d if dim == 2 \
+            else exact_free_fermion_energy
+        exact, oracle = free(n_el, args.box_length), 'free fermions, analytic'
+    elif dim == 2 and n_el == 1:
+        exact, psi_grid, x = exact_ground_state_2d_1e(
+            np.asarray(protons), args.box_length, n_grid=args.ed_grid)
+        ed_state = ('2d_1e', psi_grid, x)
+        oracle = f'2D ED, {args.ed_grid}^2 grid'
+    elif dim == 2 and n_el == 2:
+        cache = Path(args.ed_cache or Path(__file__).resolve().parent.parent
+                     / 'results' / f'ed40_{args.system}_2d2e.npz')
+        if not cache.exists():
+            raise SystemExit(f"no 2D two-electron ED cache at {cache}")
+        ed = np.load(cache)
+        exact = float(ed['evals'][0])
+        ed_state = ('2d_2e', ed['psi'], ed['sites'], ed['x'])
+        oracle = (f"2D ED, {len(ed['x'])}^2 grid ({cache.name}, "
+                  f"{ed['psi'].shape[1]} state(s))")
+    elif dim == 2:
+        raise SystemExit('the 2D oracles cover one or two electrons, or '
+                         'protonless box systems with --no-interactions')
     else:
         fn = (richardson_ground_energy_1d if args.oracle == 'richardson'
               else exact_ground_state_1d)
@@ -104,18 +150,31 @@ def main(argv=None):
     print(f"deviation (median): {median - exact:+.4f}  "
           f"(variational gap = {n_sigma:.1f}x stat. err)")
 
+    if not (args.mcmc_eval or args.fidelity):
+        return
+    from waveflow_tpu_torch.vmc import VMCConfig, VMCTrainer, evaluate_trainer
+    cfg = VMCConfig(system_name=args.system, n_space_dimension=dim,
+                    box_length=args.box_length, num_knots=args.num_knots,
+                    spline_degree=args.spline_degree,
+                    n_flow_layers=args.n_flow_layers,
+                    interactions=not args.no_interactions, ansatz=args.ansatz,
+                    sampler='metropolis' if args.ansatz == 'antisym'
+                    else 'ancestral',
+                    eval_backend=args.eval_backend, device=args.device)
+    trainer = VMCTrainer(cfg)
+    if not trainer.load_checkpoint(str(save_dir)):
+        raise SystemExit(f"no checkpoint under {save_dir}")
+    if args.fidelity:
+        from waveflow_tpu_torch.utils import fidelity_2d_1e, fidelity_2d_2e
+        if ed_state is None:
+            raise SystemExit('--fidelity needs a 2D ED state (one electron, '
+                             'or two with the ED cache)')
+        kind, *state = ed_state
+        fn = fidelity_2d_1e if kind == '2d_1e' else fidelity_2d_2e
+        fid = fn(trainer.model.psi, *state, device=trainer.device)
+        print(f"fidelity |<psi|psi_ED>| = {fid:.6f} ({oracle}; ED energy "
+              f"{exact:.6f})")
     if args.mcmc_eval:
-        from waveflow_tpu_torch.vmc import (VMCConfig, VMCTrainer,
-                                            evaluate_trainer)
-        cfg = VMCConfig(system_name=args.system, box_length=args.box_length,
-                        num_knots=args.num_knots,
-                        spline_degree=args.spline_degree,
-                        n_flow_layers=args.n_flow_layers,
-                        interactions=not args.no_interactions,
-                        eval_backend=args.eval_backend, device=args.device)
-        trainer = VMCTrainer(cfg)
-        if not trainer.load_checkpoint(str(save_dir)):
-            raise SystemExit(f"no checkpoint under {save_dir}")
         ev = evaluate_trainer(trainer, n_blocks=args.eval_blocks,
                               sweeps_per_block=args.eval_sweeps_per_block,
                               batch_size=args.eval_batch)

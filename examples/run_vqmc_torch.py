@@ -1,4 +1,4 @@
-"""1D VMC training on the PyTorch/CUDA port (cf. examples/run_vqmc.py).
+"""VMC training on the PyTorch/CUDA port (cf. examples/run_vqmc.py).
 
 Usage:
   python examples/run_vqmc_torch.py --system He --box-length 10 \
@@ -7,6 +7,9 @@ Usage:
   python examples/run_vqmc_torch.py ... --sampler mala --optimizer spring \
       --learning-rate 0.05 --spring-momentum 0.9
   python examples/run_vqmc_torch.py ... --estimator reference  # with baseline
+  python examples/run_vqmc_torch.py --system He --n-space-dimension 2 \
+      --box-length 5 --ansatz antisym --sampler metropolis \
+      --learning-rate 3e-4                            # 2D, antisymmetrized
 
 Checkpoints go to --save-dir (default: the JAX package's
 ./results/<system>_<d>d_L<box>box) every --log-every epochs and at the end;
@@ -27,6 +30,10 @@ from waveflow_tpu_torch.vmc import VMCConfig, VMCTrainer
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument('--system', default='He')
+    p.add_argument('--n-space-dimension', type=int, default=1,
+                   help='2 trains systems in the 2D box (one electron: the '
+                        "'independent' coordinate map; several: the "
+                        "'paired2d' x-sorted sector, or --ansatz antisym)")
     p.add_argument('--box-length', type=float, default=10.0)
     p.add_argument('--batch-size', type=int, default=256)
     p.add_argument('--num-epochs', type=int, default=100_000)
@@ -47,6 +54,12 @@ def main(argv=None):
                    choices=['poly', 'poly_pallas'],
                    help="'poly' (plain PyTorch basis jet) or 'poly_pallas' "
                         "(the CUDA basis-jet kernel)")
+    p.add_argument('--ansatz', default='sorted',
+                   choices=['sorted', 'antisym'],
+                   help="'antisym' = the signed sum over electron "
+                        "permutations of a square-flow on the 'independent' "
+                        "map (a learned nodal surface; needs --sampler "
+                        "metropolis or mala)")
     p.add_argument('--sampler', default='ancestral',
                    choices=['ancestral', 'metropolis', 'mala'],
                    help='walker source: exact ancestral draws from |psi|^2, '
@@ -72,7 +85,9 @@ def main(argv=None):
     p.add_argument('--device', default='cuda', help="'cuda' (default) or 'cpu'")
     args = p.parse_args(argv)
 
-    cfg = VMCConfig(system_name=args.system, box_length=args.box_length,
+    cfg = VMCConfig(system_name=args.system,
+                    n_space_dimension=args.n_space_dimension,
+                    box_length=args.box_length, ansatz=args.ansatz,
                     batch_size=args.batch_size, num_epochs=args.num_epochs,
                     window=args.window, learning_rate=args.learning_rate,
                     spline_degree=args.spline_degree, num_knots=args.num_knots,

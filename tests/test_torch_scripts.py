@@ -92,3 +92,44 @@ def test_bench_prints_its_fields():
     assert result['metric'] == 'vmc_walker_steps_per_sec'
     assert result['value'] > 0 and result['vs_baseline'] > 0
     assert result['unit'].endswith('; cpu)')
+
+
+def test_run_and_evaluate_antisym_2d(tmp_path):
+    """run_vqmc_torch.py --n-space-dimension 2 --ansatz antisym --sampler
+    metropolis: He-2d, 2 windows of 2 epochs, walkers of 4 coordinates in
+    the checkpoint; evaluate_vqmc_torch.py --mcmc-eval on it with the
+    committed two-electron ED40 cache as the oracle and a finite blocked
+    Metropolis energy."""
+    from waveflow_tpu_torch.utils import load_state
+    out = _run('examples/run_vqmc_torch.py', '--device', 'cpu',
+               '--n-space-dimension', '2', '--box-length', '5',
+               '--ansatz', 'antisym', '--sampler', 'metropolis',
+               '--num-epochs', '4', '--window', '2', '--batch-size', '8',
+               '--log-every', '2', '--save-dir', str(tmp_path), *TINY)
+    assert 'epoch 4 |' in out and 'accept' in out
+    state = load_state(tmp_path / 'checkpoints')
+    assert state['mcmc_state'][0].shape == (8, 4)
+    assert np.isfinite(np.load(tmp_path / 'loss.npy')).all()
+    out = _run('examples/evaluate_vqmc_torch.py', '--save-dir', str(tmp_path),
+               '--n-space-dimension', '2', '--box-length', '5',
+               '--ansatz', 'antisym', '--mcmc-eval', '--device', 'cpu',
+               '--eval-batch', '16', '--eval-blocks', '2',
+               '--eval-sweeps-per-block', '2', *TINY)
+    assert 'exact (2D ED, 40^2 grid (ed40_He_2d2e.npz, 2 state(s)))' in out
+    line = next(ln for ln in out.splitlines() if ln.startswith('<E_L>'))
+    assert np.isfinite(float(line.split('=')[1].split()[0]))
+
+
+def test_evaluate_h_2d_with_its_oracle():
+    """evaluate_vqmc_torch.py --n-space-dimension 2 on the committed 1-electron
+    H-2d run (results/h_2d, default widths): the 2D grid-ED oracle on the
+    120² grid the run was judged on (−0.430352) and the fidelity of ψ
+    against its ground state, within 1e-4 of the JAX figure 0.999942
+    (results/h_2d/fidelity.txt)."""
+    out = _run('examples/evaluate_vqmc_torch.py', '--save-dir',
+               str(ROOT / 'results' / 'h_2d'), '--system', 'H',
+               '--n-space-dimension', '2', '--box-length', '5',
+               '--ed-grid', '120', '--fidelity', '--device', 'cpu')
+    assert 'exact (2D ED, 120^2 grid): -0.43035' in out
+    line = next(ln for ln in out.splitlines() if ln.startswith('fidelity'))
+    assert abs(float(line.split('=')[1].split()[0]) - 0.999942) <= 1e-4

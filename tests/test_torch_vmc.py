@@ -157,14 +157,15 @@ def test_trainer_divergence_recovery():
 
 
 @pytest.mark.parametrize('override', [
-    dict(n_space_dimension=2), dict(ansatz='antisym'),
-    dict(eval_backend='table'), dict(xu_coord_type='independent'),
+    dict(num_processes=2), dict(coordinator_address='localhost:1234'),
+    dict(eval_backend='table'), dict(process_id=0),
     dict(save_artifacts=True), dict(data_parallel=True),
-    dict(xu_coord_type='paired2d'), dict(divergence_recovery=False)])
+    dict(data_parallel='hosts'), dict(divergence_recovery=False)])
 def test_trainer_refuses_unported_config(override):
-    """Anything beyond the 1D 'mean' map, ancestral / metropolis / mala +
-    adam / sr / spring on one device raises NotImplementedError instead of
-    being ignored."""
+    """Anything beyond ancestral / metropolis / mala + adam / sr / spring on
+    one process and one device — meshes, processes, artifacts, the table
+    eval backend — raises NotImplementedError instead of being ignored
+    (2D and the antisym ansatz are ported: tests/test_torch_coords2d.py)."""
     with pytest.raises(NotImplementedError):
         VMCTrainer(device='cpu', **override)
 

@@ -14,7 +14,9 @@ arrays) onto the state-dict names of the port's module trees
 
 with dense weights kept in the JAX (fan_in, fan_out) layout.  Waveflow and
 MFlow params are the pair ``(transform_params, sp_params)``; Flow params
-are ``transform_params`` alone (its priors have none).
+are ``transform_params`` alone (its priors have none).  The antisymmetrized
+Waveflow's parameters are its φ's, under φ's names (models/antisym.py), so
+``params_from_jax`` loads a JAX antisym run as it loads a Waveflow.
 ``load_jax_checkpoint`` reads a checkpoint pickle written by the JAX
 trainer without JAX or optax installed; ``adam_state_from_jax`` and
 ``mcmc_state_from_jax`` carry its optimizer moments and Metropolis or MALA

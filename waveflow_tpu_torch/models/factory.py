@@ -1,8 +1,8 @@
 """Configured model assemblies: the MFlow density model and the Waveflow ψ
 ansatz.
 
-Port of waveflow_tpu/models/factory.py (``get_model``, and
-``get_waveflow_model`` with the 'mean' coordinate map).  The module trees
+Port of waveflow_tpu/models/factory.py (``get_model`` and
+``get_waveflow_model`` with every coordinate map).  The module trees
 mirror the JAX params pytrees: ``transform.layers`` = [(BoxTransform,)
 (IMADE, Reverse) × n_flow_layers] and ``conditioner`` = the prior's masked
 conditioner (see convert.py).
@@ -60,6 +60,16 @@ def get_model(input_dim, base_spline_degree=5, i_spline_degree=5,
                  generator=generator, device=device)
 
 
+def constrained_dims(n_dimension: int, xu_coord_type: str) -> range:
+    """The dimensions whose amplitude carries the left-edge zero boundary
+    (the gaps of sorted fermions): 'mean' 0..n-2, 'first' 1..n-1,
+    'paired2d' the x-gaps 0..n/2-2, 'independent' none."""
+    return {'mean': range(n_dimension - 1),
+            'first': range(1, n_dimension),
+            'paired2d': range(n_dimension // 2 - 1),
+            'independent': range(0)}[xu_coord_type]
+
+
 def get_waveflow_model(n_dimension, base_spline_degree=5, i_spline_degree=5,
                        n_prior_internal_knots=16, n_i_internal_knots=16,
                        i_spline_reg=0.0, i_spline_reverse_fun_tol=1e-6,
@@ -69,8 +79,9 @@ def get_waveflow_model(n_dimension, base_spline_degree=5, i_spline_degree=5,
                        generator: torch.Generator | None = None,
                        device=None) -> Waveflow:
     """Waveflow ψ: BoxTransform + n × (IMADE + Reverse) over a squared
-    orthonormal-B-spline prior.  The gap dimensions 0..n-2 of the 'mean'
-    map carry the left-edge zero boundary.  ``i_spline_reverse_fun_tol``
+    orthonormal-B-spline prior.  The gap dimensions of the coordinate map
+    (``constrained_dims``) carry the left-edge zero boundary.
+    ``i_spline_reverse_fun_tol``
     is accepted and unused, as in ``get_model``.  Weights are drawn from
     ``generator`` (CPU generator; seed it for reproducible inits)."""
     check_sampling_backend(eval_backend, sampling_backend)
@@ -93,7 +104,8 @@ def get_waveflow_model(n_dimension, base_spline_degree=5, i_spline_degree=5,
         n_dimension, spline_degree=base_spline_degree,
         n_internal_knots=n_prior_internal_knots,
         constraints_dict_left={0: 0.0}, constraints_dict_right={0: 0.0},
-        constrained_dimension_indices_left=range(n_dimension - 1),
+        constrained_dimension_indices_left=constrained_dims(n_dimension,
+                                                            xu_coord_type),
         set_nn_output_grad_to_zero=False,
         n_spline_base_mesh_points=n_spline_base_mesh_points,
         eval_backend=eval_backend, sampling_backend=sampling_backend,

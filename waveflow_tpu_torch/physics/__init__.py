@@ -5,7 +5,8 @@ from waveflow_tpu_torch.physics.hamiltonian import (
     laplacian_dense_hessian, laplacian_hvp, laplacian_numerical,
 )
 from waveflow_tpu_torch.physics.fermion import (
-    abs2rel, inversion_count, parity, rel2abs, sort_and_parity,
+    abs2rel, antisymmetrize, inversion_count, parity, rel2abs,
+    sort_and_parity,
 )
 from waveflow_tpu_torch.physics.exact import (
     exact_free_fermion_energy, exact_free_fermion_energy_2d,

@@ -1,7 +1,7 @@
 """Fermionic coordinate handling: inversion counts, parity, gap maps.
 
 Port of waveflow_tpu/physics/fermion.py (``inversion_count``, ``parity``,
-``sort_and_parity``, ``abs2rel``, ``rel2abs``).  The inversion count is one
+``sort_and_parity``, ``antisymmetrize``, ``abs2rel``, ``rel2abs``).  The inversion count is one
 O(n²) pairwise comparison per row, on the tensor's device.
 """
 
@@ -28,6 +28,18 @@ def parity(x: torch.Tensor) -> torch.Tensor:
 def sort_and_parity(x: torch.Tensor):
     """Sorted coordinates and the sign of the sorting permutation."""
     return torch.sort(x, dim=-1).values, parity(x)
+
+
+def antisymmetrize(psi_fn):
+    """ψ defined on the sorted sector -> the full antisymmetric ψ:
+    ψ_A(x) = sign(sort permutation) · ψ(sort(x)).  ``psi_fn(x)`` takes
+    (batch, n) coordinates (the JAX form takes the parameters first)."""
+
+    def psi_a(x: torch.Tensor) -> torch.Tensor:
+        xs, sgn = sort_and_parity(x)
+        return sgn * psi_fn(xs)
+
+    return psi_a
 
 
 def abs2rel(coords: torch.Tensor) -> torch.Tensor:

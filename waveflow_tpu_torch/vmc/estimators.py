@@ -183,7 +183,16 @@ def make_train_step(psi, h_fn, params, learning_rate: float,
     On a CUDA device Adam is ``capturable`` (its step count lives on the
     device, so an update can be captured in a CUDA graph), whether or not
     the window runs as a graph, so that the two compare like with like;
-    on the CPU it is not (torch refuses a capturable Adam there)."""
+    on the CPU it is not (torch refuses a capturable Adam there).
+
+    The step runs its backward passes — those nested in the Laplacian's
+    forward ('hvp', 'dense') and the loss's — on the calling thread
+    (``torch.autograd.set_multithreading_enabled(False)``).  On the card
+    the autograd engine otherwise runs them on a worker thread, where the
+    double-backward nodes get that thread's sequence numbers; the loss's
+    backward orders its nodes by sequence number, so the order of its
+    gradient sums followed the process's history, and the first 'reference'
+    + 'dense' run of a process parted from later ones in the last bits."""
     params = list(params)
     loss_fn = make_loss_fn(psi, h_fn, estimator=estimator,
                            energy_clip=energy_clip, clip_stat=clip_stat)
@@ -191,12 +200,13 @@ def make_train_step(psi, h_fn, params, learning_rate: float,
                                  eps=1e-8, capturable=params[0].is_cuda)
 
     def step(batch: torch.Tensor, baseline) -> torch.Tensor:
-        optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(batch, baseline)
-        loss.backward()
-        if grad_clip is not None:
-            clip_by_global_norm(params, grad_clip)
-        optimizer.step()
+        with torch.autograd.set_multithreading_enabled(False):
+            optimizer.zero_grad(set_to_none=True)
+            loss = loss_fn(batch, baseline)
+            loss.backward()
+            if grad_clip is not None:
+                clip_by_global_norm(params, grad_clip)
+            optimizer.step()
         return loss.detach()
 
     step.optimizer = optimizer

@@ -25,7 +25,7 @@ import torch
 from waveflow_tpu_torch.vmc import graphs
 from waveflow_tpu_torch.vmc.estimators import _median, _safe_psi
 from waveflow_tpu_torch.vmc.metropolis import (
-    MetropolisState, make_metropolis_sampler, sector_projection,
+    MetropolisState, make_metropolis_sampler, sector_mode, sector_projection,
 )
 
 LADDER = (1.0, 2.0, 4.0, 8.0)
@@ -198,21 +198,18 @@ def evaluate_trainer(trainer, n_blocks: int = 64, sweeps_per_block: int = 25,
                      seed: int = 7, clip_ladder: bool = False,
                      graph: bool | None = None) -> EnergyEvaluation:
     """Frozen-parameter evaluation of a (possibly checkpoint-restored)
-    VMCTrainer, warm-started from exact ancestral draws; every draw comes
-    from one generator on the trainer's device seeded by ``seed``.
-    ``graph`` as in ``evaluate_energy``."""
+    VMCTrainer, warm-started from its model's draws (exact ancestral draws;
+    for the antisym ansatz, draws from |φ|² under a random electron
+    permutation each); every draw comes from one generator on the
+    trainer's device seeded by ``seed``.  ``graph`` as in
+    ``evaluate_energy``."""
     c = trainer.config
     B = batch_size or max(4096, c.batch_size)
     generator = torch.Generator(trainer.device).manual_seed(seed)
     positions = trainer.model.sample(B, generator=generator)
     # the trainer's RESOLVED coordinate map decides the sector
-    xu = trainer.xu_coord_type
-    if int(trainer.n_particle) <= 1 or xu == 'independent':
-        sort_fermions = False
-    elif xu == 'paired2d':
-        sort_fermions = 'paired2d'
-    else:
-        sort_fermions = True
+    sort_fermions = (int(trainer.n_particle) > 1
+                     and sector_mode(trainer.xu_coord_type))
     return evaluate_energy(
         trainer.model.psi, trainer.h_fn, trainer.model.log_pdf,
         c.box_length, positions, generator, n_blocks=n_blocks,

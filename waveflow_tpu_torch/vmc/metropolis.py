@@ -42,6 +42,16 @@ def sector_projection(sort_mode):
     return None
 
 
+def sector_mode(xu_coord_type: str) -> bool | str:
+    """The sector projection of a resolved coordinate map, as the JAX
+    trainer picks it (``trainer.py:390-391``): 'paired2d' sorts the
+    electrons' (x, y) pairs by x, 'independent' projects nothing, the 1D
+    maps sort the coordinates."""
+    if xu_coord_type == 'paired2d':
+        return 'paired2d'
+    return xu_coord_type != 'independent'
+
+
 class MetropolisState(NamedTuple):
     positions: torch.Tensor     # (B, D)
     log_prob: torch.Tensor      # (B,)

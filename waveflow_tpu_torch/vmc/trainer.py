@@ -7,11 +7,14 @@ periodic ancestral refresh); the 'clipped_score' (either clip statistic)
 or 'reference' estimator with adam after an optax-form global norm clip,
 or the SR / SPRING natural-gradient updates (``optimizer='sr'`` /
 ``'spring'``, vmc/sr.py); every Laplacian form; eval backends 'poly' and
-'poly_pallas' (the latter runs the CUDA basis-jet kernel); checkpoint save
-/ exact resume and divergence recovery.  Everything else the JAX config
-offers — meshes, artifacts, 2D, the antisym ansatz — raises
-``NotImplementedError``, as do the combinations the JAX trainer accepts
-and silently ignores (``_check_combination``).
+'poly_pallas' (the latter runs the CUDA basis-jet kernel); one or two
+space dimensions with every coordinate map, and the antisymmetrized
+ansatz (``ansatz='antisym'``, models/antisym.py) under the JAX trainer's
+resolution (``resolve_ansatz``); checkpoint save / exact resume and
+divergence recovery.  Everything else the JAX config offers — meshes and
+processes, artifacts — raises ``NotImplementedError``, as do the
+combinations the JAX trainer accepts and silently ignores
+(``_check_combination``).
 
 The running baseline of the 'reference' estimator follows the JAX
 trainer: zero at every ``train`` call, each good window's mean loss after
@@ -56,6 +59,8 @@ from waveflow_tpu_torch import resolve_device
 from waveflow_tpu_torch.convert import (
     adam_state_from_jax, mcmc_state_from_jax, params_from_jax,
 )
+from waveflow_tpu_torch.bijections.box_transform import COORD_TYPES
+from waveflow_tpu_torch.models.antisym import get_antisym_waveflow_model
 from waveflow_tpu_torch.models.factory import get_waveflow_model
 from waveflow_tpu_torch.physics import (
     construct_hamiltonian_function, system_catalogue,
@@ -67,7 +72,7 @@ from waveflow_tpu_torch.vmc.estimators import (
 )
 from waveflow_tpu_torch.vmc.mala import MALAState, make_mala_train_window
 from waveflow_tpu_torch.vmc.metropolis import (
-    MetropolisState, make_mcmc_train_window,
+    MetropolisState, make_mcmc_train_window, sector_mode,
 )
 from waveflow_tpu_torch.vmc.sr import (
     make_spring_train_step, make_sr_train_step,
@@ -125,8 +130,10 @@ class VMCConfig:
     mcmc_target_accept: float = 0.5
     # exact ancestral walker refresh for the MCMC samplers, in epochs
     # (rounded to whole windows; the adapted step size is kept): 'auto' =
-    # once per window for >= 3 electrons (trapping in nodal pockets, Li),
-    # never otherwise (the He flagship); an int sets it; None disables
+    # once per window for >= 3 electrons under the sorted ansatz (trapping
+    # in nodal pockets, Li), never otherwise (the He flagship, and the
+    # antisym ansatz, which has no exact sampler); an int sets it (raises
+    # under 'antisym'); None disables
     mcmc_refresh_every: int | None | str = 'auto'
     # 'adam', or the natural-gradient 'sr' (matrix-free CG) and 'spring'
     # (sample-space Cholesky with momentum), vmc/sr.py
@@ -140,6 +147,9 @@ class VMCConfig:
     score_row_clip_warmup: int | None = 1000
     # trust region of the natural-gradient updates: ||lr*delta||_2 capped
     sr_max_update_norm: float | None = 0.3
+    # 'sorted' (ψ on the sorted sector of the coordinate map) or 'antisym'
+    # (the signed sum over electron permutations of a Waveflow on the
+    # 'independent' map; Metropolis or MALA walkers only)
     ansatz: str = 'sorted'
     interactions: bool = True
     # on a non-finite loss window, restore the last good state (snapshot
@@ -158,14 +168,14 @@ class VMCConfig:
 
 
 _ONLY = {
-    'n_space_dimension': (1,), 'xu_coord_type': ('mean',),
+    'xu_coord_type': COORD_TYPES,
     'eval_backend': ('poly', 'poly_pallas'),
     'sampling_backend': ('table', 'poly'),
     'laplacian_mode': ('fwd_batched', 'fwd', 'hvp', 'dense'),
     'estimator': ('clipped_score', 'reference'),
     'sampler': ('ancestral', 'metropolis', 'mala'),
     'optimizer': ('adam', 'sr', 'spring'),
-    'ansatz': ('sorted',), 'clip_stat': ('mean_abs', 'median_abs'),
+    'clip_stat': ('mean_abs', 'median_abs'),
     'divergence_recovery': (True,),
 }
 
@@ -194,8 +204,39 @@ def _check_combination(c: VMCConfig):
             f"{sorted(MATMUL_PRECISION)}")
 
 
-# the (optimizer, sampler) pairs whose windows run as CUDA graphs; the rest
-# stay eager on the card (ROADMAP Queue 1 lists why, pair by pair)
+def resolve_ansatz(config: VMCConfig, n_particle: int):
+    """(ansatz, coordinate map) as the JAX trainer resolves them
+    (``trainer.py:229-255``): 'antisym' with several electrons runs on the
+    'independent' map (and raises ValueError with ancestral walkers: |ψ_A|²
+    has no exact sampler); otherwise 'sorted', on 'paired2d' for several
+    electrons in 2D, 'independent' for one electron in more than one
+    dimension, the configured map in 1D; several electrons in more than 2
+    dimensions raise NotImplementedError, as in JAX."""
+    c = config
+    if c.ansatz not in ('sorted', 'antisym'):
+        raise ValueError(f"unknown ansatz {c.ansatz!r}")
+    if c.ansatz == 'antisym' and n_particle > 1:
+        if c.sampler == 'ancestral':
+            raise ValueError(
+                "ansatz='antisym' has no exact ancestral sampler (|ψ_A|² is "
+                "unnormalized) — use sampler='metropolis' or 'mala'")
+        return 'antisym', 'independent'
+    if c.n_space_dimension == 2 and n_particle > 1:
+        return 'sorted', 'paired2d'
+    if c.n_space_dimension > 2 and n_particle > 1:
+        raise NotImplementedError(
+            "sorted-sector multi-electron systems are supported in 1D "
+            "(coordinate sort) and 2D (paired2d x-sorted sector); for "
+            "n_space_dimension > 2 use ansatz='antisym'")
+    if c.n_space_dimension > 1:
+        return 'sorted', 'independent'
+    return 'sorted', c.xu_coord_type
+
+
+# the (optimizer, sampler) pairs whose windows run as CUDA graphs, for every
+# ansatz and coordinate map (the antisym ψ's permutation gather reads only
+# device buffers); the rest stay eager on the card (ROADMAP Queue 1 lists
+# why, pair by pair)
 GRAPHED = (('adam', 'ancestral'), ('adam', 'metropolis'))
 
 
@@ -265,20 +306,25 @@ class VMCTrainer:
         self.protons, self.n_particle = system_catalogue[
             c.n_space_dimension][c.system_name]
         self.input_dim = int(self.n_particle) * c.n_space_dimension
-        # the resolved coordinate map (vmc/evaluate.py derives the sector)
-        self.xu_coord_type = c.xu_coord_type
-        init_gen = torch.Generator().manual_seed(c.seed)
-        self.model = get_waveflow_model(
-            self.input_dim, base_spline_degree=c.spline_degree,
-            i_spline_degree=c.spline_degree,
+        # the RESOLVED ansatz and coordinate map (vmc/evaluate.py derives
+        # the sector from the map)
+        self.ansatz, self.xu_coord_type = resolve_ansatz(c, int(self.n_particle))
+        model_kw = dict(
+            base_spline_degree=c.spline_degree, i_spline_degree=c.spline_degree,
             n_prior_internal_knots=c.num_knots, n_i_internal_knots=c.num_knots,
             i_spline_reg=c.i_spline_reg,
             i_spline_reverse_fun_tol=c.i_spline_reverse_fun_tol,
-            n_flow_layers=c.n_flow_layers,
-            box_size=c.box_length, xu_coord_type=c.xu_coord_type,
+            n_flow_layers=c.n_flow_layers, box_size=c.box_length,
             n_spline_base_mesh_points=c.n_spline_base_mesh_points,
             eval_backend=c.eval_backend, sampling_backend=c.sampling_backend,
-            generator=init_gen, device=self.device)
+            generator=torch.Generator().manual_seed(c.seed),
+            device=self.device)
+        if self.ansatz == 'antisym':
+            self.model = get_antisym_waveflow_model(
+                int(self.n_particle), c.n_space_dimension, **model_kw)
+        else:
+            self.model = get_waveflow_model(
+                self.input_dim, xu_coord_type=self.xu_coord_type, **model_kw)
         # the per-walker 'fwd' runs at batch level under the kernel backend
         # (JAX trainer.py:281-283; the Hamiltonian itself keeps the mode)
         lap_mode = c.laplacian_mode
@@ -310,7 +356,7 @@ class VMCTrainer:
         # the windows that hold a CUDA graph (dropped by _drop_graphs)
         self._graphed = []
         self.mcmc_state = None
-        sort = self.xu_coord_type != 'independent'
+        sort = sector_mode(self.xu_coord_type)
         mcmc_kw = dict(n_sweeps=c.mcmc_sweeps,
                        target_accept=c.mcmc_target_accept)
         if c.sampler == 'mala':
@@ -358,13 +404,23 @@ class VMCTrainer:
                        else step_size))
 
     def _refresh_stride(self) -> int | None:
-        """Windows between exact walker refreshes, or None."""
+        """Windows between exact walker refreshes, or None: 'auto' is one
+        window for >= 3 electrons under the sorted ansatz, as in JAX
+        (``trainer.py:708-721``); a refresh under 'antisym', which has no
+        exact sampler, raises ValueError."""
         c = self.config
+        if c.sampler == 'ancestral':
+            return None
         every = c.mcmc_refresh_every
         if every == 'auto':
-            every = c.window if int(self.n_particle) >= 3 else None
-        if c.sampler == 'ancestral' or not every:
+            every = (c.window if self.ansatz == 'sorted'
+                     and int(self.n_particle) >= 3 else None)
+        if not every:
             return None
+        if self.ansatz == 'antisym':
+            raise ValueError(
+                "mcmc_refresh_every requires an exact ancestral sampler "
+                "(ansatz='sorted'); the antisym ansatz has none")
         return max(1, round(every / c.window))
 
     def _snapshot(self):
