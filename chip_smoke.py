@@ -66,9 +66,9 @@ Phases (any failure exits non-zero; nothing is caught):
                launched, walkers/s;
  10. spring, sr — r4_spring100k evaluated (raw and clipped gated) and
                resumed with optimizer='spring' for 100 epochs (SPRING's
-               skipped / fallbacks counters, K3 launches per step, 10
+               skipped / fallbacks counters, K3 launches per step, 3
                epochs profiled); he1d_sr resumed with optimizer='sr' for 20
-               (2 more profiled);
+               (1 more profiled);
  11. li      — r5_li_metro_refresh100_s3 (3 electrons) evaluated (raw and
                clipped gated) and resumed for one Metropolis window of 20
                epochs under the 'auto' refresh (K1 launched, 3 columns);
@@ -111,12 +111,32 @@ Phases (any failure exits non-zero; nothing is caught):
                bit too), then one graphed window of 100 epochs;
  22. paired2d-256 — the paired2d ancestral adam window from the r4 run the
                same way (K1 4 launches per epoch, one per column);
- 23. density — train_density_model at the full width of the density
+ 23. k4-vmap (run first in the table) — K4 and its backward under
+               torch.func.vmap over chains at
+               the parameter posterior's shapes (8 chains and 128 SMC
+               particles × 300 points × 2 dims): forward, autograd.grad of
+               the vmapped sum and vmap(grad) each 1 + 1 launches, equal to
+               a loop of per-chain calls to the bit, within K4's tolerance
+               of the plain path under vmap; the posterior gradient 1 + 1
+               launches whatever the number of chains;
+ 24-26. posterior-hmc, posterior-nuts, posterior-smc — the parameter
+               posterior of examples/parameter_posterior_torch.py over the
+               example MFlow's 10,816 parameters, depth cut: gradient
+               evaluations per second, ms per step, tree depth, accept,
+               step size, K4 1 + 1 launches per gradient, the idle share of
+               a profiled stretch, held-out LL at init and under the BMA
+               (finite, above the init's);
+ 27. nuts-waveflow — HMC and NUTS over He-1d walkers of the 100k
+               checkpoint on the sorted sector, 256 chains warm-started at
+               K1 ancestral draws: pooled moments within 0.25 of the
+               ancestral ones (JAX's test_hmc_stationary_on_waveflow), K3 4
+               launches per density call, chain-gradients per second;
+ 28. density — train_density_model at the full width of the density
                benchmark (MFlow, circles, 20,000 points), 200 epochs with a
                metric checkpoint every 100; losses finite and falling, K2
                and both K4 kernels launched on that run, metrics finite,
                the round trip closes, the card agrees with the CPU;
- 24. report  — one JSON line of kernels, then the final status line.
+ 29. report  — one JSON line of kernels, then the final status line.
 
 Each phase that drives a path sets the launch counts to 0 just before it
 and reads them just after.  A replayed graph's launches are counted by
@@ -1427,6 +1447,31 @@ def k3_device_ms(torch, fn, expected: int) -> float:
     return sum(e.self_device_time_total for e in kern) / 1e3
 
 
+def launch_device_ms(torch, fn, key: str, reps: int = 20) -> float:
+    """The mean device time of one launch of the kernel whose name holds
+    ``key``, over ``reps`` calls of ``fn`` in one profiler pass.  After
+    profiled graph replays the profiler drops such eager launches (seen:
+    19 of 20 recorded after one graph phase, none after all of them; the
+    k4-vmap phase therefore runs first), so the mean is over the launches
+    it recorded; the launch count itself is checked by the wrappers'
+    counters."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and key in e.key]
+    n = sum(e.count for e in kern)
+    if not 0 < n <= reps:
+        fail(f"the profiler saw {n} {key} launches in {reps} calls")
+    return sum(e.self_device_time_total for e in kern) / 1e3 / n
+
+
 def window_phase(torch, label, run_dir, config, n_epochs, profile=0):
     """One training window resumed from a committed JAX run at batch 256
     with the kernel backend: finite losses, walkers/s (host clock), the
@@ -2042,15 +2087,309 @@ def graph_2d_phase(torch, label, run_dir, config, window_call, k1_per_epoch):
     return launches, row
 
 
+# ---- 23-27. the probprog samplers: HMC, NUTS, SMC ---------------------------
+POSTERIOR_POINTS = 300           # the posterior example's training points
+K4_VMAP_CHAINS = (8, 128)        # HMC / NUTS chains, SMC particles
+# depth cut from the example's 150 warm-up + 200 steps, to keep the three
+# posterior phases to seconds
+POSTERIOR_CUT = {'hmc': dict(n_warmup=20, n_steps=20),
+                 'nuts': dict(n_warmup=12, n_steps=12), 'smc': {}}
+WAVEFLOW_CHAINS = 256            # JAX's test_hmc_stationary_on_waveflow
+WAVEFLOW_MOMENT_ATOL = 0.25      # its tolerance
+
+
+def posterior_example():
+    """examples/parameter_posterior_torch.py as a module: its model
+    settings and ``run_posterior``."""
+    import importlib.util
+    path = ROOT / 'examples' / 'parameter_posterior_torch.py'
+    spec = importlib.util.spec_from_file_location('parameter_posterior_torch',
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def k4_counts():
+    from waveflow_tpu_torch.ops import cuda_spline
+    return cuda_spline.launches, cuda_spline.launches_bwd
+
+
+def k4_vmap_phase(torch):
+    """K4 under ``torch.func.vmap`` over chains at the parameter
+    posterior's shapes (C chains × 300 points × 2 dims, the example MFlow's
+    7-basis M-spline prior on its 800-point mesh; C = 8 chains and 128 SMC
+    particles), coefficients from the model's own prior weights: the
+    forward, the gradient by ``autograd.grad`` of the vmapped sum and by
+    ``vmap(grad(...))``, each one launch of the forward kernel and one of
+    the backward kernel, equal to a loop of per-chain calls to the bit, and
+    within K4's tolerance (2e-5 of the largest value) of the plain path
+    under vmap.  Then the posterior's gradient itself: 1 + 1 launches
+    whatever the number of chains, both ways.  Comparison launches only:
+    no path's count."""
+    from torch.func import grad, vmap
+    from waveflow_tpu_torch.benchmark import get_dataset
+    from waveflow_tpu_torch.benchmark.density import get_benchmark_model
+    from waveflow_tpu_torch.ops import cuda_spline
+    from waveflow_tpu_torch.vmc.hmc import (make_parameter_posterior,
+                                            value_and_grad)
+    ex = posterior_example()
+    model = get_benchmark_model('MFlow', **ex.MODEL, device='cuda',
+                                generator=torch.Generator().manual_seed(0))
+    ev = model.ev
+    n_b, n_mesh = ev.n_bases, ev.n_mesh
+    t0, t1 = ev.tables[0], ev.tables[1]
+    gen = torch.Generator('cuda').manual_seed(5)
+
+    def launched(fn, expected, what):
+        before = k4_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = tuple(a - b for a, b in zip(k4_counts(), before))
+        if got != expected:
+            fail(f"k4-vmap: {what} launched K4 forward/backward {got}, not "
+                 f"{expected}")
+        return out
+
+    def close(got, ref, what):
+        tol = 2e-5 * max(1.0, ref.abs().max().item())
+        err = (got - ref).abs().max().item()
+        if not err <= tol:
+            fail(f"k4-vmap {what}: max {err:.3e} against the plain path "
+                 f"under vmap (atol {tol:.3e})")
+        return err
+
+    f = vmap(lambda c, x: ev(c, x))
+    f_plain = vmap(lambda c, x: cuda_spline.spline_eval_plain(t0, c, x))
+    bwd_plain = vmap(lambda c, x, g: cuda_spline.spline_eval_bwd_plain(
+        t0, t1, c, x, g))
+
+    def single(c, x, g):
+        return (ev(c, x) * g).sum()
+    vgrad = vmap(grad(single, (0, 1)))
+
+    rows = {}
+    for C in K4_VMAP_CHAINS:
+        shape = (C, POSTERIOR_POINTS, 2)
+        x = torch.rand(shape, generator=gen, device='cuda') * 1.1 - 0.05
+        x[0, :4, 0] = torch.tensor([0.0, 1.0, -1e-6, 1.0 + 1e-6])
+        with torch.no_grad():
+            c = model.prior_weights(x.reshape(-1, 2)).reshape(shape + (n_b,))
+        g = torch.randn(shape, generator=gen, device='cuda')
+        cr, xr = c.clone().requires_grad_(), x.clone().requires_grad_()
+
+        def fwd():
+            return f(c, x)
+
+        def fwd_bwd():
+            return torch.autograd.grad((f(cr, xr) * g).sum(), (cr, xr))
+
+        y = launched(fwd, (1, 0), f"the forward at C = {C}")
+        gc, gx = launched(fwd_bwd, (1, 1), f"autograd.grad at C = {C}")
+        vc, vx = launched(lambda: vgrad(c, x, g), (1, 1),
+                          f"vmap(grad) at C = {C}")
+        for i in range(C):
+            ci, xi = c[i].clone().requires_grad_(), x[i].clone() \
+                .requires_grad_()
+            yi = ev(ci, xi)
+            rc, rx = torch.autograd.grad((yi * g[i]).sum(), (ci, xi))
+            if not (torch.equal(y[i], yi) and torch.equal(gc[i], rc)
+                    and torch.equal(gx[i], rx) and torch.equal(vc[i], rc)
+                    and torch.equal(vx[i], rx)):
+                fail(f"k4-vmap: chain {i} of {C} differs from its own "
+                     "kernel call")
+        pc, px = bwd_plain(c, x, g)
+        err = close(y, f_plain(c, x), f"forward C = {C}")
+        err_b = max(close(gc, pc, f"g_coeffs C = {C}"),
+                    close(gx, px, f"g_x C = {C}"))
+        N = C * POSTERIOR_POINTS * 2
+        fwd_b = bound_ms(4 * (N * n_b + 2 * N + n_mesh * n_b),
+                         N * (4 * n_b + 6))
+        bwd_b = bound_ms(4 * (N * (2 + 2 * n_b + 1) + 2 * n_mesh * n_b),
+                         N * (7 * n_b + 7))
+        row_f = dict(chains=C, N=N, max_abs_err=err, ms=cuda_ms(torch, fwd),
+                     device_ms=launch_device_ms(torch, fwd,
+                                                'spline_eval_kernel'),
+                     plain_ms=cuda_ms(torch, lambda: f_plain(c, x)),
+                     bound_ms=fwd_b[0], bound_by=fwd_b[1])
+        row_b = dict(chains=C, N=N, max_abs_err=err_b,
+                     ms=cuda_ms(torch, fwd_bwd),
+                     device_ms=launch_device_ms(torch, fwd_bwd,
+                                                'spline_eval_bwd_kernel'),
+                     plain_ms=cuda_ms(torch, lambda: bwd_plain(c, x, g)),
+                     bound_ms=bwd_b[0], bound_by=bwd_b[1])
+        rows[C] = (row_f, row_b)
+        print(f"K4 under vmap, {C} chains x {POSTERIOR_POINTS} points x 2 "
+              f"(N = {N}, {n_b} bases, mesh {n_mesh}): forward, autograd.grad "
+              f"of the vmapped sum and vmap(grad) each 1 launch of K4 and 1 "
+              f"of its backward, equal to a loop of per-chain calls to the "
+              f"bit; max|dy| {err:.3e}, max|d gradient| {err_b:.3e} against "
+              f"the plain path under vmap | forward kernel_ms "
+              f"{row_f['ms']:.4f} device_ms {row_f['device_ms']:.4f} "
+              f"plain_ms {row_f['plain_ms']:.4f} bound_ms "
+              f"{row_f['bound_ms']:.5f} ({row_f['bound_by']}) | forward + "
+              f"backward kernel_ms {row_b['ms']:.4f}, backward device_ms "
+              f"{row_b['device_ms']:.4f}, plain backward ms "
+              f"{row_b['plain_ms']:.4f}, backward bound_ms "
+              f"{row_b['bound_ms']:.5f} ({row_b['bound_by']})", flush=True)
+
+    # the posterior's own gradient: 1 + 1 launches for any number of chains
+    X = get_dataset('circles', n_samples=POSTERIOR_POINTS + 1000)
+    lp, _, flat0 = make_parameter_posterior(
+        model, torch.as_tensor(X[:POSTERIOR_POINTS], device='cuda'), 2.0)
+    per_chain = vmap(grad(lambda th: lp(th[None])[0]))
+    for C in K4_VMAP_CHAINS:
+        theta = flat0 + 0.01 * torch.randn((C, flat0.numel()), generator=gen,
+                                           device='cuda')
+        _, g1 = launched(lambda: value_and_grad(lp, theta), (1, 1),
+                         f"the posterior gradient at {C} chains")
+        g2 = launched(lambda: per_chain(theta), (1, 1),
+                      f"vmap(grad) of the posterior at {C} chains")
+        if not torch.isfinite(g1).all():
+            fail("k4-vmap: the posterior gradient is not finite")
+        err = ((g1 - g2).abs().max() / g1.abs().max()).item()
+        print(f"posterior gradient at {C} chains (D = {flat0.numel()}): K4 "
+              f"1 + 1 launches by autograd.grad of the vmapped sum and by "
+              f"vmap(grad); the two agree to {err:.2e} of the largest "
+              f"entry", flush=True)
+        if not err <= 1e-5:
+            fail(f"k4-vmap: the two posterior gradients differ by {err:.2e}")
+    row_f, row_b = rows[K4_VMAP_CHAINS[0]]
+    return dict(forward=dict(row_f, smc=rows[K4_VMAP_CHAINS[1]][0]),
+                backward=dict(row_b, smc=rows[K4_VMAP_CHAINS[1]][1]))
+
+
+def posterior_phase(torch, sampler):
+    """The parameter posterior of examples/parameter_posterior_torch.py at
+    full width (D = 10,816; 8 chains or 128 particles, 300 points), depth
+    cut (POSTERIOR_CUT): gradient evaluations per second, ms per step, the
+    adapted step size and acceptance, NUTS's tree depth, K4 launches per
+    density call (1) and per gradient (1 backward), the idle share of a
+    profiled stretch; held-out LL at init and under the BMA, which must be
+    finite and above the init's.  Returns K4's launches on that path."""
+    ex = posterior_example()
+    from waveflow_tpu_torch.ops import cuda_spline
+    cuda_spline.launches = cuda_spline.launches_bwd = 0
+    label = f"posterior-{sampler}"
+    n, unit = (1, 'temperatures') if sampler == 'smc' else (2, 'steps')
+    fig = ex.run_posterior(
+        sampler, device='cuda', seed=0, verbose=False,
+        profile=lambda run: profile_window(torch, run, n, f"{label}: ",
+                                           unit=unit),
+        **POSTERIOR_CUT[sampler])
+    launches = dict(zip(('spline_eval', 'spline_eval_bwd'), k4_counts()))
+    prof = fig.pop('profile')
+    print(f"{label}: D = {fig['D']}, {fig['sampling_s']:.2f} s sampling, "
+          f"{fig['ms_per_step']:.1f} ms per step, "
+          f"{fig['grad_evals_per_s']:.1f} chain-gradients/s "
+          f"({fig['grad_calls_per_s']:.1f} batched) | "
+          + (f"step size {fig['step_size']:.3e}, " if sampler != 'smc'
+             else f"{fig['n_resamples']} resamples, ")
+          + f"accept {fig['accept']:.4f}"
+          + (f", mean tree depth {fig['mean_tree_depth']:.3f} (max "
+             f"{fig['max_tree_depth']})" if sampler == 'nuts' else '')
+          + f" | K4 per density call {fig['k4_per_density_call']:g}, "
+          f"backward per gradient {fig['k4_bwd_per_grad_call']:g} | idle "
+          f"{prof['idle']:.4f} | held-out LL init {fig['init_ll']:.4f}, "
+          f"best draw {fig['best_draw_ll']:.4f}, BMA {fig['bma_ll']:.4f}",
+          flush=True)
+    if fig['k4_per_density_call'] != 1.0 or (
+            sampler != 'smc' and fig['k4_bwd_per_grad_call'] != 1.0):
+        fail(f"{label}: K4 launched {fig['k4_per_density_call']} times per "
+             f"density call and its backward {fig['k4_bwd_per_grad_call']} "
+             "per gradient, not 1 and 1")
+    if not (fig['finite'] and fig['bma_ll'] > fig['init_ll']):
+        fail(f"{label}: BMA held-out LL {fig['bma_ll']} is not finite and "
+             f"above the init's {fig['init_ll']}")
+    return launches, dict(fig, idle=prof['idle'])
+
+
+def nuts_waveflow_phase(torch, params):
+    """HMC and NUTS over He-1d walkers of the 100k checkpoint on the sorted
+    sector (JAX's test_hmc_stationary_on_waveflow: the density clipped into
+    the open box and sorted), 256 chains warm-started at K1 ancestral
+    draws, depth cut: the pooled moments of the kept draws within 0.25 of
+    4,096 ancestral draws'.  K3 launches per density call (4: the 3 IMADE
+    layers and the prior) and chain-gradients per second: the rows of the
+    density calls that take a gradient, over the wall."""
+    from waveflow_tpu_torch.vmc import make_hmc_sampler, make_nuts_sampler
+    m = flagship_model(torch, params, 'poly_pallas')
+    L = 10.0
+    reset_counts()
+    with torch.no_grad():
+        anc = m.sample(4096, generator=torch.Generator('cuda').manual_seed(1))
+    launches = read_counts()
+    calls = [0, 0]      # density calls; the rows of those under a gradient
+
+    def log_prob(x):
+        calls[0] += 1
+        if torch.is_grad_enabled():
+            calls[1] += x.shape[0]
+        return m.log_pdf(torch.sort(torch.clamp(x, -L + 1e-3, L - 1e-3),
+                                    -1).values)
+
+    out = {}
+    for name, make, kw, cut in (
+            ('hmc', make_hmc_sampler, dict(n_leapfrog=8), (30, 45)),
+            ('nuts', make_nuts_sampler, dict(max_tree_depth=5), (20, 30))):
+        init_fn, _, run_fn = make(log_prob, **kw)
+        before, calls[:] = read_counts()['basis_jet'], [0, 0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = init_fn(anc[:WAVEFLOW_CHAINS], step_size=0.3)
+        state, trace, info = run_fn(state, torch.Generator('cuda')
+                                    .manual_seed(3), cut[1], cut[0],
+                                    return_info=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k3 = read_counts()['basis_jet'] - before
+        mc = torch.sort(torch.clamp(trace[cut[1] // 3:].reshape(-1, 2),
+                                    -L, L), -1).values
+        d_mean = (mc.mean(0) - anc.mean(0)).abs().max().item()
+        d_std = (mc.std(0) - anc.std(0)).abs().max().item()
+        row = dict(wall_s=wall, density_calls=calls[0],
+                   k3_per_call=k3 / calls[0],
+                   chain_grads_per_s=calls[1] / wall,
+                   d_mean=d_mean, d_std=d_std,
+                   step_size=float(state.step_size),
+                   accept=float(info['accept'][cut[0]:].mean()))
+        if name == 'nuts':
+            row['mean_tree_depth'] = float(
+                info['depth'][cut[0]:].float().mean())
+        out[name] = row
+        print(f"nuts-waveflow {name}: {WAVEFLOW_CHAINS} chains from K1 "
+              f"ancestral draws of the 100k checkpoint, {cut[0]} + {cut[1]} "
+              f"steps in {wall:.2f} s | pooled moments against 4096 "
+              f"ancestral draws: max|d mean| {d_mean:.4f}, max|d std| "
+              f"{d_std:.4f} (atol {WAVEFLOW_MOMENT_ATOL}) | step size "
+              f"{row['step_size']:.4f}, accept {row['accept']:.4f}"
+              + (f", mean tree depth {row['mean_tree_depth']:.3f}"
+                 if name == 'nuts' else '')
+              + f" | K3 {row['k3_per_call']:g} per density call, "
+              f"{row['chain_grads_per_s']:.1f} chain-gradients/s", flush=True)
+        if not (torch.isfinite(trace).all() and d_mean <= WAVEFLOW_MOMENT_ATOL
+                and d_std <= WAVEFLOW_MOMENT_ATOL):
+            fail(f"nuts-waveflow {name}: pooled moments off the ancestral "
+                 f"ones by {d_mean:.4f} / {d_std:.4f}")
+        if row['k3_per_call'] != 4:
+            fail(f"nuts-waveflow {name}: K3 launched {row['k3_per_call']} "
+                 "times per density call, not 4")
+        launches['basis_jet'] += k3
+    return launches, out
+
+
 def phase_table(torch, params, jax_raw, jax_clipped, ancestral_wps=None):
-    """Phases 6-22 in order, as (name, run): run() -> (the kernel launches
-    on that path, or None, and the phase's figures)."""
+    """Phases 23 and 6-27 in order, as (name, run): run() -> (the kernel
+    launches on that path, or None, and the phase's figures)."""
     r4 = json.loads(JAX_EVAL_R4.read_text())[f'results/{SPRING_RUN.name}']
     mcmc = json.loads(JAX_EVAL_MCMC.read_text())[MALA_RUN.name]
     r5 = json.loads(JAX_EVAL.read_text())
     li = r5['li_metro_refresh100_s3']
     paired2d = json.loads(JAX_EVAL_2D_R4.read_text())['he2d2e_lr3e-4_decay']
     return (
+        # ---- 23. K4 under vmap, first: after many profiled graph replays
+        # the profiler stops recording its eager launches ----
+        ('k4-vmap', lambda: (None, k4_vmap_phase(torch))),
         # ---- 6-8. graphs against eager, evaluation, resume, Metropolis ----
         ('graph-train', lambda: graph_train_phase(torch)),
         ('eval-4k', lambda: evaluation_phase(torch, jax_raw, jax_clipped)),
@@ -2071,9 +2410,9 @@ def phase_table(torch, params, jax_raw, jax_clipped, ancestral_wps=None):
             (r4['e_clipped'], r4['e_clipped_stderr']))),
         ('spring-256', lambda: window_phase(
             torch, 'spring-256', SPRING_RUN, SPRING_CONFIG, 100,
-            profile=10)),
+            profile=3)),
         ('sr-256', lambda: window_phase(
-            torch, 'sr-256', SR_RUN, SR_CONFIG, 20, profile=2)),
+            torch, 'sr-256', SR_RUN, SR_CONFIG, 20, profile=1)),
         ('li-eval', lambda: gate_phase(
             torch, 'li', LI_RUN, LI_CONFIG,
             (li['eval_mean'], li['eval_stderr']),
@@ -2102,7 +2441,12 @@ def phase_table(torch, params, jax_raw, jax_clipped, ancestral_wps=None):
                                        t.generator), 0)),
         ('paired2d-256', lambda: graph_2d_phase(
             torch, 'paired2d-256', PAIRED2D_RUN, PAIRED2D_CONFIG,
-            lambda t, n: t.train_window(n, t.baseline), 4)))
+            lambda t, n: t.train_window(n, t.baseline), 4)),
+        # ---- 23-27. the probprog samplers ----
+        ('posterior-hmc', lambda: posterior_phase(torch, 'hmc')),
+        ('posterior-nuts', lambda: posterior_phase(torch, 'nuts')),
+        ('posterior-smc', lambda: posterior_phase(torch, 'smc')),
+        ('nuts-waveflow', lambda: nuts_waveflow_phase(torch, params)))
 
 
 def partial_run(torch, only, params, jax_raw, jax_clipped, kind, t_start):
@@ -2134,7 +2478,8 @@ def main(argv=None) -> int:
         help="comma-separated phases of the table (phase_table: "
              "graph-train, eval-4k, graph-eval, resume, metropolis-256, "
              "graph-metropolis, mala-eval, ..., poly-sample, antisym-eval, "
-             "..., paired2d-256) to run alone "
+             "..., paired2d-256, k4-vmap, posterior-hmc, posterior-nuts, "
+             "posterior-smc, nuts-waveflow) to run alone "
              "after the build; a partial run prints no kernels line")
     args = parser.parse_args(argv)
     only = None if args.only is None else set(args.only.split(','))
@@ -2288,7 +2633,7 @@ def main(argv=None) -> int:
     profile_window(torch, lambda: trainer.train_window(10, trainer.baseline),
                    10, "graphed window: ", top=10)
 
-    # ---- 6-22: the phase table ---------------------------------------------
+    # ---- 6-27: the phase table ---------------------------------------------
     by_phase = {'train-256': dict(launches)}
     rows = {}
     for name, run in phase_table(torch, params, jax_raw, jax_clipped,
@@ -2300,7 +2645,7 @@ def main(argv=None) -> int:
         print(f"phase {name}: {time.perf_counter() - t0:.1f} s wall", flush=True)
     vmap_row = rows['vmap']
 
-    # ---- 23. density (the second main path; counts reset just before) ------
+    # ---- 28. density (the second main path; counts reset just before) ------
     by_phase['density-20k'] = density_phase(torch)
     launches.update(by_phase['density-20k'])
 
@@ -2308,7 +2653,7 @@ def main(argv=None) -> int:
         """A kernel's launches on each path that ran it."""
         return {k: v[name] for k, v in by_phase.items() if v.get(name)}
 
-    # ---- 24. report --------------------------------------------------------
+    # ---- 29. report --------------------------------------------------------
     # each row at the shape its main path gives the kernel: K1 and K3 at the
     # training batch of 256, K2 at the 20,000 model draws of a metric
     # checkpoint, K4 at the flattened (20,000, 2) training batch
@@ -2358,7 +2703,8 @@ def main(argv=None) -> int:
              ms=k4_row['ms'], device_ms=k4_row['device_ms'],
              plain_ms=k4_row['plain_ms'],
              bound_ms=k4_row['bound_ms'], bound_by=k4_row['bound_by'],
-             library_ms=None, onehot_matmul_ms=k4_row['onehot_ms']),
+             library_ms=None, onehot_matmul_ms=k4_row['onehot_ms'],
+             vmap=rows['k4-vmap']['forward']),
         dict(name='spline_eval_bwd', route='cuda',
              source='waveflow_tpu_torch/csrc/spline_eval.cu',
              replaces='waveflow_tpu/ops/pallas_spline.py:29',
@@ -2370,7 +2716,7 @@ def main(argv=None) -> int:
              ms=k4b_row['ms'], device_ms=k4b_row['device_ms'],
              plain_ms=k4b_row['plain_ms'],
              bound_ms=k4b_row['bound_ms'], bound_by=k4b_row['bound_by'],
-             library_ms=None),
+             library_ms=None, vmap=rows['k4-vmap']['backward']),
     ]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall, the "
           "build included", flush=True)

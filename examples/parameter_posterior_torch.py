@@ -1,0 +1,215 @@
+"""Bayesian posterior over FLOW PARAMETERS on the PyTorch/CUDA port
+(cf. examples/parameter_posterior.py).
+
+An MFlow density model's parameters θ get a Gaussian prior, the circles
+dataset supplies the likelihood through the flow's own log_pdf (kernel K4
+and its backward kernel on the card, one launch each for all chains), and
+NUTS (or HMC / SMC with --sampler) samples p(θ | X).  Reports the held-out
+log-likelihood at the random init, of the best single posterior draw and
+of the posterior predictive (Bayesian model average over the draws).
+
+Usage:
+  python examples/parameter_posterior_torch.py [--sampler nuts|hmc|smc]
+      [--n-train 300] [--n-steps 200] [--n-warmup 150] [--device cuda]
+      [--seed 0]
+
+The last line is one JSON object of the run's figures: the card, the
+posterior dimension, the sampling wall time, gradient evaluations per
+second, the adapted step size and acceptance, NUTS's mean tree depth, K4
+launches per gradient, and the three held-out log-likelihoods.
+"""
+
+import argparse
+import json
+import math
+import sys
+import time
+from pathlib import Path
+
+import torch
+from torch.func import functional_call, vmap
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+from waveflow_tpu_torch import resolve_device
+from waveflow_tpu_torch.benchmark import get_dataset
+from waveflow_tpu_torch.benchmark.density import get_benchmark_model
+from waveflow_tpu_torch.ops import cuda_spline
+from waveflow_tpu_torch.vmc import (
+    make_hmc_sampler, make_nuts_sampler, make_parameter_posterior,
+    make_smc_sampler,
+)
+
+# the small MFlow of the JAX example, so the posterior dimension stays
+# NUTS-friendly (D = 10,816)
+MODEL = dict(spline_reg=0.1, n_flow_layers=1, spline_degree=3, n_knots=6,
+             n_mesh_points=800, prior_spline_degree=3, prior_n_knots=6)
+SMC = dict(n_particles=128, n_temps=30, n_mcmc_moves=5)
+N_DRAWS = 64
+
+
+class Counted:
+    """A log density that counts its batched calls, the gradient
+    evaluations among them, and their rows."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.calls = self.grad_calls = self.grad_rows = 0
+
+    def __call__(self, theta):
+        self.calls += 1
+        if torch.is_grad_enabled():
+            self.grad_calls += 1
+            self.grad_rows += theta.shape[0]
+        return self.fn(theta)
+
+
+def sync(device):
+    if device.type == 'cuda':
+        torch.cuda.synchronize(device)
+
+
+def run_posterior(sampler='nuts', n_train=300, n_test=1000, n_chains=8,
+                  n_steps=200, n_warmup=150, prior_scale=2.0,
+                  step_size=2e-3, nuts_depth=6, hmc_leapfrog=16,
+                  n_particles=SMC['n_particles'], n_temps=SMC['n_temps'],
+                  n_mcmc_moves=SMC['n_mcmc_moves'], device=None, seed=0,
+                  verbose=True, profile=None) -> dict:
+    """Sample the posterior over the example MFlow's parameters and
+    evaluate it on held-out points; returns the run's figures.
+    ``profile(run)``, where given, is handed a stretch of two more steps
+    (SMC: one more temperature) after the timed run, and its result goes
+    into the figures as 'profile'."""
+    device = resolve_device(device)
+    X = get_dataset('circles', n_samples=n_train + n_test)
+    X_train = torch.as_tensor(X[:n_train], device=device)
+    X_test = torch.as_tensor(X[n_train:], device=device)
+    model = get_benchmark_model('MFlow', **MODEL, device=device,
+                                generator=torch.Generator().manual_seed(seed))
+    log_prob, unravel, flat0 = make_parameter_posterior(
+        model, X_train, prior_scale=prior_scale)
+    log_prob = Counted(log_prob)
+    D = flat0.numel()
+    if verbose:
+        print(f"posterior dimension: {D} flow parameters", flush=True)
+
+    gen = torch.Generator(device).manual_seed(seed + 1)
+    figures = {}
+    sync(device)
+    k4 = (cuda_spline.launches, cuda_spline.launches_bwd)
+    t0 = time.perf_counter()
+    if sampler == 'smc':
+        def log_prior(th):
+            return -0.5 * (th ** 2).sum(-1) / prior_scale ** 2
+
+        def log_like(th):
+            return log_prob(th) - log_prior(th)
+
+        particles = flat0[None] + 0.1 * torch.randn(
+            (n_particles, D), generator=gen, device=device)
+        init_fn, run_fn = make_smc_sampler(
+            log_prior, log_like, n_temps=n_temps, n_mcmc_moves=n_mcmc_moves,
+            mcmc_step_size=step_size)
+        state, ess, acc = run_fn(init_fn(particles), gen, return_accept=True)
+        draws = state.particles
+        figures.update(accept=float(acc.mean()), ess_min=float(ess.min()),
+                       n_resamples=int((ess < 0.5).sum()))
+        n_iter = n_temps
+        more = make_smc_sampler(log_prior, log_like, n_temps=1,
+                                n_mcmc_moves=n_mcmc_moves,
+                                mcmc_step_size=step_size)[1]
+
+        def stretch():
+            return more(state, gen)
+    else:
+        chains = flat0[None] + 0.01 * torch.randn(
+            (n_chains, D), generator=gen, device=device)
+        if sampler == 'nuts':
+            init_fn, _, run_fn = make_nuts_sampler(
+                log_prob, max_tree_depth=nuts_depth)
+        else:
+            init_fn, _, run_fn = make_hmc_sampler(log_prob,
+                                                  n_leapfrog=hmc_leapfrog)
+        state = init_fn(chains, step_size=step_size)
+        state, trace, info = run_fn(state, gen, n_steps, n_warmup=n_warmup,
+                                    return_info=True)
+        keep = trace[n_steps // 2:].reshape(-1, D)
+        draws = keep[::max(1, keep.shape[0] // N_DRAWS)][:N_DRAWS]
+        figures.update(step_size=float(state.step_size),
+                       accept=float(info['accept'][n_warmup:].mean()))
+        if sampler == 'nuts':
+            figures['mean_tree_depth'] = float(
+                info['depth'][n_warmup:].float().mean())
+            figures['max_tree_depth'] = int(info['depth'].max())
+        n_iter = n_warmup + n_steps
+
+        def stretch():
+            return run_fn(state, gen, 2)
+    sync(device)
+    wall = time.perf_counter() - t0
+    k4 = (cuda_spline.launches - k4[0], cuda_spline.launches_bwd - k4[1])
+    figures.update(
+        sampler=sampler, D=D, sampling_s=wall, ms_per_step=1e3 * wall / n_iter,
+        density_calls=log_prob.calls, grad_calls=log_prob.grad_calls,
+        grad_evals_per_s=log_prob.grad_rows / wall,
+        grad_calls_per_s=log_prob.grad_calls / wall,
+        n_draws=draws.shape[0])
+    # kernel launches (a CPU run runs K4's plain version and counts none)
+    figures.update(k4_per_density_call=k4[0] / max(log_prob.calls, 1),
+                   k4_bwd_per_grad_call=k4[1] / max(log_prob.grad_calls, 1))
+    if verbose:
+        print(f"{sampler} sampling: {wall:.1f}s, {draws.shape[0]} posterior "
+              f"draws", flush=True)
+    if profile is not None:
+        figures['profile'] = profile(stretch)
+
+    # posterior-predictive held-out LL (Bayesian model average)
+    with torch.no_grad():
+        per_draw = vmap(lambda th: functional_call(
+            model, unravel(th), (X_test,)))(draws)      # (n_draws, n_test)
+        init_ll = float(model.log_pdf(X_test).mean())
+    bma = torch.logsumexp(per_draw.double(), 0) - math.log(draws.shape[0])
+    figures.update(init_ll=init_ll, best_draw_ll=float(per_draw.mean(1).max()),
+                   bma_ll=float(bma.mean()),
+                   finite=bool(torch.isfinite(per_draw).all()))
+    if verbose:
+        print(f"held-out LL  init(random): {figures['init_ll']:.4f}   "
+              f"best single draw: {figures['best_draw_ll']:.4f}   "
+              f"posterior BMA: {figures['bma_ll']:.4f}", flush=True)
+    return figures
+
+
+def main():
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument('--sampler', default='nuts', choices=['nuts', 'hmc', 'smc'])
+    p.add_argument('--n-train', type=int, default=300)
+    p.add_argument('--n-test', type=int, default=1000)
+    p.add_argument('--n-chains', type=int, default=8)
+    p.add_argument('--n-steps', type=int, default=200)
+    p.add_argument('--n-warmup', type=int, default=150)
+    p.add_argument('--prior-scale', type=float, default=2.0)
+    p.add_argument('--step-size', type=float, default=2e-3)
+    p.add_argument('--sharded', action='store_true',
+                   help='shard chains/particles over all visible devices '
+                        '(not ported: ROADMAP Queue 1 item 14)')
+    p.add_argument('--device', default='cuda',
+                   help="'cuda' (default) or 'cpu'")
+    p.add_argument('--seed', type=int, default=0,
+                   help='seeds the initial weights and the draws')
+    args = p.parse_args()
+    if args.sharded:
+        raise NotImplementedError(
+            "--sharded (chains over a device mesh) is not ported: ROADMAP "
+            "Queue 1 item 14")
+    device = resolve_device(args.device)
+    figures = run_posterior(
+        args.sampler, args.n_train, args.n_test, args.n_chains, args.n_steps,
+        args.n_warmup, args.prior_scale, args.step_size, device=device,
+        seed=args.seed)
+    figures['device'] = (torch.cuda.get_device_name(device)
+                         if device.type == 'cuda' else 'cpu')
+    print(json.dumps(figures), flush=True)
+
+
+if __name__ == '__main__':
+    main()

@@ -20,8 +20,10 @@ Waveflow's parameters are its φ's, under φ's names (models/antisym.py), so
 ``load_jax_checkpoint`` reads a checkpoint pickle written by the JAX
 trainer without JAX or optax installed; ``adam_state_from_jax`` and
 ``mcmc_state_from_jax`` carry its optimizer moments and Metropolis or MALA
-walkers across; ``ravel_order`` gives the flat parameter layout of its
-natural-gradient states.  Its PRNG key is not carried: the two packages' generators differ.
+walkers across; ``ravel_order`` (``ravel_layout`` for a module) gives the
+flat parameter layout of its natural-gradient states and of the parameter
+posterior (vmc/hmc.py).  Its PRNG key is not carried: the two packages'
+generators differ.
 """
 
 from __future__ import annotations
@@ -122,6 +124,17 @@ def ravel_order(names) -> list:
             return head + (1, 0, 0)
         return head + (0, int(parts[-1]), 0 if parts[-2] == 'W' else 1)
     return sorted(names, key=key)
+
+
+def ravel_layout(model) -> tuple:
+    """(names, parameters) of a module in flat order: a flow's (its names
+    under ``transform`` and ``conditioner``) in JAX ``ravel_pytree`` order
+    (``ravel_order``), any other module's in its own order."""
+    named = dict(model.named_parameters())
+    names = list(named)
+    if all(n.split('.')[0] in ('transform', 'conditioner') for n in names):
+        names = ravel_order(names)
+    return names, [named[n] for n in names]
 
 
 def adam_state_from_jax(opt_state, params_tree, named_parameters,

@@ -53,6 +53,12 @@ class MFlow(nn.Module):
         """Conditional M-spline weights: (B, D) -> (B, D, n_bases)."""
         return self.project(self.debias(self.conditioner(u)))
 
+    def forward(self, inputs: torch.Tensor) -> torch.Tensor:
+        """log p(x): (B, D) -> (B,), so that ``torch.func.functional_call``
+        evaluates the density under other parameters (the parameter
+        posterior, vmc/hmc.py)."""
+        return self.log_pdf(inputs)
+
     def log_pdf(self, inputs: torch.Tensor, return_sample: bool = False):
         """log p(x): (B, D) -> (B,); with ``return_sample`` also the
         prior-space point u = T(x)."""

@@ -19,7 +19,6 @@ import ctypes
 import functools
 
 import torch
-import torch.nn.functional as F
 
 from waveflow_tpu_torch.ops import cuda_build
 
@@ -49,7 +48,11 @@ def basis_jet_plain(x: torch.Tensor, A_jet: torch.Tensor, n_cells: int,
     pos = x * n_cells
     idx = torch.clamp(torch.floor(pos), 0, n_cells - 1)
     s = torch.clamp(pos - idx, 0.0, 1.0)
-    onehot = F.one_hot(idx.long(), n_cells).to(x.dtype)
+    # a comparison, as in JAX: a NaN site (a diverged HMC / NUTS
+    # trajectory) gives a zero row and a NaN jet; F.one_hot would raise on
+    # the CPU and trip a device assert in its scatter on the card
+    cells = torch.arange(n_cells, dtype=x.dtype, device=x.device)
+    onehot = (idx[..., None] == cells).to(x.dtype)
     pows = [torch.ones_like(s)]
     for _ in range(ncoef - 1):
         pows.append(pows[-1] * s)

@@ -82,7 +82,8 @@ def lerp_basis(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     pos = x * n_cells
     idx = torch.clamp(torch.floor(pos), 0, n_cells - 1)
     frac = pos - idx
-    idx = idx.long()
+    # a NaN x reads cell 0 (and gives NaN), as the kernel's clamp does
+    idx = torch.nan_to_num(idx, nan=0.0).long()
     y_l = table[idx]
     return y_l + (table[idx + 1] - y_l) * frac[..., None]
 

@@ -10,8 +10,10 @@ the x-derivative of the order-d evaluation is the order-(d+1) table
 evaluation, not the slope of the lerp.  On the card both directions are
 kernel K4 (csrc/spline_eval.cu): one launch for the value, and one launch
 of its fused backward kernel for both gradients — no plain PyTorch
-arithmetic runs on a CUDA tensor.  The fused ``pair`` chain serves only
-IMADE's ``eval_backend='table'`` and is not ported.
+arithmetic runs on a CUDA tensor — and so under ``torch.func.vmap`` too
+(the parameter posterior's chains, vmc/hmc.py), where both directions
+fold the vmapped dimension into the kernel's rows.  The fused ``pair``
+chain serves only IMADE's ``eval_backend='table'`` and is not ported.
 """
 
 from __future__ import annotations
@@ -25,30 +27,85 @@ from waveflow_tpu_torch.ops.cuda_spline import (lerp_basis, spline_eval,
 from waveflow_tpu_torch.ops.spline_tables import SplineTables
 
 
+def _batch_first(a: torch.Tensor, dim, size: int) -> torch.Tensor:
+    """The vmapped dimension of ``a`` moved to the front, or ``a`` expanded
+    to the batch when it is not batched."""
+    if dim is None:
+        return a.expand((size,) + a.shape)
+    return a.movedim(dim, 0)
+
+
 class _TableEval(torch.autograd.Function):
     """Σ_i coeffs_i T_i^{(d)}(x) by table lerp, with the derivative chain of
     the JAX evaluator: d/dx is the order-(d+1) evaluation (zero at the top
     tabulated order), d/dcoeffs the lerped basis.  First-order reverse
-    mode, which is what likelihood training needs.  On CUDA tensors the
-    forward is one launch of K4 and the backward one launch of its backward
-    kernel, whichever gradients are asked for."""
+    mode, which is what likelihood training and the parameter posterior's
+    gradients need.  On CUDA tensors the forward is one launch of K4 and
+    the backward one launch of its backward kernel, whichever gradients
+    are asked for.  Under ``torch.func.vmap`` (a batch of parameter
+    vectors, vmc/hmc.py::make_parameter_posterior) the vmapped dimension
+    folds into the rows: one launch for every chain, and the backward
+    (``_TableEvalBwd``) folds the same way, so ``vmap(grad(...))`` too is
+    one launch each way."""
 
     @staticmethod
-    def forward(ctx, coeffs, x, tables, d):
-        ctx.save_for_backward(coeffs, x)
-        ctx.tables, ctx.d = tables, d
+    def forward(coeffs, x, tables, d):
         return spline_eval(tables[d], coeffs, x)
 
     @staticmethod
-    @torch.autograd.function.once_differentiable
+    def setup_context(ctx, inputs, output):
+        coeffs, x, tables, d = inputs
+        ctx.save_for_backward(coeffs, x)
+        ctx.tables, ctx.d = tables, d
+
+    @staticmethod
     def backward(ctx, grad):
         coeffs, x = ctx.saved_tensors
-        tables, d = ctx.tables, ctx.d
-        table_d1 = tables[d + 1] if d + 1 < tables.shape[0] else None
-        g_coeffs, g_x = spline_eval_bwd(
-            tables[d], table_d1, coeffs, x, grad,
-            ctx.needs_input_grad[0], ctx.needs_input_grad[1])
+        g_coeffs, g_x = _TableEvalBwd.apply(
+            coeffs, x, grad, ctx.tables, ctx.d, ctx.needs_input_grad[0],
+            ctx.needs_input_grad[1])
         return g_coeffs, g_x, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, coeffs, x, tables, d):
+        n = info.batch_size
+        out = _TableEval.apply(_batch_first(coeffs, in_dims[0], n),
+                               _batch_first(x, in_dims[1], n), tables, d)
+        return out, 0
+
+
+class _TableEvalBwd(torch.autograd.Function):
+    """The backward of ``_TableEval`` as a Function of its own, so that it
+    too has a vmap rule: under ``vmap(grad(...))`` the grad level sits
+    inside the vmap level and the backward receives batched tensors, which
+    the kernel cannot take; the rule folds the vmapped dimension into the
+    rows and launches the backward kernel once.  Not differentiable
+    (first order only)."""
+
+    @staticmethod
+    def forward(coeffs, x, grad, tables, d, need_coeffs, need_x):
+        table_d1 = tables[d + 1] if d + 1 < tables.shape[0] else None
+        return spline_eval_bwd(tables[d], table_d1, coeffs, x, grad,
+                               need_coeffs, need_x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g_coeffs, g_x):
+        raise RuntimeError("the spline evaluation is differentiable once")
+
+    @staticmethod
+    def vmap(info, in_dims, coeffs, x, grad, tables, d, need_coeffs,
+             need_x):
+        n = info.batch_size
+        out = _TableEvalBwd.apply(
+            _batch_first(coeffs, in_dims[0], n),
+            _batch_first(x, in_dims[1], n),
+            _batch_first(grad, in_dims[2], n), tables, d, need_coeffs,
+            need_x)
+        return out, tuple(None if g is None else 0 for g in out)
 
 
 class SplineEvaluator:

@@ -10,4 +10,11 @@ from waveflow_tpu_torch.vmc.mala import MALAState, make_mala_sampler
 from waveflow_tpu_torch.vmc.evaluate import (
     EnergyEvaluation, block_statistics, evaluate_energy, evaluate_trainer,
 )
+from waveflow_tpu_torch.vmc.hmc import (
+    HMCState, make_hmc_sampler, make_parameter_posterior,
+)
+from waveflow_tpu_torch.vmc.nuts import NUTSDraws, NUTSState, make_nuts_sampler
+from waveflow_tpu_torch.vmc.smc import (
+    SMCDraws, SMCState, make_smc_sampler, systematic_resample,
+)
 from waveflow_tpu_torch.vmc.trainer import VMCConfig, VMCTrainer

@@ -1,0 +1,141 @@
+"""Sequential Monte Carlo with likelihood tempering.
+
+Port of waveflow_tpu/vmc/smc.py, single device: anneal from the prior to
+the target along π_β ∝ prior · exp(β · log-likelihood) over a fixed ladder
+of temperatures, reweight the particles at each one, resample them
+systematically when the effective sample size falls below a threshold,
+and rejuvenate them with random-walk Metropolis moves.  The resample
+decision is a mask (the identity index set when no resample is due), so
+no value is read back to the host.
+
+The particles' log-likelihood is carried: the resample gathers it and an
+accepted move takes the proposal's, so a move evaluates the likelihood of
+its proposals only (JAX evaluates current and proposed particles; the
+values are the same function of the same rows).
+
+Random draws come from an explicit ``torch.Generator``, or from a list of
+``SMCDraws`` per temperature, so a test can feed the draws of the JAX
+package's own key.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+from waveflow_tpu_torch.vmc.hmc import AXIS_NAME_NOT_PORTED
+
+
+class SMCState(NamedTuple):
+    particles: torch.Tensor     # (N, D)
+    log_weights: torch.Tensor   # (N,)
+    log_like: torch.Tensor      # (N,) cached log-likelihood
+    beta: torch.Tensor          # () current temperature
+    ess: torch.Tensor           # () effective sample size fraction
+
+
+class SMCDraws(NamedTuple):
+    """The random numbers of one temperature."""
+    u_resample: torch.Tensor    # () the systematic resample's offset
+    noise: torch.Tensor         # (n_moves, N, D) proposal normals
+    u_accept: torch.Tensor      # (n_moves, N) accept uniforms
+
+
+def systematic_resample(u: torch.Tensor, log_weights: torch.Tensor,
+                        n: int) -> torch.Tensor:
+    """Systematic resampling: the indices (N,) of the positions (u + k) / n
+    in the weights' CDF.  An f32 CDF can end below the last position (its
+    cumulative sum short of 1): that index is n − 1.  JAX's searchsorted
+    returns n there and its gather clamps it to n − 1; torch's gather
+    would raise, so the index is clamped here."""
+    w = torch.softmax(log_weights, 0)
+    positions = (u + torch.arange(n, device=log_weights.device)) / n
+    cdf = torch.cumsum(w, 0)
+    return torch.clamp(torch.searchsorted(cdf, positions), max=n - 1)
+
+
+def draw(generator: torch.Generator, n_moves: int, N: int, D: int,
+         device) -> SMCDraws:
+    """One temperature's random numbers for N particles of dimension D."""
+    return SMCDraws(torch.rand((), generator=generator, device=device),
+                    torch.randn((n_moves, N, D), generator=generator,
+                                device=device),
+                    torch.rand((n_moves, N), generator=generator,
+                               device=device))
+
+
+def make_smc_sampler(log_prior_fn: Callable, log_like_fn: Callable,
+                     n_temps: int = 20, n_mcmc_moves: int = 5,
+                     mcmc_step_size: float = 0.1,
+                     ess_threshold: float = 0.5, axis_name=None):
+    """(init_fn, run_fn) for tempered SMC; ``log_prior_fn`` and
+    ``log_like_fn``: (N, D) -> (N,).
+
+    init_fn(particles) -> SMCState;
+    run_fn(state, generator=None, draws=None, return_accept=False)
+        -> (state, ess_trace (n_temps,)) (and the mean move acceptance per
+        temperature, (n_temps,)); ``draws`` is a sequence of n_temps
+        SMCDraws, else they come from ``generator``.
+
+    ``axis_name`` (a population sharded over a mesh) raises."""
+    if axis_name is not None:
+        raise NotImplementedError(AXIS_NAME_NOT_PORTED)
+
+    @torch.no_grad()
+    def init_fn(particles: torch.Tensor) -> SMCState:
+        n = particles.shape[0]
+        f32 = dict(dtype=torch.float32, device=particles.device)
+        return SMCState(particles, torch.zeros(n, **f32),
+                        log_like_fn(particles), torch.zeros((), **f32),
+                        torch.ones((), **f32))
+
+    @torch.no_grad()
+    def temp_step(state: SMCState, beta_new: torch.Tensor, d: SMCDraws):
+        n = state.particles.shape[0]
+        # reweight by the likelihood increment
+        log_w = state.log_weights + (beta_new - state.beta) * state.log_like
+        log_w = log_w - torch.logsumexp(log_w, 0)
+        ess = 1.0 / torch.exp(torch.logsumexp(2 * log_w, 0)) / n
+
+        # resample when the ESS is low (the identity index set otherwise)
+        do_resample = ess < ess_threshold
+        arange = torch.arange(n, device=log_w.device)
+        idx = torch.where(do_resample,
+                          systematic_resample(d.u_resample, log_w, n), arange)
+        particles, log_like = state.particles[idx], state.log_like[idx]
+        log_n = torch.log(torch.tensor(float(n), device=log_w.device))
+        log_w = torch.where(do_resample, -log_n, log_w)
+
+        # rejuvenate with random-walk Metropolis sweeps at beta_new
+        accepts = []
+        for noise, u in zip(d.noise, d.u_accept):
+            lp = log_prior_fn(particles) + beta_new * log_like
+            prop = particles + mcmc_step_size * noise
+            ll_prop = log_like_fn(prop)
+            lp_prop = log_prior_fn(prop) + beta_new * ll_prop
+            accept = torch.log(u) < lp_prop - lp
+            particles = torch.where(accept[:, None], prop, particles)
+            log_like = torch.where(accept, ll_prop, log_like)
+            accepts.append(accept.float().mean())
+        acc = torch.stack(accepts).mean() if accepts else ess.new_zeros(())
+        return SMCState(particles, log_w, log_like, beta_new, ess), acc
+
+    def run_fn(state: SMCState, generator: torch.Generator | None = None,
+               draws=None, return_accept: bool = False):
+        N, D = state.particles.shape
+        dev = state.particles.device
+        betas = torch.linspace(0.0, 1.0, n_temps + 1, dtype=torch.float32,
+                               device=dev)[1:]
+        ess, acc = [], []
+        for t in range(n_temps):
+            d = draws[t] if draws is not None else \
+                draw(generator, n_mcmc_moves, N, D, dev)
+            state, a = temp_step(state, betas[t], d)
+            ess.append(state.ess)
+            acc.append(a)
+        if return_accept:
+            return state, torch.stack(ess), torch.stack(acc)
+        return state, torch.stack(ess)
+
+    return init_fn, run_fn

@@ -30,7 +30,7 @@ from __future__ import annotations
 import torch
 from torch.func import functional_call
 
-from waveflow_tpu_torch.convert import ravel_order
+from waveflow_tpu_torch.convert import ravel_layout
 from waveflow_tpu_torch.vmc.estimators import (
     PSI_EPS, _median, _safe_psi, clip_local_energies, run_window,
 )
@@ -105,13 +105,6 @@ class StepState:
         self.state = state
 
 
-def _layout(model):
-    """The model's parameter names and parameters in ravel order."""
-    named = dict(model.named_parameters())
-    names = ravel_order(list(named))
-    return names, [named[n] for n in names]
-
-
 def make_score_fn(model):
     """(flatten, scores): ``flatten()`` is the model's parameters as one
     detached vector in ravel order, ``scores(flat, batch)`` the per-walker
@@ -120,7 +113,7 @@ def make_score_fn(model):
     which every basis-jet call is one core call for all walkers (the jet's
     vmap rule).  The parameters off the path (zero_params) get zero
     columns, as in JAX."""
-    names, params = _layout(model)
+    names, params = ravel_layout(model)
     shapes = [p.shape for p in params]
     sizes = [p.numel() for p in params]
 
@@ -158,7 +151,7 @@ def make_sr_train_step(model, h_fn, learning_rate: float,
     if pmean_axis is not None:
         raise NotImplementedError(
             "pmean_axis (walkers sharded over a mesh) is not ported")
-    names, params = _layout(model)
+    names, params = ravel_layout(model)
 
     def log_abs_psi(p, batch):
         return torch.log(torch.abs(functional_call(model, p, (batch,)))
@@ -223,7 +216,7 @@ def make_spring_train_step(model, h_fn, learning_rate: float,
     if pmean_axis is not None:
         raise NotImplementedError(
             "pmean_axis (walkers sharded over a mesh) is not ported")
-    _, params = _layout(model)
+    _, params = ravel_layout(model)
     sizes = [p.numel() for p in params]
     device = params[0].device
     flatten, scores = make_score_fn(model)
