@@ -136,6 +136,29 @@ Phases (any failure exits non-zero; nothing is caught):
                metric checkpoint every 100; losses finite and falling, K2
                and both K4 kernels launched on that run, metrics finite,
                the round trip closes, the card agrees with the CPU;
+ 30. dp-nccl-1 (right after k4-vmap) — the train-256 adam window sharded
+               over a world of one process on NCCL (data_parallel=True: the
+               clip window's all-gather and the gradient's all-reduce
+               captured in the epoch's CUDA graph) against the unsharded
+               graphed window from the 100k checkpoint, in turns: equal to
+               the bit, launches per epoch equal; the collectives' ms per
+               replayed epoch (alternating windows, CUDA events), the NCCL
+               events and copies per replayed epoch (profiler);
+ 31. dp-metropolis-1 — the same for the Metropolis window from
+               he1d_metropolis_seed7 (the step size's all-reduce per sweep);
+ 32. dp-gloo-2 (after nuts-waveflow) — two ranks on the one card over
+               gloo, eager, spawned by this script (``--dp-gloo-rank``):
+               the sharded clipped-score step, the chunked SPRING Gram and
+               update, one Metropolis sweep's step size, each against the
+               single-process reference on the 256 gathered walkers; K1
+               and K3 launched on both ranks;
+ 33. posterior-sharded-1 — posterior-hmc with its chains sharded over the
+               world of one on NCCL: K4 1 + 1 launches per gradient;
+ 34-37. be4-eval, box4-eval, li-2d-eval, h2-2d-eval — the committed runs
+               r5_be4_interacting, r5_box4_free (1D, n = 4 sorted sector),
+               r5_li_2d_antisym and r5_h2_2d2e_antisym (2D antisym; H2's
+               fidelity against its ED40) at the JAX protocol, within 5
+               combined stderr of results/round5_quality.json;
  29. report  — one JSON line of kernels, then the final status line.
 
 Each phase that drives a path sets the launch counts to 0 just before it
@@ -2259,24 +2282,27 @@ def k4_vmap_phase(torch):
                 backward=dict(row_b, smc=rows[K4_VMAP_CHAINS[1]][1]))
 
 
-def posterior_phase(torch, sampler):
+def posterior_phase(torch, sampler, sharded=False):
     """The parameter posterior of examples/parameter_posterior_torch.py at
     full width (D = 10,816; 8 chains or 128 particles, 300 points), depth
     cut (POSTERIOR_CUT): gradient evaluations per second, ms per step, the
     adapted step size and acceptance, NUTS's tree depth, K4 launches per
     density call (1) and per gradient (1 backward), the idle share of a
     profiled stretch; held-out LL at init and under the BMA, which must be
-    finite and above the init's.  Returns K4's launches on that path."""
+    finite and above the init's.  ``sharded``: the chains split over the
+    walker group (a world of one over NCCL here; the step size's
+    all-reduce in every step).  Returns K4's launches on that path."""
     ex = posterior_example()
     from waveflow_tpu_torch.ops import cuda_spline
     cuda_spline.launches = cuda_spline.launches_bwd = 0
-    label = f"posterior-{sampler}"
+    label = (f"posterior-sharded-1 {sampler}" if sharded
+             else f"posterior-{sampler}")
     n, unit = (1, 'temperatures') if sampler == 'smc' else (2, 'steps')
     fig = ex.run_posterior(
         sampler, device='cuda', seed=0, verbose=False,
         profile=lambda run: profile_window(torch, run, n, f"{label}: ",
                                            unit=unit),
-        **POSTERIOR_CUT[sampler])
+        sharded=sharded, **POSTERIOR_CUT[sampler])
     launches = dict(zip(('spline_eval', 'spline_eval_bwd'), k4_counts()))
     prof = fig.pop('profile')
     print(f"{label}: D = {fig['D']}, {fig['sampling_s']:.2f} s sampling, "
@@ -2288,6 +2314,7 @@ def posterior_phase(torch, sampler):
           + f"accept {fig['accept']:.4f}"
           + (f", mean tree depth {fig['mean_tree_depth']:.3f} (max "
              f"{fig['max_tree_depth']})" if sampler == 'nuts' else '')
+          + (f" | ranks {fig['ranks']}" if sharded else '')
           + f" | K4 per density call {fig['k4_per_density_call']:g}, "
           f"backward per gradient {fig['k4_bwd_per_grad_call']:g} | idle "
           f"{prof['idle']:.4f} | held-out LL init {fig['init_ll']:.4f}, "
@@ -2378,8 +2405,396 @@ def nuts_waveflow_phase(torch, params):
     return launches, out
 
 
+# ---- walker parallelism: the collectives on the card ------------------------
+# the world-of-one twins: windows of GRAPH_WINDOW epochs, 2 per turn as
+# graph-train; then DP_TIMING_TURNS windows of each, alternating, timed
+DP_TIMING_TURNS = 3
+# the two gloo ranks on the card: seconds for both, their start included
+DP_GLOO_TIMEOUT = 420
+DP_GLOO_BATCH = 256              # global walkers of the gloo gates
+# the gloo gates' tolerances, those of tests/test_torch_parallel.py: the
+# clipped-score step (JAX's test_sharded_step_matches_single_device), the
+# chunked Gram, SPRING's update (tests/test_torch_sr.py), the step size
+DP_LOSS_RTOL, DP_MIN_COS, DP_RATIO = 1e-4, 0.999, (0.95, 1.05)
+DP_GRAM_RTOL, DP_SPRING_TOL, DP_STEP_RTOL = 1e-5, 2e-3, 1e-6
+
+
+def collective_profile(torch, run, n_epochs):
+    """Profile ``run()`` (``n_epochs`` epochs): per epoch, the device events
+    whose name says NCCL, the device-to-device copies, every device event,
+    and the busy ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    nccl = {e.key[:80]: e.count / n_epochs for e in dev
+            if 'nccl' in e.key.lower()}
+    return dict(nccl_per_epoch=sum(nccl.values()), nccl_by_name=nccl,
+                copies_per_epoch=sum(e.count for e in dev
+                                     if 'memcpy' in e.key.lower()) / n_epochs,
+                events_per_epoch=sum(e.count for e in dev) / n_epochs,
+                busy_ms_per_epoch=sum(e.self_device_time_total
+                                      for e in dev) / 1e3 / n_epochs)
+
+
+def dp_world1_phase(torch, label, run_dir, config, window_call):
+    """A graphed adam window sharded over a world of one process on NCCL
+    (``data_parallel=True``: the clip window's all-gather, the gradient's
+    all-reduce and, with Metropolis walkers, the step size's all-reduce per
+    sweep, captured in the epoch's CUDA graph) against the unsharded graphed
+    window, both from ``run_dir``: turns unsharded, sharded, sharded,
+    unsharded of 2 windows of GRAPH_WINDOW epochs (CUDA events; the first
+    turn of each holds its warm-up and capture), everything the two carry
+    equal to the bit, launches per epoch equal; then DP_TIMING_TURNS
+    replayed windows of each in alternation (the collectives' overhead per
+    replayed epoch) and one profiled window of each (the NCCL events and
+    copies per replayed epoch; the sharded replay must hold more of them)."""
+    from waveflow_tpu_torch.vmc import VMCConfig, VMCTrainer
+
+    def make(dp):
+        t = VMCTrainer(VMCConfig(batch_size=256, window=GRAPH_WINDOW,
+                                 log_every=GRAPH_WINDOW,
+                                 eval_backend='poly_pallas', device='cuda',
+                                 data_parallel=dp, **config))
+        if not t.load_checkpoint(str(run_dir)):
+            fail(f"no checkpoint under {run_dir}")
+        return t
+    plain, sharded = make(False), make(True)
+    mesh = sharded.mesh
+    if not (plain.graph and sharded.graph and mesh.size == 1
+            and mesh.backend == 'nccl'):
+        fail(f"{label}: graphs {plain.graph}, {sharded.graph}, walker mesh "
+             f"{mesh}")
+    n_turn = 2 * GRAPH_WINDOW
+    turns = {'plain': [], 'sharded': []}
+    counts = {kind: {'sampler': 0, 'basis_jet': 0} for kind in turns}
+    for kind, t in (('plain', plain), ('sharded', sharded),
+                    ('sharded', sharded), ('plain', plain)):
+        reset_counts()
+        _, dt = events_ms(torch, lambda: t.train(n_turn, verbose=False))
+        turns[kind].append(dt)
+        counts[kind] = {k: counts[kind][k] + v
+                        for k, v in read_counts().items()}
+    bitwise, rel, by_group = compare_twins(
+        torch, trainer_tensors(torch, plain), trainer_tensors(torch, sharded))
+    per_epoch = {kind: {k: v / (2 * n_turn) for k, v in c.items()}
+                 for kind, c in counts.items()}
+    replays = {'plain': [], 'sharded': []}
+    for i in range(DP_TIMING_TURNS):
+        order = (('plain', plain), ('sharded', sharded))
+        for kind, t in (order if i % 2 == 0 else order[::-1]):
+            _, dt = events_ms(torch, lambda: window_call(t, GRAPH_WINDOW))
+            replays[kind].append(dt / GRAPH_WINDOW)
+    med = {k: sorted(v)[len(v) // 2] for k, v in replays.items()}
+    overhead = med['sharded'] - med['plain']
+    prof = {kind: collective_profile(
+        torch, lambda: window_call(t, GRAPH_WINDOW), GRAPH_WINDOW)
+        for kind, t in (('plain', plain), ('sharded', sharded))}
+    extra_copies = (prof['sharded']['copies_per_epoch']
+                    - prof['plain']['copies_per_epoch'])
+    row = dict(turns_ms=turns, bitwise=bitwise, max_rel_diff=rel,
+               rel_diff_by_group=by_group, launches_per_epoch=per_epoch,
+               replay_ms_per_epoch=replays, median_ms_per_epoch=med,
+               collectives_ms_per_epoch=overhead,
+               collectives_share=overhead / med['plain'],
+               profile=prof, extra_copies_per_epoch=extra_copies,
+               walkers_per_s={k: 256 / v * 1e3 for k, v in med.items()})
+    print(f"{label}: world of one over NCCL ({torch.cuda.get_device_name(0)})"
+          f" | turns unsharded, sharded, sharded, unsharded of 2 x "
+          f"{GRAPH_WINDOW} epochs (CUDA events): "
+          f"{turns['plain'][0]:.1f} / {turns['sharded'][0]:.1f} / "
+          f"{turns['sharded'][1]:.1f} / {turns['plain'][1]:.1f} ms | sharded "
+          f"against unsharded: {'equal to the bit' if bitwise else 'NOT bitwise'}"
+          f" (largest relative difference {rel:.3e}) | launches per epoch "
+          f"{per_epoch} | replayed epoch, median of {DP_TIMING_TURNS} "
+          f"alternating windows: unsharded {med['plain']:.4f} ms, sharded "
+          f"{med['sharded']:.4f} ms ({replays}), collectives "
+          f"{overhead * 1e3:.1f} us per epoch ({100 * overhead / med['plain']:.2f}%)"
+          f" | per replayed epoch (profiler): NCCL events "
+          f"{prof['sharded']['nccl_per_epoch']:g} {prof['sharded']['nccl_by_name']}"
+          f", copies {prof['sharded']['copies_per_epoch']:g} against "
+          f"{prof['plain']['copies_per_epoch']:g} unsharded, device events "
+          f"{prof['sharded']['events_per_epoch']:g} against "
+          f"{prof['plain']['events_per_epoch']:g}, busy "
+          f"{prof['sharded']['busy_ms_per_epoch']:.4f} against "
+          f"{prof['plain']['busy_ms_per_epoch']:.4f} ms", flush=True)
+    if not all(math.isfinite(v) for v in sharded.losses):
+        fail(f"{label}: the sharded run produced non-finite losses")
+    if not bitwise:
+        fail(f"{label}: the sharded window differs from the unsharded one by "
+             f"{by_group} relative")
+    if per_epoch['plain'] != per_epoch['sharded']:
+        fail(f"{label}: launches per epoch differ: {per_epoch}")
+    if counts['sharded']['basis_jet'] == 0:
+        fail(f"{label}: K3 was not launched by the sharded replays")
+    if prof['sharded']['nccl_per_epoch'] + extra_copies <= 0:
+        fail(f"{label}: the sharded replay holds no device work of its "
+             f"collectives: {prof}")
+    return counts['sharded'], row
+
+
+def dp_nccl_phase(torch):
+    launches, row = dp_world1_phase(
+        torch, 'dp-nccl-1 train-256', CHECKPOINT.parent, {},
+        lambda t, n: t.train_window(n, t.baseline))
+    if launches['sampler'] == 0:
+        fail("dp-nccl-1: K1 was not launched by the sharded replays")
+    return launches, row
+
+
+def dp_metropolis_phase(torch):
+    return dp_world1_phase(
+        torch, 'dp-metropolis-1 metropolis-256', METROPOLIS_RUN,
+        dict(sampler='metropolis'),
+        lambda t, n: t.mcmc_window(t.mcmc_state, n, t.baseline, t.generator))
+
+
+def random_flagship(torch, device='cuda'):
+    """The flagship Waveflow with random weights from seed 2."""
+    from waveflow_tpu_torch.models import get_waveflow_model
+    return get_waveflow_model(
+        2, base_spline_degree=FLAGSHIP['spline_degree'],
+        i_spline_degree=FLAGSHIP['spline_degree'],
+        n_prior_internal_knots=FLAGSHIP['num_knots'],
+        n_i_internal_knots=FLAGSHIP['num_knots'], i_spline_reg=0.05,
+        n_flow_layers=3, box_size=10.0, eval_backend='poly_pallas',
+        generator=torch.Generator().manual_seed(2), device=device)
+
+
+def flat_grads(torch, model):
+    return torch.cat([(torch.zeros_like(p) if p.grad is None else p.grad)
+                      .reshape(-1) for p in model.parameters()])
+
+
+def flat_params(torch, model):
+    return torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+
+
+def dp_gloo_rank(rank: int, port: int, out_dir: str,
+                 device: str = 'cuda:0') -> int:
+    """One of the two gloo ranks of dp-gloo-2 on the card: this rank draws
+    its 128 walkers (K1) with its own generator; the sharded clipped-score
+    step, the chunked Gram and one SPRING step, and one Metropolis sweep
+    from explicit draws on them, each from fresh random flagship weights;
+    rank 0 then runs the single-process references on the 256 gathered
+    walkers (no collective).  Writes its figures as JSON."""
+    import torch
+    sys.path.insert(0, str(ROOT))
+    from waveflow_tpu_torch.parallel import (
+        all_gather, destroy_walker_mesh, distributed_init,
+        make_sharded_train_step, make_walker_mesh, shard_batch,
+        walker_generator)
+    from waveflow_tpu_torch.vmc.estimators import make_train_step
+    from waveflow_tpu_torch.vmc.metropolis import (
+        make_metropolis_sampler, sector_projection)
+    from waveflow_tpu_torch.vmc.sr import (
+        gram_matrix, make_score_fn, make_spring_train_step)
+
+    distributed_init(f'localhost:{port}', 2, rank, backend='gloo',
+                     device=device)
+    mesh = make_walker_mesh(device=device)
+    dev = mesh.device
+    zero = torch.zeros((), device=dev)
+    spring_kw = dict(learning_rate=0.05, momentum=0.9, damping=1e-3,
+                     max_update_norm=0.3)
+
+    def fresh():
+        m = random_flagship(torch, dev)
+        return m, he_hamiltonian(m, 'fwd_batched')
+
+    def adam(m, h, axis=True):
+        kw = dict(grad_clip=None)
+        if axis:
+            return make_sharded_train_step(m.psi, h, m.parameters(), 1e-4,
+                                           mesh, **kw)
+        return make_train_step(m.psi, h, m.parameters(), 1e-4, **kw)
+
+    def spring_update(rows, axis=True):
+        m, h = fresh()
+        p0 = flat_params(torch, m)
+        make_spring_train_step(m, h, pmean_axis=mesh.axis if axis else None,
+                               **spring_kw)(rows, zero)
+        return flat_params(torch, m) - p0
+
+    def sweep(rows, noise, u, axis=True):
+        m, _ = fresh()
+        init, step_fn, _ = make_metropolis_sampler(
+            m.log_pdf, axis_name=mesh.axis if axis else None,
+            bounds=(-10.0, 10.0), proposal_map=sector_projection(True))
+        return step_fn(init(rows, step_size=0.5), noise=noise, u=u)
+
+    res = {'backend': mesh.backend, 'size': mesh.size}
+    reset_counts()
+    try:
+        m, h = fresh()
+        local = m.sample(DP_GLOO_BATCH // mesh.size,
+                         generator=walker_generator(7, mesh))
+        batch = all_gather(local, mesh.axis)
+        step = adam(m, h)
+        res['loss'] = step(local, zero).item()
+        grad = flat_grads(torch, m)
+        m, _ = fresh()
+        flatten, scores = make_score_fn(m)
+        gram = gram_matrix(scores(flatten(), local).detach(), mesh.axis)
+        update = spring_update(local)
+        draws = torch.Generator(dev).manual_seed(9)
+        noise = torch.randn((DP_GLOO_BATCH, 2), generator=draws, device=dev)
+        u = torch.rand((DP_GLOO_BATCH,), generator=draws, device=dev)
+        st = sweep(local, shard_batch(noise, mesh), shard_batch(u, mesh))
+        positions = all_gather(st.positions, mesh.axis)
+        res['step_size'] = st.step_size.item()
+        # ms per step while two processes time-share the card (a second
+        # call of each, warm)
+        _, res['adam_ms'] = events_ms(torch, lambda: step(local, zero))
+        _, res['spring_ms'] = events_ms(torch, lambda: spring_update(local))
+        res['launches'] = read_counts()
+        if rank == 0:
+            m, h = fresh()
+            res['loss_one'] = adam(m, h, axis=False)(batch, zero).item()
+            g1 = flat_grads(torch, m)
+            res['cos'] = (grad @ g1 / (grad.norm() * g1.norm())).item()
+            res['ratio'] = (grad.norm() / g1.norm()).item()
+            m, _ = fresh()
+            flatten, scores = make_score_fn(m)
+            O1 = scores(flatten(), batch).detach()
+            want = O1 @ O1.T
+            res['gram_rel'] = ((gram - want).abs().max()
+                               / want.abs().max()).item()
+            res['n_params'] = O1.shape[1]
+            want = spring_update(batch, axis=False)
+            res['spring_rel'] = ((update - want).norm() / want.norm()).item()
+            perm = torch.randperm(DP_GLOO_BATCH, device=dev,
+                                  generator=torch.Generator(dev)
+                                  .manual_seed(3))
+            res['spring_reorder_rel'] = (
+                (spring_update(batch[perm], axis=False) - want).norm()
+                / want.norm()).item()
+            st1 = sweep(batch, noise, u, axis=False)
+            res['step_size_one'] = st1.step_size.item()
+            res['positions_diff'] = (positions - st1.positions).abs() \
+                .max().item()
+    finally:
+        destroy_walker_mesh()
+    Path(out_dir, f'rank{rank}.json').write_text(json.dumps(res))
+    return 0
+
+
+def dp_gloo_phase(torch):
+    """Two ranks on the one card over gloo, eager (its collectives cannot be
+    captured), spawned from this script: each runs ``dp_gloo_rank``; the
+    gates hold the sharded clipped-score step, the chunked Gram, SPRING's
+    update and the collective step size to the single-process references
+    on the 256 gathered walkers, and K1 and K3 launched on both ranks.  The
+    ms are two processes time-sharing one card, not a scaling figure."""
+    import socket
+    with socket.socket() as s:
+        s.bind(('localhost', 0))
+        port = s.getsockname()[1]
+    out = Path(tempfile.mkdtemp(prefix='dp-gloo-'))
+    logs = [open(out / f'rank{r}.log', 'w') for r in range(2)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), '--dp-gloo-rank',
+         str(r), '--dp-port', str(port), '--dp-out', str(out)],
+        stdout=logs[r], stderr=subprocess.STDOUT) for r in range(2)]
+    failed = None
+    try:
+        for r, p in enumerate(procs):
+            left = DP_GLOO_TIMEOUT - (time.perf_counter() - t0)
+            try:
+                if p.wait(timeout=max(left, 1.0)) != 0:
+                    failed = f"rank {r} exited with {p.returncode}"
+                    break
+            except subprocess.TimeoutExpired:
+                failed = f"the ranks ran past {DP_GLOO_TIMEOUT} s"
+                break
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    wall = time.perf_counter() - t0
+    if failed:
+        for r in range(2):
+            print(f"--- dp-gloo-2 rank {r} ---\n"
+                  + (out / f'rank{r}.log').read_text()[-6000:], flush=True)
+        fail(f"dp-gloo-2: {failed}")
+    r0, r1 = (json.loads((out / f'rank{r}.json').read_text())
+              for r in range(2))
+    launches = {k: r0['launches'][k] + r1['launches'][k]
+                for k in r0['launches']}
+    print(f"dp-gloo-2: 2 ranks over {r0['backend']} on one card, eager, "
+          f"{DP_GLOO_BATCH} walkers (2 x {DP_GLOO_BATCH // 2}), random "
+          f"flagship weights | clipped-score step: loss {r0['loss']:.6f} "
+          f"against one process {r0['loss_one']:.6f}, gradient cos "
+          f"{r0['cos']:.8f}, norm ratio {r0['ratio']:.8f} | chunked Gram "
+          f"({r0['n_params']} columns) {r0['gram_rel']:.3e} | SPRING update "
+          f"{r0['spring_rel']:.3e} relative L2 (one process, walkers "
+          f"reordered: {r0['spring_reorder_rel']:.3e}) | step size "
+          f"{r0['step_size']:.9f} / {r1['step_size']:.9f} against one process "
+          f"{r0['step_size_one']:.9f}, walkers {r0['positions_diff']:.3e} | "
+          f"launches rank 0 {r0['launches']}, rank 1 {r1['launches']} | ms "
+          f"per step while two processes time-share the card: adam "
+          f"{r0['adam_ms']:.1f} / {r1['adam_ms']:.1f}, SPRING "
+          f"{r0['spring_ms']:.1f} / {r1['spring_ms']:.1f} | {wall:.1f} s wall",
+          flush=True)
+    if r0['backend'] != 'gloo' or r0['size'] != 2:
+        fail(f"dp-gloo-2: a world of {r0['size']} over {r0['backend']}")
+    if not (r0['loss'] == r1['loss']
+            and near(r0['loss'], r0['loss_one'], DP_LOSS_RTOL)):
+        fail(f"dp-gloo-2: losses {r0['loss']}, {r1['loss']} against "
+             f"{r0['loss_one']}")
+    if not (r0['cos'] > DP_MIN_COS
+            and DP_RATIO[0] < r0['ratio'] < DP_RATIO[1]):
+        fail(f"dp-gloo-2: gradient cos {r0['cos']}, ratio {r0['ratio']}")
+    if not r0['gram_rel'] <= DP_GRAM_RTOL:
+        fail(f"dp-gloo-2: chunked Gram {r0['gram_rel']} from O O^T")
+    if not r0['spring_rel'] <= DP_SPRING_TOL:
+        fail(f"dp-gloo-2: SPRING update {r0['spring_rel']} from one process")
+    if not (r0['step_size'] == r1['step_size']
+            and near(r0['step_size'], r0['step_size_one'], DP_STEP_RTOL)):
+        fail(f"dp-gloo-2: step sizes {r0['step_size']}, {r1['step_size']} "
+             f"against {r0['step_size_one']}")
+    if not r0['positions_diff'] <= 1e-5:
+        fail(f"dp-gloo-2: the sharded sweep's walkers part from one "
+             f"process's by {r0['positions_diff']}")
+    for r, res in enumerate((r0, r1)):
+        if min(res['launches'].values()) == 0:
+            fail(f"dp-gloo-2: a kernel was not launched on rank {r}: "
+                 f"{res['launches']}")
+    return launches, dict(r0, rank1=r1, wall_s=wall)
+
+
+def near(value, ref, rel) -> bool:
+    """|value − ref| within ``rel`` of |ref|."""
+    return abs(value - ref) <= rel * abs(ref)
+
+
+# the four committed JAX runs no earlier phase loads (round5_quality.json
+# rows; benchmarks/round5_quality.py stage_box4: 1D, lr 3e-4, ancestral;
+# the 2D antisym runs at their final lr 3e-5, Metropolis)
+BE4_RUN = ROOT / 'results' / 'r5_be4_interacting'
+BOX4_RUN = ROOT / 'results' / 'r5_box4_free'
+LI2D_RUN = ROOT / 'results' / 'r5_li_2d_antisym'
+H2_2D_RUN = ROOT / 'results' / 'r5_h2_2d2e_antisym'
+ED40_H2 = ROOT / 'results' / 'ed40_H2_2d2e.npz'
+BE4_CONFIG = dict(system_name='Be', box_length=10.0, learning_rate=3e-4)
+BOX4_CONFIG = dict(system_name='box4', box_length=5.0, interactions=False,
+                   learning_rate=3e-4)
+LI2D_CONFIG = dict(BOX_2D, system_name='Li', ansatz='antisym',
+                   sampler='metropolis')
+H2_2D_CONFIG = dict(BOX_2D, system_name='H2', ansatz='antisym',
+                    sampler='metropolis')
+
+
 def phase_table(torch, params, jax_raw, jax_clipped, ancestral_wps=None):
-    """Phases 23 and 6-27 in order, as (name, run): run() -> (the kernel
+    """Phases 23, 30-31, 6-27 and 32-37 in order, as (name, run): run() ->
+    (the kernel
     launches on that path, or None, and the phase's figures)."""
     r4 = json.loads(JAX_EVAL_R4.read_text())[f'results/{SPRING_RUN.name}']
     mcmc = json.loads(JAX_EVAL_MCMC.read_text())[MALA_RUN.name]
@@ -2390,6 +2805,10 @@ def phase_table(torch, params, jax_raw, jax_clipped, ancestral_wps=None):
         # ---- 23. K4 under vmap, first: after many profiled graph replays
         # the profiler stops recording its eager launches ----
         ('k4-vmap', lambda: (None, k4_vmap_phase(torch))),
+        # ---- 30-31. the collectives in the graphed windows, world of one
+        # (before the profiled graph phases, as k4-vmap) ----
+        ('dp-nccl-1', lambda: dp_nccl_phase(torch)),
+        ('dp-metropolis-1', lambda: dp_metropolis_phase(torch)),
         # ---- 6-8. graphs against eager, evaluation, resume, Metropolis ----
         ('graph-train', lambda: graph_train_phase(torch)),
         ('eval-4k', lambda: evaluation_phase(torch, jax_raw, jax_clipped)),
@@ -2446,7 +2865,37 @@ def phase_table(torch, params, jax_raw, jax_clipped, ancestral_wps=None):
         ('posterior-hmc', lambda: posterior_phase(torch, 'hmc')),
         ('posterior-nuts', lambda: posterior_phase(torch, 'nuts')),
         ('posterior-smc', lambda: posterior_phase(torch, 'smc')),
-        ('nuts-waveflow', lambda: nuts_waveflow_phase(torch, params)))
+        ('nuts-waveflow', lambda: nuts_waveflow_phase(torch, params)),
+        # ---- 32-33. two gloo ranks on the card; the sharded posterior ----
+        ('dp-gloo-2', lambda: dp_gloo_phase(torch)),
+        ('posterior-sharded-1', lambda: posterior_phase(torch, 'hmc',
+                                                        sharded=True)),
+        # ---- 34-37. the committed JAX runs no earlier phase loads ----
+        ('be4-eval', lambda: gate_phase(
+            torch, 'be4-eval', BE4_RUN, BE4_CONFIG,
+            (r5['be4_interacting']['eval_mean'],
+             r5['be4_interacting']['eval_stderr']),
+            (r5['be4_interacting']['eval_clipped'],
+             r5['be4_interacting']['eval_clipped_stderr']))),
+        ('box4-eval', lambda: gate_phase(
+            torch, 'box4-eval', BOX4_RUN, BOX4_CONFIG,
+            (r5['box4_free']['eval_mean'], r5['box4_free']['eval_stderr']),
+            (r5['box4_free']['eval_clipped'],
+             r5['box4_free']['eval_clipped_stderr']))),
+        ('li-2d-eval', lambda: eval_2d_phase(
+            torch, 'li-2d-eval', LI2D_RUN, LI2D_CONFIG,
+            r5['li_2d_antisym'])),
+        ('h2-2d-eval', lambda: eval_2d_phase(
+            torch, 'h2-2d-eval', H2_2D_RUN, H2_2D_CONFIG,
+            r5['h2_2d2e_antisym'],
+            fidelity=(ED40_H2, r5['h2_2d2e_antisym']['fidelity_ed40']))))
+
+
+def end_walker_mesh():
+    """End the process group the sharded phases made (NCCL, a world of
+    one), so that the script exits with no communicator left."""
+    from waveflow_tpu_torch.parallel import destroy_walker_mesh
+    destroy_walker_mesh()
 
 
 def partial_run(torch, only, params, jax_raw, jax_clipped, kind, t_start):
@@ -2462,6 +2911,7 @@ def partial_run(torch, only, params, jax_raw, jax_clipped, kind, t_start):
             run()
             print(f"phase {name}: {time.perf_counter() - t0:.1f} s wall",
                   flush=True)
+    end_walker_mesh()
     print(f"chip_smoke --only: {time.perf_counter() - t_start:.1f} s wall, "
           "the build included; no kernels line in a partial run", flush=True)
     print(json.dumps({'ok': True, 'device': {
@@ -2479,9 +2929,19 @@ def main(argv=None) -> int:
              "graph-train, eval-4k, graph-eval, resume, metropolis-256, "
              "graph-metropolis, mala-eval, ..., poly-sample, antisym-eval, "
              "..., paired2d-256, k4-vmap, posterior-hmc, posterior-nuts, "
-             "posterior-smc, nuts-waveflow) to run alone "
+             "posterior-smc, nuts-waveflow, dp-nccl-1, dp-metropolis-1, "
+             "dp-gloo-2, posterior-sharded-1, be4-eval, box4-eval, "
+             "li-2d-eval, h2-2d-eval) to run alone "
              "after the build; a partial run prints no kernels line")
+    # one rank of dp-gloo-2, which the phase starts itself
+    parser.add_argument('--dp-gloo-rank', type=int, default=None,
+                        help=argparse.SUPPRESS)
+    parser.add_argument('--dp-port', type=int, default=None,
+                        help=argparse.SUPPRESS)
+    parser.add_argument('--dp-out', default=None, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
+    if args.dp_gloo_rank is not None:
+        return dp_gloo_rank(args.dp_gloo_rank, args.dp_port, args.dp_out)
     only = None if args.only is None else set(args.only.split(','))
 
     import torch
@@ -2643,6 +3103,7 @@ def main(argv=None) -> int:
         if launches_of is not None:
             by_phase[name] = launches_of
         print(f"phase {name}: {time.perf_counter() - t0:.1f} s wall", flush=True)
+    end_walker_mesh()
     vmap_row = rows['vmap']
 
     # ---- 28. density (the second main path; counts reset just before) ------

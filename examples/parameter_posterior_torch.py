@@ -11,7 +11,15 @@ of the posterior predictive (Bayesian model average over the draws).
 Usage:
   python examples/parameter_posterior_torch.py [--sampler nuts|hmc|smc]
       [--n-train 300] [--n-steps 200] [--n-warmup 150] [--device cuda]
-      [--seed 0]
+      [--seed 0] [--sharded]
+  torchrun --nproc-per-node N examples/parameter_posterior_torch.py --sharded
+
+--sharded splits the chains (SMC: the particles) over the ranks of the
+process group (parallel/probprog.py; without torchrun, a world of one
+process): each rank samples its own rows with its own generator, the
+warm-up adapts one step size (SMC: weights, ESS and resample over every
+rank), and the draws are gathered for the evaluation.  Rates and K4
+launches are each rank's own.
 
 The last line is one JSON object of the run's figures: the card, the
 posterior dimension, the sampling wall time, gradient evaluations per
@@ -35,6 +43,10 @@ from waveflow_tpu_torch import resolve_device
 from waveflow_tpu_torch.benchmark import get_dataset
 from waveflow_tpu_torch.benchmark.density import get_benchmark_model
 from waveflow_tpu_torch.ops import cuda_spline
+from waveflow_tpu_torch.parallel import (
+    all_gather, make_sharded_chain_sampler, make_sharded_smc,
+    make_walker_mesh, rank_seed, walker_generator,
+)
 from waveflow_tpu_torch.vmc import (
     make_hmc_sampler, make_nuts_sampler, make_parameter_posterior,
     make_smc_sampler,
@@ -74,13 +86,17 @@ def run_posterior(sampler='nuts', n_train=300, n_test=1000, n_chains=8,
                   step_size=2e-3, nuts_depth=6, hmc_leapfrog=16,
                   n_particles=SMC['n_particles'], n_temps=SMC['n_temps'],
                   n_mcmc_moves=SMC['n_mcmc_moves'], device=None, seed=0,
-                  verbose=True, profile=None) -> dict:
+                  verbose=True, profile=None, sharded=False) -> dict:
     """Sample the posterior over the example MFlow's parameters and
     evaluate it on held-out points; returns the run's figures.
     ``profile(run)``, where given, is handed a stretch of two more steps
     (SMC: one more temperature) after the timed run, and its result goes
-    into the figures as 'profile'."""
+    into the figures as 'profile'.  ``sharded``: the chains or particles
+    split over the walker group (``make_walker_mesh``)."""
     device = resolve_device(device)
+    mesh = make_walker_mesh(device) if sharded else None
+    if mesh is not None:
+        device = mesh.device
     X = get_dataset('circles', n_samples=n_train + n_test)
     X_train = torch.as_tensor(X[:n_train], device=device)
     X_test = torch.as_tensor(X[n_train:], device=device)
@@ -94,6 +110,13 @@ def run_posterior(sampler='nuts', n_train=300, n_test=1000, n_chains=8,
         print(f"posterior dimension: {D} flow parameters", flush=True)
 
     gen = torch.Generator(device).manual_seed(seed + 1)
+    run_gen = gen
+    if mesh is not None and mesh.size > 1:
+        # the initial chains from a stream every rank shares, the moves from
+        # each rank's own (one stream, gen, over one rank)
+        gen = torch.Generator(device).manual_seed(rank_seed(seed + 1,
+                                                            mesh.size))
+        run_gen = walker_generator(seed + 1, mesh)
     figures = {}
     sync(device)
     k4 = (cuda_spline.launches, cuda_spline.launches_bwd)
@@ -107,11 +130,19 @@ def run_posterior(sampler='nuts', n_train=300, n_test=1000, n_chains=8,
 
         particles = flat0[None] + 0.1 * torch.randn(
             (n_particles, D), generator=gen, device=device)
-        init_fn, run_fn = make_smc_sampler(
-            log_prior, log_like, n_temps=n_temps, n_mcmc_moves=n_mcmc_moves,
-            mcmc_step_size=step_size)
-        state, ess, acc = run_fn(init_fn(particles), gen, return_accept=True)
-        draws = state.particles
+        smc_kw = dict(n_temps=n_temps, n_mcmc_moves=n_mcmc_moves,
+                      mcmc_step_size=step_size)
+        if mesh is None:
+            init_fn, run_fn = make_smc_sampler(log_prior, log_like, **smc_kw)
+            state, ess, acc = run_fn(init_fn(particles), gen,
+                                     return_accept=True)
+        else:
+            init_fn, run_fn = make_sharded_smc(log_prior, log_like, mesh,
+                                               **smc_kw)
+            state, ess, acc = run_fn(init_fn(particles), run_gen, gen,
+                                     return_accept=True)
+        draws = (state.particles if mesh is None
+                 else all_gather(state.particles, mesh.axis))
         figures.update(accept=float(acc.mean()), ess_min=float(ess.min()),
                        n_resamples=int((ess < 0.5).sum()))
         n_iter = n_temps
@@ -120,20 +151,34 @@ def run_posterior(sampler='nuts', n_train=300, n_test=1000, n_chains=8,
                                 mcmc_step_size=step_size)[1]
 
         def stretch():
-            return more(state, gen)
+            if mesh is None:
+                return more(state, gen)
+            return make_sharded_smc(log_prior, log_like, mesh, n_temps=1,
+                                    n_mcmc_moves=n_mcmc_moves,
+                                    mcmc_step_size=step_size)[1](
+                state, run_gen, gen)
     else:
         chains = flat0[None] + 0.01 * torch.randn(
             (n_chains, D), generator=gen, device=device)
-        if sampler == 'nuts':
-            init_fn, _, run_fn = make_nuts_sampler(
-                log_prob, max_tree_depth=nuts_depth)
+        maker, kw = ((make_nuts_sampler, dict(max_tree_depth=nuts_depth))
+                     if sampler == 'nuts' else
+                     (make_hmc_sampler, dict(n_leapfrog=hmc_leapfrog)))
+        if mesh is None:
+            init_fn, _, run_fn = maker(log_prob, **kw)
+            state = init_fn(chains, step_size=step_size)
+            state, trace, info = run_fn(state, gen, n_steps,
+                                        n_warmup=n_warmup, return_info=True)
+            keep = trace[n_steps // 2:]
         else:
-            init_fn, _, run_fn = make_hmc_sampler(log_prob,
-                                                  n_leapfrog=hmc_leapfrog)
-        state = init_fn(chains, step_size=step_size)
-        state, trace, info = run_fn(state, gen, n_steps, n_warmup=n_warmup,
-                                    return_info=True)
-        keep = trace[n_steps // 2:].reshape(-1, D)
+            init_fn, make_run = make_sharded_chain_sampler(maker, log_prob,
+                                                           mesh, **kw)
+            state = init_fn(chains, step_size=step_size)
+            state, trace, info = make_run(n_steps, n_warmup)(
+                state, run_gen, return_info=True)
+            # every rank's chains over the kept half: (steps, chains, D)
+            keep = all_gather(trace[n_steps // 2:].transpose(0, 1),
+                              mesh.axis).transpose(0, 1)
+        keep = keep.reshape(-1, D)
         draws = keep[::max(1, keep.shape[0] // N_DRAWS)][:N_DRAWS]
         figures.update(step_size=float(state.step_size),
                        accept=float(info['accept'][n_warmup:].mean()))
@@ -144,12 +189,15 @@ def run_posterior(sampler='nuts', n_train=300, n_test=1000, n_chains=8,
         n_iter = n_warmup + n_steps
 
         def stretch():
-            return run_fn(state, gen, 2)
+            if mesh is None:
+                return run_fn(state, gen, 2)
+            return make_run(2)(state, run_gen)
     sync(device)
     wall = time.perf_counter() - t0
     k4 = (cuda_spline.launches - k4[0], cuda_spline.launches_bwd - k4[1])
     figures.update(
-        sampler=sampler, D=D, sampling_s=wall, ms_per_step=1e3 * wall / n_iter,
+        sampler=sampler, D=D, ranks=1 if mesh is None else mesh.size,
+        sampling_s=wall, ms_per_step=1e3 * wall / n_iter,
         density_calls=log_prob.calls, grad_calls=log_prob.grad_calls,
         grad_evals_per_s=log_prob.grad_rows / wall,
         grad_calls_per_s=log_prob.grad_calls / wall,
@@ -190,22 +238,18 @@ def main():
     p.add_argument('--prior-scale', type=float, default=2.0)
     p.add_argument('--step-size', type=float, default=2e-3)
     p.add_argument('--sharded', action='store_true',
-                   help='shard chains/particles over all visible devices '
-                        '(not ported: ROADMAP Queue 1 item 14)')
+                   help='shard chains/particles over the ranks of the '
+                        'process group (torchrun), or a world of one')
     p.add_argument('--device', default='cuda',
                    help="'cuda' (default) or 'cpu'")
     p.add_argument('--seed', type=int, default=0,
                    help='seeds the initial weights and the draws')
     args = p.parse_args()
-    if args.sharded:
-        raise NotImplementedError(
-            "--sharded (chains over a device mesh) is not ported: ROADMAP "
-            "Queue 1 item 14")
     device = resolve_device(args.device)
     figures = run_posterior(
         args.sampler, args.n_train, args.n_test, args.n_chains, args.n_steps,
         args.n_warmup, args.prior_scale, args.step_size, device=device,
-        seed=args.seed)
+        seed=args.seed, sharded=args.sharded)
     figures['device'] = (torch.cuda.get_device_name(device)
                          if device.type == 'cuda' else 'cpu')
     print(json.dumps(figures), flush=True)

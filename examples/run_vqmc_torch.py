@@ -10,6 +10,9 @@ Usage:
   python examples/run_vqmc_torch.py --system He --n-space-dimension 2 \
       --box-length 5 --ansatz antisym --sampler metropolis \
       --learning-rate 3e-4                            # 2D, antisymmetrized
+  torchrun --nproc-per-node 4 examples/run_vqmc_torch.py --data-parallel
+      # the walker batch over 4 devices, one process each (alone: a world
+      # of one process, every collective in the path)
 
 Checkpoints go to --save-dir (default: the JAX package's
 ./results/<system>_<d>d_L<box>box) every --log-every epochs and at the end;
@@ -82,6 +85,9 @@ def main(argv=None):
                         'draws every N epochs; -1 = auto (once per window '
                         'for >= 3 electrons), 0 disables')
     p.add_argument('--no-interactions', action='store_true')
+    p.add_argument('--data-parallel', action='store_true',
+                   help='shard the walker batch over the ranks of the '
+                        'process group (torchrun; alone, a world of one)')
     p.add_argument('--device', default='cuda', help="'cuda' (default) or 'cpu'")
     args = p.parse_args(argv)
 
@@ -102,7 +108,7 @@ def main(argv=None):
                     mcmc_refresh_every=('auto' if args.mcmc_refresh_every < 0
                                         else (args.mcmc_refresh_every or None)),
                     interactions=not args.no_interactions,
-                    device=args.device)
+                    data_parallel=args.data_parallel, device=args.device)
     cfg.save_dir = cfg.resolved_save_dir()
     trainer = VMCTrainer(cfg)
     trainer.train(restart=args.restart)

@@ -142,11 +142,13 @@ def test_box_bound_rejects():
 
 
 def test_unported_arguments_raise():
-    with pytest.raises(NotImplementedError):
-        make_metropolis_sampler(lambda x: x.sum(-1), axis_name='walkers')
-    with pytest.raises(NotImplementedError):
+    """A walker axis with no process group behind it raises at
+    construction (tests/test_torch_parallel.py drives the bound ones)."""
+    with pytest.raises(ValueError, match='no process group'):
+        make_metropolis_sampler(lambda x: x.sum(-1), axis_name='unbound')
+    with pytest.raises(ValueError, match='no process group'):
         make_mcmc_train_window(None, lambda x: x.sum(-1), BOX,
-                               pmean_axis='walkers')
+                               pmean_axis=('hosts', 'unbound'))
 
 
 def test_train_window_matches_jax():

@@ -251,14 +251,16 @@ def test_systematic_resample_clamps_as_jax_gathers():
     assert reached >= 3
 
 
-# ---- the samplers refuse a mesh axis ----------------------------------------
+# ---- the samplers refuse an unbound chain axis ----------------------------
 
 def test_axis_name_is_not_ported():
+    """A chain axis with no process group behind it raises at
+    construction (the bound axes: tests/test_torch_probprog_sharded.py)."""
     lp = lambda x: -0.5 * (x ** 2).sum(-1)
-    for make in (lambda: hmc.make_hmc_sampler(lp, axis_name='walkers'),
-                 lambda: nuts.make_nuts_sampler(lp, axis_name='walkers'),
-                 lambda: smc.make_smc_sampler(lp, lp, axis_name='walkers')):
-        with pytest.raises(NotImplementedError, match='item 14'):
+    for make in (lambda: hmc.make_hmc_sampler(lp, axis_name='unbound'),
+                 lambda: nuts.make_nuts_sampler(lp, axis_name='unbound'),
+                 lambda: smc.make_smc_sampler(lp, lp, axis_name='unbound')):
+        with pytest.raises(ValueError, match='no process group'):
             make()
 
 

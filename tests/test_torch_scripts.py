@@ -18,7 +18,8 @@ TINY = ['--num-knots', '6', '--spline-degree', '3', '--n-flow-layers', '1']
 
 
 def _run(script, *args):
-    out = subprocess.run([sys.executable, str(ROOT / script), *args],
+    script = script if script.startswith('-') else str(ROOT / script)
+    out = subprocess.run([sys.executable, script, *args],
                          cwd=ROOT, capture_output=True, text=True, timeout=300,
                          env={**os.environ, 'OMP_NUM_THREADS': '2'})
     assert out.returncode == 0, out.stderr[-3000:]
@@ -133,3 +134,46 @@ def test_evaluate_h_2d_with_its_oracle():
     assert 'exact (2D ED, 120^2 grid): -0.43035' in out
     line = next(ln for ln in out.splitlines() if ln.startswith('fidelity'))
     assert abs(float(line.split('=')[1].split()[0]) - 0.999942) <= 1e-4
+
+
+def test_run_data_parallel(tmp_path):
+    """run_vqmc_torch.py --data-parallel: alone, a world of one process
+    (gloo on the CPU); under torchrun, 2 ranks of 4 walkers each, rank 0
+    printing and writing the replicated checkpoint, each rank its shard."""
+    args = ['examples/run_vqmc_torch.py', '--device', 'cpu', '--num-epochs',
+            '2', '--window', '2', '--batch-size', '8', '--log-every', '2',
+            '--sampler', 'metropolis', '--data-parallel', *TINY]
+    out = _run(*args, '--save-dir', str(tmp_path / 'one'))
+    assert 'epoch 2 |' in out
+    assert not list((tmp_path / 'one').glob('checkpoints.shard*'))
+    out = _run('-m', 'torch.distributed.run', '--standalone',
+               '--nproc-per-node', '2', *args,
+               '--save-dir', str(tmp_path / 'two'))
+    assert out.count('epoch 2 |') == 1
+    names = {p.name for p in (tmp_path / 'two').iterdir()}
+    assert {'checkpoints', 'loss.npy', 'checkpoints.shard0',
+            'checkpoints.shard1'} <= names
+    assert np.isfinite(np.load(tmp_path / 'two' / 'loss.npy')).all()
+
+
+def test_data_parallel_check_on_two_ranks():
+    """examples/data_parallel_torch.py under torchrun, 2 gloo ranks at
+    small widths: the sharded step against rank 0's single-process step and
+    2 windows replicated to the bit pass, the JSON line says so."""
+    out = _run('-m', 'torch.distributed.run', '--standalone',
+               '--nproc-per-node', '2', 'examples/data_parallel_torch.py',
+               '--device', 'cpu', '--tiny', '--per-rank', '8', '--window', '2')
+    figures = json.loads(out.strip().splitlines()[-1])
+    assert figures['world'] == 2 and figures['failed'] == []
+    assert figures['replicated_to_the_bit'] and figures['step_cos'] > 0.999
+
+
+def test_posterior_sharded():
+    """parameter_posterior_torch.py --sharded over a world of one: HMC at
+    a cut depth, the JSON line's figures finite."""
+    out = _run('examples/parameter_posterior_torch.py', '--device', 'cpu',
+               '--sampler', 'hmc', '--sharded', '--n-steps', '4',
+               '--n-warmup', '4', '--n-test', '100')
+    figures = json.loads(out.strip().splitlines()[-1])
+    assert figures['ranks'] == 1 and figures['finite']
+    assert np.isfinite(figures['bma_ll'])

@@ -159,13 +159,16 @@ def test_trainer_divergence_recovery():
 @pytest.mark.parametrize('override', [
     dict(num_processes=2), dict(coordinator_address='localhost:1234'),
     dict(eval_backend='table'), dict(process_id=0),
-    dict(save_artifacts=True), dict(data_parallel=True),
-    dict(data_parallel='hosts'), dict(divergence_recovery=False)])
+    dict(save_artifacts=True), dict(data_parallel='chips'),
+    dict(data_parallel=2), dict(divergence_recovery=False)])
 def test_trainer_refuses_unported_config(override):
-    """Anything beyond ancestral / metropolis / mala + adam / sr / spring on
-    one process and one device — meshes, processes, artifacts, the table
-    eval backend — raises NotImplementedError instead of being ignored
-    (2D and the antisym ansatz are ported: tests/test_torch_coords2d.py)."""
+    """What the trainer does not run raises NotImplementedError instead of
+    being ignored: artifacts, the table eval backend, no divergence
+    recovery, a data_parallel mode other than False / True / 'hosts', and
+    the process fields without data_parallel (the JAX trainer would train
+    the same walkers in every process).  2D and the antisym ansatz are
+    ported (tests/test_torch_coords2d.py), and so is data_parallel
+    (tests/test_torch_parallel.py, tests/test_torch_distributed.py)."""
     with pytest.raises(NotImplementedError):
         VMCTrainer(device='cpu', **override)
 

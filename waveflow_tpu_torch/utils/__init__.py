@@ -1,4 +1,6 @@
-from waveflow_tpu_torch.utils.checkpoint import load_state, save_state
+from waveflow_tpu_torch.utils.checkpoint import (
+    load_state, save_state, save_state_multihost,
+)
 from waveflow_tpu_torch.utils.observables import (
     clipped_energy_estimate, median_energy_estimate, moving_average,
     uniform_sliding_average, uniform_sliding_stdev,

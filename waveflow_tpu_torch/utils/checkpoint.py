@@ -1,7 +1,8 @@
 """Checkpoint files: an atomic pickle of plain numpy state.
 
 Port of waveflow_tpu/utils/checkpoint.py (``save_state`` / ``load_state``,
-single process).  The caller converts tensors to numpy arrays first.
+and ``save_state_multihost``, where rank 0 of a process group writes).
+The caller converts tensors to numpy arrays first.
 ``load_state`` also reads the JAX trainer's checkpoints with neither JAX,
 optax nor the JAX package importable: their optax states and the JAX
 package's NamedTuples come back as inert tuples of their fields.
@@ -13,6 +14,8 @@ import importlib
 import pickle
 from pathlib import Path
 from typing import Any
+
+import torch.distributed as dist
 
 
 class _Inert(tuple):
@@ -41,14 +44,23 @@ class _CheckpointUnpickler(pickle.Unpickler):
 
 
 def save_state(path: str | Path, state: dict[str, Any]) -> None:
-    """Write ``state`` to ``path`` atomically: a ``.tmp`` file beside it,
-    then a rename, so a reader never sees half a checkpoint."""
+    """Write ``state`` to ``path`` atomically: ``<path>.tmp`` beside it,
+    then a rename, so a reader never sees half a checkpoint (and ranks
+    writing their own files into one directory never share a .tmp)."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix('.tmp')
+    tmp = path.with_name(path.name + '.tmp')
     with open(tmp, 'wb') as f:
         pickle.dump(state, f)
     tmp.replace(path)
+
+
+def save_state_multihost(path: str | Path, state: dict[str, Any]) -> None:
+    """``save_state`` on rank 0 of the process group (of a single process
+    without one): the state is replicated, one copy is written.  Every rank
+    calls it."""
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        save_state(path, state)
 
 
 def load_state(path: str | Path) -> dict[str, Any] | None:

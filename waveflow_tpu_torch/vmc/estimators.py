@@ -16,6 +16,12 @@ autograd.  'reference' differentiates E_L = Hψ/ψ itself — reverse mode
 through the Laplacian — with the score term 2 ψ̇ (E_L − b)/ψ against the
 running baseline b added by ``local_energy``'s derivative rules.
 
+Walkers sharded over ranks (``pmean_axis``, parallel/mesh.py): the clip
+window of 'clipped_score' comes from the local energies of every rank
+(one all-gather), and the train step averages the loss and the gradients
+over the ranks (one all-reduce) before the norm clip, as JAX averages in
+``make_train_step`` ahead of its optax chain.
+
 Two places where PyTorch's defaults differ from the JAX reference:
   * median — ``torch.median`` returns the LOWER middle value of an even
     batch, ``jnp.median`` the mean of the two middle values; ``_median``
@@ -31,6 +37,7 @@ from __future__ import annotations
 import torch
 from torch.func import functional_call
 
+from waveflow_tpu_torch.parallel import mesh
 from waveflow_tpu_torch.vmc import graphs
 
 PSI_EPS = 1e-8
@@ -104,28 +111,38 @@ def _median(x: torch.Tensor) -> torch.Tensor:
     return 0.5 * (s[(n - 1) // 2] + s[n // 2])
 
 
-def clip_local_energies(e_loc: torch.Tensor, clip_scale: float = 5.0,
-                        clip_stat: str = 'mean_abs') -> torch.Tensor:
-    """E_L clipped to median ± clip_scale × dev, dev = mean|E_L − median|
-    (``clip_stat='mean_abs'``, the JAX default) or median|E_L − median|
-    ('median_abs', the conventional MAD; jnp's median)."""
+def clip_window(e_stat: torch.Tensor, clip_scale: float = 5.0,
+                clip_stat: str = 'mean_abs'):
+    """(lo, hi) = median ± clip_scale × dev of the energies ``e_stat``, dev
+    = mean|E_L − median| (``clip_stat='mean_abs'``, the JAX default) or
+    median|E_L − median| ('median_abs', the conventional MAD; jnp's
+    median)."""
     if clip_stat not in ('mean_abs', 'median_abs'):
         raise ValueError(f"unknown clip_stat {clip_stat!r}")
-    center = _median(e_loc)
-    dev = (e_loc - center).abs()
+    center = _median(e_stat)
+    dev = (e_stat - center).abs()
     mad = dev.mean() if clip_stat == 'mean_abs' else _median(dev)
-    return torch.clamp(e_loc, center - clip_scale * mad,
-                       center + clip_scale * mad)
+    return center - clip_scale * mad, center + clip_scale * mad
+
+
+def global_energies(e_loc: torch.Tensor, pmean_axis=None) -> torch.Tensor:
+    """The local energies of every rank of ``pmean_axis`` (an all-gather),
+    or ``e_loc`` itself without an axis: the population the clip window
+    is taken over."""
+    return e_loc if pmean_axis is None else mesh.all_gather(e_loc, pmean_axis)
 
 
 def make_loss_fn(psi, h_fn, estimator: str = 'clipped_score',
                  clip_scale: float = 5.0, energy_clip: float | None = None,
-                 clip_stat: str = 'mean_abs'):
+                 clip_stat: str = 'mean_abs', pmean_axis=None):
     """loss(batch, baseline) -> scalar.
 
     'clipped_score': value = the clipped batch-mean energy, gradient = the
-    clipped score-function estimator (clip window of
-    ``clip_local_energies(..., clip_stat)``); the baseline is unused.
+    clipped score-function estimator (``clip_window(..., clip_stat)`` of
+    ``global_energies``: under ``pmean_axis`` the window, and the mean
+    the weights are centred on, come from every rank's walkers, so that
+    each rank's gradient is its share of the global estimator); the
+    baseline is unused.
     'reference': the mean of ``local_energy`` (optionally clamped to
     ±``energy_clip`` in value and gradient), whose gradient differentiates
     Hψ/ψ and adds the score term against ``baseline``."""
@@ -147,10 +164,11 @@ def make_loss_fn(psi, h_fn, estimator: str = 'clipped_score',
         psi_val = psi(batch)
         with torch.no_grad():
             energies = h_fn(batch)[:, 0]
-            e_c = clip_local_energies(energies / _safe_psi(psi_val),
-                                      clip_scale, clip_stat)
-            e_c_mean = e_c.mean()
-            weights = e_c - e_c_mean
+            e_loc = energies / _safe_psi(psi_val)
+            e_stat = global_energies(e_loc, pmean_axis)
+            lo, hi = clip_window(e_stat, clip_scale, clip_stat)
+            e_c_mean = torch.clamp(e_stat, lo, hi).mean()
+            weights = torch.clamp(e_loc, lo, hi) - e_c_mean
         log_abs_psi = torch.log(psi_val.abs() + PSI_EPS)
         surrogate = 2.0 * (weights * log_abs_psi).mean()
         # value = robust energy estimate; gradient = score-only estimator
@@ -170,15 +188,33 @@ def clip_by_global_norm(params, max_norm: float) -> None:
         g.copy_(torch.where(clip, g / norm * max_norm, g))
 
 
+@torch.no_grad()
+def pmean_grads(params, loss: torch.Tensor, pmean_axis) -> torch.Tensor:
+    """The loss and the ``.grad`` of ``params``, averaged in place over the
+    ranks of ``pmean_axis`` as one flat all-reduce; returns the averaged
+    loss.  Over one rank every value is unchanged, to the bit."""
+    grads = [p.grad for p in params if p.grad is not None]
+    flat = mesh.pmean(torch.cat([loss.reshape(1)]
+                                + [g.reshape(-1) for g in grads]), pmean_axis)
+    offset = 1
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
+    return flat[0]
+
+
 def make_train_step(psi, h_fn, params, learning_rate: float,
                     grad_clip: float | None = 10.0,
                     estimator: str = 'clipped_score',
                     energy_clip: float | None = None,
-                    clip_stat: str = 'mean_abs'):
+                    clip_stat: str = 'mean_abs', pmean_axis=None):
     """step(batch, baseline) -> loss: one estimator gradient, the
     optax-form global norm clip, and one Adam update (eps 1e-8 outside the
     square root, the optax placement) on ``params``.  ``step.optimizer``
-    holds the Adam state.
+    holds the Adam state.  Under ``pmean_axis`` the local loss and
+    gradients are averaged over the ranks (``pmean_grads``) before the
+    clip, so every rank applies the same update to its copy of the
+    parameters.
 
     On a CUDA device Adam is ``capturable`` (its step count lives on the
     device, so an update can be captured in a CUDA graph), whether or not
@@ -194,8 +230,11 @@ def make_train_step(psi, h_fn, params, learning_rate: float,
     gradient sums followed the process's history, and the first 'reference'
     + 'dense' run of a process parted from later ones in the last bits."""
     params = list(params)
+    if pmean_axis is not None:
+        mesh.check_axis(pmean_axis)
     loss_fn = make_loss_fn(psi, h_fn, estimator=estimator,
-                           energy_clip=energy_clip, clip_stat=clip_stat)
+                           energy_clip=energy_clip, clip_stat=clip_stat,
+                           pmean_axis=pmean_axis)
     optimizer = torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999),
                                  eps=1e-8, capturable=params[0].is_cuda)
 
@@ -204,6 +243,8 @@ def make_train_step(psi, h_fn, params, learning_rate: float,
             optimizer.zero_grad(set_to_none=True)
             loss = loss_fn(batch, baseline)
             loss.backward()
+            if pmean_axis is not None:
+                loss = pmean_grads(params, loss, pmean_axis)
             if grad_clip is not None:
                 clip_by_global_norm(params, grad_clip)
             optimizer.step()

@@ -1,12 +1,16 @@
 """Hamiltonian Monte Carlo over flattened chains, and the Bayesian posterior
 over a flow's parameters.
 
-Port of waveflow_tpu/vmc/hmc.py, single device.  Fixed-length leapfrog with
+Port of waveflow_tpu/vmc/hmc.py.  Fixed-length leapfrog with
 a Metropolis correction, and the dual-averaging step-size warm-up of
 Hoffman & Gelman (2014, Alg. 6) that NUTS shares (γ = 0.05, κ = 0.75,
 t₀ = 10, the anchor μ = log(10·ε₀) fixed at init from the caller's step
 size).  The sampler reads no value back to the host: the adaptation state
-lives on the device as 0-d tensors.
+lives on the device as 0-d tensors.  Chains sharded over ranks
+(``axis_name``, parallel/probprog.py) adapt one step size: the batch's
+mean acceptance statistic is ``pmean``-reduced over the ranks in every
+step, the step's only collective.  Every rank must make the same
+collectives in the same order: a rank that skips one deadlocks the world.
 
 ``make_parameter_posterior`` turns a density module into a log density
 over batches of its flattened parameters θ: ``torch.func.vmap`` over the
@@ -29,13 +33,10 @@ import torch
 from torch.func import functional_call, vmap
 
 from waveflow_tpu_torch.convert import ravel_layout
+from waveflow_tpu_torch.parallel import mesh
 
 # dual averaging (Hoffman & Gelman 2014, Alg. 6), as in the JAX package
 DA_GAMMA, DA_KAPPA, DA_T0 = 0.05, 0.75, 10
-
-AXIS_NAME_NOT_PORTED = (
-    "axis_name (chains sharded over a device mesh) is not ported: ROADMAP "
-    "Queue 1 item 14; chains run on one device")
 
 
 class HMCState(NamedTuple):
@@ -99,10 +100,11 @@ def make_hmc_sampler(log_prob_fn: Callable, n_leapfrog: int = 16,
         -> (state, trace (n_steps, B, D)) (and a dict of per-step figures).
 
     A step costs n_leapfrog + 1 gradient evaluations of the batch: the
-    gradient at the end of one leapfrog step starts the next.  ``axis_name``
-    (the collective adaptation of chains sharded over a mesh) raises."""
+    gradient at the end of one leapfrog step starts the next.  ``axis_name``:
+    the chain axis the batch is sharded over; the acceptance statistic is
+    averaged over it, so the warm-up adapts one step size on every rank."""
     if axis_name is not None:
-        raise NotImplementedError(AXIS_NAME_NOT_PORTED)
+        mesh.check_axis(axis_name)
 
     @torch.no_grad()
     def init_fn(position: torch.Tensor, step_size=0.1) -> HMCState:
@@ -139,6 +141,8 @@ def make_hmc_sampler(log_prob_fn: Callable, n_leapfrog: int = 16,
         position = torch.where(accept[:, None], q_new, state.position)
         log_prob = torch.where(accept, lp_new, state.log_prob)
         accept_prob = torch.exp(log_accept).mean()
+        if axis_name is not None:
+            accept_prob = mesh.pmean(accept_prob, axis_name)
         state = state._replace(position=position, log_prob=log_prob)
         if warmup:
             state = dual_averaging(state, accept_prob, target_accept)

@@ -1,13 +1,15 @@
 """Metropolis-adjusted Langevin (MALA) walkers and the MALA training window.
 
-Port of waveflow_tpu/vmc/mala.py, single device.  Proposals
+Port of waveflow_tpu/vmc/mala.py.  Proposals
 
     x' = x + (ε²/2) ∇log p(x) + ε ξ
 
 with the drift clipped elementwise at ±``grad_clip`` and the full
 asymmetric-kernel Metropolis correction; proposals outside the box get
 log-prob −inf; the step size adapts by Robbins-Monro toward a target
-acceptance rate.  Plain PyTorch, as in the reference: the kernels on this
+acceptance rate (over ranks, ``axis_name`` / ``pmean_axis``: one
+collective step size, as in vmc/metropolis.py).  Plain PyTorch, as in the
+reference: the kernels on this
 path are the ones inside ``log_pdf`` (K3 under ``eval_backend='poly_pallas'``,
 whose backward supplies the drift).
 
@@ -24,6 +26,7 @@ from typing import NamedTuple
 
 import torch
 
+from waveflow_tpu_torch.parallel import mesh
 from waveflow_tpu_torch.vmc.metropolis import sector_projection
 
 
@@ -44,12 +47,11 @@ def make_mala_sampler(log_pdf, target_accept: float = 0.574,
 
     ``grad_clip`` bounds the drift elementwise: near a node of ψ the
     gradient of log ψ² diverges, and the accept test keeps the chain exact
-    whatever the clip does to the proposal.  ``axis_name`` (collective
-    adaptation over a device mesh) is not ported."""
+    whatever the clip does to the proposal.  ``axis_name``: the walker
+    axis the batch is sharded over; each sweep's accept fraction is
+    ``pmean``-reduced over it, so every rank adapts the same step size."""
     if axis_name is not None:
-        raise NotImplementedError(
-            "axis_name (collective step-size adaptation over a mesh) is not "
-            "ported; walkers run on one device")
+        mesh.check_axis(axis_name)
 
     def lp_grad(x: torch.Tensor):
         with torch.enable_grad():
@@ -97,6 +99,8 @@ def make_mala_sampler(log_pdf, target_accept: float = 0.574,
         new_lp = torch.where(accept, lp_prop, state.log_prob)
         new_grad = torch.where(accept[:, None], grad_prop, state.grad)
         acc_frac = accept.to(pos.dtype).mean()
+        if axis_name is not None:
+            acc_frac = mesh.pmean(acc_frac, axis_name)
         new_step = (eps * torch.exp(adapt_rate * (acc_frac - target_accept))
                     if adapt else eps)
         new_rate = 0.9 * state.accept_rate + 0.1 * acc_frac
@@ -135,7 +139,8 @@ def make_mala_train_window(step, log_pdf, box_length: float,
     the SR / SPRING step of vmc/sr.py; ``train_step`` replaces ``step`` when
     given).
     After each update the walkers' log-probs AND drifts are recomputed under
-    the new parameters.  ``pmean_axis`` (a mesh) is not ported.
+    the new parameters.  ``pmean_axis``: the walker axis (the sampler's
+    collective step size; the update must be built with the same axis).
 
     Returns (init_fn, run_window): ``run_window(mstate, n_epochs, baseline,
     generator=None, noise=None, u=None) -> (losses (n_epochs,), the next
@@ -143,15 +148,13 @@ def make_mala_train_window(step, log_pdf, box_length: float,
     the device (no host read
     inside the window); ``noise`` (n_epochs, n_sweeps, B, D) and ``u``
     (n_epochs, n_sweeps, B) replace the generator's draws when given."""
-    if pmean_axis is not None:
-        raise NotImplementedError(
-            "pmean_axis (walkers sharded over a mesh) is not ported")
     if train_step is not None:
         step = train_step
     proj = sector_projection(sort_fermions)
     to_sector = proj if proj is not None else (lambda x: x)
     init_fn, step_fn, _ = make_mala_sampler(
         lambda x: log_pdf(to_sector(x)), target_accept=target_accept,
+        axis_name=pmean_axis,
         bounds=(-box_length, box_length))
 
     def run_window(mstate: MALAState, n_epochs: int, baseline,

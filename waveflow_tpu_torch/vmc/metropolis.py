@@ -2,13 +2,17 @@
 
 Port of waveflow_tpu/vmc/metropolis.py: ``sector_projection``,
 ``MetropolisState``, ``make_metropolis_sampler`` and
-``make_mcmc_train_window``, single device.  Gaussian proposals, projected
-into the fermionic sector, scored by the model's ``log_pdf`` (parameters
-live in the module), rejected with ``-inf`` outside the box, accepted when
+``make_mcmc_train_window``.  Gaussian proposals, projected into the
+fermionic sector, scored by the model's ``log_pdf`` (parameters live in
+the module), rejected with ``-inf`` outside the box, accepted when
 ``log(u) < lp_prop − lp``; the step size adapts by Robbins-Monro toward a
-target acceptance rate.  All of it is plain PyTorch, as in the reference
-(plain ``jnp`` outside any Pallas kernel): the kernels on this path are the
-ones inside ``log_pdf`` (K3 under ``eval_backend='poly_pallas'``).
+target acceptance rate.  Walkers sharded over ranks (``axis_name`` /
+``pmean_axis``, parallel/mesh.py) adapt ONE step size: each sweep's accept
+fraction is averaged over the ranks, so the step size stays replicated
+while the walkers stay local.  All of it is plain PyTorch, as in the
+reference (plain ``jnp`` outside any Pallas kernel): the kernels on this
+path are the ones inside ``log_pdf`` (K3 under
+``eval_backend='poly_pallas'``).
 
 Random draws come from an explicit ``torch.Generator``; every step also
 takes its proposal noise and accept uniforms explicitly, so a test can feed
@@ -21,6 +25,7 @@ from typing import NamedTuple
 
 import torch
 
+from waveflow_tpu_torch.parallel import mesh
 from waveflow_tpu_torch.vmc import graphs
 
 
@@ -71,12 +76,12 @@ def make_metropolis_sampler(log_pdf, target_accept: float = 0.5,
     proposal_map: optional symmetric projection of every proposal (e.g.
     the coordinate sort of identical fermions: the Gaussian proposal summed
     over permutations is symmetric, so detailed balance holds on the
-    sorted quotient).  ``axis_name`` (collective adaptation over a device
-    mesh) is not ported."""
+    sorted quotient).  ``axis_name``: the walker axis the batch is
+    sharded over; the accept fraction of every sweep is ``pmean``-reduced
+    over it (one collective per sweep), so every rank adapts the same
+    step size."""
     if axis_name is not None:
-        raise NotImplementedError(
-            "axis_name (collective step-size adaptation over a mesh) is not "
-            "ported; walkers run on one device")
+        mesh.check_axis(axis_name)
 
     @torch.no_grad()
     def init_fn(positions: torch.Tensor, step_size=0.1) -> MetropolisState:
@@ -112,6 +117,8 @@ def make_metropolis_sampler(log_pdf, target_accept: float = 0.5,
         new_pos = torch.where(accept[:, None], proposal, pos)
         new_lp = torch.where(accept, lp_prop, state.log_prob)
         acc_frac = accept.to(pos.dtype).mean()
+        if axis_name is not None:
+            acc_frac = mesh.pmean(acc_frac, axis_name)
         # Robbins-Monro log-step adaptation toward the target acceptance
         new_step = state.step_size * torch.exp(
             adapt_rate * (acc_frac - target_accept))
@@ -146,7 +153,9 @@ def make_mcmc_train_window(step, log_pdf, box_length: float,
     (vmc/estimators.py::make_train_step — the JAX signature's psi, h_fn,
     optimizer, estimator and energy_clip are inside it); ``train_step`` (an
     SR / SPRING step of vmc/sr.py) replaces it when given, as in the JAX
-    package.  ``pmean_axis`` (a mesh) is not ported.
+    package.  ``pmean_axis``: the walker axis the walkers are sharded over
+    (the sampler's collective step size); the update must be built with
+    the same axis.
 
     Returns (init_fn, run_window): ``run_window(mstate, n_epochs, baseline,
     generator=None, noise=None, u=None) -> (losses (n_epochs,), the next
@@ -157,13 +166,10 @@ def make_mcmc_train_window(step, log_pdf, box_length: float,
     the generator's draws when given.  ``graph`` (default: on a CUDA
     device) runs the epochs as a replayed CUDA graph (``MCMCTrainWindow``);
     explicit draws take ``graph=False``."""
-    if pmean_axis is not None:
-        raise NotImplementedError(
-            "pmean_axis (walkers sharded over a mesh) is not ported")
     if train_step is not None:
         step = train_step
     init_fn, step_fn, _ = make_metropolis_sampler(
-        log_pdf, target_accept=target_accept,
+        log_pdf, target_accept=target_accept, axis_name=pmean_axis,
         bounds=(-box_length, box_length),
         proposal_map=sector_projection(sort_proposals))
     return init_fn, MCMCTrainWindow(step, step_fn, log_pdf, n_sweeps, graph)

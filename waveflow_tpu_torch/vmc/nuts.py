@@ -1,6 +1,6 @@
 """No-U-Turn Sampler: dynamic trajectory lengths, chains batched by masks.
 
-Port of waveflow_tpu/vmc/nuts.py, single device: the iterative NUTS of
+Port of waveflow_tpu/vmc/nuts.py: the iterative NUTS of
 Hoffman & Gelman (2014, Alg. 3) in its checkpointed form —
 
 * the trajectory doubles, in a random direction, up to ``max_tree_depth``
@@ -24,6 +24,13 @@ any chain still builds is read on the host at most once per leaf
 step costs one gradient evaluation of the batch at its start and one per
 leaf: the gradient at a leaf starts the next.
 
+Chains sharded over ranks (``axis_name``): the mean acceptance statistic
+of a step is ``pmean``-reduced over the ranks after the tree, the step's
+only collective, as in JAX, whose per-device ``while_loop``s run
+independently.  The ``live.any()`` reads stay rank-local, so ranks build
+trees of their own lengths; every rank then makes that one collective per
+step, and must: a rank that skips one deadlocks the world.
+
 Every random number of a step is drawn up front (``draw``): the momentum,
 the direction bits, one uniform per leaf and one per merge, so a test can
 replay the JAX package's key tree into it.
@@ -35,8 +42,9 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from waveflow_tpu_torch.parallel import mesh
 from waveflow_tpu_torch.vmc.hmc import (
-    AXIS_NAME_NOT_PORTED, dual_averaging, init_adaptation, value_and_grad,
+    dual_averaging, init_adaptation, value_and_grad,
 )
 
 DIVERGENCE_THRESHOLD = 1000.0
@@ -100,10 +108,10 @@ def make_nuts_sampler(log_prob_fn: Callable, max_tree_depth: int = 8,
         -> (state, trace (n_steps, B, D)) (and a dict of per-step figures:
         'depth' (steps, B), 'n_leaves' (steps, B), 'accept' (steps,)).
 
-    ``axis_name`` (the collective adaptation of chains sharded over a mesh)
-    raises."""
+    ``axis_name``: the chain axis the batch is sharded over (the mean
+    acceptance statistic averaged over it: one collective step size)."""
     if axis_name is not None:
-        raise NotImplementedError(AXIS_NAME_NOT_PORTED)
+        mesh.check_axis(axis_name)
     max_slots = max_tree_depth + 1
     top = max_slots - 1
 
@@ -213,8 +221,11 @@ def make_nuts_sampler(log_prob_fn: Callable, max_tree_depth: int = 8,
         position, log_prob, info = trajectory(state.position, draws,
                                               state.step_size)
         state = state._replace(position=position, log_prob=log_prob)
+        accept_prob = info.accept.mean()
+        if axis_name is not None:
+            accept_prob = mesh.pmean(accept_prob, axis_name)
         if warmup:
-            state = dual_averaging(state, info.accept.mean(), target_accept)
+            state = dual_averaging(state, accept_prob, target_accept)
         return (state, info) if return_info else state
 
     def run_fn(state: NUTSState, generator: torch.Generator, n_steps: int,

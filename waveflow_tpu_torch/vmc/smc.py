@@ -1,6 +1,6 @@
 """Sequential Monte Carlo with likelihood tempering.
 
-Port of waveflow_tpu/vmc/smc.py, single device: anneal from the prior to
+Port of waveflow_tpu/vmc/smc.py: anneal from the prior to
 the target along π_β ∝ prior · exp(β · log-likelihood) over a fixed ladder
 of temperatures, reweight the particles at each one, resample them
 systematically when the effective sample size falls below a threshold,
@@ -13,6 +13,14 @@ accepted move takes the proposal's, so a move evaluates the likelihood of
 its proposals only (JAX evaluates current and proposed particles; the
 values are the same function of the same rows).
 
+A population sharded over ranks (``axis_name``, parallel/probprog.py)
+normalises its weights over every rank (an all-gather of the local
+logsumexps), takes the ESS over the global count, and resamples the global
+population (parallel/resample.py) from a uniform every rank shares, so that
+the decision and the index set agree; the rejuvenation noise is each
+rank's own.  The resample stays a mask: every rank makes the same
+collectives at every temperature.
+
 Random draws come from an explicit ``torch.Generator``, or from a list of
 ``SMCDraws`` per temperature, so a test can feed the draws of the JAX
 package's own key.
@@ -24,7 +32,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from waveflow_tpu_torch.vmc.hmc import AXIS_NAME_NOT_PORTED
+from waveflow_tpu_torch.parallel import mesh
 
 
 class SMCState(NamedTuple):
@@ -73,14 +81,28 @@ def make_smc_sampler(log_prior_fn: Callable, log_like_fn: Callable,
     ``log_like_fn``: (N, D) -> (N,).
 
     init_fn(particles) -> SMCState;
-    run_fn(state, generator=None, draws=None, return_accept=False)
+    run_fn(state, generator=None, draws=None, return_accept=False,
+           shared_generator=None)
         -> (state, ess_trace (n_temps,)) (and the mean move acceptance per
         temperature, (n_temps,)); ``draws`` is a sequence of n_temps
-        SMCDraws, else they come from ``generator``.
+        SMCDraws, else they come from ``generator``, and each resample
+        uniform from ``shared_generator`` when it is given (a generator in
+        the same state on every rank, which a sharded run without
+        ``draws`` needs).
 
-    ``axis_name`` (a population sharded over a mesh) raises."""
+    ``axis_name``: the axis the population is sharded over; each rank
+    passes its own particles, and draws whose ``u_resample`` is the same on
+    every rank (parallel/probprog.py::make_sharded_smc)."""
     if axis_name is not None:
-        raise NotImplementedError(AXIS_NAME_NOT_PORTED)
+        mesh.check_axis(axis_name)
+
+    def global_lse(x: torch.Tensor) -> torch.Tensor:
+        """logsumexp over this rank's entries and, sharded, every rank's."""
+        local = torch.logsumexp(x, 0)
+        if axis_name is None:
+            return local
+        return torch.logsumexp(mesh.all_gather(local, axis_name,
+                                               tiled=False), 0)
 
     @torch.no_grad()
     def init_fn(particles: torch.Tensor) -> SMCState:
@@ -93,17 +115,31 @@ def make_smc_sampler(log_prior_fn: Callable, log_like_fn: Callable,
     @torch.no_grad()
     def temp_step(state: SMCState, beta_new: torch.Tensor, d: SMCDraws):
         n = state.particles.shape[0]
-        # reweight by the likelihood increment
+        if axis_name is not None:
+            n = n * mesh.axis_size(axis_name)
+        # reweight by the likelihood increment, normalised over the GLOBAL
+        # population
         log_w = state.log_weights + (beta_new - state.beta) * state.log_like
-        log_w = log_w - torch.logsumexp(log_w, 0)
-        ess = 1.0 / torch.exp(torch.logsumexp(2 * log_w, 0)) / n
+        log_w = log_w - global_lse(log_w)
+        ess = 1.0 / torch.exp(global_lse(2 * log_w)) / n
 
         # resample when the ESS is low (the identity index set otherwise)
         do_resample = ess < ess_threshold
-        arange = torch.arange(n, device=log_w.device)
-        idx = torch.where(do_resample,
-                          systematic_resample(d.u_resample, log_w, n), arange)
-        particles, log_like = state.particles[idx], state.log_like[idx]
+        if axis_name is None:
+            arange = torch.arange(n, device=log_w.device)
+            idx = torch.where(do_resample,
+                              systematic_resample(d.u_resample, log_w, n),
+                              arange)
+            particles, log_like = state.particles[idx], state.log_like[idx]
+        else:
+            from waveflow_tpu_torch.parallel.resample import (
+                resample_walkers_sharded)
+            # the log-likelihood travels with its particle, one gather
+            rows = torch.cat([state.particles, state.log_like[:, None]], 1)
+            moved, _ = resample_walkers_sharded(rows, log_w, d.u_resample,
+                                                axis_name)
+            rows = torch.where(do_resample, moved, rows)
+            particles, log_like = rows[:, :-1], rows[:, -1]
         log_n = torch.log(torch.tensor(float(n), device=log_w.device))
         log_w = torch.where(do_resample, -log_n, log_w)
 
@@ -122,7 +158,12 @@ def make_smc_sampler(log_prior_fn: Callable, log_like_fn: Callable,
         return SMCState(particles, log_w, log_like, beta_new, ess), acc
 
     def run_fn(state: SMCState, generator: torch.Generator | None = None,
-               draws=None, return_accept: bool = False):
+               draws=None, return_accept: bool = False,
+               shared_generator: torch.Generator | None = None):
+        if axis_name is not None and draws is None \
+                and shared_generator is None:
+            raise ValueError("a sharded SMC run draws its resample uniform "
+                             "from shared_generator: pass one")
         N, D = state.particles.shape
         dev = state.particles.device
         betas = torch.linspace(0.0, 1.0, n_temps + 1, dtype=torch.float32,
@@ -131,6 +172,9 @@ def make_smc_sampler(log_prior_fn: Callable, log_like_fn: Callable,
         for t in range(n_temps):
             d = draws[t] if draws is not None else \
                 draw(generator, n_mcmc_moves, N, D, dev)
+            if shared_generator is not None:
+                d = d._replace(u_resample=torch.rand(
+                    (), generator=shared_generator, device=dev))
             state, a = temp_step(state, betas[t], d)
             ess.append(state.ess)
             acc.append(a)

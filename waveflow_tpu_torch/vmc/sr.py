@@ -1,6 +1,6 @@
 """Stochastic reconfiguration (SR) and SPRING natural-gradient VMC updates.
 
-Port of waveflow_tpu/vmc/sr.py, single device.  Both precondition the
+Port of waveflow_tpu/vmc/sr.py.  Both precondition the
 energy gradient g = 2 E[(E_L^clip − Ē) O] with the quantum geometric tensor
 S = E[O Oᵀ] − E[O] E[O]ᵀ, O = ∂_θ log|ψ|:
 
@@ -20,7 +20,17 @@ of a ``torch.optim`` optimizer: SR's is ``()``, SPRING's the dict
 {'delta': flat previous update, 'step', 'skipped', 'fallbacks'} of device
 tensors, its flat vector in the JAX ``ravel_pytree`` order
 (``convert.ravel_order``) so that a JAX SPRING state resumes.  No step reads
-the device from the host.  Plain PyTorch, as in the reference; the kernels
+the device from the host.
+
+Walkers sharded over ranks (``pmean_axis``, parallel/mesh.py): the clip
+window comes from every rank's local energies (an all-gather).  SR
+``pmean``-reduces every batch expectation — g, Ō and the S·v of each of the
+``cg_iters`` masked CG iterations, one flat all-reduce each — so every rank
+runs the same CG on the global S and makes the same collectives.  SPRING
+assembles the global (B, B) Gram matrix from column chunks of
+``GRAM_CHUNK`` score columns, all-gathered, and projects the update as
+``psum(O_localᵀ x_local)``: the global (B, P) score matrix is never built on
+one rank.  Plain PyTorch, as in the reference; the kernels
 on this path are the ones inside ψ (K3 under ``eval_backend='poly_pallas'``,
 one launch per jet call for the whole vmapped batch).
 """
@@ -31,9 +41,14 @@ import torch
 from torch.func import functional_call
 
 from waveflow_tpu_torch.convert import ravel_layout
+from waveflow_tpu_torch.parallel import mesh
 from waveflow_tpu_torch.vmc.estimators import (
-    PSI_EPS, _median, _safe_psi, clip_local_energies, run_window,
+    PSI_EPS, _median, _safe_psi, clip_window, global_energies, run_window,
 )
+
+# score columns per all-gather when the sharded SPRING step assembles its
+# Gram matrix (JAX sr.py:245): B_global × 4,096 floats in flight at a time
+GRAM_CHUNK = 4096
 
 
 def _vdot(xs, ys) -> torch.Tensor:
@@ -130,11 +145,37 @@ def make_score_fn(model):
                                     in_dims=(None, 0))
 
 
-def _local_energies(model, h_fn, batch, clip_scale):
+def _local_energies(model, h_fn, batch, clip_scale, pmean_axis=None):
+    """(the clipped local energies of ``batch``, the clipped mean over the
+    global population) — the clip window from ``global_energies``."""
     with torch.no_grad():
         energies = h_fn(batch)[:, 0]
-        return clip_local_energies(energies / _safe_psi(model.psi(batch)),
-                                   clip_scale)
+        e_loc = energies / _safe_psi(model.psi(batch))
+        e_stat = global_energies(e_loc, pmean_axis)
+        lo, hi = clip_window(e_stat, clip_scale)
+        return torch.clamp(e_loc, lo, hi), torch.clamp(e_stat, lo, hi).mean()
+
+
+def gram_matrix(O: torch.Tensor, pmean_axis=None,
+                chunk: int = GRAM_CHUNK) -> torch.Tensor:
+    """O Oᵀ of the score rows of every rank, (B_global, B_global): without
+    an axis O @ O.T, else the sum over column blocks of ``chunk`` of G Gᵀ,
+    G the block all-gathered over the ranks (B_global, chunk), so that no
+    rank holds the global (B, P) score matrix."""
+    if pmean_axis is None:
+        return O @ O.T
+    return sum(g @ g.T for g in (mesh.all_gather(cols, pmean_axis)
+                                 for cols in O.split(chunk, dim=1)))
+
+
+def _pmean_leaves(leaves, pmean_axis):
+    """Each tensor of ``leaves`` averaged over the ranks, one flat
+    all-reduce; the leaves themselves without an axis."""
+    if pmean_axis is None:
+        return leaves
+    flat = mesh.pmean(torch.cat([t.reshape(-1) for t in leaves]), pmean_axis)
+    return [f.view_as(t) for f, t in zip(
+        flat.split([t.numel() for t in leaves]), leaves)]
 
 
 def make_sr_train_step(model, h_fn, learning_rate: float,
@@ -147,10 +188,11 @@ def make_sr_train_step(model, h_fn, learning_rate: float,
     g = 2 E[(E_L^clip − Ē) O] and Ō = E[O] by the vjp of log|ψ| over the
     batch; δ = CG(S + λ, g) with S·v = E[O (O·v)] − Ō (Ō·v); δ capped by
     ``_norm_cap``; θ ← θ − lr·δ.  ``step.optimizer`` holds the state
-    ``()``.  ``pmean_axis`` (a mesh) is not ported."""
+    ``()``.  Under ``pmean_axis``: the clip window over every rank's
+    energies, and Ē, g, Ō and each S·v averaged over the ranks (JAX's
+    local mean, then ``pmean``)."""
     if pmean_axis is not None:
-        raise NotImplementedError(
-            "pmean_axis (walkers sharded over a mesh) is not ported")
+        mesh.check_axis(pmean_axis)
     names, params = ravel_layout(model)
 
     def log_abs_psi(p, batch):
@@ -160,8 +202,10 @@ def make_sr_train_step(model, h_fn, learning_rate: float,
     def step(batch: torch.Tensor, baseline) -> torch.Tensor:
         B = batch.shape[0]
         p0 = {n: p.detach() for n, p in zip(names, params)}
-        e_c = _local_energies(model, h_fn, batch, clip_scale)
+        e_c, _ = _local_energies(model, h_fn, batch, clip_scale, pmean_axis)
         e_mean = e_c.mean()
+        if pmean_axis is not None:
+            e_mean = mesh.pmean(e_mean, pmean_axis)
         w = e_c - e_mean                          # centred clipped energies
 
         def f(p):
@@ -171,7 +215,7 @@ def make_sr_train_step(model, h_fn, learning_rate: float,
 
         def batch_mean_vjp(cotangent):
             out = vjp_fn(cotangent / B)[0]
-            return [out[n] for n in names]
+            return _pmean_leaves([out[n] for n in names], pmean_axis)
 
         g = batch_mean_vjp(2.0 * w)               # 2 E[(E_L − Ē) O]
         o_bar = batch_mean_vjp(torch.ones_like(w))   # E[O]
@@ -212,10 +256,16 @@ def make_spring_train_step(model, h_fn, learning_rate: float,
     Cholesky at m = 1, else 10, else 100 (a failed factorisation reads as
     NaN, as in JAX, and counts one ``fallbacks`` when m = 1 fails);
     δ = Oᵀx + μ δ_prev, zeroed when not finite (one ``skipped``), capped by
-    ``_norm_cap``, applied and stored.  ``pmean_axis`` is not ported."""
+    ``_norm_cap``, applied and stored.
+
+    Under ``pmean_axis`` (JAX's memory-lean sharded path): ε, the row
+    norms and O·(μ δ_prev) are all-gathered, O is centred by the ``pmean``
+    of the local column means, the Gram matrix is the sum over chunks of
+    ``GRAM_CHUNK`` columns of G Gᵀ, G the all-gathered chunk (B, chunk),
+    and δ = ``psum``(O_localᵀ x_local) + μ δ_prev, x_local this rank's
+    rows of x; every rank solves the same (B, B) system."""
     if pmean_axis is not None:
-        raise NotImplementedError(
-            "pmean_axis (walkers sharded over a mesh) is not ported")
+        mesh.check_axis(pmean_axis)
     _, params = ravel_layout(model)
     sizes = [p.numel() for p in params]
     device = params[0].device
@@ -224,23 +274,32 @@ def make_spring_train_step(model, h_fn, learning_rate: float,
     def step(batch: torch.Tensor, baseline) -> torch.Tensor:
         state = step.optimizer.state
         flat0 = flatten()
-        e_c = _local_energies(model, h_fn, batch, clip_scale)
+        e_c, e_mean = _local_energies(model, h_fn, batch, clip_scale,
+                                      pmean_axis)
         O = scores(flat0, batch).detach()                   # (B, P)
         with torch.no_grad():
-            B = O.shape[0]
             if score_row_clip is not None:
-                rn = torch.linalg.vector_norm(O, dim=1)
+                rn_local = torch.linalg.vector_norm(O, dim=1)
+                rn = global_energies(rn_local, pmean_axis)
                 cap = score_row_clip * _median(rn)
                 if score_row_clip_warmup is not None:
                     cap = torch.where(state['step'] < score_row_clip_warmup,
                                       cap, float('inf'))
-                O = O * torch.clamp(cap / (rn + 1e-30), max=1.0)[:, None]
-            O = O - O.mean(0, keepdim=True)
-            eps = 2.0 * e_c
-            eps = eps - eps.mean()
+                O = O * torch.clamp(cap / (rn_local + 1e-30),
+                                    max=1.0)[:, None]
             prev = momentum * state['delta']
-            zeta = eps - O @ prev
-            gram0 = O @ O.T                                 # (B, B), full f32
+            if pmean_axis is None:
+                O = O - O.mean(0, keepdim=True)
+                eps = 2.0 * e_c
+                zeta_of = O @ prev
+            else:
+                O = O - mesh.pmean(O.mean(0, keepdim=True), pmean_axis)
+                eps = mesh.all_gather(2.0 * e_c, pmean_axis)
+                zeta_of = mesh.all_gather(O @ prev, pmean_axis)
+            gram0 = gram_matrix(O, pmean_axis)              # (B, B), full f32
+            B = eps.shape[0]
+            eps = eps - eps.mean()
+            zeta = eps - zeta_of
             eye = torch.eye(B, dtype=O.dtype, device=O.device)
             grams = torch.stack([gram0 + (mult * B * damping) * eye
                                  for mult in (1.0, 10.0, 100.0)])
@@ -251,7 +310,13 @@ def make_spring_train_step(model, h_fn, learning_rate: float,
             ok = torch.isfinite(xs).all(-1)
             fell_back = ~ok[0]
             x = torch.where(ok[0], xs[0], torch.where(ok[1], xs[1], xs[2]))
-            delta = O.T @ x + prev
+            if pmean_axis is None:
+                delta = O.T @ x + prev
+            else:
+                B_l = O.shape[0]
+                r = mesh.axis_index(pmean_axis)
+                delta = mesh.psum(O.T @ x[r * B_l:(r + 1) * B_l],
+                                  pmean_axis) + prev
             finite = torch.isfinite(delta).all()
             delta = torch.where(finite, delta, 0.0)
             (delta,) = _norm_cap([delta], learning_rate, max_update_norm)
@@ -263,7 +328,7 @@ def make_spring_train_step(model, h_fn, learning_rate: float,
                 'step': state['step'] + 1,
                 'skipped': state['skipped'] + (~finite).to(torch.int32),
                 'fallbacks': state['fallbacks'] + fell_back.to(torch.int32)}
-        return e_c.mean()
+        return e_mean
 
     def init_state():
         zero = torch.zeros((), dtype=torch.int32, device=device)

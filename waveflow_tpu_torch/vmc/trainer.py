@@ -1,6 +1,6 @@
-"""VMC training loop: the single-process surface of the JAX VMCTrainer.
+"""VMC training loop: the surface of the JAX VMCTrainer.
 
-Port of waveflow_tpu/vmc/trainer.py on one device: exact ancestral
+Port of waveflow_tpu/vmc/trainer.py: exact ancestral
 walkers ('table' or exact 'poly' sampling density), or persistent
 Metropolis or MALA walkers (``sampler='metropolis'`` / ``'mala'``, with the
 periodic ancestral refresh); the 'clipped_score' (either clip statistic)
@@ -11,10 +11,28 @@ or the SR / SPRING natural-gradient updates (``optimizer='sr'`` /
 space dimensions with every coordinate map, and the antisymmetrized
 ansatz (``ansatz='antisym'``, models/antisym.py) under the JAX trainer's
 resolution (``resolve_ansatz``); checkpoint save / exact resume and
-divergence recovery.  Everything else the JAX config offers — meshes and
-processes, artifacts — raises ``NotImplementedError``, as do the
-combinations the JAX trainer accepts and silently ignores
-(``_check_combination``).
+divergence recovery; walkers sharded over processes (``data_parallel``,
+below).  Artifacts raise ``NotImplementedError``, as do the combinations
+the JAX trainer accepts and silently ignores (``_check_combination``).
+
+``data_parallel`` (JAX's meanings): True shards the walker batch over
+every rank of the world (parallel/mesh.py::make_walker_mesh), 'hosts' over
+a hosts × chips grid (``make_host_chip_mesh``, the two-level reduction).
+One process per device: rank r runs on ``cuda:{LOCAL_RANK}`` unless the
+config names a device, holds the whole model and optimizer state and
+``batch_size / world`` walkers drawn from its own generator
+(parallel/sharding.py::rank_seed; rank 0's is the single-process stream),
+and every estimator averages over the ranks, so every rank applies the
+same update.  ``coordinator_address`` / ``num_processes`` / ``process_id``
+join the process group first (``distributed_init``); without them a
+trainer joins torchrun's group, or makes a world of one process.  Every
+rank must build the trainer from the same config.  The MCMC warm start
+and the walker refresh draw the full batch from a stream every rank
+shares (``shared_generator``; at a world of one, the walker stream) and
+keep their own rows; every decision (divergence, refresh) is taken from
+replicated values, so every rank takes it.  A sharded epoch on the card
+runs as a graph under NCCL, its collectives captured with it, and eagerly
+under gloo (``graph_windows``).
 
 The running baseline of the 'reference' estimator follows the JAX
 trainer: zero at every ``train`` call, each good window's mean loss after
@@ -34,7 +52,11 @@ Every train step keeps its optimizer state behind ``step.optimizer``'s
 ``StepState``).  Checkpoints: ``save_checkpoint`` writes
 ``<save_dir>/checkpoints`` (params, that state, the epoch, the walker
 generator's state and the MCMC walkers, all as numpy) and ``loss.npy``;
-resuming from one continues the run bit for bit.  ``load_checkpoint`` also
+resuming from one continues the run bit for bit.  Over more than one rank,
+rank 0 writes those two with the shared stream's state in place of the
+walker generator's and no walkers, and every rank writes
+``checkpoints.shard{rank}``, its generator's state and its MCMC rows; a
+resume reads both, bit for bit as well.  ``load_checkpoint`` also
 reads the JAX trainer's checkpoints (params; flat Adam moments, a SPRING
 state in either of its forms, or SR's ``()``; Metropolis or MALA walkers);
 the JAX PRNG key is not carried across, so a resumed JAX run continues on
@@ -62,10 +84,14 @@ from waveflow_tpu_torch.convert import (
 from waveflow_tpu_torch.bijections.box_transform import COORD_TYPES
 from waveflow_tpu_torch.models.antisym import get_antisym_waveflow_model
 from waveflow_tpu_torch.models.factory import get_waveflow_model
+from waveflow_tpu_torch.parallel import mesh as mesh_lib
+from waveflow_tpu_torch.parallel import sharding
 from waveflow_tpu_torch.physics import (
     construct_hamiltonian_function, system_catalogue,
 )
-from waveflow_tpu_torch.utils.checkpoint import load_state, save_state
+from waveflow_tpu_torch.utils.checkpoint import (
+    load_state, save_state, save_state_multihost,
+)
 from waveflow_tpu_torch.vmc import graphs
 from waveflow_tpu_torch.vmc.estimators import (
     TrainWindow, make_train_step, run_window,
@@ -156,8 +182,19 @@ class VMCConfig:
     # every 10 windows) and continue with a reseeded walker stream; always
     # on (False is not ported)
     divergence_recovery: bool = True
+    # shard the walker batch over processes: False (one process), True (a
+    # 1-D walker group over the world) or 'hosts' (a hosts × chips grid,
+    # LOCAL_WORLD_SIZE ranks per host); every rank builds the same config
+    data_parallel: bool | str = False
+    # the process group of a multi-process run (parallel/mesh.py::
+    # distributed_init): rank 0's host:port, the world size and this
+    # rank; None when torchrun (or the caller) made the group already
+    coordinator_address: str | None = None
+    num_processes: int | None = None
+    process_id: int | None = None
     # accepted, no effect: there is no XLA executable cache to keep
     compilation_cache_dir: str | None = None
+    # 'cuda' is cuda:{LOCAL_RANK} under data_parallel
     device: str = 'cuda'
 
     def resolved_save_dir(self) -> str:
@@ -177,6 +214,7 @@ _ONLY = {
     'optimizer': ('adam', 'sr', 'spring'),
     'clip_stat': ('mean_abs', 'median_abs'),
     'divergence_recovery': (True,),
+    'data_parallel': (False, True, 'hosts'),
 }
 
 # VMCConfig.matmul_precision (JAX's names) -> torch's float32 matmul setting
@@ -240,15 +278,21 @@ def resolve_ansatz(config: VMCConfig, n_particle: int):
 GRAPHED = (('adam', 'ancestral'), ('adam', 'metropolis'))
 
 
-def graph_windows(config: VMCConfig, device, graph: bool | None = None
-                  ) -> bool:
+def graph_windows(config: VMCConfig, device, graph: bool | None = None,
+                  mesh=None) -> bool:
     """Whether a trainer runs its windows as replayed CUDA graphs:
     ``graph=None`` means yes for the ``GRAPHED`` pairs on a CUDA device;
     ``graph=True`` raises ValueError on the CPU and NotImplementedError
     for a pair that runs eagerly; ``graph=False`` runs every window
-    eagerly (the A/B of chip_smoke.py and bench_torch.py)."""
+    eagerly (the A/B of chip_smoke.py and bench_torch.py).  Walkers
+    sharded over a ``mesh``: NCCL's collectives are captured with the
+    epoch; gloo's cannot be, so under gloo ``graph=None`` means eager and
+    ``graph=True`` raises NotImplementedError (a stated policy, not a
+    fallback: parallel/sharding.py::use_graph)."""
     pair = (config.optimizer, config.sampler)
     if pair in GRAPHED:
+        if mesh is not None:
+            return sharding.use_graph(graph, mesh)
         return graphs.use_graph(graph, device)
     if graph:
         raise NotImplementedError(
@@ -289,8 +333,7 @@ class VMCTrainer:
         if unported:
             raise NotImplementedError(
                 f"VMCConfig fields {unported} are not ported to the PyTorch "
-                "trainer (ancestral / metropolis / mala + adam / sr / spring, "
-                "single device)")
+                "trainer")
         config = config if config is not None else VMCConfig(**overrides)
         self.config = c = config
         for name, allowed in _ONLY.items():
@@ -302,7 +345,31 @@ class VMCTrainer:
         if c.matmul_precision:
             torch.set_float32_matmul_precision(
                 MATMUL_PRECISION[c.matmul_precision])
-        self.device = resolve_device(c.device)
+        # the walker axis: None, or the group this rank shards walkers over
+        self.mesh = None
+        if c.data_parallel:
+            device = mesh_lib.local_device(c.device)
+            resolve_device(device)
+            mesh_lib.distributed_init(c.coordinator_address,
+                                      c.num_processes, c.process_id,
+                                      device=device)
+            self.mesh = (mesh_lib.make_host_chip_mesh(device=device)
+                         if c.data_parallel == 'hosts'
+                         else mesh_lib.make_walker_mesh(device=device))
+        elif (c.num_processes or c.coordinator_address
+              or c.process_id is not None):
+            # the JAX trainer joins the group and trains unsharded, the same
+            # run in every process
+            raise NotImplementedError(
+                "num_processes / coordinator_address / process_id without "
+                "data_parallel: every process would train the same walkers")
+        self.walker_axis = None if self.mesh is None else self.mesh.axis
+        self.rank = 0 if self.mesh is None else self.mesh.rank
+        self.local_batch = (c.batch_size if self.mesh is None else
+                            sharding.local_batch_size(c.batch_size,
+                                                      self.mesh))
+        self.device = resolve_device(
+            c.device if self.mesh is None else self.mesh.device)
         self.protons, self.n_particle = system_catalogue[
             c.n_space_dimension][c.system_name]
         self.input_dim = int(self.n_particle) * c.n_space_dimension
@@ -335,7 +402,8 @@ class VMCTrainer:
             self.model.psi, protons=self.protons,
             n_space_dimensions=c.n_space_dimension, eps=0.0,
             laplacian_mode=lap_mode, interactions=c.interactions)
-        ng = dict(damping=c.sr_damping, max_update_norm=c.sr_max_update_norm)
+        ng = dict(damping=c.sr_damping, max_update_norm=c.sr_max_update_norm,
+                  pmean_axis=self.walker_axis)
         if c.optimizer == 'sr':
             self.step = make_sr_train_step(
                 self.model, self.h_fn, c.learning_rate,
@@ -350,15 +418,20 @@ class VMCTrainer:
                 self.model.psi, self.h_fn, self.model.parameters(),
                 c.learning_rate, grad_clip=c.grad_clip,
                 estimator=c.estimator, energy_clip=c.energy_clip,
-                clip_stat=c.clip_stat)
-        self.generator = torch.Generator(self.device).manual_seed(c.seed + 1)
-        self.graph = graph_windows(c, self.device, graph)
+                clip_stat=c.clip_stat, pmean_axis=self.walker_axis)
+        # the walker stream of this rank, and the stream every rank shares
+        # (the MCMC warm start, the refresh): one stream over one rank
+        self.generator = torch.Generator(self.device).manual_seed(
+            sharding.rank_seed(c.seed + 1, self.rank))
+        self.shared_generator = self._shared_stream(c.seed + 1)
+        self.graph = graph_windows(c, self.device, graph, self.mesh)
         # the windows that hold a CUDA graph (dropped by _drop_graphs)
         self._graphed = []
         self.mcmc_state = None
         sort = sector_mode(self.xu_coord_type)
         mcmc_kw = dict(n_sweeps=c.mcmc_sweeps,
-                       target_accept=c.mcmc_target_accept)
+                       target_accept=c.mcmc_target_accept,
+                       pmean_axis=self.walker_axis)
         if c.sampler == 'mala':
             self.mcmc_init, self.mcmc_window = make_mala_train_window(
                 self.step, self.model.log_pdf, c.box_length,
@@ -370,7 +443,7 @@ class VMCTrainer:
             self._graphed.append(self.mcmc_window)
         elif self.graph:
             self.train_window = TrainWindow(
-                self.step, self.sample, c.batch_size, self.device,
+                self.step, self.sample, self.local_batch, self.device,
                 (self.generator,))
             self._graphed.append(self.train_window)
         self.epoch = 0
@@ -390,18 +463,42 @@ class VMCTrainer:
     def _zero_baseline(self) -> torch.Tensor:
         return torch.zeros((), device=self.device)
 
+    @property
+    def multiprocess(self) -> bool:
+        """Walkers sharded over more than one rank."""
+        return self.mesh is not None and self.mesh.size > 1
+
+    def _shared_stream(self, seed: int) -> torch.Generator:
+        """The stream every rank shares, seeded from ``seed``: the walker
+        generator itself over one rank, else the stream of rank = world
+        (``rank_seed``), which no rank's walker stream uses."""
+        if not self.multiprocess:
+            return self.generator
+        return torch.Generator(self.device).manual_seed(
+            sharding.rank_seed(seed, self.mesh.size))
+
+    def _reseed(self, seed: int) -> None:
+        """Restart the walker streams (and the shared one) from ``seed``."""
+        self.generator.manual_seed(sharding.rank_seed(seed, self.rank))
+        if self.multiprocess:
+            self.shared_generator.manual_seed(
+                sharding.rank_seed(seed, self.mesh.size))
+
     def sample(self, num_samples: int) -> torch.Tensor:
         """Exact ancestral walkers from |ψ|² on the trainer's stream."""
         return self.model.sample(num_samples, generator=self.generator)
 
     def _init_mcmc_state(self, step_size: float | None = None):
-        """MCMC walkers from one exact ancestral draw; ``step_size``
-        overrides the configured initial scale (a refresh keeps the
-        adapted one)."""
+        """MCMC walkers from one exact ancestral draw of the full batch on
+        the shared stream, this rank's rows of it; ``step_size`` overrides
+        the configured initial scale (a refresh keeps the adapted one)."""
+        walkers = self.model.sample(self.config.batch_size,
+                                    generator=self.shared_generator)
+        if self.mesh is not None:
+            walkers = sharding.shard_batch(walkers, self.mesh)
         return self.mcmc_init(
-            self.sample(self.config.batch_size),
-            step_size=(self.config.mcmc_step_size if step_size is None
-                       else step_size))
+            walkers, step_size=(self.config.mcmc_step_size
+                                if step_size is None else step_size))
 
     def _refresh_stride(self) -> int | None:
         """Windows between exact walker refreshes, or None: 'auto' is one
@@ -431,20 +528,36 @@ class VMCTrainer:
 
     # ---- checkpointing ----------------------------------------------------
 
+    def _walkers_numpy(self):
+        return (None if self.mcmc_state is None else
+                [f.cpu().numpy().copy() for f in self.mcmc_state])
+
     def save_checkpoint(self, save_dir: str):
         """Write ``<save_dir>/checkpoints`` atomically and ``loss.npy``, the
-        per-epoch loss trace."""
+        per-epoch loss trace.  Over several ranks, rank 0 writes those (the
+        shared stream in place of the walker generator, no walkers), every
+        rank its ``checkpoints.shard{rank}`` (its generator, its MCMC
+        rows), and every rank returns once all are written."""
         path = Path(save_dir)
-        save_state(path / 'checkpoints', {
-            'params': {k: v.detach().cpu().numpy().copy()
-                       for k, v in self.model.state_dict().items()},
-            'optimizer': _to_numpy(self.step.optimizer.state_dict()),
-            'epoch': self.epoch,
-            'generator': self.generator.get_state().numpy().copy(),
-            'mcmc_state': (None if self.mcmc_state is None else
-                           [f.cpu().numpy().copy() for f in self.mcmc_state]),
-        })
-        np.save(path / 'loss.npy', np.asarray(self.losses))
+        multi = self.multiprocess
+        if multi:
+            save_state(path / f'checkpoints.shard{self.rank}', {
+                'generator': self.generator.get_state().numpy().copy(),
+                'mcmc_state': self._walkers_numpy()})
+        (save_state_multihost if multi else save_state)(
+            path / 'checkpoints', {
+                'params': {k: v.detach().cpu().numpy().copy()
+                           for k, v in self.model.state_dict().items()},
+                'optimizer': _to_numpy(self.step.optimizer.state_dict()),
+                'epoch': self.epoch,
+                'generator':
+                    self.shared_generator.get_state().numpy().copy(),
+                'mcmc_state': None if multi else self._walkers_numpy(),
+            })
+        if self.rank == 0:
+            np.save(path / 'loss.npy', np.asarray(self.losses))
+        if multi:
+            torch.distributed.barrier()
 
     def _load_optimizer(self, saved, epoch: int, jax_params=None):
         """A checkpoint's optimizer state into this trainer's step, read as
@@ -501,6 +614,20 @@ class VMCTrainer:
                 **fresh, 'delta': saved,
                 'step': torch.tensor(epoch, dtype=torch.int32)})
 
+    def _walkers_from_numpy(self, fields, whole: bool):
+        """An MCMC state (Metropolis or MALA by its field count) from a
+        checkpoint's arrays; ``whole``: the full batch, of which this rank
+        keeps its rows (the step size and accept rate are replicated)."""
+        if fields is None:
+            return None
+        kind = (MALAState if len(fields) == len(MALAState._fields)
+                else MetropolisState)
+        fields = [torch.as_tensor(f, device=self.device) for f in fields]
+        if whole and self.mesh is not None:
+            fields = [sharding.shard_batch(f, self.mesh) if f.ndim else f
+                      for f in fields]
+        return kind(*fields)
+
     def load_checkpoint(self, save_dir: str) -> bool:
         """Restore from ``<save_dir>/checkpoints``, written by this trainer
         or by the JAX trainer; False if there is none.
@@ -510,7 +637,9 @@ class VMCTrainer:
         as in the JAX trainer).  From a JAX checkpoint: params, the
         optimizer state, the epoch and the Metropolis or MALA walkers; the
         walker generator restarts from ``config.seed``, since the JAX PRNG
-        key has no torch counterpart."""
+        key has no torch counterpart.  Over several ranks each reads its
+        ``checkpoints.shard{rank}`` too; from a checkpoint without one (a
+        single process's, or JAX's), each keeps its rows of the walkers."""
         state = load_state(Path(save_dir) / 'checkpoints')
         if state is None:
             return False
@@ -519,18 +648,24 @@ class VMCTrainer:
             self.model.load_state_dict(params_from_jax(state['params']))
             self._load_optimizer(state['opt_state'], int(state['epoch']),
                                  jax_params=state['params'])
-            self.generator.manual_seed(self.config.seed + 1)
+            self._reseed(self.config.seed + 1)
             self.mcmc_state = (None if mcmc is None else
-                               mcmc_state_from_jax(mcmc, self.device))
+                               self._walkers_from_numpy(
+                                   mcmc_state_from_jax(mcmc, self.device),
+                                   True))
         else:
             self.model.load_state_dict(
                 {k: torch.as_tensor(v) for k, v in state['params'].items()})
             self._load_optimizer(state['optimizer'], int(state['epoch']))
-            self.generator.set_state(torch.as_tensor(state['generator']))
-            kind = MALAState if mcmc is not None and len(mcmc) == len(
-                MALAState._fields) else MetropolisState
-            self.mcmc_state = (None if mcmc is None else kind(
-                *(torch.as_tensor(f, device=self.device) for f in mcmc)))
+            self.shared_generator.set_state(
+                torch.as_tensor(state['generator']))
+            shard = (load_state(Path(save_dir)
+                                / f'checkpoints.shard{self.rank}')
+                     if self.multiprocess else None)
+            if shard is not None:
+                self.generator.set_state(torch.as_tensor(shard['generator']))
+                mcmc = shard['mcmc_state']
+            self.mcmc_state = self._walkers_from_numpy(mcmc, shard is None)
         self._drop_graphs()
         self.epoch = int(state['epoch'])
         loss_path = Path(save_dir) / 'loss.npy'
@@ -575,7 +710,8 @@ class VMCTrainer:
             if save_dir is None:
                 raise ValueError("restart=True needs config.save_dir")
             self.load_checkpoint(save_dir)
-        if save_dir is not None:
+        verbose = verbose and self.rank == 0
+        if save_dir is not None and self.rank == 0:
             Path(save_dir).mkdir(parents=True, exist_ok=True)
             with open(Path(save_dir) / 'system_info.json', 'w') as f:
                 json.dump({
@@ -595,7 +731,8 @@ class VMCTrainer:
             self._train_windows(n_windows, start, t0, verbose)
         for epoch in range(self.epoch + 1, self.epoch + rem + 1):
             self.epoch = epoch
-            loss = float(self.step(self.sample(c.batch_size), self.baseline))
+            loss = float(self.step(self.sample(self.local_batch),
+                                   self.baseline))
             self.losses.append(loss)
             if epoch % c.window == 0:
                 self.baseline = torch.tensor(
@@ -639,7 +776,7 @@ class VMCTrainer:
                 losses, baseline = self.train_window(c.window, self.baseline)
             else:
                 losses, baseline = run_window(self.step, self.sample,
-                                              c.batch_size, c.window,
+                                              self.local_batch, c.window,
                                               self.baseline)
             losses = losses.cpu()
             if not bool(torch.isfinite(losses).all()):
@@ -649,7 +786,7 @@ class VMCTrainer:
                 self.model.load_state_dict(good[0])
                 self.step.optimizer.load_state_dict(good[1])
                 self._drop_graphs()
-                self.generator.manual_seed(c.seed + 1 + 1000003 * (w + 1))
+                self._reseed(c.seed + 1 + 1000003 * (w + 1))
                 if use_mcmc:
                     self.mcmc_state = (good[2] if good[2] is not None
                                        else self._init_mcmc_state())
