@@ -159,6 +159,33 @@ Phases (any failure exits non-zero; nothing is caught):
                r5_li_2d_antisym and r5_h2_2d2e_antisym (2D antisym; H2's
                fidelity against its ED40) at the JAX protocol, within 5
                combined stderr of results/round5_quality.json;
+ 38. table-kernels (after k4-vmap) — K4's forward-mode chain for the table
+               eval backend on the card against its plain versions on the
+               card, at the flagship's OB-prior and I-spline tables: the
+               forward kernel in step mode (slope tables), the pair entry,
+               the backward kernel with step-mode tables and without
+               coefficients, at N = 1 ... 40,001; then every order's value,
+               first and second jvp (coefficients moving with x) and both
+               outputs of ``pair``, kernel chain against the plain chain,
+               no plain lerp run on the card; the pair entry timed;
+ 39. table-hpsi — the 100k checkpoint under 'table', Hψ at 4,096 K1
+               walkers under every Laplacian form: K4 launches per pass
+               equal to the evaluations the same pass makes on the CPU;
+               'fwd_batched' against the plain chain on the card
+               (TABLE_HPSI_RTOL); E_L against 'poly_pallas' on the same
+               walkers within the float64 interpolation error
+               (TABLE_POLY_EL_BOUND, TABLE_POLY_EL_MEAN_BOUND);
+ 40. table-eval — the 100k checkpoint under 'table' at the JAX protocol,
+               graphed: raw and clipped beside the JAX 'poly' figures (a
+               record), accept rate, K1 and K4 launched;
+ 41. graph-table — train-256 under 'table' graphed against its eager twin
+               (to the bit, K1 and K4 launches per replayed epoch), then ms
+               per replayed epoch against 'poly_pallas' in turns;
+ 42. rqs-density — RQSFlow on benchmarks/circles_parity.py's split, 300
+               epochs (cut from 12,000): loss falls, round trip under 1e-4,
+               points/s;
+ 43. gm-density — MFlow on gaussian_mixtures (reg 0.05, degree 5, 15
+               knots), 200 epochs: loss falls, K2 and K4 launched;
  29. report  — one JSON line of kernels, then the final status line.
 
 Each phase that drives a path sets the launch counts to 0 just before it
@@ -242,6 +269,22 @@ LAP_FD_RTOL = 2e-3
 # 3.5e-7 (the port) and 2.1e-6 (JAX's f32 path)
 # (tests/test_torch_poly_sampler.py)
 POLY_QUANTILE_TOL = 1e-5
+# table-hpsi gates.  K4's forward-mode chain against its plain chain on the
+# card: Hψ within TABLE_HPSI_RTOL of max|Hψ|.  Both are f32 orderings of
+# the same chain, which read 4.30e-5 apart on the H100 (the 100k checkpoint,
+# 4,096 walkers, seed 11): the gate is 3x that.  A K4 with its step mode or
+# its pair entry wrong moves Hψ by 2e-3 of max|Hψ| or more
+# (tests/test_torch_table_backend.py::
+# test_table_hpsi_gate_catches_planted_k4_faults).  E_L
+# under 'table' against 'poly' on the same walkers where |ψ| >
+# 0.05 max|ψ| (JAX's test_waveflow_poly_vs_table_backends criterion): the
+# table interpolation error, max 9.61e-3 and mean 2.13e-4 in float64 at
+# 1,024 walkers on the CPU (test_table_against_poly_energies_float64, f32
+# the same to 3 digits); held to about 5x that, for the tail of 4,096
+# walkers
+TABLE_HPSI_RTOL = 1.3e-4
+TABLE_POLY_EL_BOUND = 0.05
+TABLE_POLY_EL_MEAN_BOUND = 1e-3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12     # H100 SXM, f32 outside the tensor cores
 FLAGSHIP = dict(spline_degree=6, num_knots=23, n_mesh=2000)
@@ -308,6 +351,19 @@ def bound_ms(n_bytes: float, n_ops: float):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / F32_FLOP_PER_S * 1e3
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def table_rows(torch, n_mesh: int, x, step: bool = False) -> int:
+    """The distinct rows of an (n_mesh, n_bases) table that a K4 evaluation
+    at these x must read: the two rows around each x's cell for a lerp, the
+    row at the cell in step mode (the cell as the kernel clamps it).  A
+    bound counts these bytes, not the whole table: at a few hundred rows x
+    touches a fraction of a 2000-point mesh."""
+    n_cells = n_mesh - 1
+    cell = torch.nan_to_num(torch.clamp(torch.floor(x.reshape(-1) * n_cells),
+                                        0, n_cells - 1), nan=0.0).long()
+    rows = cell if step else torch.cat([cell, cell + 1])
+    return int(torch.unique(rows).numel())
 
 
 def quantile_err(torch, table_t, c, u, x, kind):
@@ -610,8 +666,9 @@ def check_spline_eval(torch, model, gen):
                 table, c, xx))
             o_ms = cuda_ms(torch, lambda: cuda_spline.onehot_matmul_eval(
                 table, c, xx), reps=10)
-            b_ms, b_by = bound_ms(4 * (N * n_b + 2 * N + n_mesh * n_b),
-                                  N * (4 * n_b + 6))
+            b_ms, b_by = bound_ms(
+                4 * (N * n_b + 2 * N + table_rows(torch, n_mesh, xx) * n_b),
+                N * (4 * n_b + 6))
             rows[(d, N)] = dict(max_abs_err=err, onehot_abs_err=err_o,
                                 ms=k_ms, device_ms=d_ms, plain_ms=p_ms,
                                 onehot_ms=o_ms, bound_ms=b_ms, bound_by=b_by,
@@ -656,7 +713,7 @@ def check_spline_eval(torch, model, gen):
             chains = t_d1 is not None
             b_ms, b_by = bound_ms(
                 4 * (N * (2 + n_b + 1 + n_b * chains)
-                     + (1 + chains) * n_mesh * n_b),
+                     + (1 + chains) * table_rows(torch, n_mesh, xx) * n_b),
                 N * (3 * n_b + (4 * n_b + 1) * chains + 6))
             rows_b[(d, N)] = dict(
                 max_abs_err=max(err_c, err_x), g_coeffs_abs_err=err_c, g_x_abs_err=err_x, ms=k_ms,
@@ -1140,7 +1197,8 @@ def compare_twins(torch, a, b):
     return bitwise, max(by_group.values(), default=0.0), by_group
 
 
-def graph_twins(torch, label, make, window_call):
+def graph_twins(torch, label, make, window_call, read=None, reset=None,
+                required=('basis_jet',)):
     """A trainer on the graph path and its eager twin (``graph=False``),
     both from one state (``make(graph)``): turns of two windows of
     GRAPH_WINDOW epochs in the order eager, graph, graph, eager, each timed
@@ -1148,21 +1206,23 @@ def graph_twins(torch, label, make, window_call):
     holds the warm-up epoch and the capture); then everything the two
     carry compared (to the bit, or within GRAPH_MAX_REL), launches per
     epoch compared, and 10 epochs of ``window_call(trainer, 10)`` (the
-    graph replayed) profiled."""
+    graph replayed) profiled.  ``read`` / ``reset`` are the launch
+    counters (K1 and K3 unless given), ``required`` the kernels the
+    replays must launch."""
     eager, graphed = make(False), make(None)
     if eager.graph or not graphed.graph:
         fail(f"{label}: the twins' graph flags are {eager.graph}, "
              f"{graphed.graph}")
+    read, reset = read or read_counts, reset or reset_counts
     n_turn = 2 * GRAPH_WINDOW
     ms = {'eager': [], 'graph': []}
-    counts = {kind: {'sampler': 0, 'basis_jet': 0} for kind in ms}
+    counts = {kind: dict.fromkeys(read(), 0) for kind in ms}
     for kind, t in (('eager', eager), ('graph', graphed), ('graph', graphed),
                     ('eager', eager)):
-        reset_counts()
+        reset()
         _, dt = events_ms(torch, lambda: t.train(n_turn, verbose=False))
         ms[kind].append(dt)
-        counts[kind] = {k: counts[kind][k] + v
-                        for k, v in read_counts().items()}
+        counts[kind] = {k: counts[kind][k] + v for k, v in read().items()}
     n_ep = 2 * n_turn
     per_epoch = {kind: {k: v / n_ep for k, v in c.items()}
                  for kind, c in counts.items()}
@@ -1203,8 +1263,9 @@ def graph_twins(torch, label, make, window_call):
              f"relative (limit {GRAPH_MAX_REL:g})")
     if per_epoch['graph'] != per_epoch['eager']:
         fail(f"{label}: launches per epoch differ: {per_epoch}")
-    if counts['graph']['basis_jet'] == 0:
-        fail(f"{label}: K3 was not launched by the graph's replays")
+    missing = [k for k in required if counts['graph'][k] == 0]
+    if missing:
+        fail(f"{label}: {missing} not launched by the graph's replays")
     out['profile'] = prof = profile_window(
         torch, lambda: window_call(graphed, 10), 10,
         f"{label} graphed window ", top=10)
@@ -2226,9 +2287,10 @@ def k4_vmap_phase(torch):
         err_b = max(close(gc, pc, f"g_coeffs C = {C}"),
                     close(gx, px, f"g_x C = {C}"))
         N = C * POSTERIOR_POINTS * 2
-        fwd_b = bound_ms(4 * (N * n_b + 2 * N + n_mesh * n_b),
+        rows_read = table_rows(torch, n_mesh, x)
+        fwd_b = bound_ms(4 * (N * n_b + 2 * N + rows_read * n_b),
                          N * (4 * n_b + 6))
-        bwd_b = bound_ms(4 * (N * (2 + 2 * n_b + 1) + 2 * n_mesh * n_b),
+        bwd_b = bound_ms(4 * (N * (2 + 2 * n_b + 1) + 2 * rows_read * n_b),
                          N * (7 * n_b + 7))
         row_f = dict(chains=C, N=N, max_abs_err=err, ms=cuda_ms(torch, fwd),
                      device_ms=launch_device_ms(torch, fwd,
@@ -2770,6 +2832,534 @@ def dp_gloo_phase(torch):
     return launches, dict(r0, rank1=r1, wall_s=wall)
 
 
+# ---- 38-43. the table eval backend and the rest of the density side -------
+
+def table_counts():
+    """K1 and K4's three entry points (forward, pair, backward)."""
+    from waveflow_tpu_torch.ops import cuda_sampler, cuda_spline
+    return {'sampler': cuda_sampler.launches,
+            'spline_eval': cuda_spline.launches,
+            'spline_eval_pair': cuda_spline.launches_pair,
+            'spline_eval_bwd': cuda_spline.launches_bwd}
+
+
+def reset_table_counts():
+    from waveflow_tpu_torch.ops import cuda_jet, cuda_sampler, cuda_spline
+    cuda_sampler.launches = cuda_jet.launches = 0
+    cuda_spline.launches = cuda_spline.launches_pair = 0
+    cuda_spline.launches_bwd = 0
+
+
+class evaluations:
+    """Within the block, the table evaluator's three launch points
+    (ops/spline_eval.py) call K4's plain versions when ``plain``, else
+    their own wrappers, and every call is counted in ``calls``, by entry
+    point: the plain chain on the card, and the chain's evaluations counted
+    on the CPU.  ``plain_calls`` counts the plain functions of
+    ops/cuda_spline.py however they are reached."""
+
+    def __init__(self, plain: bool):
+        self.plain = plain
+        self.calls = {'spline_eval': 0, 'spline_eval_pair': 0,
+                      'spline_eval_bwd': 0}
+        self.plain_calls = 0
+
+    def __enter__(self):
+        from waveflow_tpu_torch.ops import cuda_spline
+        from waveflow_tpu_torch.ops import spline_eval as se
+        self.saved = (se.spline_eval, se.spline_eval_pair, se.spline_eval_bwd,
+                      cuda_spline.lerp_basis)
+        fwd, pair, bwd, lerp = self.saved
+
+        def plain_pair(ta, tb, c, x, sa=False, sb=False):
+            return (cuda_spline.spline_eval_plain(ta, c, x, sa),
+                    cuda_spline.spline_eval_plain(tb, c, x, sb))
+
+        def plain_bwd(td, tx, c, x, g, nc=True, nx=True, sd=False, sx=False):
+            gc, gx = cuda_spline.spline_eval_bwd_plain(td, tx, c, x, g, sd, sx)
+            return gc if nc else None, gx if nx else None
+
+        def counting(name, fn):
+            def call(*args, **kw):
+                self.calls[name] += 1
+                return fn(*args, **kw)
+            return call
+
+        def counting_lerp(*args, **kw):
+            self.plain_calls += 1
+            return lerp(*args, **kw)
+
+        chosen = ((cuda_spline.spline_eval_plain, plain_pair, plain_bwd)
+                  if self.plain else (fwd, pair, bwd))
+        se.spline_eval, se.spline_eval_pair, se.spline_eval_bwd = (
+            counting(n, f) for n, f in zip(self.calls, chosen))
+        # every plain version of K4 goes through the lerp of its rows
+        cuda_spline.lerp_basis = counting_lerp
+        return self
+
+    def __exit__(self, *exc):
+        from waveflow_tpu_torch.ops import cuda_spline
+        from waveflow_tpu_torch.ops import spline_eval as se
+        (se.spline_eval, se.spline_eval_pair, se.spline_eval_bwd,
+         cuda_spline.lerp_basis) = self.saved
+
+
+def rel_err(got, ref, scale=None) -> float:
+    """max|got − ref| over max(1, max|scale|), ``scale`` ``ref`` unless
+    given."""
+    scale = ref if scale is None else scale
+    return ((got - ref).abs().max()
+            / max(1.0, scale.abs().max().item())).item()
+
+
+def magnitude(torch, table, c, x, step=False):
+    """Σ_i |c_i| |B_i(x)| per row: the size of the terms of a K4 sum, the
+    scale of its f32 rounding (the orthonormal and derivative tables mix
+    signs, so a sum can be far smaller than its terms)."""
+    from waveflow_tpu_torch.ops import cuda_spline
+    return cuda_spline.spline_eval_plain(table.abs(), c.abs(), x, step)
+
+
+def table_chain_values(torch, ev, c0, W, x, orders):
+    """ev(c0 + W·x, x, d) at every order d and both outputs of ev.pair at
+    every pair order, with their first and second x-derivatives (nested
+    jvps, the coefficients moving with x): {(what, d, k): tensor}."""
+    one = torch.ones_like(x)
+    fns = {}
+    for d in orders:
+        fns[('call', d)] = lambda xx, d=d: ev(c0 + W * xx[:, None], xx, d)
+    for d in range(ev.n_derivatives - 1):
+        for k in (0, 1):
+            fns[(f'pair{k}', d)] = (lambda xx, d=d, k=k:
+                                    ev.pair(c0 + W * xx[:, None], xx, d)[k])
+    out = {}
+    for key, f in fns.items():
+        d1 = lambda xx, f=f: torch.func.jvp(f, (xx,), (one,))[1]
+        d2 = lambda xx, d1=d1: torch.func.jvp(d1, (xx,), (one,))[1]
+        for k, g in enumerate((f, d1, d2)):
+            out[key + (k,)] = g(x)
+    return out
+
+
+def table_kernels_phase(torch, params):
+    """K4's forward-mode chain on the card against its plain versions on
+    the card, at the table backend's shapes: the flagship prior's
+    orthonormal-B tables (28 bases) and the IMADE layers' I-spline tables
+    (29 bases, the scalar path), 2000-point mesh, coefficients from the
+    100k checkpoint's own conditioners.  The kernel entry points at N =
+    512 and 40,000 and at ragged N: the forward kernel on the slope tables
+    in step mode, the pair entry (value tables, slope tables, one of each),
+    the backward kernel with step-mode tables and without coefficients;
+    then the chain itself (every order's value, first and second jvp with
+    the coefficients moving with x, both outputs of ``pair``) against the
+    same chain on the plain versions, and no plain lerp run by the kernel
+    chain.  The pair entry is timed against its plain version."""
+    from waveflow_tpu_torch.ops import cuda_spline
+    model = flagship_model(torch, params, 'table')
+    gen = torch.Generator('cuda').manual_seed(21)
+    N_max = 40000
+    evs = {'OB prior': model.ev_ob,
+           'I-spline': model.transform.layers[1].ev}
+    u = torch.rand((N_max // 2 + 1, 2), generator=gen, device='cuda')
+    with torch.no_grad():
+        coeffs = {'OB prior': model.ob_coeffs(u),
+                  'I-spline': model.transform.layers[1].spline_params(u)}
+    x = torch.rand((N_max + 1,), generator=gen, device='cuda') * 1.1 - 0.05
+    x[:6] = torch.tensor([0.0, 1.0, -0.03, 1.02, 0.5, 1 / 1999])
+    g = torch.randn((N_max + 1,), generator=gen, device='cuda')
+    worst = {'step': 0.0, 'pair': 0.0, 'bwd': 0.0, 'chain': 0.0}
+    rows = {}
+    for name, ev in evs.items():
+        cc = coeffs[name].reshape(-1, ev.n_bases)[:N_max + 1].contiguous()
+        n_b, nd = ev.n_bases, ev.n_derivatives
+        for N in (1, 3, 31, 512, 513, N_max, N_max + 1):
+            c, xx, gg = cc[:N], x[:N], g[:N]
+            for d in range(nd):
+                T, S = ev.tables[d], ev.slopes[d]
+                worst['step'] = max(worst['step'], rel_err(
+                    cuda_spline.spline_eval_cuda(S, c, xx, step=True),
+                    cuda_spline.spline_eval_plain(S, c, xx, step=True),
+                    magnitude(torch, S, c, xx, True)))
+                if d + 1 < nd:
+                    T1 = ev.tables[d + 1]
+                    for ta, tb, sa, sb in ((T, T1, False, False),
+                                           (S, ev.slopes[d + 1], True, True),
+                                           (T, S, False, True)):
+                        ya, yb = cuda_spline.spline_eval_pair_cuda(
+                            ta, tb, c, xx, sa, sb)
+                        worst['pair'] = max(
+                            worst['pair'],
+                            rel_err(ya, cuda_spline.spline_eval_plain(
+                                ta, c, xx, sa),
+                                magnitude(torch, ta, c, xx, sa)),
+                            rel_err(yb, cuda_spline.spline_eval_plain(
+                                tb, c, xx, sb),
+                                magnitude(torch, tb, c, xx, sb)))
+                for tx, sd, sx, cx in ((S, False, True, c),
+                                       (None, True, False, c),
+                                       (None, False, False, None)):
+                    got = cuda_spline.spline_eval_bwd_cuda(
+                        S if sd else T, tx, cx, xx, gg, step_d=sd,
+                        step_d1=sx)
+                    ref = cuda_spline.spline_eval_bwd_plain(
+                        S if sd else T, tx, cx, xx, gg, sd, sx)
+                    # g_coeffs is a product, no sum: its own scale
+                    worst['bwd'] = max(
+                        worst['bwd'], rel_err(got[0], ref[0]),
+                        rel_err(got[1], ref[1], None if tx is None else
+                                gg * magnitude(torch, tx, cx, xx, sx)))
+        # the pair entry's and the step mode's times at the main paths'
+        # shapes: train-256 (512 rows), a Hψ pass at 4,096 walkers (8,192)
+        for N in (512, 8192, N_max):
+            c, xx = cc[:N], x[:N]
+            T0, T1, S0 = ev.tables[0], ev.tables[1], ev.slopes[0]
+            k_ms = cuda_ms(torch, lambda: cuda_spline.spline_eval_pair_cuda(
+                T0, T1, c, xx))
+            d_ms = device_ms(torch, lambda: cuda_spline.spline_eval_pair_cuda(
+                T0, T1, c, xx))
+            p_ms = cuda_ms(torch, lambda: (
+                cuda_spline.spline_eval_plain(T0, c, xx),
+                cuda_spline.spline_eval_plain(T1, c, xx)))
+            # coefficients and x read once, two outputs, the rows of the
+            # two tables that x reads
+            b_ms, b_by = bound_ms(
+                4 * (N * (n_b + 3)
+                     + 2 * table_rows(torch, ev.n_mesh, xx) * n_b),
+                N * (8 * n_b + 6))
+            rows[(name, N)] = dict(ms=k_ms, device_ms=d_ms, plain_ms=p_ms,
+                                   bound_ms=b_ms, bound_by=b_by,
+                                   plan=cuda_spline.plan(N, n_b))
+            s_ms = cuda_ms(torch, lambda: cuda_spline.spline_eval_cuda(
+                S0, c, xx, step=True))
+            sd_ms = device_ms(torch, lambda: cuda_spline.spline_eval_cuda(
+                S0, c, xx, step=True))
+            sp_ms = cuda_ms(torch, lambda: cuda_spline.spline_eval_plain(
+                S0, c, xx, step=True))
+            sb_ms, sb_by = bound_ms(
+                4 * (N * (n_b + 2)
+                     + table_rows(torch, ev.n_mesh, xx, step=True) * n_b),
+                N * (2 * n_b + 4))
+            rows[('step', name, N)] = dict(
+                ms=s_ms, device_ms=sd_ms, plain_ms=sp_ms, bound_ms=sb_ms,
+                bound_by=sb_by)
+            print(f"K4 {name} N={N} (n_bases {n_b}): pair entry kernel_ms "
+                  f"{k_ms:.4f} device_ms {d_ms:.4f} plain_ms {p_ms:.4f} (two "
+                  f"gather-lerps) bound_ms {b_ms:.5f} ({b_by}) | forward "
+                  f"kernel in step mode on the slope table kernel_ms "
+                  f"{s_ms:.4f} device_ms {sd_ms:.4f} plain_ms {sp_ms:.4f} "
+                  f"bound_ms {sb_ms:.5f} ({sb_by})", flush=True)
+        # the chain: kernel against the plain chain, launches counted
+        for N in (512, N_max):
+            c0 = cc[:N]
+            W = 0.5 * torch.randn(c0.shape, generator=gen, device='cuda')
+            xx = x[:N]
+            reset_table_counts()
+            with evaluations(plain=False) as k_run:
+                got = table_chain_values(torch, ev, c0, W, xx, range(nd))
+            torch.cuda.synchronize()
+            launched = table_counts()
+            with evaluations(plain=True) as p_run:
+                ref = table_chain_values(torch, ev, c0, W, xx, range(nd))
+            errs = {key: rel_err(got[key], ref[key]) for key in got}
+            worst['chain'] = max(worst['chain'], max(errs.values()))
+            if k_run.plain_calls:
+                fail(f"table-kernels: the kernel chain ran {k_run.plain_calls}"
+                     " plain lerps on the card")
+            if {k: launched[k] for k in k_run.calls} != k_run.calls \
+                    or k_run.calls != p_run.calls:
+                fail(f"table-kernels: launches {launched} against the "
+                     f"chain's calls {k_run.calls} (plain chain "
+                     f"{p_run.calls})")
+            print(f"K4 forward-mode chain {name} N={N}: values, first and "
+                  f"second jvps of every order and of pair, kernel against "
+                  f"the plain chain on the card: max {max(errs.values()):.3e}"
+                  f" of max(1, max|ref|) (limit 2e-5) | launches forward "
+                  f"{launched['spline_eval']}, pair "
+                  f"{launched['spline_eval_pair']}, backward "
+                  f"{launched['spline_eval_bwd']}, equal to the chain's "
+                  f"evaluations; plain lerps on the card 0", flush=True)
+    # the evaluator-only inverse: 30 bisections and 2 Newton steps, every
+    # evaluation a K4 launch, against the same on the plain versions
+    from waveflow_tpu_torch.ops import bisection_inverse
+    ev_i = evs['I-spline']
+    with torch.no_grad():
+        w = coeffs['I-spline'].reshape(-1, ev_i.n_bases)[:512].contiguous()
+        y = ev_i(w, torch.rand((512,), generator=gen, device='cuda'))
+        reset_table_counts()
+        got = bisection_inverse(ev_i, w, y)
+        torch.cuda.synchronize()
+        n_bisect = table_counts()
+        with evaluations(plain=True):
+            ref = bisection_inverse(ev_i, w, y)
+    worst['bisect'] = (got - ref).abs().max().item()
+    back = (ev_i(w, got) - y).abs().max().item()
+    print(f"K4 under the 'bisect' inverse (512 I-spline rows): "
+          f"{n_bisect['spline_eval']} forward launches (30 bisections + 2 x "
+          f"2 Newton evaluations), max|dx| {worst['bisect']:.3e} against the "
+          f"plain versions, |f(x) - y| {back:.3e}", flush=True)
+    if n_bisect['spline_eval'] != 34 or not worst['bisect'] <= 1e-5 \
+            or not back <= 1e-5:
+        fail(f"table-kernels: the 'bisect' inverse: {n_bisect}, "
+             f"{worst['bisect']:.3e}, {back:.3e}")
+    print("K4 entry points at N = 1 ... 40,001 on both table families: "
+          f"step mode {worst['step']:.3e}, pair {worst['pair']:.3e}, "
+          f"backward with step-mode tables / without coefficients "
+          f"{worst['bwd']:.3e} against their plain versions, of max(1, the "
+          "largest row's Σ|c||B|) (limit 2e-5)", flush=True)
+    bad = {k: v for k, v in worst.items() if k != 'bisect' and not v <= 2e-5}
+    if bad:
+        fail(f"table-kernels: K4 disagrees with its plain versions: {bad}")
+    rows['max_abs_err'] = worst
+    return None, rows
+
+
+def table_hpsi_phase(torch, params):
+    """The 100k checkpoint under 'table': Hψ ('fwd_batched') at 4,096
+    walkers drawn by K1, the K4 chain against the plain chain on the card
+    (TABLE_HPSI_RTOL of max|Hψ|); K4 launches per Hψ pass against the
+    count the same pass makes on the CPU (the code's own evaluations, 8
+    walkers: the count does not depend on the batch); every Laplacian
+    form's launches and ms per pass; E_L 'table' against 'poly_pallas' on
+    the same walkers (TABLE_POLY_EL_BOUND)."""
+    from waveflow_tpu_torch.models import get_waveflow_model
+    mt = flagship_model(torch, params, 'table')
+    mp = flagship_model(torch, params, 'poly_pallas')
+    reset_table_counts()
+    x = mt.sample(4096, generator=torch.Generator('cuda').manual_seed(11))
+    k1 = table_counts()['sampler']
+    cpu = get_waveflow_model(
+        2, base_spline_degree=FLAGSHIP['spline_degree'],
+        i_spline_degree=FLAGSHIP['spline_degree'],
+        n_prior_internal_knots=FLAGSHIP['num_knots'],
+        n_i_internal_knots=FLAGSHIP['num_knots'], i_spline_reg=0.05,
+        n_flow_layers=3, box_size=10.0, eval_backend='table',
+        generator=torch.Generator().manual_seed(0), device='cpu')
+    cpu.load_state_dict(params)
+    rows = {}
+    with torch.no_grad():
+        for mode in ('fwd_batched', 'fwd', 'hvp', 'dense'):
+            with evaluations(plain=False) as derived:
+                he_hamiltonian(cpu, mode)(x[:8].cpu())
+            h = he_hamiltonian(mt, mode)
+            h(x[:64])
+            torch.cuda.synchronize()
+            reset_table_counts()
+            hk = h(x)[:, 0]
+            torch.cuda.synchronize()
+            per_pass = table_counts()
+            ms = cuda_ms(torch, lambda: h(x), reps=3, warmup=1)
+            row = dict(launches_per_pass=per_pass, derived=derived.calls,
+                       ms=ms)
+            if mode == 'fwd_batched':
+                with evaluations(plain=True):
+                    hp = h(x)[:, 0]
+                scale = hp.abs().max().item()
+                row['rel_err'] = (hk - hp).abs().max().item() / scale
+                hk_main = hk
+            rows[mode] = row
+            print(f"table-hpsi {mode}: K4 launches per Hpsi pass at 4096 "
+                  f"walkers: forward {per_pass['spline_eval']}, pair "
+                  f"{per_pass['spline_eval_pair']}, backward "
+                  f"{per_pass['spline_eval_bwd']} (the code's evaluations "
+                  f"on the CPU: {derived.calls}) | {ms:.2f} ms per pass"
+                  + (f" | kernel against the plain chain on the card: max "
+                     f"|dHpsi| {row['rel_err']:.3e} of max|Hpsi| {scale:.4f}"
+                     f" (limit {TABLE_HPSI_RTOL:g})" if 'rel_err' in row
+                     else ""), flush=True)
+            if {k: per_pass[k] for k in derived.calls} != derived.calls:
+                fail(f"table-hpsi {mode}: K4 launches {per_pass} against the "
+                     f"{derived.calls} evaluations the code makes")
+        if not (torch.isfinite(hk_main).all()
+                and rows['fwd_batched']['rel_err'] <= TABLE_HPSI_RTOL):
+            fail(f"table-hpsi: the K4 chain's Hpsi differs from the plain "
+                 f"chain's by {rows['fwd_batched']['rel_err']:.3e}")
+        psi_t, psi_p = mt.psi(x), mp.psi(x)
+        e_t = hk_main / psi_t
+        e_p = he_hamiltonian(mp, 'fwd_batched')(x)[:, 0] / psi_p
+        ms_poly = cuda_ms(torch, lambda: he_hamiltonian(mp, 'fwd_batched')(x),
+                          reps=3, warmup=1)
+    big = psi_p.abs() > 0.05 * psi_p.abs().max()
+    d = (e_t - e_p).abs()[big]
+    rows['el_table_vs_poly'] = dict(max=d.max().item(), mean=d.mean().item(),
+                                    walkers=int(big.sum()),
+                                    poly_pallas_ms=ms_poly, k1=k1)
+    print(f"table-hpsi: E_L 'table' against 'poly_pallas' on the same 4096 "
+          f"walkers (|psi| > 0.05 max|psi|: {int(big.sum())}): max "
+          f"{d.max().item():.4e} (bound {TABLE_POLY_EL_BOUND:g}), mean "
+          f"{d.mean().item():.4e} (bound {TABLE_POLY_EL_MEAN_BOUND:g}) | "
+          f"'poly_pallas' Hpsi pass {ms_poly:.2f} ms | K1 {k1} launches for "
+          "the walkers", flush=True)
+    if not (d.max().item() <= TABLE_POLY_EL_BOUND
+            and d.mean().item() <= TABLE_POLY_EL_MEAN_BOUND):
+        fail("table-hpsi: E_L under 'table' is further from 'poly' than the "
+             "float64 interpolation error allows")
+    # the path: the walkers' draw and one 'fwd_batched' Hψ pass, each read
+    # just after its own reset (the later passes and timings are not it)
+    launches = dict(rows['fwd_batched']['launches_per_pass'], sampler=k1)
+    return launches, rows
+
+
+def table_eval_phase(torch, jax_raw, jax_clipped):
+    """The 100k checkpoint evaluated under 'table' at the JAX protocol
+    (4,096 walkers, 250 + 64 × 25 sweeps, graphed), raw and clipped printed
+    beside the JAX 'poly' figures (no JAX 'table' figure exists: a record,
+    not a gate); finite, accept rate in [0.45, 0.55], K1 and K4 launched."""
+    from waveflow_tpu_torch.vmc import VMCConfig, VMCTrainer, evaluate_trainer
+    trainer = VMCTrainer(VMCConfig(eval_backend='table', device='cuda'))
+    if not trainer.load_checkpoint(str(CHECKPOINT.parent)):
+        fail(f"no checkpoint under {CHECKPOINT.parent}")
+    reset_table_counts()
+    t0 = time.perf_counter()
+    ev = evaluate_trainer(trainer, n_blocks=64, sweeps_per_block=25,
+                          n_warmup_sweeps=250, batch_size=4096)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = table_counts()
+    row = dict(e_mean=ev.e_mean, e_stderr=ev.e_stderr,
+               e_clipped=ev.e_clipped, e_clipped_stderr=ev.e_clipped_stderr,
+               accept_rate=ev.accept_rate, wall_s=wall,
+               sigma_raw_vs_poly=sigmas(ev.e_mean, ev.e_stderr, jax_raw),
+               sigma_clipped_vs_poly=sigmas(ev.e_clipped,
+                                            ev.e_clipped_stderr,
+                                            jax_clipped))
+    print(f"table-eval (epoch {trainer.epoch}, 'table', graphed): E = "
+          f"{ev.e_mean:.6f} +- {ev.e_stderr:.6f}, clipped {ev.e_clipped:.6f} "
+          f"+- {ev.e_clipped_stderr:.6f} | JAX 'poly' raw {jax_raw[0]} +- "
+          f"{jax_raw[1]}, clipped {jax_clipped[0]} +- {jax_clipped[1]} "
+          f"({row['sigma_raw_vs_poly']:.2f} / "
+          f"{row['sigma_clipped_vs_poly']:.2f} combined sigma; a record) | "
+          f"accept {ev.accept_rate:.4f} | {wall:.2f} s | launches {launches}",
+          flush=True)
+    if not (math.isfinite(ev.e_mean) and math.isfinite(ev.e_clipped)):
+        fail("table-eval: non-finite energies")
+    if not 0.45 <= ev.accept_rate <= 0.55:
+        fail(f"table-eval: accept rate {ev.accept_rate} outside [0.45, 0.55]")
+    if not (launches['sampler'] and launches['spline_eval']
+            and launches['spline_eval_pair']):
+        fail(f"table-eval: a kernel of the path was not launched: {launches}")
+    return launches, row
+
+
+def graph_table_phase(torch):
+    """train-256 under 'table' (the flagship config from the 100k
+    checkpoint): the graphed adam window against its eager twin, to the
+    bit, K1 and K4 launches per replayed epoch; then ms per replayed epoch
+    against the 'poly_pallas' twin, windows of 2 x 10 in turns table,
+    poly, poly, table (CUDA events)."""
+    from waveflow_tpu_torch.vmc import VMCConfig, VMCTrainer
+
+    def trainer(graph, backend='table'):
+        t = VMCTrainer(VMCConfig(batch_size=256, window=GRAPH_WINDOW,
+                                 log_every=GRAPH_WINDOW, eval_backend=backend,
+                                 device='cuda'), graph=graph)
+        if not t.load_checkpoint(str(CHECKPOINT.parent)):
+            fail(f"no checkpoint under {CHECKPOINT.parent}")
+        return t
+
+    launches, row = graph_twins(
+        torch, "graph-table train-256", trainer,
+        lambda t, n: t.train_window(n, t.baseline),
+        read=table_counts, reset=reset_table_counts,
+        required=('sampler', 'spline_eval', 'spline_eval_pair',
+                  'spline_eval_bwd'))
+    twins = {'table': trainer(None), 'poly_pallas': trainer(None,
+                                                            'poly_pallas')}
+    for t in twins.values():
+        t.train(2 * GRAPH_WINDOW, verbose=False)      # warm-up and capture
+    ms = {k: [] for k in twins}
+    for k in ('table', 'poly_pallas', 'poly_pallas', 'table'):
+        _, dt = events_ms(torch, lambda: twins[k].train(2 * GRAPH_WINDOW,
+                                                        verbose=False))
+        ms[k].append(dt / (2 * GRAPH_WINDOW))
+    row['ms_per_replayed_epoch'] = {k: sum(v) / len(v) for k, v in ms.items()}
+    print(f"graph-table: ms per replayed epoch, turns table / poly_pallas / "
+          f"poly_pallas / table: {ms['table'][0]:.3f} / "
+          f"{ms['poly_pallas'][0]:.3f} / {ms['poly_pallas'][1]:.3f} / "
+          f"{ms['table'][1]:.3f} | table over poly_pallas "
+          f"{row['ms_per_replayed_epoch']['table'] / row['ms_per_replayed_epoch']['poly_pallas']:.3f}x",
+          flush=True)
+    return launches, row
+
+
+def circles_split():
+    """benchmarks/circles_parity.py's split: 1,000 train, 2,000 held out."""
+    from waveflow_tpu_torch.benchmark import get_dataset
+    X = get_dataset('circles', 3000, margin=0.025, seed=42)
+    return X[:1000], X[1000:]
+
+
+def density_cut_phase(torch, label, X, X_test, n_epochs, model_name, **kw):
+    """A density model trained by MLE on 1,000 points, ``n_epochs`` epochs
+    with a metric checkpoint at the end (20,000 draws): losses finite and
+    falling, the metrics finite, the round trip under 1e-4; K2 and K4
+    launches; points/s over a further warm block of 100 epochs."""
+    from waveflow_tpu_torch.benchmark import train_density_model
+    from waveflow_tpu_torch.benchmark.density import density_step
+    reset_table_counts()
+    from waveflow_tpu_torch.ops import cuda_sampler
+    cuda_sampler.launches_linear = 0
+    t0 = time.perf_counter()
+    model, hist = train_density_model(
+        X, model_name=model_name, num_epochs=n_epochs, learning_rate=1e-4,
+        n_flow_layers=3, log_every=n_epochs, n_model_sample=20000, seed=5,
+        X_test=X_test, verbose=False, device='cuda', **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = table_counts()
+    launches['sampler_linear'] = cuda_sampler.launches_linear
+    losses = hist['losses']
+    first, last = sum(losses[:10]) / 10, sum(losses[-10:]) / 10
+    opt = torch.optim.Adam(model.parameters(), lr=1e-4, eps=1e-8)
+    X_dev = torch.as_tensor(X, device='cuda')
+
+    def block():
+        for _ in range(100):
+            density_step(model, opt, X_dev)
+
+    ms_epoch = host_ms(torch, block, n=1) / 100
+    row = dict(first10=first, last10=last, test_ll=hist['test_ll'][-1],
+               kl=hist['kl'][-1], hellinger=hist['hellinger'][-1],
+               reconstruction=hist['reconstruction'][-1], wall_s=wall,
+               points_per_s=len(X) / ms_epoch * 1e3, launches=launches)
+    print(f"{label}: {model_name}, {n_epochs} epochs at batch {len(X)}: "
+          f"first-10 mean loss {first:.5f} -> last-10 {last:.5f} | held-out "
+          f"LL {row['test_ll']:.4f} KL {row['kl']:.4f} H2 "
+          f"{row['hellinger']:.4f} recon {row['reconstruction']:.3e} | "
+          f"{wall:.2f} s | points/s {row['points_per_s']:.1f} ({ms_epoch:.3f}"
+          f" ms per epoch, a further warm block of 100) | launches "
+          f"{launches}", flush=True)
+    if not (all(math.isfinite(v) for v in losses) and last < first):
+        fail(f"{label}: the loss did not fall ({first} -> {last})")
+    if not all(math.isfinite(row[k]) for k in ('test_ll', 'kl', 'hellinger')):
+        fail(f"{label}: non-finite metrics {row}")
+    if not row['reconstruction'] < 1e-4:
+        fail(f"{label}: reconstruction {row['reconstruction']:.3e} >= 1e-4")
+    return launches, row
+
+
+def rqs_density_phase(torch):
+    """RQSFlow on the circles split (benchmarks/rqs_row.py's model, seed
+    5), cut from 12,000 to 300 epochs: plain PyTorch, no kernel."""
+    X, X_test = circles_split()
+    return None, density_cut_phase(torch, 'rqs-density', X, X_test, 300,
+                                   'RQSFlow')[1]
+
+
+def gm_density_phase(torch):
+    """MFlow on gaussian_mixtures (reg 0.05, degree 5, 15 knots, as
+    results/dataset_generality.json records), the same split, cut from
+    12,000 to 200 epochs: K2 at the checkpoint, K4 every epoch."""
+    from waveflow_tpu_torch.benchmark import get_dataset
+    Z = get_dataset('gaussian_mixtures', 3000, margin=0.025, seed=42)
+    launches, row = density_cut_phase(
+        torch, 'gm-density', Z[:1000], Z[1000:], 200, 'MFlow',
+        spline_reg=0.05, spline_degree=5, n_knots=15)
+    if not (launches['sampler_linear'] and launches['spline_eval']
+            and launches['spline_eval_bwd']):
+        fail(f"gm-density: K2 or K4 was not launched: {launches}")
+    return launches, row
+
+
 def near(value, ref, rel) -> bool:
     """|value − ref| within ``rel`` of |ref|."""
     return abs(value - ref) <= rel * abs(ref)
@@ -2793,7 +3383,8 @@ H2_2D_CONFIG = dict(BOX_2D, system_name='H2', ansatz='antisym',
 
 
 def phase_table(torch, params, jax_raw, jax_clipped, ancestral_wps=None):
-    """Phases 23, 30-31, 6-27 and 32-37 in order, as (name, run): run() ->
+    """Phases 23, 38-39, 30-31, 6-27 and 32-37, 40-43 in order, as (name,
+    run): run() ->
     (the kernel
     launches on that path, or None, and the phase's figures)."""
     r4 = json.loads(JAX_EVAL_R4.read_text())[f'results/{SPRING_RUN.name}']
@@ -2805,6 +3396,10 @@ def phase_table(torch, params, jax_raw, jax_clipped, ancestral_wps=None):
         # ---- 23. K4 under vmap, first: after many profiled graph replays
         # the profiler stops recording its eager launches ----
         ('k4-vmap', lambda: (None, k4_vmap_phase(torch))),
+        # ---- 38-39. K4's forward-mode chain and the table backend's Hψ
+        # (before the profiled graph phases, as k4-vmap) ----
+        ('table-kernels', lambda: table_kernels_phase(torch, params)),
+        ('table-hpsi', lambda: table_hpsi_phase(torch, params)),
         # ---- 30-31. the collectives in the graphed windows, world of one
         # (before the profiled graph phases, as k4-vmap) ----
         ('dp-nccl-1', lambda: dp_nccl_phase(torch)),
@@ -2888,7 +3483,14 @@ def phase_table(torch, params, jax_raw, jax_clipped, ancestral_wps=None):
         ('h2-2d-eval', lambda: eval_2d_phase(
             torch, 'h2-2d-eval', H2_2D_RUN, H2_2D_CONFIG,
             r5['h2_2d2e_antisym'],
-            fidelity=(ED40_H2, r5['h2_2d2e_antisym']['fidelity_ed40']))))
+            fidelity=(ED40_H2, r5['h2_2d2e_antisym']['fidelity_ed40']))),
+        # ---- 40-43. the table backend's evaluation and window; the
+        # density side's new model and dataset ----
+        ('table-eval', lambda: table_eval_phase(torch, jax_raw,
+                                                jax_clipped)),
+        ('graph-table', lambda: graph_table_phase(torch)),
+        ('rqs-density', lambda: rqs_density_phase(torch)),
+        ('gm-density', lambda: gm_density_phase(torch)))
 
 
 def end_walker_mesh():
@@ -2931,7 +3533,8 @@ def main(argv=None) -> int:
              "..., paired2d-256, k4-vmap, posterior-hmc, posterior-nuts, "
              "posterior-smc, nuts-waveflow, dp-nccl-1, dp-metropolis-1, "
              "dp-gloo-2, posterior-sharded-1, be4-eval, box4-eval, "
-             "li-2d-eval, h2-2d-eval) to run alone "
+             "li-2d-eval, h2-2d-eval, table-kernels, table-hpsi, "
+             "table-eval, graph-table, rqs-density, gm-density) to run alone "
              "after the build; a partial run prints no kernels line")
     # one rank of dp-gloo-2, which the phase starts itself
     parser.add_argument('--dp-gloo-rank', type=int, default=None,
@@ -3119,6 +3722,10 @@ def main(argv=None) -> int:
     # training batch of 256, K2 at the 20,000 model draws of a metric
     # checkpoint, K4 at the flattened (20,000, 2) training batch
     k3_row, k4_row = k3[('I', 512)], k4[(0, 2 * DENSITY_POINTS)]
+    # the pair entry at the shape train-256 under 'table' gives it: the
+    # IMADE layers' I-spline tables, 256 walkers x 2 coordinates
+    tk = rows['table-kernels']
+    pair_row = tk[('I-spline', 512)]
     k4b_row = k4b[(0, 2 * DENSITY_POINTS)]
 
     def sampler_row(name, rows, shape):
@@ -3165,7 +3772,22 @@ def main(argv=None) -> int:
              plain_ms=k4_row['plain_ms'],
              bound_ms=k4_row['bound_ms'], bound_by=k4_row['bound_by'],
              library_ms=None, onehot_matmul_ms=k4_row['onehot_ms'],
-             vmap=rows['k4-vmap']['forward']),
+             vmap=rows['k4-vmap']['forward'],
+             forward_mode=dict(step_mode_abs_err=tk['max_abs_err']['step'],
+                               chain_abs_err=tk['max_abs_err']['chain'],
+                               bisect_abs_err=tk['max_abs_err']['bisect'],
+                               step_mode_8192=tk[('step', 'OB prior',
+                                                  8192)],
+                               hpsi=rows['table-hpsi'])),
+        dict(name='spline_eval_pair', route='cuda',
+             source='waveflow_tpu_torch/csrc/spline_eval.cu',
+             replaces='waveflow_tpu/ops/pallas_spline.py:29',
+             launches=by_phase['graph-table']['spline_eval_pair'],
+             launches_by_path=by_path('spline_eval_pair'),
+             max_abs_err=tk['max_abs_err']['pair'],
+             ms=pair_row['ms'], device_ms=pair_row['device_ms'],
+             plain_ms=pair_row['plain_ms'], bound_ms=pair_row['bound_ms'],
+             bound_by=pair_row['bound_by'], library_ms=None),
         dict(name='spline_eval_bwd', route='cuda',
              source='waveflow_tpu_torch/csrc/spline_eval.cu',
              replaces='waveflow_tpu/ops/pallas_spline.py:29',
@@ -3174,6 +3796,7 @@ def main(argv=None) -> int:
              max_abs_err=max(r['max_abs_err'] for r in k4b.values()),
              g_coeffs_abs_err=k4b_row['g_coeffs_abs_err'],
              g_x_abs_err=k4b_row['g_x_abs_err'],
+             step_mode_abs_err=tk['max_abs_err']['bwd'],
              ms=k4b_row['ms'], device_ms=k4b_row['device_ms'],
              plain_ms=k4b_row['plain_ms'],
              bound_ms=k4b_row['bound_ms'], bound_by=k4b_row['bound_by'],

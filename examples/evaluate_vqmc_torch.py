@@ -74,7 +74,7 @@ def main(argv=None):
     p.add_argument('--spline-degree', type=int, default=6)
     p.add_argument('--n-flow-layers', type=int, default=3)
     p.add_argument('--eval-backend', default='poly',
-                   choices=['poly', 'poly_pallas'])
+                   choices=['poly', 'poly_pallas', 'table'])
     p.add_argument('--eval-batch', type=int, default=4096)
     p.add_argument('--eval-blocks', type=int, default=64)
     p.add_argument('--eval-sweeps-per-block', type=int, default=25)

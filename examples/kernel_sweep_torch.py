@@ -150,7 +150,7 @@ def sweep_spline(gen, timed):
         tol_gx = 2e-5 * max(1.0, ref_gx.abs().max().item())
         for lanes in (2, 4, 8):
             def fwd():
-                return cuda_spline.spline_eval_cuda(t0, c, x, lanes)
+                return cuda_spline.spline_eval_cuda(t0, c, x, lanes=lanes)
 
             def bwd():
                 return cuda_spline.spline_eval_bwd_cuda(t0, t1, c, x, g,

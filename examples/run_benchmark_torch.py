@@ -18,8 +18,10 @@ from waveflow_tpu_torch.benchmark import get_dataset, train_density_model
 def main():
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument('--dataset', default='circles',
-                   choices=['halfmoon', 'circles', 'double_circles'])
-    p.add_argument('--model', default='MFlow', choices=['Flow', 'IFlow', 'MFlow'])
+                   choices=['halfmoon', 'circles', 'double_circles',
+                            'gaussian_mixtures'])
+    p.add_argument('--model', default='MFlow',
+                   choices=['Flow', 'IFlow', 'MFlow', 'RQSFlow'])
     p.add_argument('--n-samples', type=int, default=20_000,
                    help='training-set size (reference example uses 20k)')
     p.add_argument('--num-epochs', type=int, default=30_000)

@@ -54,9 +54,10 @@ def main(argv=None):
     p.add_argument('--estimator', default='clipped_score',
                    choices=['clipped_score', 'reference'])
     p.add_argument('--eval-backend', default='poly',
-                   choices=['poly', 'poly_pallas'],
-                   help="'poly' (plain PyTorch basis jet) or 'poly_pallas' "
-                        "(the CUDA basis-jet kernel)")
+                   choices=['poly', 'poly_pallas', 'table'],
+                   help="'poly' (plain PyTorch basis jet), 'poly_pallas' "
+                        "(the CUDA basis-jet kernel) or 'table' (the table "
+                        "lerp, the table-eval kernel on the card)")
     p.add_argument('--ansatz', default='sorted',
                    choices=['sorted', 'antisym'],
                    help="'antisym' = the signed sum over electron "

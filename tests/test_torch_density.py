@@ -208,10 +208,6 @@ def test_datasets_equal_the_jax_package(name, n):
 
 
 def test_unported_names_are_refused():
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        datasets.get_dataset('gaussian_mixtures', 16)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        density.get_benchmark_model('RQSFlow', device='cpu')
     with pytest.raises(ValueError):
         datasets.get_dataset('spiral', 16)
     with pytest.raises(ValueError):

@@ -19,6 +19,7 @@ import sys
 for name in ('jax', 'jaxlib', 'optax', 'sklearn', 'waveflow_tpu'):
     sys.modules[name] = None
 import importlib, pkgutil
+import torch
 import waveflow_tpu_torch
 for info in pkgutil.walk_packages(waveflow_tpu_torch.__path__,
                                   'waveflow_tpu_torch.'):
@@ -30,6 +31,10 @@ assert ck['epoch'] == 100000, ck['epoch']
 assert len(sd) == 28 and sd['conditioner.zero_params'].shape == (2, 28)
 from waveflow_tpu_torch.benchmark import get_dataset
 assert get_dataset('circles', 64).shape == (64, 2)
+assert get_dataset('gaussian_mixtures', 64).shape == (64, 2)
+from waveflow_tpu_torch.benchmark.density import get_benchmark_model
+rqs = get_benchmark_model('RQSFlow', device='cpu')
+assert rqs.log_pdf(torch.rand(8, 2)).shape == (8,)
 from waveflow_tpu_torch.convert import mcmc_state_from_jax
 ck = load_jax_checkpoint(sys.argv[2])
 assert ck['epoch'] == 100000, ck['epoch']
@@ -49,8 +54,10 @@ print('ok')
 
 def test_imports_and_checkpoint_without_jax():
     """(i) With jax, optax, scikit-learn and waveflow_tpu made unimportable,
-    every module of the port imports, the committed checkpoint loads, a
-    benchmark dataset is generated, and the Metropolis-trained checkpoint
+    every module of the port imports, the committed checkpoint loads, the
+    circles and gaussian_mixtures datasets are generated (the latter's
+    mixture fit without scikit-learn), an RQSFlow evaluates, and the
+    Metropolis-trained checkpoint
     loads with its flat Adam moments and its MetropolisState, and the MALA
     run's 5-field MALAState."""
     ckpt = ROOT / 'results' / 'r5_flagship_fwd_batched_100k' / 'checkpoints'
@@ -81,4 +88,23 @@ def test_no_file_imports_jax_or_the_jax_package():
     assert len(files) > 20
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imported_roots(f) if m.split('.')[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+# the modules of the table backend and the density side: torch, numpy,
+# scipy and the standard library only
+NEW_MODULES = ('ops/spline_eval.py', 'ops/cuda_spline.py', 'ops/inverse.py',
+               'bijections/rqs.py', 'bijections/core.py',
+               'bijections/masks.py', 'models/priors.py', 'models/flow.py',
+               'benchmark/datasets.py', 'benchmark/density.py')
+
+
+def test_density_and_table_modules_import_torch_numpy_scipy_only():
+    """The table evaluator's modules and the density side's import only
+    torch, numpy, scipy, the standard library and the port itself."""
+    allowed = {'torch', 'numpy', 'scipy', 'waveflow_tpu_torch', '__future__',
+               'math', 'ctypes', 'functools', 'pathlib', 'warnings'}
+    bad = [(name, m) for name in NEW_MODULES
+           for m in _imported_roots(ROOT / 'waveflow_tpu_torch' / name)
+           if m.split('.')[0] not in allowed]
     assert not bad, bad

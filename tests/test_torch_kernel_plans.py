@@ -273,8 +273,8 @@ ENTRY_POINTS = {
                   'basis_jet_error_string'},
     'sampler': {'sampler_launch', 'sampler_linear_launch', 'sampler_init',
                 'sampler_error_string'},
-    'spline_eval': {'spline_eval_launch', 'spline_eval_bwd_launch',
-                    'spline_eval_error_string'},
+    'spline_eval': {'spline_eval_launch', 'spline_eval_pair_launch',
+                    'spline_eval_bwd_launch', 'spline_eval_error_string'},
 }
 
 

@@ -158,17 +158,17 @@ def test_trainer_divergence_recovery():
 
 @pytest.mark.parametrize('override', [
     dict(num_processes=2), dict(coordinator_address='localhost:1234'),
-    dict(eval_backend='table'), dict(process_id=0),
+    dict(process_id=0),
     dict(save_artifacts=True), dict(data_parallel='chips'),
     dict(data_parallel=2), dict(divergence_recovery=False)])
 def test_trainer_refuses_unported_config(override):
     """What the trainer does not run raises NotImplementedError instead of
-    being ignored: artifacts, the table eval backend, no divergence
-    recovery, a data_parallel mode other than False / True / 'hosts', and
+    being ignored: artifacts, no divergence recovery, a data_parallel mode other than False / True / 'hosts', and
     the process fields without data_parallel (the JAX trainer would train
     the same walkers in every process).  2D and the antisym ansatz are
-    ported (tests/test_torch_coords2d.py), and so is data_parallel
-    (tests/test_torch_parallel.py, tests/test_torch_distributed.py)."""
+    ported (tests/test_torch_coords2d.py), and so are data_parallel
+    (tests/test_torch_parallel.py, tests/test_torch_distributed.py) and the
+    table eval backend (tests/test_torch_table_backend.py)."""
     with pytest.raises(NotImplementedError):
         VMCTrainer(device='cpu', **override)
 

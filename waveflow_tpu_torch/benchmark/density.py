@@ -1,7 +1,8 @@
 """Density-estimation benchmark trainer.
 
 Port of waveflow_tpu/benchmark/density.py: MLE training of Flow / IFlow /
-MFlow models on the 2D benchmark datasets with periodic metric checkpoints
+MFlow / RQSFlow models on the 2D benchmark datasets with periodic metric
+checkpoints
 (KDE-KL, Hellinger², reconstruction distance, held-out log-likelihood).
 Torch Adam, one full-batch step per epoch on a per-epoch permutation of
 the training set; eager PyTorch, losses read back once per block of
@@ -20,7 +21,8 @@ from waveflow_tpu_torch.benchmark.metrics import (
     held_out_log_likelihood, kde_metrics, reconstruction_distance,
 )
 from waveflow_tpu_torch.bijections import (
-    IMADE, MADE, Reverse, Serial, masked_conditioner, simple_masked_transform,
+    IMADE, MADE, NeuralSplineCoupling, Reverse, Serial, masked_conditioner,
+    simple_masked_transform,
 )
 from waveflow_tpu_torch.models import Flow, get_model
 from waveflow_tpu_torch.models.priors import Normal, Uniform
@@ -33,7 +35,7 @@ def get_benchmark_model(model_name: str = 'MFlow', spline_reg: float = 0.02,
                         prior_n_knots: int = 15, *, input_dim: int = 2,
                         generator: torch.Generator | None = None,
                         device=None):
-    """Model zoo of the benchmark: 'MFlow', 'Flow', 'IFlow'.
+    """Model zoo of the benchmark: 'MFlow', 'Flow', 'IFlow', 'RQSFlow'.
 
     The MFlow's M-spline *prior* stays at degree 3 with 15 knots whatever
     the I-spline settings, as in the JAX package."""
@@ -73,9 +75,15 @@ def get_benchmark_model(model_name: str = 'MFlow', spline_reg: float = 0.02,
         return Flow(Serial(*layers), input_dim, Uniform(),
                     prior_support=(0.0, 1.0), device=device)
     if model_name == 'RQSFlow':
-        raise NotImplementedError(
-            "'RQSFlow' needs the rational-quadratic-spline coupling layer, "
-            "which is not ported yet (ROADMAP Queue 1, item 16b)")
+        # rational-quadratic-spline couplings over the affine Flow's prior
+        layers = []
+        for _ in range(n_flow_layers):
+            layers.append(NeuralSplineCoupling(input_dim, n_bins=8,
+                                               interval=3.0,
+                                               generator=generator,
+                                               device=device))
+            layers.append(Reverse())
+        return Flow(Serial(*layers), input_dim, Normal(-0.5), device=device)
     raise ValueError(f"unknown model {model_name!r}")
 
 

@@ -1,11 +1,14 @@
 """IMADE — the invertible monotone autoregressive spline layer.
 
-Port of waveflow_tpu/bijections/imade.py with the 'poly' forward backends.
-A masked autoregressive conditioner emits per-dimension I-spline weight
+Port of waveflow_tpu/bijections/imade.py with every forward backend.  A
+masked autoregressive conditioner emits per-dimension I-spline weight
 vectors (bias removal + boundary projection); the forward map evaluates the
-monotone I-spline per coordinate through the fused basis jet, the log-det
-is the sum of log spline derivatives; the inverse runs dimension-sequential
-exact table inversion plus one Newton step against the polynomial forward.
+monotone I-spline per coordinate — through the fused basis jet under 'poly'
+and 'poly_pallas', through the table evaluator's ``pair`` (value and
+derivative in one K4 launch on the card) under 'table' — and the log-det is
+the sum of log spline derivatives; the inverse runs dimension-sequential
+exact table inversion, plus one Newton step against the polynomial forward
+under the poly backends.
 """
 
 from __future__ import annotations
@@ -34,19 +37,19 @@ class IMADE(nn.Module):
                  eval_backend: str = 'poly', *,
                  generator: torch.Generator | None = None, device=None):
         super().__init__()
-        if eval_backend not in ('poly', 'poly_pallas'):
-            raise NotImplementedError(
-                f"eval_backend {eval_backend!r} is not ported; use 'poly' or "
-                "'poly_pallas'")
+        if eval_backend not in ('poly', 'poly_pallas', 'table'):
+            raise ValueError(f"unknown eval_backend {eval_backend!r}")
         device = resolve_device(device)
+        self.use_poly = eval_backend != 'table'
         tabs = get_tables('I', spline_degree, n_internal_knots,
                           n_mesh=n_spline_base_mesh_points)
-        # the table evaluator serves the inverse and the projector; the
-        # polynomial evaluator the forward (jet backend 'pallas' = K3)
+        # the table evaluator serves the inverse and the projector, and the
+        # forward under 'table'; the polynomial evaluator the forward under
+        # the poly backends (jet backend 'pallas' = K3)
         self.ev = make_evaluator(tabs, device=device)
         self.fwd_ev = make_poly_evaluator(
             tabs, jet_backend='pallas' if eval_backend == 'poly_pallas' else 'xla',
-            device=device)
+            device=device) if self.use_poly else self.ev
         self.project = make_boundary_projector(
             self.ev, constraints_dict_left, constraints_dict_right,
             normalization='sum', ispline_right_convention=True)
@@ -64,11 +67,14 @@ class IMADE(nn.Module):
 
     def forward(self, inputs: torch.Tensor):
         sp = self.spline_params(inputs)
-        # one basis-jet call gives value and derivative bases; nested jvps
-        # and parameter cotangents reuse it through the Function's rules
-        B = self.fwd_ev.basis_jet(inputs)                  # (B, D, 4, n_b)
-        outputs = (sp * B[..., 0, :]).sum(-1)
-        deriv = (sp * B[..., 1, :]).sum(-1)
+        if self.use_poly:
+            # one basis-jet call gives value and derivative bases; nested
+            # jvps and parameter cotangents reuse it through its rules
+            B = self.fwd_ev.basis_jet(inputs)              # (B, D, 4, n_b)
+            outputs = (sp * B[..., 0, :]).sum(-1)
+            deriv = (sp * B[..., 1, :]).sum(-1)
+        else:
+            outputs, deriv = self.fwd_ev.pair(sp, inputs)  # (B, D) each
         return outputs, torch.log(deriv + LOG_TOL).sum(-1)
 
     def inverse(self, inputs: torch.Tensor):
@@ -78,10 +84,12 @@ class IMADE(nn.Module):
             sp = self.spline_params(outputs)[:, i_col]
             y = inputs[:, i_col]
             col = batched_monotone_inverse(self.ev, sp, y)
-            # the exact inverse inverts the TABLE spline; one Newton step
-            # against the polynomial forward closes the table-vs-poly gap
-            f, df = self.fwd_ev.value_and_derivative(sp, col)
-            col = torch.clamp(col - (f - y) / torch.clamp(df, min=1e-12),
-                              0.0, 1.0)
+            if self.use_poly:
+                # the exact inverse inverts the TABLE spline; one Newton
+                # step against the polynomial forward closes the
+                # table-vs-poly gap
+                f, df = self.fwd_ev.value_and_derivative(sp, col)
+                col = torch.clamp(col - (f - y) / torch.clamp(df, min=1e-12),
+                                  0.0, 1.0)
             outputs = torch.where(cols == i_col, col[:, None], outputs)
         return outputs, inputs.new_zeros(inputs.shape[:1])

@@ -108,6 +108,15 @@ class MaskedConditioner(nn.Module):
         return p / p.sum(-1, keepdim=True)
 
 
+def masked_mlp(input_dim: int, n_out_params: int, hidden_dim: int = 64,
+               num_hidden: int = 1, *, generator: torch.Generator | None = None,
+               device=None) -> MaskedMLP:
+    """The masked MLP emitting (batch, input_dim * n_out_params) features:
+    the JAX ``masked_mlp(rng, ...) -> (params, apply)`` as one module."""
+    return MaskedMLP(input_dim, n_out_params, hidden_dim, num_hidden,
+                     generator=generator, device=device)
+
+
 def simple_masked_transform(output_shape: int = 2, hidden_dim: int = 64,
                             num_hidden: int = 1):
     """Plain masked MLP factory for the affine MADE layer: ``(input_dim, *,

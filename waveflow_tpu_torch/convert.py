@@ -1,9 +1,10 @@
 """Carry JAX parameters and checkpoints across to the PyTorch port.
 
-``params_from_jax`` (Waveflow), ``mflow_params_from_jax`` (MFlow) and
-``flow_params_from_jax`` (Flow / IFlow) map a JAX params pytree (numpy
-arrays) onto the state-dict names of the port's module trees
-(models/factory.py, benchmark/density.py):
+``params_from_jax`` (Waveflow), ``mflow_params_from_jax`` (MFlow),
+``flow_params_from_jax`` (Flow / IFlow) and ``module_state_from_jax`` (any
+tree of the bijections: RQSFlow's couplings, the core combinators) map a
+JAX params pytree (numpy arrays) onto the state-dict names of the port's
+module trees (models/factory.py, benchmark/density.py):
 
     JAX                                       port
     transform_params[i], IMADE layer
@@ -31,6 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from waveflow_tpu_torch.bijections.masks import MaskedMLP
 from waveflow_tpu_torch.utils.checkpoint import load_state
 
 
@@ -68,6 +70,63 @@ def flow_params_from_jax(transform_params) -> dict:
         else:                            # ((W, b), ...): an affine MADE net
             state.update(_mlp_entries(f'{prefix}transform.', layer))
     return state
+
+
+def module_state_from_jax(module, params, prefix: str = '') -> dict:
+    """The JAX params of one layer protocol tree (``Serial`` of any of the
+    bijections, or one bijection) -> state-dict entries of the port's
+    module of the same structure: ActNorm (log_weight, bias), BatchNorm
+    (log_weight, bias, mean, var), InvertibleLinear (L, U, S),
+    AffineCoupling (its network's params), AffineCouplingSplit (scale's,
+    translate's), NeuralSplineCoupling and MADE ((W, b) per layer), IMADE
+    (its conditioner), Invert (the inner layer's), and none for the
+    parameter-free layers.  A network the port builds from another module
+    takes the JAX leaves in the order of its parameters."""
+    from waveflow_tpu_torch import bijections as bj
+    if isinstance(module, bj.Serial):
+        out = {}
+        for i, (layer, p) in enumerate(zip(module.layers, params)):
+            out.update(module_state_from_jax(layer, p, f'{prefix}layers.{i}.'))
+        return out
+    if isinstance(module, bj.Invert):
+        return module_state_from_jax(module.layer, params, f'{prefix}layer.')
+    names = {bj.ActNorm: ('log_weight', 'bias'),
+             bj.BatchNorm: ('log_weight', 'bias', 'mean', 'var'),
+             bj.InvertibleLinear: ('L', 'U', 'S')}.get(type(module))
+    if names is not None:
+        return {f'{prefix}{n}': _tensor(a) for n, a in zip(names, params)}
+    if isinstance(module, bj.AffineCouplingSplit):
+        s_params, t_params = params
+        return {**_network_entries(module.scale, s_params, f'{prefix}scale.'),
+                **_network_entries(module.translate, t_params,
+                                   f'{prefix}translate.')}
+    if isinstance(module, bj.AffineCoupling):
+        return _network_entries(module.transform, params,
+                                f'{prefix}transform.')
+    if isinstance(module, bj.NeuralSplineCoupling):
+        return _mlp_entries(prefix, params)
+    if isinstance(module, bj.MADE):
+        return _mlp_entries(f'{prefix}transform.', params)
+    if isinstance(module, bj.IMADE):
+        return _conditioner_entries(f'{prefix}conditioner.', params)
+    return {}
+
+
+def _network_entries(net, params, prefix: str) -> dict:
+    if isinstance(net, (MaskedMLP,)):
+        return _mlp_entries(prefix, params)
+    leaves = _leaves(params)
+    names = [n for n, _ in net.named_parameters()]
+    if len(names) != len(leaves):
+        raise ValueError(f"{type(net).__name__} has {len(names)} parameters, "
+                         f"the JAX network {len(leaves)} leaves")
+    return {f'{prefix}{n}': _tensor(a) for n, a in zip(names, leaves)}
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, (list, tuple)):
+        return [leaf for t in tree for leaf in _leaves(t)]
+    return [tree]
 
 
 def params_from_jax(tree) -> dict:

@@ -6,6 +6,14 @@
 // cell NOT clipped, so a point outside [0, 1] extends its edge cell linearly.
 // The x-derivative of the order-d evaluation is the order-(d+1) evaluation
 // (ops/spline_eval.py), zero where order d + 1 is not tabulated.
+// Two more forms serve the forward-mode chain of the table backend:
+//   * a table may be read in STEP mode (a bit of `step`): the fraction is
+//     taken as 0, so the row at the cell is read as it is.  Over the slope
+//     table n_cells * (T_d[j + 1] - T_d[j]) that is the x-derivative of the
+//     plain lerp, piecewise constant (ops/spline_eval.py, kind 'S');
+//   * the PAIR entry evaluates two tables at one x with one set of
+//     coefficients (the value and derivative of IMADE's table forward):
+//     the cell is located once and the coefficients read once.
 //
 // Replaces: waveflow_tpu/ops/pallas_spline.py, `_spline_eval_kernel`
 // (pl.pallas_call at :77, entry spline_eval_pallas at :60) and the lerped
@@ -133,32 +141,52 @@ struct Row {
   }
 };
 
-template <bool VEC>
+// PAIR: a second table, table_b, evaluated into out_b
+template <bool VEC, bool PAIR>
 __global__ void __launch_bounds__(THREADS)
 spline_eval_kernel(const float* __restrict__ table,
+                   const float* __restrict__ table_b,
                    const float* __restrict__ coeffs,
                    const float* __restrict__ x, float* __restrict__ out,
-                   int N, int n_cells, int n_bases, int lanes_log2) {
+                   float* __restrict__ out_b, int N, int n_cells,
+                   int n_bases, int lanes_log2, int step) {
   const int lanes = 1 << lanes_log2;
   const int sub = threadIdx.x & (lanes - 1);
   const Row r(x, N, n_cells, lanes_log2);
-  const float* span = table + static_cast<size_t>(r.cell) * n_bases;
-  float acc = 0.f;
+  const size_t span = static_cast<size_t>(r.cell) * n_bases;
+  // a table read in step mode takes the row at the cell: with frac = 0 the
+  // lerp below returns y_l exactly
+  const float frac_a = (step & 1) ? 0.f : r.frac;
+  const float frac_b = (step & 2) ? 0.f : r.frac;
+  float acc = 0.f, acc_b = 0.f;
   for (int i = CHUNK * sub; i < n_bases; i += CHUNK * lanes) {
     float c[CHUNK], y_l[CHUNK], y_r[CHUNK];
-    load_table<VEC>(span, i, n_bases, y_l);
-    load_table<VEC>(span + n_bases, i, n_bases, y_r);
+    load_table<VEC>(table + span, i, n_bases, y_l);
+    load_table<VEC>(table + span + n_bases, i, n_bases, y_r);
     load_once<VEC>(coeffs + r.at * n_bases, i, n_bases, c);
 #pragma unroll
     for (int k = 0; k < CHUNK; ++k)
-      acc = fmaf(c[k], fmaf(y_r[k] - y_l[k], r.frac, y_l[k]), acc);
+      acc = fmaf(c[k], fmaf(y_r[k] - y_l[k], frac_a, y_l[k]), acc);
+    if constexpr (PAIR) {
+      float z_l[CHUNK], z_r[CHUNK];
+      load_table<VEC>(table_b + span, i, n_bases, z_l);
+      load_table<VEC>(table_b + span + n_bases, i, n_bases, z_r);
+#pragma unroll
+      for (int k = 0; k < CHUNK; ++k)
+        acc_b = fmaf(c[k], fmaf(z_r[k] - z_l[k], frac_b, z_l[k]), acc_b);
+    }
   }
   const float y = lane_sum(acc, lanes);
   if (sub == 0 && r.row < N) __stcs(out + r.row, y);
+  if constexpr (PAIR) {
+    const float y_b = lane_sum(acc_b, lanes);
+    if (sub == 0 && r.row < N) __stcs(out_b + r.row, y_b);
+  }
 }
 
 // table_d1, g_coeffs and g_x may each be null: no order d + 1 (g_x = 0), and
-// an output that nobody asked for
+// an output that nobody asked for; coeffs is read only for g_x and may be
+// null without it.  `step` bit 0 reads table_d in step mode, bit 1 table_d1
 template <bool VEC>
 __global__ void __launch_bounds__(THREADS)
 spline_eval_bwd_kernel(const float* __restrict__ table_d,
@@ -167,11 +195,14 @@ spline_eval_bwd_kernel(const float* __restrict__ table_d,
                        const float* __restrict__ x,
                        const float* __restrict__ grad,
                        float* __restrict__ g_coeffs, float* __restrict__ g_x,
-                       int N, int n_cells, int n_bases, int lanes_log2) {
+                       int N, int n_cells, int n_bases, int lanes_log2,
+                       int step) {
   const int lanes = 1 << lanes_log2;
   const int sub = threadIdx.x & (lanes - 1);
   const Row r(x, N, n_cells, lanes_log2);
   const bool chain = g_x != nullptr && table_d1 != nullptr;
+  const float frac_d = (step & 1) ? 0.f : r.frac;
+  const float frac_d1 = (step & 2) ? 0.f : r.frac;
   const float g = __ldcs(grad + r.at);
   const size_t span = static_cast<size_t>(r.cell) * n_bases;
   float acc = 0.f;
@@ -190,7 +221,7 @@ spline_eval_bwd_kernel(const float* __restrict__ table_d,
       float w[CHUNK];
 #pragma unroll
       for (int k = 0; k < CHUNK; ++k)
-        w[k] = g * fmaf(y_r[k] - y_l[k], r.frac, y_l[k]);
+        w[k] = g * fmaf(y_r[k] - y_l[k], frac_d, y_l[k]);
       float* dst = g_coeffs + r.row * n_bases + i;
       if constexpr (VEC) {
         __stcs(reinterpret_cast<float4*>(dst),
@@ -204,7 +235,7 @@ spline_eval_bwd_kernel(const float* __restrict__ table_d,
     if (chain) {
 #pragma unroll
       for (int k = 0; k < CHUNK; ++k)
-        acc = fmaf(c[k], fmaf(z_r[k] - z_l[k], r.frac, z_l[k]), acc);
+        acc = fmaf(c[k], fmaf(z_r[k] - z_l[k], frac_d1, z_l[k]), acc);
     }
   }
   if (g_x != nullptr) {
@@ -237,18 +268,47 @@ int check_plan(int N, int n_mesh, int n_bases, int lanes, int grid,
 extern "C" int spline_eval_launch(const float* table, const float* coeffs,
                                   const float* x, float* out, int N,
                                   int n_mesh, int n_bases, int lanes, int grid,
-                                  void* stream) {
+                                  int step, void* stream) {
   if (N <= 0) return 0;
   int lanes_log2 = 0;
   if (const int err = check_plan(N, n_mesh, n_bases, lanes, grid, &lanes_log2))
     return err;
   const auto s = static_cast<cudaStream_t>(stream);
   if (n_bases % 4 == 0 && aligned16(table) && aligned16(coeffs))
-    spline_eval_kernel<true><<<grid, THREADS, 0, s>>>(
-        table, coeffs, x, out, N, n_mesh - 1, n_bases, lanes_log2);
+    spline_eval_kernel<true, false><<<grid, THREADS, 0, s>>>(
+        table, nullptr, coeffs, x, out, nullptr, N, n_mesh - 1, n_bases,
+        lanes_log2, step);
   else
-    spline_eval_kernel<false><<<grid, THREADS, 0, s>>>(
-        table, coeffs, x, out, N, n_mesh - 1, n_bases, lanes_log2);
+    spline_eval_kernel<false, false><<<grid, THREADS, 0, s>>>(
+        table, nullptr, coeffs, x, out, nullptr, N, n_mesh - 1, n_bases,
+        lanes_log2, step);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// two tables of one shape at one x: out_a from table_a, out_b from table_b;
+// `step` bit 0 reads table_a in step mode, bit 1 table_b
+extern "C" int spline_eval_pair_launch(const float* table_a,
+                                       const float* table_b,
+                                       const float* coeffs, const float* x,
+                                       float* out_a, float* out_b, int N,
+                                       int n_mesh, int n_bases, int lanes,
+                                       int grid, int step, void* stream) {
+  if (N <= 0) return 0;
+  int lanes_log2 = 0;
+  if (const int err = check_plan(N, n_mesh, n_bases, lanes, grid, &lanes_log2))
+    return err;
+  if (table_b == nullptr || out_b == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (n_bases % 4 == 0 && aligned16(table_a) && aligned16(table_b) &&
+      aligned16(coeffs))
+    spline_eval_kernel<true, true><<<grid, THREADS, 0, s>>>(
+        table_a, table_b, coeffs, x, out_a, out_b, N, n_mesh - 1, n_bases,
+        lanes_log2, step);
+  else
+    spline_eval_kernel<false, true><<<grid, THREADS, 0, s>>>(
+        table_a, table_b, coeffs, x, out_a, out_b, N, n_mesh - 1, n_bases,
+        lanes_log2, step);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -258,23 +318,24 @@ extern "C" int spline_eval_bwd_launch(const float* table_d,
                                       const float* grad, float* g_coeffs,
                                       float* g_x, int N, int n_mesh,
                                       int n_bases, int lanes, int grid,
-                                      void* stream) {
+                                      int step, void* stream) {
   if (N <= 0) return 0;
   int lanes_log2 = 0;
   if (const int err = check_plan(N, n_mesh, n_bases, lanes, grid, &lanes_log2))
     return err;
-  if (g_coeffs == nullptr && g_x == nullptr)
+  if ((g_coeffs == nullptr && g_x == nullptr) ||
+      (g_x != nullptr && table_d1 != nullptr && coeffs == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   if (n_bases % 4 == 0 && aligned16(table_d) && aligned16(table_d1) &&
       aligned16(coeffs) && aligned16(g_coeffs))
     spline_eval_bwd_kernel<true><<<grid, THREADS, 0, s>>>(
         table_d, table_d1, coeffs, x, grad, g_coeffs, g_x, N, n_mesh - 1,
-        n_bases, lanes_log2);
+        n_bases, lanes_log2, step);
   else
     spline_eval_bwd_kernel<false><<<grid, THREADS, 0, s>>>(
         table_d, table_d1, coeffs, x, grad, g_coeffs, g_x, N, n_mesh - 1,
-        n_bases, lanes_log2);
+        n_bases, lanes_log2, step);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -43,3 +43,7 @@ class Flow(nn.Module):
                                           generator, self.device)
         final = self.transform.inverse(prior_samples)[0]
         return (final, prior_samples) if return_original_samples else final
+
+
+# the JAX package exposes the same model under this name too
+InvFlow = Flow

@@ -1,7 +1,8 @@
 """Waveflow — the square-flow wavefunction ansatz.
 
-Port of waveflow_tpu/models/waveflow.py with the 'poly' amplitude
-backends and both sampling densities:
+Port of waveflow_tpu/models/waveflow.py with every amplitude backend
+('poly' and 'poly_pallas' through the basis jet, 'table' through the table
+evaluator: K4 on the card) and both sampling densities:
 
     ψ(x) = [ Π_i  c_i(u_{<i}) · OB(u_i) ] · exp(½ log|det J_T(x)|),
     u = T(x) ∈ [0,1]^n (BoxTransform + IMADE stack),
@@ -55,11 +56,10 @@ class Waveflow(nn.Module):
                  eval_backend: str = 'poly', sampling_backend: str = 'table',
                  *, generator: torch.Generator | None = None, device=None):
         super().__init__()
+        if eval_backend not in ('poly', 'poly_pallas', 'table'):
+            raise ValueError(f"unknown eval_backend {eval_backend!r}")
         check_sampling_backend(eval_backend, sampling_backend)
-        if eval_backend not in ('poly', 'poly_pallas'):
-            raise NotImplementedError(
-                f"eval_backend {eval_backend!r} is not ported; use 'poly' or "
-                "'poly_pallas'")
+        self.use_poly = eval_backend != 'table'
         self.sampling_backend = sampling_backend
         device = resolve_device(device)
         self.device = device
@@ -72,7 +72,7 @@ class Waveflow(nn.Module):
         self.fwd_ob = make_poly_evaluator(
             tabs, use_ob=True,
             jet_backend='pallas' if eval_backend == 'poly_pallas' else 'xla',
-            device=device)
+            device=device) if self.use_poly else self.ev_ob
         self.ob_to_b = torch.as_tensor(tabs.ob_to_b, device=device)
         self.project = make_boundary_projector(
             ev_b, constraints_dict_left, constraints_dict_right,
@@ -98,7 +98,10 @@ class Waveflow(nn.Module):
         u, log_det = self.transform(x)
         c = self.ob_coeffs(u)
         u_c = torch.clamp(u, 0.0, 1.0)
-        amps = (c * self.fwd_ob.basis_jet(u_c)[..., 0, :]).sum(-1)
+        if self.use_poly:
+            amps = (c * self.fwd_ob.basis_jet(u_c)[..., 0, :]).sum(-1)
+        else:
+            amps = self.fwd_ob(c, u_c)         # (B, D) per-dim amplitudes
         return amps, log_det
 
     def psi(self, x: torch.Tensor) -> torch.Tensor:

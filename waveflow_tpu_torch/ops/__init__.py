@@ -12,7 +12,8 @@ from waveflow_tpu_torch.ops.boundary import (
     make_boundary_projector, make_bias_remover,
 )
 from waveflow_tpu_torch.ops.inverse import (
-    batched_monotone_inverse, exact_node_bisect_inverse, exact_table_inverse,
+    batched_monotone_inverse, bisection_inverse, exact_node_bisect_inverse,
+    exact_table_inverse,
 )
 from waveflow_tpu_torch.ops.sampling import (
     sample_linear_density, sample_squared_amplitude,
@@ -24,7 +25,7 @@ from waveflow_tpu_torch.ops import cuda_jet, cuda_sampler, cuda_spline
 # without passing through them, so vmc/graphs.py adds a replay's count here
 LAUNCH_COUNTERS = ((cuda_jet, 'launches'), (cuda_sampler, 'launches'),
                    (cuda_sampler, 'launches_linear'), (cuda_spline, 'launches'),
-                   (cuda_spline, 'launches_bwd'))
+                   (cuda_spline, 'launches_bwd'), (cuda_spline, 'launches_pair'))
 
 
 def read_launches() -> tuple:

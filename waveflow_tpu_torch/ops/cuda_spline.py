@@ -14,7 +14,11 @@ backward versions compute, from the gradient g of y,
     g_x[n]         = g[n] · Σ_i coeffs[n, i] · lerp(T_{d+1}[:, i], x[n])
 
 (the x-derivative of the order-d evaluation is the order-(d+1) evaluation,
-zero where that order is not tabulated).  ``spline_eval`` and
+zero where that order is not tabulated).  ``spline_eval_pair`` evaluates two
+tables at one x in one launch (the kernel's pair entry), and every table may
+be read in step mode (``step=True``: the row at the cell, the fraction
+ignored), which over a slope table is the x-derivative of the plain lerp
+(ops/spline_eval.py).  ``spline_eval``, ``spline_eval_pair`` and
 ``spline_eval_bwd`` run the CUDA kernels on a CUDA tensor — one launch each,
 the backward too is a kernel on the card — and the plain gather-lerp on a
 CPU tensor, never a plain version on the card.  ``onehot_matmul_eval`` is
@@ -34,6 +38,7 @@ from waveflow_tpu_torch.ops import cuda_build
 
 # kernel launches since the last reset (chip_smoke.py)
 launches = 0          # the forward kernel
+launches_pair = 0     # the forward kernel's pair entry (two tables)
 launches_bwd = 0      # the backward kernel
 
 # the kernels' constants (csrc/spline_eval.cu checks a plan against its own)
@@ -43,8 +48,9 @@ CHUNK = 4                     # consecutive bases a lane takes per load
 # the C entry points of csrc/spline_eval.cu: (argtypes, restype)
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    'spline_eval_launch': ([_PTR] * 4 + [_INT] * 5 + [_PTR], _INT),
-    'spline_eval_bwd_launch': ([_PTR] * 7 + [_INT] * 5 + [_PTR], _INT),
+    'spline_eval_launch': ([_PTR] * 4 + [_INT] * 6 + [_PTR], _INT),
+    'spline_eval_pair_launch': ([_PTR] * 6 + [_INT] * 6 + [_PTR], _INT),
+    'spline_eval_bwd_launch': ([_PTR] * 7 + [_INT] * 6 + [_PTR], _INT),
     'spline_eval_error_string': ([_INT], ctypes.c_char_p)}
 
 
@@ -75,9 +81,10 @@ def plan(N: int, n_bases: int, backward: bool = False,
                                  'backward' if backward else 'forward', lanes)
 
 
-def lerp_basis(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def lerp_basis(table: torch.Tensor, x: torch.Tensor,
+               step: bool = False) -> torch.Tensor:
     """Table rows interpolated at x: table (n_mesh, n_bases), x (...,) ->
-    (..., n_bases)."""
+    (..., n_bases); ``step``: the row at the cell, uninterpolated."""
     n_cells = table.shape[0] - 1
     pos = x * n_cells
     idx = torch.clamp(torch.floor(pos), 0, n_cells - 1)
@@ -85,27 +92,31 @@ def lerp_basis(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     # a NaN x reads cell 0 (and gives NaN), as the kernel's clamp does
     idx = torch.nan_to_num(idx, nan=0.0).long()
     y_l = table[idx]
+    if step:
+        # the kernel's lerp with the fraction taken as 0 (NaN x stays NaN)
+        return y_l + (table[idx + 1] - y_l) * (frac * 0.0)[..., None]
     return y_l + (table[idx + 1] - y_l) * frac[..., None]
 
 
 def spline_eval_plain(table: torch.Tensor, coeffs: torch.Tensor,
-                      x: torch.Tensor) -> torch.Tensor:
+                      x: torch.Tensor, step: bool = False) -> torch.Tensor:
     """Plain PyTorch gather-lerp: coeffs (..., n_bases), x (...,) -> (...,)."""
-    return (lerp_basis(table, x) * coeffs).sum(-1)
+    return (lerp_basis(table, x, step) * coeffs).sum(-1)
 
 
 def spline_eval_bwd_plain(table_d: torch.Tensor,
                           table_d1: torch.Tensor | None,
-                          coeffs: torch.Tensor, x: torch.Tensor,
-                          grad: torch.Tensor) -> tuple:
+                          coeffs: torch.Tensor | None, x: torch.Tensor,
+                          grad: torch.Tensor, step_d: bool = False,
+                          step_d1: bool = False) -> tuple:
     """Plain PyTorch backward of the order-d evaluation (gather-lerp):
     (g_coeffs (..., n_bases), g_x (...,)) from the gradient ``grad`` (...,)
-    of its output; ``table_d1`` is the order-(d+1) table, None at the top
-    tabulated order, where g_x is zero."""
-    g_coeffs = grad[..., None] * lerp_basis(table_d, x)
-    if table_d1 is None:
+    of its output; ``table_d1`` is the table of its x-derivative, None at
+    the top tabulated order, where g_x is zero."""
+    g_coeffs = grad[..., None] * lerp_basis(table_d, x, step_d)
+    if table_d1 is None or coeffs is None:
         return g_coeffs, torch.zeros_like(x)
-    return g_coeffs, grad * spline_eval_plain(table_d1, coeffs, x)
+    return g_coeffs, grad * spline_eval_plain(table_d1, coeffs, x, step_d1)
 
 
 def onehot_matmul_eval(table: torch.Tensor, coeffs: torch.Tensor,
@@ -124,15 +135,17 @@ def onehot_matmul_eval(table: torch.Tensor, coeffs: torch.Tensor,
     return ((w @ table) * coeffs).sum(-1)
 
 
-def _check(table: torch.Tensor, coeffs: torch.Tensor, x: torch.Tensor,
-           *same_as_x: torch.Tensor) -> None:
+def _check(table: torch.Tensor, coeffs: torch.Tensor | None,
+           x: torch.Tensor, *same_as_x: torch.Tensor) -> None:
     """Raise unless the operands are what the kernels take: f32, on one
     CUDA device, table (n_mesh >= 2, n_bases), coeffs (..., n_bases), and x
-    and ``same_as_x`` of the coefficients' batch shape.  Reads no device
-    memory."""
+    and ``same_as_x`` of the coefficients' batch shape (without
+    coefficients, of x's).  Reads no device memory."""
     if not x.is_cuda:
         raise ValueError("the spline_eval kernels need their operands on "
                          "one CUDA device")
+    if coeffs is None:
+        coeffs = x.new_empty(()).expand(x.shape + (table.shape[-1],))
     for a in (table, coeffs, *same_as_x):
         if a.device != x.device:
             raise ValueError("the spline_eval kernels need their operands "
@@ -160,7 +173,7 @@ def _raise_on(err: int, lib: ctypes.CDLL, what: str) -> None:
 
 
 def spline_eval_cuda(table: torch.Tensor, coeffs: torch.Tensor,
-                     x: torch.Tensor,
+                     x: torch.Tensor, step: bool = False,
                      lanes: int | None = None) -> torch.Tensor:
     """Launch the forward kernel: table (n_mesh, n_bases), coeffs
     (..., n_bases), x (...,), all f32 on the card -> (...,).  The leading
@@ -178,24 +191,60 @@ def spline_eval_cuda(table: torch.Tensor, coeffs: torch.Tensor,
     lib = cuda_build.bind('spline_eval', SIGNATURES)
     err = lib.spline_eval_launch(
         table.data_ptr(), coeffs.data_ptr(), x.data_ptr(), out.data_ptr(),
-        N, n_mesh, n_bases, p.group, p.grid,
+        N, n_mesh, n_bases, p.group, p.grid, int(step),
         cuda_build.current_stream(x.device.index))
     launches += 1
     _raise_on(err, lib, 'spline_eval')
     return out
 
 
+def spline_eval_pair_cuda(table_a: torch.Tensor, table_b: torch.Tensor,
+                          coeffs: torch.Tensor, x: torch.Tensor,
+                          step_a: bool = False, step_b: bool = False,
+                          lanes: int | None = None) -> tuple:
+    """Launch the forward kernel's pair entry: two tables of one shape
+    evaluated at x with the same coefficients, the cell located and the
+    coefficients read once -> (y_a, y_b), each (...,)."""
+    global launches_pair
+    _check(table_a, coeffs, x)
+    if table_b.shape != table_a.shape or table_b.device != x.device \
+            or table_b.dtype != torch.float32:
+        raise ValueError("the pair's two tables must match, got "
+                         f"{tuple(table_a.shape)} and {tuple(table_b.shape)}")
+    table_a, table_b = _dense(table_a), _dense(table_b)
+    coeffs, x = _dense(coeffs), _dense(x)
+    N = x.numel()
+    out_a, out_b = torch.empty_like(x), torch.empty_like(x)
+    if N == 0:
+        return out_a, out_b
+    n_mesh, n_bases = table_a.shape
+    p = plan(N, n_bases, False, lanes)
+    lib = cuda_build.bind('spline_eval', SIGNATURES)
+    err = lib.spline_eval_pair_launch(
+        table_a.data_ptr(), table_b.data_ptr(), coeffs.data_ptr(),
+        x.data_ptr(), out_a.data_ptr(), out_b.data_ptr(), N, n_mesh,
+        n_bases, p.group, p.grid, int(step_a) | 2 * int(step_b),
+        cuda_build.current_stream(x.device.index))
+    launches_pair += 1
+    _raise_on(err, lib, 'spline_eval_pair')
+    return out_a, out_b
+
+
 def spline_eval_bwd_cuda(table_d: torch.Tensor, table_d1: torch.Tensor | None,
-                         coeffs: torch.Tensor, x: torch.Tensor,
+                         coeffs: torch.Tensor | None, x: torch.Tensor,
                          grad: torch.Tensor, need_coeffs: bool = True,
-                         need_x: bool = True,
+                         need_x: bool = True, step_d: bool = False,
+                         step_d1: bool = False,
                          lanes: int | None = None) -> tuple:
     """Launch the backward kernel, once for both gradients: (g_coeffs
     (..., n_bases) or None, g_x (...,) or None) as ``need_coeffs`` and
-    ``need_x`` say.  ``table_d1`` is the order-(d+1) table, None at the top
-    tabulated order (g_x is then written as zeros)."""
+    ``need_x`` say.  ``table_d1`` is the table of the x-derivative, None at
+    the top tabulated order (g_x is then written as zeros); ``coeffs`` may
+    be None when g_x is not asked for."""
     global launches_bwd
     _check(table_d, coeffs, x, grad)
+    if need_x and table_d1 is not None and coeffs is None:
+        raise ValueError("g_x needs the coefficients")
     if table_d1 is not None and (table_d1.shape != table_d.shape
                                  or table_d1.device != x.device
                                  or table_d1.dtype != torch.float32):
@@ -203,14 +252,16 @@ def spline_eval_bwd_cuda(table_d: torch.Tensor, table_d1: torch.Tensor | None,
                          f"table, got {tuple(table_d1.shape)}")
     if not (need_coeffs or need_x):
         return None, None
-    table_d, coeffs, x, grad = (_dense(table_d), _dense(coeffs), _dense(x),
-                                _dense(grad))
+    table_d, x, grad = _dense(table_d), _dense(x), _dense(grad)
+    if coeffs is not None:
+        coeffs = _dense(coeffs)
     if table_d1 is not None:
         table_d1 = _dense(table_d1)
     N = x.numel()
     n_mesh, n_bases = table_d.shape
     # (two allocations: views of one buffer cost the host three times as much)
-    g_coeffs = torch.empty_like(coeffs) if need_coeffs else None
+    g_coeffs = (x.new_empty(x.shape + (n_bases,)) if need_coeffs
+                else None)
     g_x = torch.empty_like(x) if need_x else None
     if N == 0:
         return g_coeffs, g_x
@@ -218,36 +269,56 @@ def spline_eval_bwd_cuda(table_d: torch.Tensor, table_d1: torch.Tensor | None,
     lib = cuda_build.bind('spline_eval', SIGNATURES)
     err = lib.spline_eval_bwd_launch(
         table_d.data_ptr(), None if table_d1 is None else table_d1.data_ptr(),
-        coeffs.data_ptr(), x.data_ptr(), grad.data_ptr(),
-        g_coeffs.data_ptr() if need_coeffs else None,
+        None if coeffs is None else coeffs.data_ptr(), x.data_ptr(),
+        grad.data_ptr(), g_coeffs.data_ptr() if need_coeffs else None,
         g_x.data_ptr() if need_x else None,
         N, n_mesh, n_bases, p.group, p.grid,
+        int(step_d) | 2 * int(step_d1),
         cuda_build.current_stream(x.device.index))
     launches_bwd += 1
     _raise_on(err, lib, 'spline_eval_bwd')
     return g_coeffs, g_x
 
 
-def spline_eval(table: torch.Tensor, coeffs: torch.Tensor,
-                x: torch.Tensor) -> torch.Tensor:
-    """K4 on a CUDA tensor, its plain gather-lerp on a CPU tensor: coeffs
-    (..., n_bases), x (...,) -> (...,)."""
-    if x.is_cuda:
-        return spline_eval_cuda(table, coeffs, x)
+def _check_plain(coeffs: torch.Tensor, x: torch.Tensor) -> None:
     if x.shape != coeffs.shape[:-1]:
         raise ValueError(f"x {tuple(x.shape)} does not match the batch of "
                          f"coeffs {tuple(coeffs.shape)}")
-    return spline_eval_plain(table, coeffs, x)
+
+
+def spline_eval(table: torch.Tensor, coeffs: torch.Tensor,
+                x: torch.Tensor, step: bool = False) -> torch.Tensor:
+    """K4 on a CUDA tensor, its plain gather-lerp on a CPU tensor: coeffs
+    (..., n_bases), x (...,) -> (...,)."""
+    if x.is_cuda:
+        return spline_eval_cuda(table, coeffs, x, step)
+    _check_plain(coeffs, x)
+    return spline_eval_plain(table, coeffs, x, step)
+
+
+def spline_eval_pair(table_a: torch.Tensor, table_b: torch.Tensor,
+                     coeffs: torch.Tensor, x: torch.Tensor,
+                     step_a: bool = False, step_b: bool = False) -> tuple:
+    """K4's pair entry on a CUDA tensor, two plain gather-lerps on a CPU
+    tensor: (y_a, y_b), each (...,)."""
+    if x.is_cuda:
+        return spline_eval_pair_cuda(table_a, table_b, coeffs, x, step_a,
+                                     step_b)
+    _check_plain(coeffs, x)
+    return (spline_eval_plain(table_a, coeffs, x, step_a),
+            spline_eval_plain(table_b, coeffs, x, step_b))
 
 
 def spline_eval_bwd(table_d: torch.Tensor, table_d1: torch.Tensor | None,
-                    coeffs: torch.Tensor, x: torch.Tensor,
+                    coeffs: torch.Tensor | None, x: torch.Tensor,
                     grad: torch.Tensor, need_coeffs: bool = True,
-                    need_x: bool = True) -> tuple:
+                    need_x: bool = True, step_d: bool = False,
+                    step_d1: bool = False) -> tuple:
     """K4's backward kernel on a CUDA tensor, its plain version on a CPU
     tensor: (g_coeffs or None, g_x or None)."""
     if x.is_cuda:
         return spline_eval_bwd_cuda(table_d, table_d1, coeffs, x, grad,
-                                    need_coeffs, need_x)
-    g_coeffs, g_x = spline_eval_bwd_plain(table_d, table_d1, coeffs, x, grad)
+                                    need_coeffs, need_x, step_d, step_d1)
+    g_coeffs, g_x = spline_eval_bwd_plain(table_d, table_d1, coeffs, x, grad,
+                                          step_d, step_d1)
     return (g_coeffs if need_coeffs else None, g_x if need_x else None)

@@ -1,9 +1,9 @@
 """Exact inverse of the monotone table-interpolated spline.
 
-Port of waveflow_tpu/ops/inverse.py (``method='exact'`` and its two
-forms).  The runtime table spline is piecewise linear in x over the mesh,
-so its inverse is closed-form: locate the bracketing cell, solve the
-in-cell linear equation.  Two forms give the same result:
+Port of waveflow_tpu/ops/inverse.py, every method.  The runtime table
+spline is piecewise linear in x over the mesh, so its inverse is
+closed-form: locate the bracketing cell, solve the in-cell linear
+equation.  Two exact forms give the same result:
 
 * dense (``exact_table_inverse``): every mesh node at once, one
   (batch, n_bases) @ (n_bases, n_mesh) matmul and one compare-count —
@@ -11,6 +11,10 @@ in-cell linear equation.  Two forms give the same result:
 * node bisection (``exact_node_bisect_inverse``): ceil(log2 n_cells)
   rounds of one row-gather + dot — no (batch, n_mesh) intermediate, wins
   once the batch makes the step bandwidth-bound.
+
+``bisection_inverse`` ('bisect') needs the evaluator alone: a fixed number
+of bisection steps and Newton steps on ``evaluator(coeffs, x)`` (kernel K4
+on the card), no data-dependent trip count, so a CUDA graph can hold it.
 """
 
 from __future__ import annotations
@@ -68,16 +72,50 @@ def exact_node_bisect_inverse(evaluator: SplineEvaluator,
     return _in_cell_solve(lo, g_l, g_r, y, n_cells)
 
 
+def bisection_inverse(evaluator: SplineEvaluator, coeffs: torch.Tensor,
+                      y: torch.Tensor, n_bisect: int = 30,
+                      n_newton: int = 2) -> torch.Tensor:
+    """Fixed-iteration bisection + Newton polish (the evaluator-only
+    method): ``n_bisect`` + 2 · ``n_newton`` evaluations."""
+    lo, hi = torch.zeros_like(y), torch.ones_like(y)
+    for _ in range(n_bisect):
+        mid = 0.5 * (lo + hi)
+        gt = evaluator(coeffs, mid) > y
+        lo, hi = torch.where(gt, lo, mid), torch.where(gt, mid, hi)
+    x = 0.5 * (lo + hi)
+    for _ in range(n_newton):
+        fx = evaluator(coeffs, x)
+        dfx = evaluator(coeffs, x, d=1)
+        x = torch.minimum(torch.maximum(
+            x - (fx - y) / torch.clamp(dfx, min=1e-12), lo), hi)
+    return x
+
+
+INVERSE_METHODS = ('exact', 'exact_dense', 'exact_bisect', 'bisect')
+
+
 def batched_monotone_inverse(evaluator: SplineEvaluator,
-                             coeffs: torch.Tensor,
-                             y: torch.Tensor) -> torch.Tensor:
-    """Solve f(x) = y for x in [0,1], f monotone increasing per sample —
-    the JAX ``method='exact'``: the dense form up to
-    DENSE_INVERSE_MAX_ELEMENTS (batch x n_mesh) elements on the CPU,
-    DENSE_INVERSE_MAX_ELEMENTS_CUDA on the card, node bisection above.  The
-    evaluator-only bisection method is not ported."""
-    limit = (DENSE_INVERSE_MAX_ELEMENTS_CUDA if y.is_cuda
-             else DENSE_INVERSE_MAX_ELEMENTS)
-    if y.numel() * evaluator.n_mesh > limit:
+                             coeffs: torch.Tensor, y: torch.Tensor,
+                             n_bisect: int = 30, n_newton: int = 2,
+                             method: str = 'exact') -> torch.Tensor:
+    """Solve f(x) = y for x in [0,1], f monotone increasing per sample.
+
+    coeffs (..., n_bases), y (...,) -> x (...,).  ``method='exact'`` picks
+    the dense form up to DENSE_INVERSE_MAX_ELEMENTS (batch x n_mesh)
+    elements on the CPU, DENSE_INVERSE_MAX_ELEMENTS_CUDA on the card, node
+    bisection above; 'exact_dense' and 'exact_bisect' force one form;
+    'bisect' is ``bisection_inverse``."""
+    if method not in INVERSE_METHODS:
+        raise ValueError(f"unknown inverse method {method!r}; one of "
+                         f"{INVERSE_METHODS}")
+    if method == 'exact':
+        limit = (DENSE_INVERSE_MAX_ELEMENTS_CUDA if y.is_cuda
+                 else DENSE_INVERSE_MAX_ELEMENTS)
+        method = ('exact_bisect' if y.numel() * evaluator.n_mesh > limit
+                  else 'exact_dense')
+    if method == 'exact_dense':
+        return exact_table_inverse(evaluator, coeffs, y)
+    if method == 'exact_bisect':
         return exact_node_bisect_inverse(evaluator, coeffs, y)
-    return exact_table_inverse(evaluator, coeffs, y)
+    return bisection_inverse(evaluator, coeffs, y, n_bisect=n_bisect,
+                             n_newton=n_newton)

@@ -231,6 +231,13 @@ class PolySplineEvaluator:
             v = v * s_c + local[..., k]
         return v + dv * ds, (dv + d2v * ds) * self.n_cells
 
+    def pair(self, coeffs: torch.Tensor, x: torch.Tensor, d: int = 0):
+        """The contract of ``SplineEvaluator.pair``: (order d, order d + 1);
+        at d = 0 the fused ``value_and_derivative``."""
+        if d == 0:
+            return self.value_and_derivative(coeffs, x)
+        return self(coeffs, x, d), self(coeffs, x, d + 1)
+
 
 def sample_squared_amplitude_poly(ev: PolySplineEvaluator,
                                   coeffs: torch.Tensor, u: torch.Tensor,

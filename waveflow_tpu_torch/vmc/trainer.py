@@ -6,8 +6,9 @@ Metropolis or MALA walkers (``sampler='metropolis'`` / ``'mala'``, with the
 periodic ancestral refresh); the 'clipped_score' (either clip statistic)
 or 'reference' estimator with adam after an optax-form global norm clip,
 or the SR / SPRING natural-gradient updates (``optimizer='sr'`` /
-``'spring'``, vmc/sr.py); every Laplacian form; eval backends 'poly' and
-'poly_pallas' (the latter runs the CUDA basis-jet kernel); one or two
+``'spring'``, vmc/sr.py); every Laplacian form; eval backends 'poly',
+'poly_pallas' (the CUDA basis-jet kernel) and 'table' (the table-lerp
+evaluation with its derivative chain, kernel K4 on the card); one or two
 space dimensions with every coordinate map, and the antisymmetrized
 ansatz (``ansatz='antisym'``, models/antisym.py) under the JAX trainer's
 resolution (``resolve_ansatz``); checkpoint save / exact resume and
@@ -123,8 +124,9 @@ class VMCConfig:
     # accepted and unused: the IMADE inverse is the exact table inverse
     i_spline_reverse_fun_tol: float = 1e-6
     n_spline_base_mesh_points: int = 2000
-    # 'poly' (plain PyTorch basis jet) or 'poly_pallas' (the CUDA basis-jet
-    # kernel on the card; the name is the JAX package's)
+    # 'poly' (plain PyTorch basis jet), 'poly_pallas' (the CUDA basis-jet
+    # kernel on the card; the name is the JAX package's) or 'table' (the
+    # table lerp, K4 on the card; sampling_backend must then be 'table')
     eval_backend: str = 'poly'
     # ancestral density: 'table' (inverse CDF of the table interpolant, K1
     # on the card) or 'poly' (the exact polynomial density ψ evaluates)
@@ -206,7 +208,7 @@ class VMCConfig:
 
 _ONLY = {
     'xu_coord_type': COORD_TYPES,
-    'eval_backend': ('poly', 'poly_pallas'),
+    'eval_backend': ('poly', 'poly_pallas', 'table'),
     'sampling_backend': ('table', 'poly'),
     'laplacian_mode': ('fwd_batched', 'fwd', 'hvp', 'dense'),
     'estimator': ('clipped_score', 'reference'),
