@@ -167,7 +167,9 @@ Phases (any failure exits non-zero; nothing is caught):
                coefficients, at N = 1 ... 40,001; then every order's value,
                first and second jvp (coefficients moving with x) and both
                outputs of ``pair``, kernel chain against the plain chain,
-               no plain lerp run on the card; the pair entry timed;
+               no plain lerp run on the card; the pair entry, the step
+               mode and the backward kernel on step-mode tables and
+               without coefficients timed at N = 512, 8,192, 40,000;
  39. table-hpsi — the 100k checkpoint under 'table', Hψ at 4,096 K1
                walkers under every Laplacian form: K4 launches per pass
                equal to the evaluations the same pass makes on the CPU;
@@ -186,6 +188,27 @@ Phases (any failure exits non-zero; nothing is caught):
                points/s;
  43. gm-density — MFlow on gaussian_mixtures (reg 0.05, degree 5, 15
                knots), 200 epochs: loss falls, K2 and K4 launched;
+ 44. compat — the reference's API (waveflow_tpu_torch/compat.py) on the
+               card: BSpline_fun (degree 6, 23 knots, 2000 mesh)
+               apply_fun_vec at 65,536 rows and sample_fun_vec at 32,768 x
+               2 (one K1 launch), ISpline_fun (degree 5) apply_fun_vec,
+               apply_fun_vec_grad and reverse_fun_vec at 40,000 rows,
+               MSpline_fun (degree 3, 15 knots) sample_fun_vec at 20,000 x
+               2 (one K2 launch), each against the same call on the CPU,
+               its launches held to the CPU's count, timed against the
+               direct ops call; train_model (MFlow, 20,000 circles points,
+               200 epochs) equal to train_density_model to the bit (losses,
+               parameters, metric files, launches); ModelTrainer at the
+               reference defaults for 200 epochs (finite, K1, walkers/s);
+ 45. artifacts (last: it records a profiler trace) — save_artifacts on a
+               'poly_pallas' trainer from the 100k checkpoint: 2 graphed
+               windows of 10 with a save_checkpoint between equal to the
+               same run without artifacts to the bit; every file at its
+               shape; the ψ grid and slices against the plain core on the
+               card (ARTIFACTS_PSI_RTOL); K1 and K3 launches per
+               save_wavefunction_artifacts call held to the CPU's count;
+               utils/profiling.py's trace around 10 replayed epochs names
+               K1 and K3, time_fn of K3 at R = 512;
  29. report  — one JSON line of kernels, then the final status line.
 
 Each phase that drives a path sets the launch counts to 0 just before it
@@ -285,6 +308,13 @@ POLY_QUANTILE_TOL = 1e-5
 TABLE_HPSI_RTOL = 1.3e-4
 TABLE_POLY_EL_BOUND = 0.05
 TABLE_POLY_EL_MEAN_BOUND = 1e-3
+# artifacts gate: ψ of the 100k checkpoint on the artifacts' 100² grid and
+# both density slices, 'poly_pallas' (K3) against the plain core on the
+# card, relative to max|ψ|; fixed from a float64 CPU run
+# (tests/test_torch_utils.py::test_artifacts_psi_f32_against_float64): the
+# f32 ψ lies within 1e-5 of the float64 ψ (3.8e-6 measured), so the two
+# f32 orderings agree to twice that
+ARTIFACTS_PSI_RTOL = 2e-5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12     # H100 SXM, f32 outside the tensor cores
 FLAGSHIP = dict(spline_degree=6, num_knots=23, n_mesh=2000)
@@ -1623,8 +1653,10 @@ def li_window_phase(torch):
     return launches, out
 
 
-def flagship_model(torch, params, eval_backend, sampling_backend='table'):
-    """The flagship Waveflow on the card with the given parameters."""
+def flagship_model(torch, params, eval_backend, sampling_backend='table',
+                   device='cuda'):
+    """The flagship Waveflow on the card (or ``device``) with the given
+    parameters."""
     from waveflow_tpu_torch.models import get_waveflow_model
     m = get_waveflow_model(
         2, base_spline_degree=FLAGSHIP['spline_degree'],
@@ -1633,7 +1665,7 @@ def flagship_model(torch, params, eval_backend, sampling_backend='table'):
         n_i_internal_knots=FLAGSHIP['num_knots'], i_spline_reg=0.05,
         n_flow_layers=3, box_size=10.0, eval_backend=eval_backend,
         sampling_backend=sampling_backend,
-        generator=torch.Generator().manual_seed(0), device='cuda')
+        generator=torch.Generator().manual_seed(0), device=device)
     m.load_state_dict(params)
     return m
 
@@ -3048,6 +3080,37 @@ def table_kernels_phase(torch, params):
                   f"kernel in step mode on the slope table kernel_ms "
                   f"{s_ms:.4f} device_ms {sd_ms:.4f} plain_ms {sp_ms:.4f} "
                   f"bound_ms {sb_ms:.5f} ({sb_by})", flush=True)
+            # the backward kernel as the table backend launches it: g·B on
+            # the value table with g_x from the slope table in step mode,
+            # and g·B alone (no coefficients, no g_x); bound by
+            # check_spline_eval's rule, the step table's rows read once
+            gg = g[:N]
+            rows_l = table_rows(torch, ev.n_mesh, xx)
+            rows_s = table_rows(torch, ev.n_mesh, xx, step=True)
+            for form, tx, cx, bytes_, ops_ in (
+                    ('step g_x', S0, c,
+                     4 * (N * (3 + 2 * n_b) + (rows_l + rows_s) * n_b),
+                     N * (5 * n_b + 7)),
+                    ('no coeffs', None, None,
+                     4 * (N * (3 + n_b) + rows_l * n_b), N * (3 * n_b + 6))):
+                def bwd(tx=tx, cx=cx):
+                    return cuda_spline.spline_eval_bwd_cuda(
+                        T0, tx, cx, xx, gg, step_d1=tx is not None)
+
+                def bwd_plain(tx=tx, cx=cx):
+                    return cuda_spline.spline_eval_bwd_plain(
+                        T0, tx, cx, xx, gg, False, tx is not None)
+
+                bk_ms, bd_ms = cuda_ms(torch, bwd), device_ms(torch, bwd)
+                bp_ms = cuda_ms(torch, bwd_plain)
+                bb_ms, bb_by = bound_ms(bytes_, ops_)
+                rows[('bwd', form, name, N)] = dict(
+                    ms=bk_ms, device_ms=bd_ms, plain_ms=bp_ms,
+                    bound_ms=bb_ms, bound_by=bb_by)
+                print(f"K4 {name} N={N}: backward kernel ({form}) kernel_ms "
+                      f"{bk_ms:.4f} device_ms {bd_ms:.4f} plain_ms "
+                      f"{bp_ms:.4f} bound_ms {bb_ms:.5f} ({bb_by})",
+                      flush=True)
         # the chain: kernel against the plain chain, launches counted
         for N in (512, N_max):
             c0 = cc[:N]
@@ -3360,6 +3423,461 @@ def gm_density_phase(torch):
     return launches, row
 
 
+# ---- 44-45. the reference-API layer and the evaluation artifacts ---------
+
+KERNEL_NAMES = ('basis_jet', 'sampler', 'sampler_linear', 'spline_eval',
+                'spline_eval_bwd', 'spline_eval_pair')
+
+
+def kernel_counts() -> dict:
+    """Every kernel wrapper's launch count, by kernel (ops.LAUNCH_COUNTERS
+    order)."""
+    from waveflow_tpu_torch import ops
+    return dict(zip(KERNEL_NAMES, ops.read_launches()))
+
+
+def zero_counts():
+    from waveflow_tpu_torch import ops
+    ops.set_launches((0,) * len(KERNEL_NAMES))
+
+
+class counted_calls:
+    """Within the block, every call of each named function (``name=(module,
+    attribute)``) is counted in ``calls``, whatever the device: run on the
+    CPU, the launches the same code makes on the card."""
+
+    def __init__(self, **targets):
+        self.targets = targets
+        self.calls = dict.fromkeys(targets, 0)
+
+    def __enter__(self):
+        self.saved = {n: getattr(m, a) for n, (m, a) in self.targets.items()}
+        for n, (m, a) in self.targets.items():
+            def call(*args, n=n, fn=self.saved[n], **kw):
+                self.calls[n] += 1
+                return fn(*args, **kw)
+            setattr(m, a, call)
+        return self
+
+    def __exit__(self, *exc):
+        for n, (m, a) in self.targets.items():
+            setattr(m, a, self.saved[n])
+
+
+def compat_targets():
+    """The launch points of compat.py's kernels: K4's entries (by the
+    names ops/spline_eval.py calls them) and the two samplers compat
+    calls."""
+    from waveflow_tpu_torch import compat
+    from waveflow_tpu_torch.ops import spline_eval as se
+    return dict(spline_eval=(se, 'spline_eval'),
+                spline_eval_pair=(se, 'spline_eval_pair'),
+                spline_eval_bwd=(se, 'spline_eval_bwd'),
+                sampler=(compat, 'sample_squared_amplitude'),
+                sampler_linear=(compat, 'sample_linear_density'))
+
+
+def launches_of_call(torch, fn):
+    """(fn(), the kernel launches it made on the card)."""
+    zero_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in kernel_counts().items() if v}
+
+
+def predicted_launches(fn, targets):
+    """The launches ``fn`` (on CPU tensors) predicts for the card."""
+    with counted_calls(**targets) as run:
+        fn()
+    return {k: v for k, v in run.calls.items() if v}
+
+
+def compat_spline_phase(torch, gen):
+    """The reference's spline factories at the widths the paths give them,
+    built on the card and on the CPU with the same parameters: each entry
+    against the same call on the CPU (its plain version), its launches
+    held to the CPU's prediction, its time per call against the direct
+    ops call (CUDA events)."""
+    from waveflow_tpu_torch import compat, ops
+    rows, total = {}, dict.fromkeys(KERNEL_NAMES, 0)
+
+    def params_of(tup, B, kind):
+        """B rows around ``initial``, de-biased (M, I) and projected, on
+        the card and as a CPU copy."""
+        init = tup[0]
+        p = init + 0.3 * init.abs().mean() * torch.randn(
+            (B, init.shape[0]), generator=gen, device='cuda')
+        if kind != 'B':
+            p = tup[6](p.abs())
+        p = tup[5](p)
+        return p, p.cpu()
+
+    def entry(label, card_fn, cpu_fn, direct_fn, atol_of, targets):
+        got, launched = launches_of_call(torch, card_fn)
+        predicted = predicted_launches(cpu_fn, targets)
+        ref = cpu_fn()
+        err, tol = atol_of(got.cpu(), ref)
+        w_ms = cuda_ms(torch, card_fn, reps=20)
+        d_ms = cuda_ms(torch, direct_fn, reps=20)
+        print(f"compat {label}: max|d| {err:.3e} against the CPU (limit "
+              f"{tol:.1e}) | launches {launched} (CPU predicts {predicted}) "
+              f"| wrapper {w_ms:.4f} ms per call, direct ops call "
+              f"{d_ms:.4f} ms (CUDA events)", flush=True)
+        if not err <= tol:
+            fail(f"compat {label}: the card disagrees with the CPU: "
+                 f"{err:.3e} > {tol:.1e}")
+        if launched != predicted:
+            fail(f"compat {label}: launches {launched} on the card, "
+                 f"{predicted} predicted by the CPU")
+        for k, v in launched.items():
+            total[k] += v
+        rows[label] = dict(max_abs_err=err, launches=launched,
+                           wrapper_ms=w_ms, direct_ms=d_ms)
+        return got
+
+    def k4_tol(got, ref):
+        return ((got - ref).abs().max().item(),
+                2e-5 * max(1.0, ref.abs().max().item()))
+
+    def draws_tol(kind, table_t, cc, u):
+        """Draws held as check_sampler holds them: 6e-5 where u <= 1 -
+        1e-4; beyond, in probability against the float64 quantile, no
+        farther than the f32 plain draws plus 2 ulps of u."""
+        def tol(got, ref):
+            got, ref = got.reshape(-1), ref.reshape(-1)
+            t = u.cpu() > 1.0 - 1e-4
+            err = (got - ref).abs()[~t].max().item()
+            if t.any():
+                ct, ut = cc[t.cuda()], u[t.cuda()]
+                qk = quantile_err(torch, table_t, ct, ut, got[t].cuda(), kind)
+                qp = quantile_err(torch, table_t, ct, ut, ref[t].cuda(), kind)
+                if not qk.max().item() <= qp.max().item() + 2.0 ** -23:
+                    fail(f"compat sample ({kind}): tail draws {qk.max():.3e} "
+                         f"from the quantile, plain {qp.max():.3e}")
+            return err, 6e-5
+        return tol
+
+    targets = compat_targets()
+    # B-splines: the flagship prior's width (degree 6, 23 knots, 2000 mesh)
+    kw = dict(k=6, n_internal_knots=23, n_mesh_points=2000)
+    bt = compat.BSpline_fun()(0, **kw)
+    bt_cpu = compat.BSpline_fun()(0, **kw, device='cpu')
+    ev_ob = ops.make_evaluator(ops.get_tables('B', 6, 23, n_mesh=2000),
+                               use_ob=True, device='cuda')
+    ob_to_b = torch.as_tensor(ops.get_tables('B', 6, 23, n_mesh=2000).ob_to_b,
+                              device='cuda')
+    B = 65536
+    p, p_cpu = params_of(bt, B, 'B')
+    x = torch.rand((B,), generator=gen, device='cuda')
+    c = p @ ob_to_b
+    c = c / torch.sqrt((c ** 2).sum(-1, keepdim=True))
+    entry('BSpline apply_fun_vec N=65536', lambda: bt[1](p, x),
+          lambda: bt_cpu[1](p_cpu, x.cpu()), lambda: ev_ob(c, x), k4_tol,
+          targets)
+    Bs, S = 32768, 2
+    p, p_cpu = p[:Bs].contiguous(), p_cpu[:Bs].contiguous()
+    u = torch.rand((Bs, S), generator=gen, device='cuda')
+    cc = torch.repeat_interleave(c[:Bs], S, dim=0)
+    entry('BSpline sample_fun_vec 32768 x 2',
+          lambda: bt[3]._from_uniforms(p, u),
+          lambda: bt_cpu[3]._from_uniforms(p_cpu, u.cpu()),
+          lambda: ops.sample_squared_amplitude(ev_ob, cc, u.reshape(-1)),
+          draws_tol('squared', ev_ob.table_t, cc, u.reshape(-1)), targets)
+    own = bt[3](torch.Generator('cuda').manual_seed(3), p, S)
+    if own.shape != (Bs, S) or not (own.min() >= 0 and own.max() <= 1):
+        fail(f"compat BSpline sample_fun_vec: shape {tuple(own.shape)}")
+    # I-splines: the IMADE layers' width at the density path's 40,000 rows
+    kw = dict(k=5, n_internal_knots=23, n_mesh_points=2000)
+    it = compat.ISpline_fun()(0, **kw)
+    it_cpu = compat.ISpline_fun()(0, **kw, device='cpu')
+    ev_i = ops.make_evaluator(ops.get_tables('I', 5, 23, n_mesh=2000),
+                              device='cuda')
+    N = 40000
+    p, p_cpu = params_of(it, N, 'I')
+    x = torch.rand((N,), generator=gen, device='cuda')
+    y = entry('ISpline apply_fun_vec N=40000', lambda: it[1](p, x),
+              lambda: it_cpu[1](p_cpu, x.cpu()), lambda: ev_i(p, x), k4_tol,
+              targets)
+    entry('ISpline apply_fun_vec_grad N=40000', lambda: it[2](p, x),
+          lambda: it_cpu[2](p_cpu, x.cpu()), lambda: ev_i(p, x, d=1), k4_tol,
+          targets)
+    entry('ISpline reverse_fun_vec N=40000', lambda: it[3](p, y),
+          lambda: it_cpu[3](p_cpu, y.cpu()),
+          lambda: ops.batched_monotone_inverse(ev_i, p, y),
+          lambda got, ref: ((got - ref).abs().max().item(), 1e-5), targets)
+    # M-splines: the MFlow prior's width, 20,000 rows x 2 draws
+    kw = dict(k=3, n_internal_knots=15, n_mesh_points=2000)
+    mt = compat.MSpline_fun()(0, **kw)
+    mt_cpu = compat.MSpline_fun()(0, **kw, device='cpu')
+    ev_m = ops.make_evaluator(ops.get_tables('M', 3, 15, n_mesh=2000),
+                              device='cuda')
+    Bm = 20000
+    p, p_cpu = params_of(mt, Bm, 'M')
+    u = torch.rand((Bm, S), generator=gen, device='cuda')
+    cc = torch.repeat_interleave(p, S, dim=0)
+    entry('MSpline sample_fun_vec 20000 x 2',
+          lambda: mt[3]._from_uniforms(p, u),
+          lambda: mt_cpu[3]._from_uniforms(p_cpu, u.cpu()),
+          lambda: ops.sample_linear_density(ev_m, cc, u.reshape(-1)),
+          draws_tol('linear', ev_m.table_t, cc, u.reshape(-1)), targets)
+    for label, kernel in (('BSpline sample_fun_vec 32768 x 2', 'sampler'),
+                          ('MSpline sample_fun_vec 20000 x 2',
+                           'sampler_linear')):
+        if rows[label]['launches'] != {kernel: 1}:
+            fail(f"compat {label}: {rows[label]['launches']}, not one "
+                 f"{kernel} launch")
+    return total, rows
+
+
+def compat_train_phase(torch):
+    """train_model on 20,000 'circles' points (MFlow, the density path's
+    widths, 200 epochs, check_step 100) against train_density_model with
+    the same arguments and seed: losses, parameters and every metric file
+    equal to the bit, and the same K4 and K2 launches."""
+    from waveflow_tpu_torch import compat
+    from waveflow_tpu_torch.benchmark import get_dataset, train_density_model
+    X = get_dataset('circles', DENSITY_POINTS)
+    kw = dict(spline_reg=DENSITY['spline_reg'], num_flow_layer=3,
+              spline_degree=5, num_knots=23, prior_spline_degree=3,
+              prior_num_knots=15)
+    files = ('losses.txt', 'kl_divergences.txt', 'hellinger_divergences.txt',
+             'reconstruction_distances.txt')
+    with tempfile.TemporaryDirectory() as d:
+        zero_counts()
+        t0 = time.perf_counter()
+        params, log_pdf, _ = compat.train_model(
+            X, 200, DENSITY_POINTS, model_type='MFlow',
+            dataset_name='circles', check_step=100, save_dir=d, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = kernel_counts()
+        zero_counts()
+        model, _ = train_density_model(
+            X, model_name='MFlow', num_epochs=200,
+            spline_reg=kw['spline_reg'], n_flow_layers=3, spline_degree=5,
+            n_knots=23, log_every=100, save_dir=f'{d}/direct',
+            n_model_sample=DENSITY_POINTS, prior_spline_degree=3,
+            prior_n_knots=15, verbose=False, device='cuda')
+        torch.cuda.synchronize()
+        direct = kernel_counts()
+        run = Path(d) / 'circles' / f"MFlow_{kw['spline_reg']}_3_5_23"
+        same_files = {f: (run / f).read_bytes() == (Path(d) / 'direct' / f)
+                      .read_bytes() for f in files}
+        n_lines = len((run / 'losses.txt').read_text().split())
+    state = model.state_dict()
+    same_params = params.keys() == state.keys() and all(
+        torch.equal(params[k], state[k]) for k in state)
+    with torch.no_grad():
+        lp = log_pdf(params, X[:4096])
+        same_lp = torch.equal(lp, model.log_pdf(torch.as_tensor(
+            X[:4096], device='cuda')))
+    print(f"compat train_model: MFlow on {DENSITY_POINTS} circles points, 200 "
+          f"epochs, check_step 100 ({wall:.2f} s): files {same_files} "
+          f"({n_lines} losses), parameters "
+          f"{'equal' if same_params else 'NOT equal'} to train_density_model's "
+          f"to the bit, log_pdf through functional_call "
+          f"{'equal' if same_lp else 'NOT equal'} | launches {launched} "
+          f"(direct call {direct})", flush=True)
+    if not (all(same_files.values()) and same_params and same_lp
+            and n_lines == 200):
+        fail("compat train_model differs from train_density_model")
+    if launched != direct or not (launched['spline_eval']
+                                  and launched['spline_eval_bwd']
+                                  and launched['sampler_linear']):
+        fail(f"compat train_model launches {launched}, direct {direct}")
+    return launched, dict(wall_s=wall, launches=launched)
+
+
+def compat_trainer_phase(torch):
+    """ModelTrainer at the reference's defaults (He, L = 10, degree 6, 23
+    knots, 3 layers, batch 128, window 100) for 200 epochs on the card:
+    every loss finite, K1 launched; walkers/s."""
+    from waveflow_tpu_torch import compat
+    trainer = compat.ModelTrainer()
+    trainer.num_epochs = 200
+    zero_counts()
+    t0 = time.perf_counter()
+    losses = trainer.start_training()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {k: v for k, v in kernel_counts().items() if v}
+    wps = 200 * trainer.batch_size / wall
+    print(f"compat ModelTrainer: {len(losses)} epochs at batch "
+          f"{trainer.batch_size} ({wall:.2f} s, the graph's capture "
+          f"included): walkers/s {wps:.1f}, last loss {losses[-1]:.5f} | "
+          f"launches {launched}", flush=True)
+    if len(losses) != 200 or not all(math.isfinite(v) for v in losses):
+        fail("compat ModelTrainer: non-finite or missing losses")
+    if not launched.get('sampler'):
+        fail(f"compat ModelTrainer: K1 not launched: {launched}")
+    return launched, dict(wall_s=wall, walkers_per_s=wps)
+
+
+def compat_phase(torch):
+    """The reference's API on the card (waveflow_tpu_torch/compat.py): the
+    spline factories, train_model and ModelTrainer."""
+    gen = torch.Generator('cuda').manual_seed(13)
+    total, rows = compat_spline_phase(torch, gen)
+    for name, run in (('train_model', compat_train_phase),
+                      ('ModelTrainer', compat_trainer_phase)):
+        launched, rows[name] = run(torch)
+        for k, v in launched.items():
+            total[k] += v
+    return {k: v for k, v in total.items() if v}, rows
+
+
+def artifacts_phase(torch, k3_b2b_ms=None):
+    """The evaluation artifacts from the 100k checkpoint on a 'poly_pallas'
+    trainer: 2 graphed windows of 10 epochs with a save_checkpoint between,
+    with save_artifacts and without, equal to the bit; every file at its
+    shape; the ψ grid and both slices against the plain core's ψ on the
+    card (ARTIFACTS_PSI_RTOL); K1 and K3 launches per
+    save_wavefunction_artifacts call held to the CPU's prediction.  Then
+    utils/profiling.py: trace around 10 replayed epochs names K1's and K3's
+    kernels; time_fn of K3 at R = 512."""
+    import numpy as np
+
+    from waveflow_tpu_torch.models import waveflow as waveflow_mod
+    from waveflow_tpu_torch.ops import cuda_jet
+    from waveflow_tpu_torch.utils import profiling
+    from waveflow_tpu_torch.vmc import VMCConfig, VMCTrainer
+    from waveflow_tpu_torch.vmc.artifacts import (
+        eval_psi_antisymmetrized, save_wavefunction_artifacts)
+
+    def trainer(flag):
+        t = VMCTrainer(VMCConfig(batch_size=256, window=10, log_every=10,
+                                 eval_backend='poly_pallas', device='cuda',
+                                 save_artifacts=flag))
+        if not t.load_checkpoint(str(CHECKPOINT.parent)):
+            fail(f"no checkpoint under {CHECKPOINT.parent}")
+        return t
+
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        runs = {}
+        for flag in (True, False):
+            t = trainer(flag)
+            zero_counts()
+            t.train(10, verbose=False)
+            if flag:
+                at_save = {k: v.detach().cpu().clone()
+                           for k, v in t.model.state_dict().items()}
+            t.save_checkpoint(f'{d}/{flag}')
+            t.train(10, verbose=False)
+            torch.cuda.synchronize()
+            runs[flag] = t
+            if flag:
+                launched = {k: v for k, v in kernel_counts().items() if v}
+        bitwise, rel, by_group = compare_twins(
+            torch, trainer_tensors(torch, runs[True]),
+            trainer_tensors(torch, runs[False]))
+        epoch = runs[True].epoch - 10
+        base = Path(d) / 'True' / 'outputs'
+        shapes = {
+            f'wavefunctions_2d/values_epoch{epoch}.npy': (10000,),
+            f'density_1e/random_values_epoch{epoch}.npy': (100,),
+            f'density_1e/random_coord_epoch{epoch}.npy': (100, 2),
+            f'density_1e/onproton_values_epoch{epoch}.npy': (100,),
+            f'density_1e/onproton_coord_epoch{epoch}.npy': (100, 2),
+            f'sample_points/values_epoch{epoch}.npy': (250, 2)}
+        saved = {k: np.load(base / k) for k in shapes}
+        absent = (Path(d) / 'False' / 'outputs').exists()
+        print(f"artifacts: 2 graphed windows of 10 epochs from the 100k "
+              f"checkpoint with a save_checkpoint between, save_artifacts "
+              f"against without: {'equal to the bit' if bitwise else 'NOT bitwise'}"
+              f" (largest relative difference {rel:.3e}) | files "
+              f"{ {k: v.shape for k, v in saved.items()} } | launches of the "
+              f"run with artifacts {launched}", flush=True)
+        if not bitwise:
+            fail(f"artifacts: the run with artifacts differs: {by_group}")
+        if absent or any(saved[k].shape != s for k, s in shapes.items()):
+            fail("artifacts: files missing or at the wrong shape")
+        # ψ against the plain core on the card, the parameters the
+        # artifacts were written with
+        t = runs[True]
+        plain = flagship_model(torch, at_save, 'poly')
+        line = np.linspace(-10.0, 10.0, 100)
+        X, Y = np.meshgrid(line, line)
+        errs = {}
+        zero_counts()
+        with torch.no_grad():
+            for key, coords in (
+                    (f'wavefunctions_2d/values_epoch{epoch}.npy',
+                     np.stack([X, Y], -1).reshape(-1, 2)),
+                    (f'density_1e/random_values_epoch{epoch}.npy',
+                     saved[f'density_1e/random_coord_epoch{epoch}.npy']),
+                    (f'density_1e/onproton_values_epoch{epoch}.npy',
+                     saved[f'density_1e/onproton_coord_epoch{epoch}.npy'])):
+                ref = eval_psi_antisymmetrized(plain.psi, torch.as_tensor(
+                    coords, dtype=torch.float32, device='cuda'))
+                if not np.isfinite(saved[key]).all():
+                    fail(f"artifacts: non-finite values in {key}")
+                errs[key] = float(np.abs(saved[key] - ref).max()
+                                  / np.abs(ref).max())
+        plain_launches = kernel_counts()['basis_jet']
+        print(f"artifacts: psi against the plain core on the card (K3 "
+              f"launched {plain_launches} times by it), of max|psi|: {errs} "
+              f"(limit {ARTIFACTS_PSI_RTOL:g})", flush=True)
+        if plain_launches:
+            fail("artifacts: the plain core launched K3")
+        if not max(errs.values()) <= ARTIFACTS_PSI_RTOL:
+            fail(f"artifacts: psi disagrees with the plain core: {errs}")
+        # launches per save_wavefunction_artifacts call, and the CPU's count
+        call_args = dict(epoch=0, box_length=10.0,
+                         n_particle=int(t.n_particle), protons=t.protons)
+        t0 = time.perf_counter()
+        _, per_call = launches_of_call(torch, lambda: (
+            save_wavefunction_artifacts(
+                f'{d}/call', t.model, generator=torch.Generator(
+                    'cuda').manual_seed(1), **call_args)))
+        call_ms = (time.perf_counter() - t0) * 1e3
+        cpu = flagship_model(torch, at_save, 'poly_pallas', device='cpu')
+        predicted = predicted_launches(
+            lambda: save_wavefunction_artifacts(
+                f'{d}/cpu', cpu, generator=torch.Generator().manual_seed(1),
+                **call_args),
+            dict(basis_jet=(cuda_jet, 'basis_jet'),
+                 sampler=(waveflow_mod, 'sample_squared_amplitude')))
+        print(f"artifacts: one save_wavefunction_artifacts call launches "
+              f"{per_call} (CPU predicts {predicted}), {call_ms:.1f} ms wall "
+              f"(files written included)", flush=True)
+        if per_call != predicted:
+            fail(f"artifacts: launches {per_call}, predicted {predicted}")
+    out.update(bitwise=bitwise, psi_rel_err=errs, call_launches=per_call,
+               call_ms=call_ms)
+    # a profiler trace around 10 replayed epochs
+    with tempfile.TemporaryDirectory() as d:
+        with profiling.trace(d) as logdir:
+            t.train_window(10, t.baseline)
+            torch.cuda.synchronize()
+        traces = list(Path(logdir).glob('*.pt.trace.json*'))
+        text = traces[0].read_text() if len(traces) == 1 else ''
+        named = {k: k in text for k in ('sampler_kernel', 'basis_jet_')}
+        size = traces[0].stat().st_size if traces else 0
+    print(f"artifacts: profiling.trace around 10 replayed epochs wrote "
+          f"{len(traces)} trace file ({size} bytes); names the kernels "
+          f"{named}", flush=True)
+    if len(traces) != 1 or not all(named.values()):
+        fail(f"artifacts: the trace {traces} does not name K1 and K3: {named}")
+    # time_fn of K3 at R = 512, beside phase 3's back-to-back figure
+    from waveflow_tpu_torch import ops
+    pe = ops.make_poly_evaluator(ops.get_tables('I', 6, 23, n_mesh=2000),
+                                 jet_backend='pallas', device='cuda')
+    x = torch.rand((512,), generator=torch.Generator('cuda').manual_seed(4),
+                   device='cuda')
+    args = (x, pe.A_jet, pe.n_cells, pe.ncoef)
+    tf_ms = profiling.time_fn(cuda_jet.basis_jet_cuda, *args, iters=50,
+                              warmup=3) * 1e3
+    b2b_ms = cuda_ms(torch, lambda: cuda_jet.basis_jet_cuda(*args))
+    print(f"artifacts: profiling.time_fn of K3 at R = 512 (I-spline, 29 "
+          f"bases): {tf_ms:.4f} ms per call; chip_smoke's back-to-back "
+          f"figure here {b2b_ms:.4f} ms"
+          + (f", phase 3's {k3_b2b_ms:.4f} ms" if k3_b2b_ms else ""),
+          flush=True)
+    out.update(trace_bytes=size, time_fn_ms=tf_ms, b2b_ms=b2b_ms)
+    return launched, out
+
+
 def near(value, ref, rel) -> bool:
     """|value − ref| within ``rel`` of |ref|."""
     return abs(value - ref) <= rel * abs(ref)
@@ -3382,8 +3900,9 @@ H2_2D_CONFIG = dict(BOX_2D, system_name='H2', ansatz='antisym',
                     sampler='metropolis')
 
 
-def phase_table(torch, params, jax_raw, jax_clipped, ancestral_wps=None):
-    """Phases 23, 38-39, 30-31, 6-27 and 32-37, 40-43 in order, as (name,
+def phase_table(torch, params, jax_raw, jax_clipped, ancestral_wps=None,
+                k3_b2b_ms=None):
+    """Phases 23, 38-39, 30-31, 6-27 and 32-37, 40-45 in order, as (name,
     run): run() ->
     (the kernel
     launches on that path, or None, and the phase's figures)."""
@@ -3490,7 +4009,11 @@ def phase_table(torch, params, jax_raw, jax_clipped, ancestral_wps=None):
                                                 jax_clipped)),
         ('graph-table', lambda: graph_table_phase(torch)),
         ('rqs-density', lambda: rqs_density_phase(torch)),
-        ('gm-density', lambda: gm_density_phase(torch)))
+        ('gm-density', lambda: gm_density_phase(torch)),
+        # ---- 44-45. the reference-API layer and the evaluation artifacts,
+        # last: the artifacts phase records a profiler trace ----
+        ('compat', lambda: compat_phase(torch)),
+        ('artifacts', lambda: artifacts_phase(torch, k3_b2b_ms)))
 
 
 def end_walker_mesh():
@@ -3534,7 +4057,8 @@ def main(argv=None) -> int:
              "posterior-smc, nuts-waveflow, dp-nccl-1, dp-metropolis-1, "
              "dp-gloo-2, posterior-sharded-1, be4-eval, box4-eval, "
              "li-2d-eval, h2-2d-eval, table-kernels, table-hpsi, "
-             "table-eval, graph-table, rqs-density, gm-density) to run alone "
+             "table-eval, graph-table, rqs-density, gm-density, compat, "
+             "artifacts) to run alone "
              "after the build; a partial run prints no kernels line")
     # one rank of dp-gloo-2, which the phase starts itself
     parser.add_argument('--dp-gloo-rank', type=int, default=None,
@@ -3700,7 +4224,7 @@ def main(argv=None) -> int:
     by_phase = {'train-256': dict(launches)}
     rows = {}
     for name, run in phase_table(torch, params, jax_raw, jax_clipped,
-                                 wps_second):
+                                 wps_second, k3[('I', 512)]['ms']):
         t0 = time.perf_counter()
         launches_of, rows[name] = run()
         if launches_of is not None:

@@ -139,7 +139,7 @@ def _flat_grads(torch, model):
                       .reshape(-1) for p in model.parameters()])
 
 
-def parallel_body(torch, mesh, inputs) -> dict:
+def parallel_body(torch, mesh, inputs, out_dir: Path) -> dict:
     from waveflow_tpu_torch.parallel import (
         make_sharded_sr_window, make_sharded_train_step,
         resample_walkers_sharded, shard_batch, walker_generator)
@@ -218,6 +218,14 @@ def parallel_body(torch, mesh, inputs) -> dict:
                                   data_parallel=True))
         out[f'trainer_{optimizer}_{sampler}'] = np.asarray(
             tr.train(num_epochs=4, verbose=False))
+    # save_artifacts over two ranks: checkpoints, and no artifacts (they
+    # are written by a single-process run only, JAX's rule)
+    art = out_dir / 'artifacts_run'
+    tr = VMCTrainer(VMCConfig(**TRAINER, data_parallel=True,
+                              save_artifacts=True, save_dir=str(art)))
+    tr.train(num_epochs=3, verbose=False)
+    out['artifacts_run_files'] = np.asarray(sorted(p.name
+                                                   for p in art.iterdir()))
     return out
 
 
@@ -401,8 +409,9 @@ def main(argv) -> int:
                              inputs, out_dir, phase)
         else:
             mesh = make_walker_mesh(device='cpu')
-            body = {'parallel': parallel_body, 'probprog': probprog_body}
-            out = body[mode](torch, mesh, inputs)
+            out = (parallel_body(torch, mesh, inputs, out_dir)
+                   if mode == 'parallel' else
+                   probprog_body(torch, mesh, inputs))
         np.savez(out_dir / f'{mode}{phase}_{rank}.npz', **out)
     finally:
         destroy_walker_mesh()

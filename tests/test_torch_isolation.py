@@ -12,7 +12,7 @@ import torch
 torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ('jax', 'jaxlib', 'optax', 'sklearn', 'waveflow_tpu')
+FORBIDDEN = ('jax', 'jaxlib', 'optax', 'sklearn', 'waveflow_tpu', 'orbax')
 
 SCRIPT = r"""
 import sys
@@ -81,7 +81,8 @@ def _imported_roots(path: Path):
 def test_no_file_imports_jax_or_the_jax_package():
     """(i) No file of the port, nor chip_smoke.py, bench_torch.py or the
     port's example scripts, names jax, optax, sklearn or waveflow_tpu in an
-    import."""
+    import (orbax neither: the port's OrbaxCheckpointer keeps its own
+    files)."""
     files = sorted((ROOT / 'waveflow_tpu_torch').rglob('*.py'))
     files.extend([ROOT / 'chip_smoke.py', ROOT / 'bench_torch.py'])
     files.extend(sorted((ROOT / 'examples').glob('*_torch.py')))
@@ -108,3 +109,72 @@ def test_density_and_table_modules_import_torch_numpy_scipy_only():
            for m in _imported_roots(ROOT / 'waveflow_tpu_torch' / name)
            if m.split('.')[0] not in allowed]
     assert not bad, bad
+
+
+# the last modules of the port: torch, numpy, scipy, the standard library
+# and the port only; figures.py draws with matplotlib, which it imports
+# inside ``_mpl`` alone, when a figure is drawn (a machine without
+# matplotlib imports the whole port)
+LAST_MODULES = ('compat.py', 'utils/profiling.py', 'utils/figures.py',
+                'utils/checkpoint.py', 'vmc/artifacts.py')
+STDLIB = {'__future__', 'contextlib', 'os', 'tempfile', 'time', 'pathlib',
+          'importlib', 'pickle', 'typing', 'dataclasses'}
+
+
+def _top_level_imports(path: Path):
+    """The roots imported by statements outside any function body."""
+    tree = ast.parse(path.read_text())
+    in_fn = {id(n) for f in ast.walk(tree)
+             if isinstance(f, (ast.FunctionDef, ast.AsyncFunctionDef))
+             for n in ast.walk(f) if n is not f}
+    for node in ast.walk(tree):
+        if id(node) in in_fn:
+            continue
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module \
+                and not node.level:
+            yield node.module
+
+
+def test_last_modules_import_torch_numpy_scipy_only():
+    """compat, profiling, figures, checkpoint and artifacts import only
+    torch, numpy, scipy, the standard library and the port itself, with
+    one stated exception: figures.py's matplotlib, imported inside a
+    function only."""
+    allowed = {'torch', 'numpy', 'scipy', 'waveflow_tpu_torch'} | STDLIB
+    bad = [(name, m) for name in LAST_MODULES
+           for m in _imported_roots(ROOT / 'waveflow_tpu_torch' / name)
+           if m.split('.')[0] not in allowed
+           and not (name == 'utils/figures.py'
+                    and m.split('.')[0] == 'matplotlib')]
+    assert not bad, bad
+    figures = ROOT / 'waveflow_tpu_torch' / 'utils' / 'figures.py'
+    assert any(m.startswith('matplotlib') for m in _imported_roots(figures))
+    assert not [m for name in LAST_MODULES
+                for m in _top_level_imports(ROOT / 'waveflow_tpu_torch' / name)
+                if m.split('.')[0] == 'matplotlib']
+
+
+def test_port_imports_without_matplotlib():
+    """With matplotlib (and JAX) made unimportable, every module of the
+    port imports, compat included, and figures.py says at draw time that
+    it needs matplotlib."""
+    script = (
+        "import sys\n"
+        "for name in ('matplotlib', 'jax', 'optax', 'sklearn', "
+        "'waveflow_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "import importlib, pkgutil, waveflow_tpu_torch\n"
+        "for info in pkgutil.walk_packages(waveflow_tpu_torch.__path__, "
+        "'waveflow_tpu_torch.'):\n"
+        "    importlib.import_module(info.name)\n"
+        "from waveflow_tpu_torch.utils import figures\n"
+        "try:\n"
+        "    figures.plot_pdf_grid([[0.0]], 'x.png')\n"
+        "except ImportError:\n"
+        "    print('ok')\n")
+    out = subprocess.run([sys.executable, '-c', script], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith('ok')

@@ -313,6 +313,18 @@ def test_vmc_trainer_data_parallel(world2, pair):
     np.testing.assert_array_equal(r0[key], r1[key])
 
 
+def test_no_artifacts_over_two_ranks(world2):
+    """save_artifacts=True under data_parallel over two ranks: the
+    checkpoints are written (rank 0's and each rank's shard), the
+    artifacts are not, as JAX writes them only when a single process
+    runs."""
+    for r in world2:
+        files = r['artifacts_run_files'].tolist()
+        assert 'outputs' not in files
+        assert {'checkpoints', 'checkpoints.shard0', 'checkpoints.shard1',
+                'loss.npy'} <= set(files), files
+
+
 def test_sharded_sampler_rejects_indivisible():
     """JAX's test_sharded_sampler_rejects_indivisible: 100 walkers over 8
     ranks raise ValueError; 64 give each rank 8."""

@@ -127,3 +127,10 @@ class BoxTransform(nn.Module):
     def inverse(self, u: torch.Tensor):
         return self._inverse(u, self.L), torch.zeros(
             u.shape[:1], dtype=u.dtype, device=u.device)
+
+
+def BoxTransformLayer(box_side: float = 1.0,
+                      xu_coord_type: str = 'mean') -> BoxTransform:
+    """The JAX package's name: a ``BoxTransform`` (JAX returns the layer's
+    ``init_fun``; the port, the module)."""
+    return BoxTransform(box_side, xu_coord_type)

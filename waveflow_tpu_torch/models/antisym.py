@@ -111,6 +111,15 @@ class AntisymWaveflow(nn.Module):
         return xe.reshape(num_samples, self.input_dim)
 
 
+def antisymmetrize_model(phi: Waveflow, n_el: int,
+                         n_space_dimension: int) -> AntisymWaveflow:
+    """ψ_A over the Waveflow ``phi`` of ``n_el`` electrons in
+    ``n_space_dimension`` dimensions: the JAX package's name.  JAX wraps a
+    model's ``init_fun``; the port wraps the module, whose parameters ψ_A
+    adopts."""
+    return AntisymWaveflow(phi, n_el, n_space_dimension)
+
+
 def get_antisym_waveflow_model(n_el: int, n_space_dimension: int,
                                box_size: float = 1.0, **waveflow_kwargs
                                ) -> AntisymWaveflow:
@@ -120,4 +129,4 @@ def get_antisym_waveflow_model(n_el: int, n_space_dimension: int,
     backends, ``generator``, ``device``)."""
     phi = get_waveflow_model(n_el * n_space_dimension, box_size=box_size,
                              xu_coord_type='independent', **waveflow_kwargs)
-    return AntisymWaveflow(phi, n_el, n_space_dimension)
+    return antisymmetrize_model(phi, n_el, n_space_dimension)

@@ -1,7 +1,8 @@
 """Checkpoint files: an atomic pickle of plain numpy state.
 
 Port of waveflow_tpu/utils/checkpoint.py (``save_state`` / ``load_state``,
-and ``save_state_multihost``, where rank 0 of a process group writes).
+``save_state_multihost``, where rank 0 of a process group writes, and
+``OrbaxCheckpointer``'s versioned steps on the same pickle files).
 The caller converts tensors to numpy arrays first.
 ``load_state`` also reads the JAX trainer's checkpoints with neither JAX,
 optax nor the JAX package importable: their optax states and the JAX
@@ -71,3 +72,65 @@ def load_state(path: str | Path) -> dict[str, Any] | None:
         return None
     with open(path, 'rb') as f:
         return _CheckpointUnpickler(f).load()
+
+
+class OrbaxCheckpointer:
+    """Versioned checkpoints of a state under ``directory``: one file per
+    step (``<step>.pkl``, written by ``save_state``), the ``max_to_keep``
+    latest kept (None keeps every step).
+
+    The JAX package's class of this name (``utils/checkpoint.py``) keeps
+    its steps with orbax, which the port does not use: the name, the
+    methods and orbax's rules carry across (a step at or below the latest
+    is not saved; ``restore()`` reads the latest, None when there is
+    none), the storage does not, so this class cannot read a directory
+    that orbax wrote.  ``latest_step`` and ``all_steps`` are what JAX
+    reaches through ``.manager``."""
+
+    SUFFIX = '.pkl'
+
+    def __init__(self, directory: str | Path, max_to_keep: int | None = 3):
+        self.directory = Path(directory).absolute()
+        self.directory.mkdir(parents=True, exist_ok=True)
+        self.max_to_keep = max_to_keep
+
+    def _path(self, step: int) -> Path:
+        return self.directory / f'{step}{self.SUFFIX}'
+
+    def all_steps(self) -> list[int]:
+        """The saved steps, ascending."""
+        return sorted(int(p.stem) for p in self.directory.glob(
+            f'*{self.SUFFIX}') if p.stem.isdigit())
+
+    def latest_step(self) -> int | None:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def save(self, step: int, state: dict[str, Any]) -> bool:
+        """Write ``state`` as ``step`` and drop the steps beyond
+        ``max_to_keep``; False (nothing written) when ``step`` is not
+        above the latest saved step, as orbax's manager does."""
+        latest = self.latest_step()
+        if latest is not None and step <= latest:
+            return False
+        save_state(self._path(step), state)
+        steps = self.all_steps()
+        if self.max_to_keep is not None:
+            for old in steps[:max(0, len(steps) - self.max_to_keep)]:
+                self._path(old).unlink()
+        return True
+
+    def restore(self, step: int | None = None):
+        """The state saved as ``step`` (default: the latest), None when no
+        step is saved; FileNotFoundError for a step that is not."""
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            return None
+        state = load_state(self._path(step))
+        if state is None:
+            raise FileNotFoundError(f"no checkpoint of step {step} under "
+                                    f"{self.directory}")
+        return state
+
+    def close(self) -> None:
+        """Nothing is left open: every save is complete when it returns."""

@@ -13,8 +13,9 @@ space dimensions with every coordinate map, and the antisymmetrized
 ansatz (``ansatz='antisym'``, models/antisym.py) under the JAX trainer's
 resolution (``resolve_ansatz``); checkpoint save / exact resume and
 divergence recovery; walkers sharded over processes (``data_parallel``,
-below).  Artifacts raise ``NotImplementedError``, as do the combinations
-the JAX trainer accepts and silently ignores (``_check_combination``).
+below); evaluation artifacts beside the checkpoints (``save_artifacts``,
+vmc/artifacts.py).  The combinations the JAX trainer accepts and silently
+ignores raise ``NotImplementedError`` (``_check_combination``).
 
 ``data_parallel`` (JAX's meanings): True shards the walker batch over
 every rank of the world (parallel/mesh.py::make_walker_mesh), 'hosts' over
@@ -94,6 +95,9 @@ from waveflow_tpu_torch.utils.checkpoint import (
     load_state, save_state, save_state_multihost,
 )
 from waveflow_tpu_torch.vmc import graphs
+from waveflow_tpu_torch.vmc.artifacts import (
+    artifact_generator, save_wavefunction_artifacts,
+)
 from waveflow_tpu_torch.vmc.estimators import (
     TrainWindow, make_train_step, run_window,
 )
@@ -138,6 +142,10 @@ class VMCConfig:
     # where train() writes checkpoints, loss.npy and system_info.json;
     # None writes nothing
     save_dir: str | None = None
+    # with every checkpoint of a single-process run, the ψ grid, density
+    # slices and sample cloud of vmc/artifacts.py, drawn from a stream of
+    # their own (seed and epoch), so the run itself is unchanged
+    save_artifacts: bool = False
     # JAX's jax_default_matmul_precision, mapped onto the process-wide
     # torch.set_float32_matmul_precision: 'highest' -> 'highest' (the
     # package's pin); 'high' -> 'high'; 'default' / 'bfloat16' ->
@@ -539,9 +547,20 @@ class VMCTrainer:
         per-epoch loss trace.  Over several ranks, rank 0 writes those (the
         shared stream in place of the walker generator, no walkers), every
         rank its ``checkpoints.shard{rank}`` (its generator, its MCMC
-        rows), and every rank returns once all are written."""
+        rows), and every rank returns once all are written.  With
+        ``save_artifacts``, a single-process run first writes the epoch's
+        artifacts (vmc/artifacts.py) from ``artifact_generator(seed,
+        epoch)``; the JAX trainer splits its own key for them, which would
+        change the run's later draws."""
         path = Path(save_dir)
         multi = self.multiprocess
+        c = self.config
+        if c.save_artifacts and not multi:
+            save_wavefunction_artifacts(
+                save_dir, self.model, self.epoch, c.box_length,
+                int(self.n_particle), self.protons,
+                artifact_generator(c.seed, self.epoch, self.device),
+                n_space_dimension=c.n_space_dimension)
         if multi:
             save_state(path / f'checkpoints.shard{self.rank}', {
                 'generator': self.generator.get_state().numpy().copy(),
