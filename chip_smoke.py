@@ -162,27 +162,39 @@ Phases (any failure exits non-zero; nothing is caught):
  38. table-kernels (after k4-vmap) — K4's forward-mode chain for the table
                eval backend on the card against its plain versions on the
                card, at the flagship's OB-prior and I-spline tables: the
-               forward kernel in step mode (slope tables), the pair entry,
-               the backward kernel with step-mode tables and without
-               coefficients, at N = 1 ... 40,001; then every order's value,
-               first and second jvp (coefficients moving with x) and both
-               outputs of ``pair``, kernel chain against the plain chain,
-               no plain lerp run on the card; the pair entry, the step
-               mode and the backward kernel on step-mode tables and
-               without coefficients timed at N = 512, 8,192, 40,000;
+               forward kernel in step mode (slope tables; x NaN too), the
+               pair entry, the backward kernel with step-mode tables and
+               without coefficients, at N = 1 ... 40,001; the jet entry
+               (a site's terms over 4 coefficient components in one
+               launch) at N = 1 ... 40,001 with x at 0, 1, outside [0, 1]
+               and NaN, against its plain version and, value for value,
+               against the per-call launches it replaces; then every
+               order's value, first and second jvp (coefficients moving
+               with x) and both outputs of ``pair``, kernel chain against
+               the plain chain, no plain lerp run on the card; the pair
+               entry, the step mode, the backward kernel on step-mode
+               tables and without coefficients and the jet entry (beside
+               its per-call launches, in turns) timed at N = 512, 8,192,
+               40,000;
  39. table-hpsi — the 100k checkpoint under 'table', Hψ at 4,096 K1
                walkers under every Laplacian form: K4 launches per pass
                equal to the evaluations the same pass makes on the CPU;
                'fwd_batched' against the plain chain on the card
-               (TABLE_HPSI_RTOL); E_L against 'poly_pallas' on the same
-               walkers within the float64 interpolation error
-               (TABLE_POLY_EL_BOUND, TABLE_POLY_EL_MEAN_BOUND);
+               (TABLE_HPSI_RTOL); 'fwd_batched' and 'fwd' from the jet
+               equal to the per-call chain's to the bit; E_L against
+               'poly_pallas' on the same walkers within the float64
+               interpolation error (TABLE_POLY_EL_BOUND,
+               TABLE_POLY_EL_MEAN_BOUND);
  40. table-eval — the 100k checkpoint under 'table' at the JAX protocol,
                graphed: raw and clipped beside the JAX 'poly' figures (a
-               record), accept rate, K1 and K4 launched;
+               record), accept rate, K1 and K4 (forward, pair, jet)
+               launched, launches by entry;
  41. graph-table — train-256 under 'table' graphed against its eager twin
-               (to the bit, K1 and K4 launches per replayed epoch), then ms
-               per replayed epoch against 'poly_pallas' in turns;
+               (to the bit, K1 and K4 launches per replayed epoch); the
+               jet's graphed windows against the per-call entries' (to the
+               bit after 3 turns of 2 x 10 epochs, ms per replayed epoch in
+               turns per-call, jet, jet, per-call); then ms per replayed
+               epoch against 'poly_pallas' in turns;
  42. rqs-density — RQSFlow on benchmarks/circles_parity.py's split, 300
                epochs (cut from 12,000): loss falls, round trip under 1e-4,
                points/s;
@@ -226,6 +238,7 @@ Imports torch and the port only.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import subprocess
@@ -983,7 +996,7 @@ def profile_window(torch, run, n_epochs, label, unit='epochs', top=8):
         fail(f"{label}: the profiler saw no kernel")
     # the largest, and the port's own kernels wherever they rank
     own = ('sampler_kernel', 'basis_jet_', 'spline_eval_kernel',
-           'spline_eval_bwd_kernel')
+           'spline_eval_bwd_kernel', 'spline_eval_jet_kernel')
     for e in kern[:top] + [e for e in kern[top:]
                            if any(k in e.key for k in own)]:
         print(f"  {e.self_device_time_total / 1e3 / n_epochs:8.4f} ms/{unit[0]} "
@@ -2867,11 +2880,12 @@ def dp_gloo_phase(torch):
 # ---- 38-43. the table eval backend and the rest of the density side -------
 
 def table_counts():
-    """K1 and K4's three entry points (forward, pair, backward)."""
+    """K1 and K4's four entry points (forward, pair, jet, backward)."""
     from waveflow_tpu_torch.ops import cuda_sampler, cuda_spline
     return {'sampler': cuda_sampler.launches,
             'spline_eval': cuda_spline.launches,
             'spline_eval_pair': cuda_spline.launches_pair,
+            'spline_eval_jet': cuda_spline.launches_jet,
             'spline_eval_bwd': cuda_spline.launches_bwd}
 
 
@@ -2879,11 +2893,68 @@ def reset_table_counts():
     from waveflow_tpu_torch.ops import cuda_jet, cuda_sampler, cuda_spline
     cuda_sampler.launches = cuda_jet.launches = 0
     cuda_spline.launches = cuda_spline.launches_pair = 0
-    cuda_spline.launches_bwd = 0
+    cuda_spline.launches_jet = cuda_spline.launches_bwd = 0
+
+
+def per_call_site(ev, requests, comps, x):
+    """The per-call entries' launches of one site (the requests of
+    ops/spline_eval.py::site_jet) on the card: {(component, order, step): value}."""
+    from waveflow_tpu_torch.ops import cuda_spline
+    out = {}
+    for m, ks in requests:
+        tabs = [(ev.slopes[d], True) if letter == 'S'
+                else (ev.tables[d], False) for letter, d in ks]
+        if len(ks) == 1:
+            vals = (cuda_spline.spline_eval_cuda(tabs[0][0], comps[m], x,
+                                                 tabs[0][1]),)
+        else:
+            vals = cuda_spline.spline_eval_pair_cuda(
+                tabs[0][0], tabs[1][0], comps[m], x, tabs[0][1], tabs[1][1])
+        for (letter, d), v in zip(ks, vals):
+            out[(m, d, letter == 'S')] = v
+    return out
+
+
+def nan_rel_err(got, ref, scale) -> float:
+    """``rel_err`` over the entries where ``ref`` is a number; infinite
+    unless ``got`` is NaN exactly where ``ref`` is."""
+    nan = ref.isnan()
+    if not bool((got.isnan() == nan).all()):
+        return float('inf')
+    keep = ~nan
+    return rel_err(got[keep], ref[keep], scale[keep]) if keep.any() else 0.0
+
+
+# the table backend's two evaluation sites, by table family: an IMADE
+# layer's ``pair(0)`` and the prior's ``__call__`` at order 0
+JET_SITES = {'I-spline': (('G', 0), ('F', 1)), 'OB prior': (('F', 0),)}
+
+
+def same_values(a, b) -> bool:
+    """Equal, element by element, NaN where NaN."""
+    return bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+
+def jet_bound(torch, ev, N, x, terms, n_components):
+    """(bound ms, by) of one jet launch: x and the components' rows read
+    once, the outputs written once, and the distinct table rows the terms
+    need at the cells of x by ``table_rows``' rule (an order with a lerp
+    term: the two rows around each cell; an order with step terms only:
+    the row at the cell, its slope following from it), unpadded; a fused
+    multiply-add per base for each lerp, a multiply per base for each step
+    chunk and a dot per term."""
+    n_b = ev.n_bases
+    lerp = {d for _, d, st in terms if not st}
+    step = {d for _, d, st in terms if st}
+    rows = (len(lerp) * table_rows(torch, ev.n_mesh, x)
+            + len(step - lerp) * table_rows(torch, ev.n_mesh, x, step=True))
+    n_bytes = 4 * (N * (1 + n_components * n_b + len(terms)) + rows * n_b)
+    n_ops = N * (n_b * (2 * len(lerp) + len(step)) + 2 * n_b * len(terms))
+    return bound_ms(n_bytes, n_ops)
 
 
 class evaluations:
-    """Within the block, the table evaluator's three launch points
+    """Within the block, the table evaluator's four launch points
     (ops/spline_eval.py) call K4's plain versions when ``plain``, else
     their own wrappers, and every call is counted in ``calls``, by entry
     point: the plain chain on the card, and the chain's evaluations counted
@@ -2893,19 +2964,23 @@ class evaluations:
     def __init__(self, plain: bool):
         self.plain = plain
         self.calls = {'spline_eval': 0, 'spline_eval_pair': 0,
-                      'spline_eval_bwd': 0}
+                      'spline_eval_jet': 0, 'spline_eval_bwd': 0}
         self.plain_calls = 0
 
     def __enter__(self):
         from waveflow_tpu_torch.ops import cuda_spline
         from waveflow_tpu_torch.ops import spline_eval as se
-        self.saved = (se.spline_eval, se.spline_eval_pair, se.spline_eval_bwd,
-                      cuda_spline.lerp_basis)
-        fwd, pair, bwd, lerp = self.saved
+        self.saved = (se.spline_eval, se.spline_eval_pair, se.spline_eval_jet,
+                      se.spline_eval_bwd, cuda_spline.lerp_basis)
+        fwd, pair, jet, bwd, lerp = self.saved
 
         def plain_pair(ta, tb, c, x, sa=False, sb=False):
             return (cuda_spline.spline_eval_plain(ta, c, x, sa),
                     cuda_spline.spline_eval_plain(tb, c, x, sb))
+
+        def plain_jet(tables, slopes, records, comps, x, terms):
+            return cuda_spline.spline_eval_jet_plain(tables, slopes, comps, x,
+                                                     terms)
 
         def plain_bwd(td, tx, c, x, g, nc=True, nx=True, sd=False, sx=False):
             gc, gx = cuda_spline.spline_eval_bwd_plain(td, tx, c, x, g, sd, sx)
@@ -2921,10 +2996,11 @@ class evaluations:
             self.plain_calls += 1
             return lerp(*args, **kw)
 
-        chosen = ((cuda_spline.spline_eval_plain, plain_pair, plain_bwd)
-                  if self.plain else (fwd, pair, bwd))
-        se.spline_eval, se.spline_eval_pair, se.spline_eval_bwd = (
-            counting(n, f) for n, f in zip(self.calls, chosen))
+        chosen = ((cuda_spline.spline_eval_plain, plain_pair, plain_jet,
+                   plain_bwd) if self.plain else (fwd, pair, jet, bwd))
+        (se.spline_eval, se.spline_eval_pair, se.spline_eval_jet,
+         se.spline_eval_bwd) = (counting(n, f)
+                                for n, f in zip(self.calls, chosen))
         # every plain version of K4 goes through the lerp of its rows
         cuda_spline.lerp_basis = counting_lerp
         return self
@@ -2932,8 +3008,8 @@ class evaluations:
     def __exit__(self, *exc):
         from waveflow_tpu_torch.ops import cuda_spline
         from waveflow_tpu_torch.ops import spline_eval as se
-        (se.spline_eval, se.spline_eval_pair, se.spline_eval_bwd,
-         cuda_spline.lerp_basis) = self.saved
+        (se.spline_eval, se.spline_eval_pair, se.spline_eval_jet,
+         se.spline_eval_bwd, cuda_spline.lerp_basis) = self.saved
 
 
 def rel_err(got, ref, scale=None) -> float:
@@ -2987,6 +3063,7 @@ def table_kernels_phase(torch, params):
     same chain on the plain versions, and no plain lerp run by the kernel
     chain.  The pair entry is timed against its plain version."""
     from waveflow_tpu_torch.ops import cuda_spline
+    from waveflow_tpu_torch.ops import spline_eval as se
     model = flagship_model(torch, params, 'table')
     gen = torch.Generator('cuda').manual_seed(21)
     N_max = 40000
@@ -2999,8 +3076,12 @@ def table_kernels_phase(torch, params):
     x = torch.rand((N_max + 1,), generator=gen, device='cuda') * 1.1 - 0.05
     x[:6] = torch.tensor([0.0, 1.0, -0.03, 1.02, 0.5, 1 / 1999])
     g = torch.randn((N_max + 1,), generator=gen, device='cuda')
-    worst = {'step': 0.0, 'pair': 0.0, 'bwd': 0.0, 'chain': 0.0}
+    # x with NaN at every fifth row: step mode reads cell 0's slope there
+    x_nan = x.clone()
+    x_nan[::5] = float('nan')
+    worst = {'step': 0.0, 'pair': 0.0, 'bwd': 0.0, 'chain': 0.0, 'jet': 0.0}
     rows = {}
+    jet_equal = True
     for name, ev in evs.items():
         cc = coeffs[name].reshape(-1, ev.n_bases)[:N_max + 1].contiguous()
         n_b, nd = ev.n_bases, ev.n_derivatives
@@ -3008,10 +3089,11 @@ def table_kernels_phase(torch, params):
             c, xx, gg = cc[:N], x[:N], g[:N]
             for d in range(nd):
                 T, S = ev.tables[d], ev.slopes[d]
-                worst['step'] = max(worst['step'], rel_err(
-                    cuda_spline.spline_eval_cuda(S, c, xx, step=True),
-                    cuda_spline.spline_eval_plain(S, c, xx, step=True),
-                    magnitude(torch, S, c, xx, True)))
+                for xs in (xx, x_nan[:N]):
+                    worst['step'] = max(worst['step'], rel_err(
+                        cuda_spline.spline_eval_cuda(S, c, xs, step=True),
+                        cuda_spline.spline_eval_plain(S, c, xs, step=True),
+                        magnitude(torch, S, c, xs, True)))
                 if d + 1 < nd:
                     T1 = ev.tables[d + 1]
                     for ta, tb, sa, sb in ((T, T1, False, False),
@@ -3111,6 +3193,63 @@ def table_kernels_phase(torch, params):
                       f"{bk_ms:.4f} device_ms {bd_ms:.4f} plain_ms "
                       f"{bp_ms:.4f} bound_ms {bb_ms:.5f} ({bb_by})",
                       flush=True)
+        # the jet entry: the site's terms over 4 coefficient components
+        # (the conditioners' own and three random) in one launch, against
+        # its plain version and, value for value, against the per-call
+        # launches it replaces; x at 0, 1, outside [0, 1] and NaN
+        requests, terms = se.site_jet(ev, JET_SITES[name])
+        comps_all = [cc] + [torch.randn(cc.shape, generator=gen,
+                                        device='cuda') for _ in range(3)]
+        x_jet = x.clone()
+        x_jet[6] = float('nan')
+        for N in (1, 3, 31, 512, 513, 8192, N_max, N_max + 1):
+            comps, xx = [a[:N] for a in comps_all], x_jet[:N]
+            got = cuda_spline.spline_eval_jet_cuda(ev.records, comps, xx,
+                                                   terms, n_b)
+            ref = cuda_spline.spline_eval_jet_plain(ev.tables, ev.slopes,
+                                                    comps, xx, terms)
+            per = per_call_site(ev, requests, comps, xx)
+            for t, (m, d, st) in enumerate(terms):
+                table = ev.slopes[d] if st else ev.tables[d]
+                worst['jet'] = max(worst['jet'], nan_rel_err(
+                    got[t], ref[t],
+                    magnitude(torch, table, comps[m], xx, st)))
+                jet_equal &= same_values(got[t], per[(m, d, st)])
+        # timed at the main paths' shapes beside the per-call launches of
+        # the same site on the same inputs, in turns (per-call, jet, jet,
+        # per-call; CUDA events), each also by the profiler's device time
+        for N in (512, 8192, N_max):
+            comps, xx = [a[:N] for a in comps_all], x[:N]
+
+            def jet(comps=comps, xx=xx):
+                return cuda_spline.spline_eval_jet_cuda(ev.records, comps,
+                                                        xx, terms, n_b)
+
+            def per_call(comps=comps, xx=xx):
+                return per_call_site(ev, requests, comps, xx)
+
+            turns = [cuda_ms(torch, f) for f in (per_call, jet, jet,
+                                                 per_call)]
+            j_dev, pc_dev = device_ms(torch, jet), device_ms(torch, per_call)
+            j_plain = cuda_ms(torch, lambda: cuda_spline.spline_eval_jet_plain(
+                ev.tables, ev.slopes, comps, xx, terms))
+            jb_ms, jb_by = jet_bound(torch, ev, N, xx, terms, len(comps))
+            p = cuda_spline.plan_jet(N, n_b, len(terms), len(comps), nd)
+            rows[('jet', name, N)] = dict(
+                ms=(turns[1] + turns[2]) / 2, device_ms=j_dev,
+                plain_ms=j_plain, bound_ms=jb_ms, bound_by=jb_by,
+                per_call_ms=(turns[0] + turns[3]) / 2,
+                per_call_device_ms=pc_dev, per_call_launches=len(requests),
+                terms=len(terms), turns_ms=turns, plan=p)
+            print(f"K4 jet entry {name} N={N} ({len(terms)} terms over 4 "
+                  f"components, grid {p.grid} x {p.threads} threads): "
+                  f"kernel_ms {rows[('jet', name, N)]['ms']:.4f} device_ms "
+                  f"{j_dev:.4f} plain_ms {j_plain:.4f} bound_ms "
+                  f"{jb_ms:.5f} ({jb_by}) | the {len(requests)} per-call "
+                  f"launches it replaces: kernel_ms "
+                  f"{rows[('jet', name, N)]['per_call_ms']:.4f} device_ms "
+                  f"{pc_dev:.4f} | turns per-call / jet / jet / per-call "
+                  f"{' / '.join(f'{v:.4f}' for v in turns)}", flush=True)
         # the chain: kernel against the plain chain, launches counted
         for N in (512, N_max):
             c0 = cc[:N]
@@ -3165,13 +3304,20 @@ def table_kernels_phase(torch, params):
         fail(f"table-kernels: the 'bisect' inverse: {n_bisect}, "
              f"{worst['bisect']:.3e}, {back:.3e}")
     print("K4 entry points at N = 1 ... 40,001 on both table families: "
-          f"step mode {worst['step']:.3e}, pair {worst['pair']:.3e}, "
-          f"backward with step-mode tables / without coefficients "
-          f"{worst['bwd']:.3e} against their plain versions, of max(1, the "
-          "largest row's Σ|c||B|) (limit 2e-5)", flush=True)
+          f"step mode {worst['step']:.3e} (NaN x included), pair "
+          f"{worst['pair']:.3e}, jet {worst['jet']:.3e} (x at 0, 1, outside "
+          f"[0, 1], NaN; NaN where the plain version is), backward with "
+          f"step-mode tables / without coefficients {worst['bwd']:.3e} "
+          "against their plain versions, of max(1, the largest row's "
+          "Σ|c||B|) (limit 2e-5) | the jet's outputs "
+          f"{'equal' if jet_equal else 'NOT equal'} to the per-call "
+          "launches' value for value", flush=True)
     bad = {k: v for k, v in worst.items() if k != 'bisect' and not v <= 2e-5}
     if bad:
         fail(f"table-kernels: K4 disagrees with its plain versions: {bad}")
+    if not jet_equal:
+        fail("table-kernels: the jet entry differs from the per-call "
+             "launches it replaces")
     rows['max_abs_err'] = worst
     return None, rows
 
@@ -3185,6 +3331,7 @@ def table_hpsi_phase(torch, params):
     form's launches and ms per pass; E_L 'table' against 'poly_pallas' on
     the same walkers (TABLE_POLY_EL_BOUND)."""
     from waveflow_tpu_torch.models import get_waveflow_model
+    from waveflow_tpu_torch.ops import spline_eval as se
     mt = flagship_model(torch, params, 'table')
     mp = flagship_model(torch, params, 'poly_pallas')
     reset_table_counts()
@@ -3213,6 +3360,25 @@ def table_hpsi_phase(torch, params):
             ms = cuda_ms(torch, lambda: h(x), reps=3, warmup=1)
             row = dict(launches_per_pass=per_pass, derived=derived.calls,
                        ms=ms)
+            if mode in ('fwd_batched', 'fwd'):
+                # the same pass on the per-call entries: Hψ to the bit
+                with se._per_call():
+                    reset_table_counts()
+                    hpc = h(x)[:, 0]
+                    torch.cuda.synchronize()
+                    row['per_call_launches_per_pass'] = table_counts()
+                    row['per_call_ms'] = cuda_ms(torch, lambda: h(x), reps=3,
+                                                 warmup=1)
+                row['per_call_equal'] = same_values(hk, hpc)
+                print(f"table-hpsi {mode}: Hpsi from the jet "
+                      f"{'equal to' if row['per_call_equal'] else 'NOT equal to'}"
+                      f" the per-call chain's on the card | per-call "
+                      f"launches per pass {row['per_call_launches_per_pass']}"
+                      f" | per-call {row['per_call_ms']:.2f} ms per pass",
+                      flush=True)
+                if not row['per_call_equal']:
+                    fail(f"table-hpsi {mode}: Hpsi from the jet differs from "
+                         "the per-call chain's")
             if mode == 'fwd_batched':
                 with evaluations(plain=True):
                     hp = h(x)[:, 0]
@@ -3222,7 +3388,8 @@ def table_hpsi_phase(torch, params):
             rows[mode] = row
             print(f"table-hpsi {mode}: K4 launches per Hpsi pass at 4096 "
                   f"walkers: forward {per_pass['spline_eval']}, pair "
-                  f"{per_pass['spline_eval_pair']}, backward "
+                  f"{per_pass['spline_eval_pair']}, jet "
+                  f"{per_pass['spline_eval_jet']}, backward "
                   f"{per_pass['spline_eval_bwd']} (the code's evaluations "
                   f"on the CPU: {derived.calls}) | {ms:.2f} ms per pass"
                   + (f" | kernel against the plain chain on the card: max "
@@ -3298,7 +3465,7 @@ def table_eval_phase(torch, jax_raw, jax_clipped):
     if not 0.45 <= ev.accept_rate <= 0.55:
         fail(f"table-eval: accept rate {ev.accept_rate} outside [0.45, 0.55]")
     if not (launches['sampler'] and launches['spline_eval']
-            and launches['spline_eval_pair']):
+            and launches['spline_eval_pair'] and launches['spline_eval_jet']):
         fail(f"table-eval: a kernel of the path was not launched: {launches}")
     return launches, row
 
@@ -3319,16 +3486,68 @@ def graph_table_phase(torch):
             fail(f"no checkpoint under {CHECKPOINT.parent}")
         return t
 
+    from waveflow_tpu_torch.ops import spline_eval as se
     launches, row = graph_twins(
         torch, "graph-table train-256", trainer,
         lambda t, n: t.train_window(n, t.baseline),
         read=table_counts, reset=reset_table_counts,
         required=('sampler', 'spline_eval', 'spline_eval_pair',
-                  'spline_eval_bwd'))
-    twins = {'table': trainer(None), 'poly_pallas': trainer(None,
-                                                            'poly_pallas')}
-    for t in twins.values():
-        t.train(2 * GRAPH_WINDOW, verbose=False)      # warm-up and capture
+                  'spline_eval_jet', 'spline_eval_bwd'))
+    twins = {'table': trainer(None), 'per_call': trainer(None),
+             'poly_pallas': trainer(None, 'poly_pallas')}
+
+    def turn(k):
+        """2 windows of GRAPH_WINDOW replayed epochs of twin ``k`` (the
+        per-call twin with every site on the per-call entries): (ms per
+        epoch by CUDA events, launches per epoch)."""
+        reset_table_counts()
+        with se._per_call() if k == 'per_call' else contextlib.nullcontext():
+            _, dt = events_ms(torch, lambda: twins[k].train(2 * GRAPH_WINDOW,
+                                                            verbose=False))
+        return dt / (2 * GRAPH_WINDOW), {
+            n: v / (2 * GRAPH_WINDOW) for n, v in table_counts().items()}
+
+    for k in twins:
+        turn(k)                                       # warm-up and capture
+    # the jet against the per-call entries, graphed: turns per-call, jet,
+    # jet, per-call, then everything the two carry compared
+    jet_ms, pc_launches = {'table': [], 'per_call': []}, {}
+    for k in ('per_call', 'table', 'table', 'per_call'):
+        dt, per_epoch = turn(k)
+        jet_ms[k].append(dt)
+        pc_launches[k] = per_epoch
+    bitwise, rel, _ = compare_twins(torch, trainer_tensors(torch,
+                                                           twins['table']),
+                                    trainer_tensors(torch, twins['per_call']))
+    row['jet_against_per_call'] = dict(
+        bitwise=bitwise, max_rel_diff=rel, turns_ms=jet_ms,
+        launches_per_epoch=pc_launches,
+        ms_per_replayed_epoch={k: sum(v) / len(v) for k, v in jet_ms.items()})
+    print(f"graph-table: jet against per-call after {6 * GRAPH_WINDOW} "
+          f"epochs each ({4 * GRAPH_WINDOW} replayed in turns): "
+          f"{'equal to the bit' if bitwise else 'NOT bitwise'} (largest "
+          f"relative difference {rel:.3e}) | ms per replayed epoch, turns "
+          f"per-call / jet / jet / per-call: {jet_ms['per_call'][0]:.3f} / "
+          f"{jet_ms['table'][0]:.3f} / {jet_ms['table'][1]:.3f} / "
+          f"{jet_ms['per_call'][1]:.3f} | K4 launches per replayed epoch: "
+          f"jet {pc_launches['table']}, per-call {pc_launches['per_call']}",
+          flush=True)
+    if not bitwise:
+        fail(f"graph-table: the jet's windows differ from the per-call "
+             f"entries' by {rel:.3e}")
+    # the device's side of the A/B: busy time and kernels per replayed
+    # epoch of each twin (the profiler; wall time drifts between turns)
+    for k in ('per_call', 'table'):
+        with se._per_call() if k == 'per_call' else contextlib.nullcontext():
+            prof = profile_window(
+                torch, lambda: twins[k].train_window(10, twins[k].baseline),
+                10, f"graph-table {'per-call' if k == 'per_call' else 'jet'}"
+                " twin, graphed window ", top=3)
+        row['jet_against_per_call'][f'{k}_busy_ms_per_epoch'] = \
+            prof['busy_ms'] / 10
+        row['jet_against_per_call'][f'{k}_kernels_per_epoch'] = \
+            prof['launches_per_unit']
+    del twins['per_call']
     ms = {k: [] for k in twins}
     for k in ('table', 'poly_pallas', 'poly_pallas', 'table'):
         _, dt = events_ms(torch, lambda: twins[k].train(2 * GRAPH_WINDOW,
@@ -3426,7 +3645,7 @@ def gm_density_phase(torch):
 # ---- 44-45. the reference-API layer and the evaluation artifacts ---------
 
 KERNEL_NAMES = ('basis_jet', 'sampler', 'sampler_linear', 'spline_eval',
-                'spline_eval_bwd', 'spline_eval_pair')
+                'spline_eval_bwd', 'spline_eval_pair', 'spline_eval_jet')
 
 
 def kernel_counts() -> dict:
@@ -3472,6 +3691,7 @@ def compat_targets():
     from waveflow_tpu_torch.ops import spline_eval as se
     return dict(spline_eval=(se, 'spline_eval'),
                 spline_eval_pair=(se, 'spline_eval_pair'),
+                spline_eval_jet=(se, 'spline_eval_jet'),
                 spline_eval_bwd=(se, 'spline_eval_bwd'),
                 sampler=(compat, 'sample_squared_amplitude'),
                 sampler_linear=(compat, 'sample_linear_density'))
@@ -4250,6 +4470,8 @@ def main(argv=None) -> int:
     # IMADE layers' I-spline tables, 256 walkers x 2 coordinates
     tk = rows['table-kernels']
     pair_row = tk[('I-spline', 512)]
+    # the jet entry at the same shape: an IMADE site's 15 terms
+    jet_row = tk[('jet', 'I-spline', 512)]
     k4b_row = k4b[(0, 2 * DENSITY_POINTS)]
 
     def sampler_row(name, rows, shape):
@@ -4312,6 +4534,18 @@ def main(argv=None) -> int:
              ms=pair_row['ms'], device_ms=pair_row['device_ms'],
              plain_ms=pair_row['plain_ms'], bound_ms=pair_row['bound_ms'],
              bound_by=pair_row['bound_by'], library_ms=None),
+        dict(name='spline_eval_jet', route='cuda',
+             source='waveflow_tpu_torch/csrc/spline_eval.cu',
+             replaces='waveflow_tpu/ops/pallas_spline.py:29',
+             launches=by_phase['graph-table']['spline_eval_jet'],
+             launches_by_path=by_path('spline_eval_jet'),
+             max_abs_err=tk['max_abs_err']['jet'],
+             ms=jet_row['ms'], device_ms=jet_row['device_ms'],
+             plain_ms=jet_row['plain_ms'], bound_ms=jet_row['bound_ms'],
+             bound_by=jet_row['bound_by'], library_ms=None,
+             per_call_ms=jet_row['per_call_ms'],
+             per_call_device_ms=jet_row['per_call_device_ms'],
+             per_call_launches=jet_row['per_call_launches']),
         dict(name='spline_eval_bwd', route='cuda',
              source='waveflow_tpu_torch/csrc/spline_eval.cu',
              replaces='waveflow_tpu/ops/pallas_spline.py:29',

@@ -6,7 +6,13 @@ K1 / K2 (csrc/sampler.cu): every walkers-per-group variant over a range of
 batches B — which group size the wrapper's plan should take where
 (GROUP_COST, per kind).
 K4 (csrc/spline_eval.cu): forward and backward over N and lanes per row —
-where lanes_per_row comes from.
+where lanes_per_row comes from; its jet entry (``spline_jet``) at the
+table backend's two sites (an IMADE ``pair(0)`` on the flagship's I-spline
+tables, 15 terms over 4 components; the prior's ``__call__`` on its OB
+tables, 9 terms) over N = 512, 8,192, 40,000 and every block size of
+JET_THREADS — where plan_jet's choice comes from — each point also held,
+value for value, to the per-call launches it replaces, and timed beside
+them.
 Each point is first held against the kernel's plain version (the tolerances
 of chip_smoke.py), then timed twice: back-to-back calls by CUDA events (host
 path included) and the kernel alone by the profiler's device time.
@@ -23,7 +29,7 @@ Two more parts, timed only:
 
 Usage (needs a CUDA card and nvcc; a few seconds after the build):
   python examples/kernel_sweep_torch.py [--check-only] [--out FILE.json]
-      [--only jet,sampler,sampler_linear,spline,host,inverse]
+      [--only jet,sampler,sampler_linear,spline,spline_jet,host,inverse]
 """
 
 import argparse
@@ -38,10 +44,12 @@ sys.path.insert(0, str(ROOT))
 
 import torch
 
-from chip_smoke import DENSITY, FLAGSHIP, cuda_ms, device_ms, fail
+from chip_smoke import (DENSITY, FLAGSHIP, cuda_ms, device_ms, fail,
+                        magnitude, per_call_site, rel_err, same_values)
 from waveflow_tpu_torch import ops
 from waveflow_tpu_torch.ops import (cuda_build, cuda_jet, cuda_sampler,
                                     cuda_spline)
+from waveflow_tpu_torch.ops.spline_eval import site_jet
 from waveflow_tpu_torch.ops.sampling import (sample_linear_density,
                                              sample_squared_amplitude)
 
@@ -177,6 +185,72 @@ def sweep_spline(gen, timed):
     return rows_out
 
 
+def sweep_spline_jet(gen, timed):
+    """K4's jet entry over N and block sizes at the table backend's two
+    sites, against its plain version (2e-5 of the largest Σ|c||B|, as the
+    pair entry) and against the per-call launches of the same site, value
+    for value; the per-call launches timed beside it."""
+    deg, knots, mesh = (FLAGSHIP[k] for k in ('spline_degree', 'num_knots',
+                                              'n_mesh'))
+    sites = {
+        'I-spline pair(0)': (ops.make_evaluator(
+            ops.get_tables('I', deg, knots, n_mesh=mesh), device='cuda'),
+            (('G', 0), ('F', 1))),
+        'OB prior call(0)': (ops.make_evaluator(
+            ops.get_tables('B', deg, knots, n_mesh=mesh), use_ob=True,
+            device='cuda'), (('F', 0),))}
+    rows = []
+    for site, (ev, kinds) in sites.items():
+        requests, terms = site_jet(ev, kinds)
+        for N in (512, 8192, 40000):
+            comps = [torch.randn((N, ev.n_bases), generator=gen,
+                                 device='cuda') for _ in range(4)]
+            x = torch.rand((N,), generator=gen, device='cuda') * 1.1 - 0.05
+            ref = cuda_spline.spline_eval_jet_plain(ev.tables, ev.slopes,
+                                                    comps, x, terms)
+            per = per_call_site(ev, requests, comps, x)
+            scales = [magnitude(torch, ev.slopes[d] if st else ev.tables[d],
+                                comps[m], x, st) for m, d, st in terms]
+            chosen = cuda_spline.plan_jet(N, ev.n_bases, len(terms), 4,
+                                          ev.n_derivatives)
+            for threads in cuda_spline.JET_THREADS:
+                def run(threads=threads):
+                    return cuda_spline.spline_eval_jet_cuda(
+                        ev.records, comps, x, terms, ev.n_bases, threads)
+                out = run()
+                torch.cuda.synchronize()
+                err = max(rel_err(out[t], ref[t], scales[t])
+                          for t in range(len(terms)))
+                same = all(same_values(out[t], per[term])
+                           for t, term in enumerate(terms))
+                if not (err <= 2e-5 and same):
+                    fail(f"K4 jet {site} N={N} threads={threads}: "
+                         f"{err:.3e} against its plain version, per-call "
+                         f"values {'equal' if same else 'NOT equal'}")
+                row = dict(kernel='spline_eval_jet', site=site, N=N,
+                           terms=len(terms), threads=threads,
+                           grid=cuda_spline.plan_jet(
+                               N, ev.n_bases, len(terms), 4,
+                               ev.n_derivatives, threads).grid,
+                           planned=threads == chosen.threads,
+                           max_abs_err=err, per_call_equal=same)
+                if timed:
+                    row.update(ms=cuda_ms(torch, run),
+                               device_ms=device_ms(torch, run))
+                rows.append(row)
+                print(json.dumps(row), flush=True)
+            if timed:
+                def per_call():
+                    return per_call_site(ev, requests, comps, x)
+                row = dict(kernel='spline_eval per-call launches', site=site,
+                           N=N, launches=len(requests),
+                           ms=cuda_ms(torch, per_call),
+                           device_ms=device_ms(torch, per_call))
+                rows.append(row)
+                print(json.dumps(row), flush=True)
+    return rows
+
+
 def host_us(fn, n=2000):
     """Mean host-clock microseconds of one call of ``fn`` (the device is
     left to run behind; synchronised before and after)."""
@@ -301,7 +375,8 @@ def main():
     p.add_argument('--check-only', action='store_true',
                    help='build and hold against the plain versions; no timing')
     p.add_argument('--out', default=None, help='write the rows here as JSON')
-    p.add_argument('--only', default='jet,sampler,sampler_linear,spline,host',
+    p.add_argument('--only',
+                   default='jet,sampler,sampler_linear,spline,spline_jet,host',
                    help='comma-separated parts to run')
     args = p.parse_args()
     if not torch.cuda.is_available():
@@ -323,6 +398,7 @@ def main():
              'sampler': lambda: sweep_sampler(gen, timed, 'squared'),
              'sampler_linear': lambda: sweep_sampler(gen, timed, 'linear'),
              'spline': lambda: sweep_spline(gen, timed),
+             'spline_jet': lambda: sweep_spline_jet(gen, timed),
              'host': lambda: host_path_pieces(gen),
              'inverse': lambda: sweep_inverse(gen)}
     rows = []

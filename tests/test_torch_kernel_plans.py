@@ -205,6 +205,68 @@ def test_spline_plan_refuses():
             cuda_spline.plan(512, 16, False, lanes)
 
 
+@pytest.mark.parametrize('terms,components', [(15, 4), (9, 4), (1, 1),
+                                               (16, 4)])
+@pytest.mark.parametrize('n_bases', [7, 28, 29])
+@pytest.mark.parametrize('N', [1, 31, 512, 513, 8192, 40_000, 40_001])
+def test_spline_jet_plan_covers(N, n_bases, terms, components):
+    """K4's jet entry: the forward kernel's lanes per row (so each term
+    sums as the per-call entries do) in blocks of JET_BLOCK threads that
+    cover N and never exceed the work; no shared memory."""
+    p = cuda_spline.plan_jet(N, n_bases, terms, components, 4)
+    assert p.group == cuda_spline.lanes_per_row(n_bases)
+    assert (p.threads, p.smem_bytes, p.regime) == (cuda_spline.JET_BLOCK, 0,
+                                                   'jet')
+    assert p.threads in cuda_spline.JET_THREADS and p.threads % 32 == 0
+    per_block = p.threads // p.group
+    assert (p.grid - 1) * per_block < N <= p.grid * per_block
+
+
+@pytest.mark.parametrize('threads', [32, 64, 128, 256])
+@pytest.mark.parametrize('N', [1, 513, 40_001])
+def test_spline_jet_plan_forced(threads, N):
+    """A forced block size (measurements) is taken as given and still
+    covers the work, at the flagship I-spline tables' 29 bases."""
+    p = cuda_spline.plan_jet(N, 29, 15, 4, 4, threads)
+    per_block = threads // 8
+    assert (p.threads, p.group) == (threads, 8)
+    assert (p.grid - 1) * per_block < N <= p.grid * per_block
+
+
+def test_spline_jet_plan_refuses():
+    """Beyond the kernel's limits the plan raises, naming what is over:
+    more terms, components or tabulated orders than one launch takes, a
+    block size it does not take, an empty shape."""
+    with pytest.raises(ValueError, match='terms'):
+        cuda_spline.plan_jet(512, 29, cuda_spline.JET_TERMS + 1, 4, 4)
+    with pytest.raises(ValueError, match='components'):
+        cuda_spline.plan_jet(512, 29, 15, cuda_spline.JET_COMPONENTS + 1, 4)
+    with pytest.raises(ValueError, match='orders'):
+        cuda_spline.plan_jet(512, 29, 15, 4, cuda_spline.JET_ORDERS + 1)
+    for threads in (16, 48, 512):
+        with pytest.raises(ValueError, match='threads'):
+            cuda_spline.plan_jet(512, 29, 15, 4, 4, threads)
+    for bad in [(0, 29, 15, 4, 4), (512, 0, 15, 4, 4), (512, 29, 0, 4, 4),
+                (512, 29, 15, 0, 4)]:
+        with pytest.raises(ValueError):
+            cuda_spline.plan_jet(*bad)
+
+
+def test_spline_jet_wrapper_refuses_a_cpu_tensor():
+    """The jet entry's kernel wrapper raises on CPU tensors (no plain
+    fallback inside it); the dispatching wrapper runs the plain version
+    there, one output per term."""
+    tables, slopes = torch.rand(2, 10, 5), torch.rand(2, 10, 5)
+    records = torch.as_tensor(cuda_spline.cell_records(tables.numpy()))
+    comps, x = [torch.rand(8, 5)], torch.rand(8)
+    with pytest.raises(ValueError, match='CUDA'):
+        cuda_spline.spline_eval_jet_cuda(records, comps, x, [(0, 0, False)],
+                                         5)
+    out = cuda_spline.spline_eval_jet(tables, slopes, records, comps, x,
+                                      [(0, 0, False), (0, 1, True)])
+    assert [o.shape for o in out] == [(8,), (8,)]
+
+
 LINEAR_TABLES = [(16, 2000), (12, 300), (7, 2), (20, 2049), (28, 2000)]
 
 
@@ -274,7 +336,8 @@ ENTRY_POINTS = {
     'sampler': {'sampler_launch', 'sampler_linear_launch', 'sampler_init',
                 'sampler_error_string'},
     'spline_eval': {'spline_eval_launch', 'spline_eval_pair_launch',
-                    'spline_eval_bwd_launch', 'spline_eval_error_string'},
+                    'spline_eval_bwd_launch', 'spline_eval_jet_launch',
+                    'spline_eval_error_string'},
 }
 
 
@@ -360,6 +423,10 @@ def test_plan_constants_match_the_sources():
     assert const(sampler, 'RING') == cuda_sampler.RING
     assert const(spline, 'THREADS') == cuda_spline.THREADS
     assert const(spline, 'CHUNK') == cuda_spline.CHUNK
+    assert const(spline, 'JET_TERMS') == cuda_spline.JET_TERMS
+    assert const(spline, 'JET_COMPONENTS') == cuda_spline.JET_COMPONENTS
+    assert const(spline, 'JET_ORDERS') == cuda_spline.JET_ORDERS
+    assert const(spline, 'JET_MAX_THREADS') == max(cuda_spline.JET_THREADS)
     # the group sizes the sampler's launcher switches over
     cases = {int(g) for g in re.findall(r'case (\d+):\n', sampler)}
     assert cases == set(cuda_sampler.WALKERS_PER_BLOCK)

@@ -11,6 +11,7 @@ entry scripts; and the float64 run behind chip_smoke.py's table-hpsi
 bounds.  The same parameters cross by
 ``convert.py``; inputs are made with numpy from a seed."""
 
+import contextlib
 import pickle
 from pathlib import Path
 
@@ -475,20 +476,35 @@ def _next_row(table, c, x, step):
     return spline_eval_plain(table, c, x + shift, step)
 
 
+def _term(tables, slopes, c, x, d, step):
+    return spline_eval_plain(slopes[d] if step else tables[d], c, x, step)
+
+
+# each fault as the forward kernel, the pair entry and the jet entry (one
+# term: tables, slopes, coefficients, x, order, step) would compute it
 K4_FAULTS = {
     'step flag ignored': (
         lambda t, c, x, s=False: spline_eval_plain(t, c, x),
         lambda ta, tb, c, x, sa=False, sb=False: (
-            spline_eval_plain(ta, c, x), spline_eval_plain(tb, c, x))),
+            spline_eval_plain(ta, c, x), spline_eval_plain(tb, c, x)),
+        lambda T, S, c, x, d, st: spline_eval_plain(S[d] if st else T[d],
+                                                    c, x)),
     'step mode reads the next row': (
         lambda t, c, x, s=False: _next_row(t, c, x, s),
         lambda ta, tb, c, x, sa=False, sb=False: (
-            _next_row(ta, c, x, sa), _next_row(tb, c, x, sb))),
+            _next_row(ta, c, x, sa), _next_row(tb, c, x, sb)),
+        lambda T, S, c, x, d, st: _next_row(S[d] if st else T[d], c, x,
+                                            st)),
+    # the jet's counterpart: every lerp above order 0 (a pair's second
+    # output is always one) at fraction 0
     "pair's second output at fraction 0": (
         None,
         lambda ta, tb, c, x, sa=False, sb=False: (
             spline_eval_plain(ta, c, x, sa), spline_eval_plain(tb, c, x,
-                                                                True))),
+                                                                True)),
+        lambda T, S, c, x, d, st: (spline_eval_plain(T[d], c, x, True)
+                                   if d and not st
+                                   else _term(T, S, c, x, d, st))),
 }
 
 
@@ -515,19 +531,26 @@ def test_table_hpsi_gate_catches_planted_k4_faults(flagship_hpsi, fault,
                                                    monkeypatch):
     """chip_smoke's table-hpsi gate (the K4 chain's Hψ against the plain
     chain's, TABLE_HPSI_RTOL of max|Hψ|) fails a K4 that computes the
-    step mode or the pair entry wrongly: each planted fault moves the f32
-    Hψ of the 100k checkpoint by more than 3x the gate."""
+    step mode or the pair entry wrongly, on the per-call entries and on
+    the jet entry that serves the 'fwd_batched' chain: each planted fault
+    moves the f32 Hψ of the 100k checkpoint by more than 3x the gate,
+    both ways."""
     import waveflow_tpu_torch.ops.spline_eval as se
     h, x, ref = flagship_hpsi
-    one, pair = K4_FAULTS[fault]
+    one, pair, term = K4_FAULTS[fault]
     if one is not None:
         monkeypatch.setattr(se, 'spline_eval', one)
     monkeypatch.setattr(se, 'spline_eval_pair', pair)
-    with torch.no_grad():
-        got = h(x)[:, 0]
-    err = ((got - ref).abs().max() / ref.abs().max()).item()
-    print(f"{fault}: {err:.3e} of max|Hpsi|")
-    assert err > 3 * _chip_smoke().TABLE_HPSI_RTOL
+    monkeypatch.setattr(
+        se, 'spline_eval_jet',
+        lambda T, S, records, comps, xx, terms: [
+            term(T, S, comps[m], xx, d, st) for m, d, st in terms])
+    for path in (se._per_call, contextlib.nullcontext):
+        with torch.no_grad(), path():
+            got = h(x)[:, 0]
+        err = ((got - ref).abs().max() / ref.abs().max()).item()
+        print(f"{fault} ({path.__name__}): {err:.3e} of max|Hpsi|")
+        assert err > 3 * _chip_smoke().TABLE_HPSI_RTOL
 
 
 def test_antisym_waveflow_under_table_matches_jax():

@@ -13,7 +13,17 @@
 //     plain lerp, piecewise constant (ops/spline_eval.py, kind 'S');
 //   * the PAIR entry evaluates two tables at one x with one set of
 //     coefficients (the value and derivative of IMADE's table forward):
-//     the cell is located once and the coefficients read once.
+//     the cell is located once and the coefficients read once;
+//   * the JET entry (spline_eval_jet_kernel) evaluates, at one x, every
+//     term that the forward-mode chain of one evaluation site asks for
+//     under jvp levels alone (ops/spline_eval.py): up to 16 terms
+//         out[t, n] = sum_i C[m_t][n, i] * B(d_t, mode_t, x[n])_i
+//     over up to 4 coefficient components C[m] (the coefficients and their
+//     tangents), B the lerp of order d or, in step mode, its slope
+//     n_cells * (T_d[cell + 1] - T_d[cell]).  Where the per-call entries
+//     take 9 launches for one IMADE site under two jvp levels (4 pair
+//     launches on the value tables, 1 on the slope tables, 4 more), each
+//     locating the cell and reading rows again, the jet takes one.
 //
 // Replaces: waveflow_tpu/ops/pallas_spline.py, `_spline_eval_kernel`
 // (pl.pallas_call at :77, entry spline_eval_pallas at :60) and the lerped
@@ -69,6 +79,37 @@
 //     just as well and the fill is paid by every block.
 // The launch plan (lanes, grid) comes from ops/cuda_spline.py::plan and
 // is checked here against the kernel's own constants.
+//
+// The jet entry is bytes and launches too: a row gather and a 29-long dot
+// per term, far below the f32 ridge, and no tile product for wgmma or TMA
+// to serve.  Its design:
+//   * CELL RECORDS, built once per evaluator at its first jet launch
+//     (ops/cuda_spline.py::cell_records): for cell j and order d the row
+//     T_d[j] and the f32 delta T_d[j + 1] - T_d[j], padded with zeros to a
+//     multiple of 4 bases (29 -> 32).  JAX's [value | delta] cell tables, laid out so that every
+//     table load is one float4 (no scalar path for 29 bases) and all that a
+//     row's terms read is one contiguous span of the record (4 orders x 2 x
+//     32 floats = 1 KB, in L2).  Step mode reads the delta alone and forms
+//     the slope as __fmul_rn(delta, n_cells), the evaluator's slope table
+//     to the bit; no second row is read;
+//   * one lane group per row, one locate, one read of everything: each
+//     component's row read once (__ldcs), each (order, mode) basis chunk
+//     computed once and used by every term that names it, one accumulator
+//     per term in registers, summed with the per-call entries' assignment
+//     of bases to lanes, in-lane fmaf order and xor-shuffle tree.  So every
+//     output equals the per-call kernel's output for the same term to the
+//     bit: a padded base adds a zero product, as the scalar path does;
+//   * the (chunk, component) -> output pointer table travels by value in
+//     the launch (JetOuts), every index into it a constant after unrolling,
+//     so the accumulators stay in registers and a term's branch is
+//     warp-uniform; each term writes a tensor of its own;
+//   * blocks of 64 threads (ops/cuda_spline.py::plan_jet; 32 to 256 are
+//     accepted): a few hundred rows spread over many SMs.  Measured on an
+//     NVIDIA H100 80GB HBM3 at 700.00 W, 64 was fastest or within 2% of it
+//     at N = 512, 8,192 and 40,000 on both sites (PERF.md).  The block size
+//     does not change the arithmetic of a row;
+//   * no shared memory: the records of the four evaluators of the table
+//     backend (about 8 MB) sit in the 50 MB L2.
 
 #include <cuda_runtime.h>
 
@@ -244,6 +285,118 @@ spline_eval_bwd_kernel(const float* __restrict__ table_d,
   }
 }
 
+// ---- the jet entry ----------------------------------------------------------
+
+constexpr int JET_TERMS = 16;
+constexpr int JET_COMPONENTS = 4;
+constexpr int JET_ORDERS = 4;
+constexpr int JET_CHUNKS = 2 * JET_ORDERS;  // (order, lerp or step)
+constexpr int JET_MAX_THREADS = 256;
+
+// the output of each (basis chunk, component) product, (N,): chunk 2 d is
+// the lerp of order d, 2 d + 1 its step-mode slope; null where no term
+// takes it.  Each output is a tensor of its own, as a per-call launch
+// writes it (forward AD keeps the tangent of a rule's output beside its
+// storage: one shared buffer would cost a fill and a copy per output), and
+// every index into the table is a constant after unrolling (an index read
+// from the launch would put the table in local memory)
+struct JetOuts {
+  float* out[JET_CHUNKS][JET_COMPONENTS];
+};
+
+// records: (n_cells, n_orders, 2, n_pad); c0..c3: (N, n_bases) or null.
+// VEC: the components' rows are 16-byte aligned
+template <bool VEC>
+__global__ void __launch_bounds__(JET_MAX_THREADS)
+spline_eval_jet_kernel(const float* __restrict__ records,
+                       const float* __restrict__ c0,
+                       const float* __restrict__ c1,
+                       const float* __restrict__ c2,
+                       const float* __restrict__ c3,
+                       const float* __restrict__ x, const JetOuts outs,
+                       int N, int n_cells, int n_bases, int n_orders,
+                       int lanes_log2) {
+  const int lanes = 1 << lanes_log2;
+  const int sub = threadIdx.x & (lanes - 1);
+  const long long row =
+      static_cast<long long>(blockIdx.x) * (blockDim.x >> lanes_log2) +
+      (threadIdx.x >> lanes_log2);
+  const long long at = row < N ? row : N - 1;
+  int cell;
+  const float frac = locate(__ldcs(x + at), n_cells, &cell);
+  const float scale = static_cast<float>(n_cells);
+  const int n_pad = (n_bases + CHUNK - 1) / CHUNK * CHUNK;
+  const float* __restrict__ rec =
+      records + static_cast<size_t>(cell) * (2 * n_orders * n_pad);
+  const float* const comp[JET_COMPONENTS] = {c0, c1, c2, c3};
+  bool need_c[JET_COMPONENTS], need_b[JET_CHUNKS];
+#pragma unroll
+  for (int m = 0; m < JET_COMPONENTS; ++m) need_c[m] = false;
+#pragma unroll
+  for (int b = 0; b < JET_CHUNKS; ++b) {
+    need_b[b] = false;
+#pragma unroll
+    for (int m = 0; m < JET_COMPONENTS; ++m)
+      if (outs.out[b][m] != nullptr) need_b[b] = need_c[m] = true;
+  }
+  float acc[JET_CHUNKS][JET_COMPONENTS];
+#pragma unroll
+  for (int b = 0; b < JET_CHUNKS; ++b)
+#pragma unroll
+    for (int m = 0; m < JET_COMPONENTS; ++m) acc[b][m] = 0.f;
+  for (int i = CHUNK * sub; i < n_pad; i += CHUNK * lanes) {
+    float c[JET_COMPONENTS][CHUNK];
+#pragma unroll
+    for (int m = 0; m < JET_COMPONENTS; ++m) {
+      if (need_c[m]) {
+        load_once<VEC>(comp[m] + at * n_bases, i, n_bases, c[m]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < CHUNK; ++k) c[m][k] = 0.f;
+      }
+    }
+    float B[JET_CHUNKS][CHUNK];
+#pragma unroll
+    for (int d = 0; d < JET_ORDERS; ++d) {
+#pragma unroll
+      for (int k = 0; k < CHUNK; ++k) B[2 * d][k] = B[2 * d + 1][k] = 0.f;
+      if (need_b[2 * d] || need_b[2 * d + 1]) {
+        float delta[CHUNK];
+        load_table<true>(rec + (2 * d + 1) * n_pad, i, n_pad, delta);
+        if (need_b[2 * d + 1]) {
+#pragma unroll
+          for (int k = 0; k < CHUNK; ++k)
+            B[2 * d + 1][k] = __fmul_rn(delta[k], scale);
+        }
+        if (need_b[2 * d]) {
+          float y[CHUNK];
+          load_table<true>(rec + 2 * d * n_pad, i, n_pad, y);
+#pragma unroll
+          for (int k = 0; k < CHUNK; ++k)
+            B[2 * d][k] = fmaf(delta[k], frac, y[k]);
+        }
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < JET_CHUNKS; ++b)
+#pragma unroll
+      for (int m = 0; m < JET_COMPONENTS; ++m)
+        if (outs.out[b][m] != nullptr) {
+#pragma unroll
+          for (int k = 0; k < CHUNK; ++k)
+            acc[b][m] = fmaf(c[m][k], B[b][k], acc[b][m]);
+        }
+  }
+#pragma unroll
+  for (int b = 0; b < JET_CHUNKS; ++b)
+#pragma unroll
+    for (int m = 0; m < JET_COMPONENTS; ++m)
+      if (outs.out[b][m] != nullptr) {
+        const float y = lane_sum(acc[b][m], lanes);
+        if (sub == 0 && row < N) __stcs(outs.out[b][m] + row, y);
+      }
+}
+
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
@@ -336,6 +489,59 @@ extern "C" int spline_eval_bwd_launch(const float* table_d,
     spline_eval_bwd_kernel<false><<<grid, THREADS, 0, s>>>(
         table_d, table_d1, coeffs, x, grad, g_coeffs, g_x, N, n_mesh - 1,
         n_bases, lanes_log2, step);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// terms: n_terms triples (component, order, step) and out: n_terms output
+// pointers, both on the host; components that no term names may be null
+extern "C" int spline_eval_jet_launch(const float* records, const float* c0,
+                                      const float* c1, const float* c2,
+                                      const float* c3, const float* x,
+                                      float* const* out, const int* terms,
+                                      int n_terms, int N, int n_cells,
+                                      int n_bases, int n_orders, int lanes,
+                                      int threads, int grid, void* stream) {
+  if (N <= 0) return 0;
+  const auto invalid = static_cast<int>(cudaErrorInvalidValue);
+  if (records == nullptr || x == nullptr || out == nullptr ||
+      terms == nullptr || n_cells < 1 || n_bases < 1 || n_orders < 1 ||
+      n_orders > JET_ORDERS || n_terms < 1 || n_terms > JET_TERMS ||
+      !aligned16(records))
+    return invalid;
+  if (lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) != 0 ||
+      threads < 32 || threads > JET_MAX_THREADS ||
+      (threads & (threads - 1)) != 0)
+    return invalid;
+  const int per_block = threads / lanes;
+  if (grid != (N + per_block - 1) / per_block) return invalid;
+  int lanes_log2 = 0;
+  while ((1 << lanes_log2) < lanes) ++lanes_log2;
+  const float* comp[JET_COMPONENTS] = {c0, c1, c2, c3};
+  JetOuts outs;
+  for (int b = 0; b < JET_CHUNKS; ++b)
+    for (int m = 0; m < JET_COMPONENTS; ++m) outs.out[b][m] = nullptr;
+  for (int t = 0; t < n_terms; ++t) {
+    const int m = terms[3 * t], d = terms[3 * t + 1], step = terms[3 * t + 2];
+    if (out[t] == nullptr || m < 0 || m >= JET_COMPONENTS ||
+        comp[m] == nullptr || d < 0 || d >= n_orders ||
+        (step != 0 && step != 1))
+      return invalid;
+    float*& slot = outs.out[2 * d + step][m];
+    if (slot != nullptr) return invalid;  // the same term twice
+    slot = out[t];
+  }
+  bool vec = n_bases % 4 == 0;
+  for (int m = 0; m < JET_COMPONENTS; ++m)
+    if (comp[m] != nullptr && !aligned16(comp[m])) vec = false;
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (vec)
+    spline_eval_jet_kernel<true><<<grid, threads, 0, s>>>(
+        records, c0, c1, c2, c3, x, outs, N, n_cells, n_bases, n_orders,
+        lanes_log2);
+  else
+    spline_eval_jet_kernel<false><<<grid, threads, 0, s>>>(
+        records, c0, c1, c2, c3, x, outs, N, n_cells, n_bases, n_orders,
+        lanes_log2);
   return static_cast<int>(cudaGetLastError());
 }
 

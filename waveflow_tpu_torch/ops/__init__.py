@@ -25,7 +25,8 @@ from waveflow_tpu_torch.ops import cuda_jet, cuda_sampler, cuda_spline
 # without passing through them, so vmc/graphs.py adds a replay's count here
 LAUNCH_COUNTERS = ((cuda_jet, 'launches'), (cuda_sampler, 'launches'),
                    (cuda_sampler, 'launches_linear'), (cuda_spline, 'launches'),
-                   (cuda_spline, 'launches_bwd'), (cuda_spline, 'launches_pair'))
+                   (cuda_spline, 'launches_bwd'), (cuda_spline, 'launches_pair'),
+                   (cuda_spline, 'launches_jet'))
 
 
 def read_launches() -> tuple:

@@ -18,10 +18,15 @@ zero where that order is not tabulated).  ``spline_eval_pair`` evaluates two
 tables at one x in one launch (the kernel's pair entry), and every table may
 be read in step mode (``step=True``: the row at the cell, the fraction
 ignored), which over a slope table is the x-derivative of the plain lerp
-(ops/spline_eval.py).  ``spline_eval``, ``spline_eval_pair`` and
-``spline_eval_bwd`` run the CUDA kernels on a CUDA tensor — one launch each,
-the backward too is a kernel on the card — and the plain gather-lerp on a
-CPU tensor, never a plain version on the card.  ``onehot_matmul_eval`` is
+(ops/spline_eval.py).  The JET entry (``spline_eval_jet``) evaluates up to
+16 terms at one x in one launch, each term a coefficient component (up to
+4) against the lerp of one tabulated order or its step-mode slope, from
+per-evaluator cell records (``cell_records``): the forward-mode chain of
+one evaluation site in one launch.  ``spline_eval``, ``spline_eval_pair``,
+``spline_eval_jet`` and ``spline_eval_bwd`` run the CUDA kernels on a CUDA
+tensor — one launch each, the backward too is a kernel on the card — and
+the plain gather-lerp on a CPU tensor, never a plain version on the card.
+``onehot_matmul_eval`` is
 the gather-free formulation the TPU kernel uses (the JAX package's function
 of the same name); tests and chip_smoke.py hold the kernel against it, the
 port never calls it.
@@ -32,6 +37,7 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from waveflow_tpu_torch.ops import cuda_build
@@ -40,10 +46,21 @@ from waveflow_tpu_torch.ops import cuda_build
 launches = 0          # the forward kernel
 launches_pair = 0     # the forward kernel's pair entry (two tables)
 launches_bwd = 0      # the backward kernel
+launches_jet = 0      # the jet entry (the terms of one evaluation site)
 
 # the kernels' constants (csrc/spline_eval.cu checks a plan against its own)
 THREADS = 256
 CHUNK = 4                     # consecutive bases a lane takes per load
+# the jet entry's limits: outputs, coefficient components and tabulated
+# orders of one launch; the block sizes it takes, and its plan's: 64
+# threads came out fastest, or within 2% of it, at each of N = 512, 8,192
+# and 40,000 on both sites of the table backend (examples/
+# kernel_sweep_torch.py --only spline_jet, PERF.md)
+JET_TERMS = 16
+JET_COMPONENTS = 4
+JET_ORDERS = 4
+JET_THREADS = (256, 128, 64, 32)
+JET_BLOCK = 64
 
 # the C entry points of csrc/spline_eval.cu: (argtypes, restype)
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
@@ -51,6 +68,7 @@ SIGNATURES = {
     'spline_eval_launch': ([_PTR] * 4 + [_INT] * 6 + [_PTR], _INT),
     'spline_eval_pair_launch': ([_PTR] * 6 + [_INT] * 6 + [_PTR], _INT),
     'spline_eval_bwd_launch': ([_PTR] * 7 + [_INT] * 6 + [_PTR], _INT),
+    'spline_eval_jet_launch': ([_PTR] * 8 + [_INT] * 8 + [_PTR], _INT),
     'spline_eval_error_string': ([_INT], ctypes.c_char_p)}
 
 
@@ -81,6 +99,52 @@ def plan(N: int, n_bases: int, backward: bool = False,
                                  'backward' if backward else 'forward', lanes)
 
 
+@functools.lru_cache(maxsize=256)
+def plan_jet(N: int, n_bases: int, n_terms: int, n_components: int,
+             n_orders: int, threads: int | None = None
+             ) -> cuda_build.LaunchPlan:
+    """The jet entry's launch for N rows: the forward kernel's lanes per
+    row and assignment of bases to lanes (so each term sums as the per-call
+    entries do), in blocks of JET_BLOCK threads (a few rows each, so a few
+    hundred rows still spread over many SMs).  ``threads``, one of
+    JET_THREADS, forces the block (measurements only).  Raises beyond the
+    kernel's limits: JET_TERMS outputs, JET_COMPONENTS components,
+    JET_ORDERS tabulated orders."""
+    if N < 1 or n_bases < 1:
+        raise ValueError(f"the jet entry needs N, n_bases >= 1, got N={N}, "
+                         f"n_bases={n_bases}")
+    for what, n, limit in (('terms', n_terms, JET_TERMS),
+                           ('components', n_components, JET_COMPONENTS),
+                           ('orders', n_orders, JET_ORDERS)):
+        if not 1 <= n <= limit:
+            raise ValueError(f"the jet entry takes 1 to {limit} {what}, "
+                             f"got {n}")
+    lanes = lanes_per_row(n_bases)
+    if threads is None:
+        threads = JET_BLOCK
+    elif threads not in JET_THREADS:
+        raise ValueError(f"threads must be one of {JET_THREADS}, got "
+                         f"{threads}")
+    per_block = threads // lanes
+    return cuda_build.LaunchPlan(-(-N // per_block), threads, 0, 'jet', lanes)
+
+
+def cell_records(tables) -> np.ndarray:
+    """The jet entry's table layout: (n_cells, n_orders, 2, n_pad) float32,
+    for cell j and order d the row T_d[j] and the float32 delta
+    T_d[j + 1] − T_d[j], each padded with zeros to n_pad, the next multiple
+    of 4 bases.  A lerp is fmaf(delta, frac, row), the per-call kernel's
+    arithmetic; the step-mode slope is delta · n_cells in float32, the
+    evaluator's slope table to the bit."""
+    t = np.asarray(tables, np.float32)
+    n_orders, n_mesh, n_bases = t.shape
+    n_pad = -(-n_bases // CHUNK) * CHUNK
+    rec = np.zeros((n_mesh - 1, n_orders, 2, n_pad), np.float32)
+    rec[:, :, 0, :n_bases] = t[:, :-1].transpose(1, 0, 2)
+    rec[:, :, 1, :n_bases] = (t[:, 1:] - t[:, :-1]).transpose(1, 0, 2)
+    return rec
+
+
 def lerp_basis(table: torch.Tensor, x: torch.Tensor,
                step: bool = False) -> torch.Tensor:
     """Table rows interpolated at x: table (n_mesh, n_bases), x (...,) ->
@@ -89,12 +153,14 @@ def lerp_basis(table: torch.Tensor, x: torch.Tensor,
     pos = x * n_cells
     idx = torch.clamp(torch.floor(pos), 0, n_cells - 1)
     frac = pos - idx
-    # a NaN x reads cell 0 (and gives NaN), as the kernel's clamp does
+    # a NaN x reads cell 0, as the kernel's clamp does
     idx = torch.nan_to_num(idx, nan=0.0).long()
     y_l = table[idx]
     if step:
-        # the kernel's lerp with the fraction taken as 0 (NaN x stays NaN)
-        return y_l + (table[idx + 1] - y_l) * (frac * 0.0)[..., None]
+        # the row at the cell, whatever x: over a slope table the lerp's
+        # x-derivative, finite at a NaN or infinite x as the kernel's step
+        # mode and JAX's derivative of its lerp are
+        return y_l
     return y_l + (table[idx + 1] - y_l) * frac[..., None]
 
 
@@ -117,6 +183,16 @@ def spline_eval_bwd_plain(table_d: torch.Tensor,
     if table_d1 is None or coeffs is None:
         return g_coeffs, torch.zeros_like(x)
     return g_coeffs, grad * spline_eval_plain(table_d1, coeffs, x, step_d1)
+
+
+def spline_eval_jet_plain(tables: torch.Tensor, slopes: torch.Tensor,
+                          comps, x: torch.Tensor, terms) -> list:
+    """Plain version of the jet entry, term by term: for each term (m, d,
+    step) the gather-lerp of coefficient component ``comps[m]`` on the
+    order-d table, or in step mode on its slope table -> n_terms tensors
+    (...,)."""
+    return [spline_eval_plain(slopes[d] if step else tables[d], comps[m], x,
+                              step) for m, d, step in terms]
 
 
 def onehot_matmul_eval(table: torch.Tensor, coeffs: torch.Tensor,
@@ -280,6 +356,63 @@ def spline_eval_bwd_cuda(table_d: torch.Tensor, table_d1: torch.Tensor | None,
     return g_coeffs, g_x
 
 
+@functools.lru_cache(maxsize=64)
+def _terms_array(terms: tuple):
+    return (ctypes.c_int * (3 * len(terms)))(
+        *(int(v) for term in terms for v in term))
+
+
+def spline_eval_jet_cuda(records: torch.Tensor, comps, x: torch.Tensor,
+                         terms, n_bases: int,
+                         threads: int | None = None) -> list:
+    """Launch the jet entry: ``records`` (n_cells, n_orders, 2, n_pad) from
+    ``cell_records``, up to 4 coefficient components (..., n_bases) and x
+    (...,) f32 on the card, ``terms`` a sequence of distinct (m, d, step)
+    -> n_terms tensors (...,), each allocated as a per-call launch
+    allocates its output: out[t] = Σ_i comps[m_t][..., i] · B_i(x), B the
+    lerp of order d_t or, with step, its slope at the cell."""
+    global launches_jet
+    terms = tuple((int(m), int(d), bool(st)) for m, d, st in terms)
+    if not x.is_cuda:
+        raise ValueError("the spline_eval kernels need their operands on "
+                         "one CUDA device")
+    if records.ndim != 4 or records.shape[2] != 2 \
+            or records.shape[3] != -(-n_bases // CHUNK) * CHUNK:
+        raise ValueError(f"records {tuple(records.shape)} are not the cell "
+                         f"records of {n_bases} bases")
+    for a in (records, x, *comps):
+        if a.device != x.device or a.dtype != torch.float32:
+            raise ValueError("the jet entry takes float32 operands on one "
+                             "CUDA device")
+    if any(c.shape != x.shape + (n_bases,) for c in comps):
+        raise ValueError(f"components {[tuple(c.shape) for c in comps]} do "
+                         f"not match x {tuple(x.shape)} and {n_bases} bases")
+    n_cells, n_orders = records.shape[:2]
+    if len(set(terms)) != len(terms) or any(
+            not (0 <= m < len(comps) and 0 <= d < n_orders)
+            for m, d, _ in terms):
+        raise ValueError(f"terms {terms} name a component or order that is "
+                         "not there, or repeat")
+    N = x.numel()
+    out = [torch.empty_like(x) for _ in terms]
+    if N == 0:
+        return out
+    p = plan_jet(N, n_bases, len(terms), len(comps), n_orders, threads)
+    records, x = _dense(records), _dense(x)
+    comps = [_dense(c) for c in comps]
+    ptrs = [c.data_ptr() for c in comps] + [None] * (JET_COMPONENTS
+                                                     - len(comps))
+    lib = cuda_build.bind('spline_eval', SIGNATURES)
+    err = lib.spline_eval_jet_launch(
+        records.data_ptr(), *ptrs, x.data_ptr(),
+        (ctypes.c_void_p * len(out))(*(o.data_ptr() for o in out)),
+        _terms_array(terms), len(terms), N, n_cells, n_bases, n_orders,
+        p.group, p.threads, p.grid, cuda_build.current_stream(x.device.index))
+    launches_jet += 1
+    _raise_on(err, lib, 'spline_eval_jet')
+    return out
+
+
 def _check_plain(coeffs: torch.Tensor, x: torch.Tensor) -> None:
     if x.shape != coeffs.shape[:-1]:
         raise ValueError(f"x {tuple(x.shape)} does not match the batch of "
@@ -322,3 +455,17 @@ def spline_eval_bwd(table_d: torch.Tensor, table_d1: torch.Tensor | None,
     g_coeffs, g_x = spline_eval_bwd_plain(table_d, table_d1, coeffs, x, grad,
                                           step_d, step_d1)
     return (g_coeffs if need_coeffs else None, g_x if need_x else None)
+
+
+def spline_eval_jet(tables: torch.Tensor, slopes: torch.Tensor,
+                    records: torch.Tensor, comps, x: torch.Tensor,
+                    terms) -> list:
+    """K4's jet entry on a CUDA tensor (from the cell records), its plain
+    version on a CPU tensor (from the value and slope tables): n_terms
+    tensors (...,)."""
+    if x.is_cuda:
+        return spline_eval_jet_cuda(records, comps, x, terms,
+                                    tables.shape[-1])
+    for c in comps:
+        _check_plain(c, x)
+    return spline_eval_jet_plain(tables, slopes, comps, x, terms)

@@ -42,12 +42,44 @@ vmap(grad)).
 
 On the card every evaluation is kernel K4 (csrc/spline_eval.cu): its
 forward kernel (a slope table read in step mode), its pair entry for two
-kinds, or its backward kernel — no plain PyTorch arithmetic of the
-kernel's body runs on a CUDA tensor.
+kinds, its jet entry, or its backward kernel — no plain PyTorch arithmetic
+of the kernel's body runs on a CUDA tensor.
+
+The jet.  An evaluation site — one call of ``__call__`` or ``pair`` —
+under jvp levels alone (any number of them, vmap levels among them, no
+grad level on the interpreter stack and no autograd tracking of its
+operands) asks the chain of rules for a fixed set of plain evaluations
+at one x: 9 launches for an IMADE ``pair(0)`` under the Laplacian's two
+jvp levels, 15 distinct values over 4 coefficient components (c and its
+tangents c₁, c₂, c₁₂).  ``_jet`` derives that set before the chain runs
+(it walks the operands down the interpreter stack with ``_run``'s own
+steps, ``_vmap_down`` and ``_grad_down``, and ``_requests`` applies
+``_succ`` and ``_lin`` as ``_EVAL.jvp`` and ``_at_level`` do),
+evaluates it in ONE launch of K4's jet entry (kernel on the card, its
+plain version on the CPU; the cell records are built at the first
+launch on the card), and the chain then runs
+unchanged, its evaluations served from that launch by ``_launch`` (keyed
+by the bottom coefficient tensor, the order and the mode).  The rules and
+their values are the per-call chain's: on the card every output equals
+the per-call kernel's for the same term to the bit.  The set depends on
+the site's kinds and on which operands each level traces, never on data,
+so the site stays capturable in a CUDA graph.  A site with a grad level
+anywhere (the score's ψ, the 'reference' estimator's Hψ, 'hvp', 'dense',
+SR's vjp of a jvp, SPRING's vmap(grad), the posterior) keeps the
+per-call entries: a backward rule runs after the site has returned, so
+its evaluations cannot be known before it (``_jet`` reads the stack's
+keys and returns before it lowers anything).  So does a site under a jvp
+level that traces its coefficients and not x or the reverse (SR's jvp in
+the parameters meets the first layer's x untraced): autograd hands the
+rule a zero tangent of its own making, and the rule evaluates on it; and
+a site whose set exceeds one jet launch (more than 16 terms, 4
+components or 4 tabulated orders: three jvp levels).  ``_per_call``
+(tests and chip_smoke.py) runs every site per call, for the A/B.
 """
 
 from __future__ import annotations
 
+import functools
 import warnings
 
 import numpy as np
@@ -84,8 +116,10 @@ if '.'.join(torch.__version__.split('.')[:2]) not in TESTED_TORCH:
         stacklevel=2)
 
 from waveflow_tpu_torch import resolve_device
-from waveflow_tpu_torch.ops.cuda_spline import (lerp_basis, spline_eval,
-                                                spline_eval_bwd,
+from waveflow_tpu_torch.ops import cuda_spline
+from waveflow_tpu_torch.ops.cuda_spline import (cell_records, lerp_basis,
+                                                spline_eval, spline_eval_bwd,
+                                                spline_eval_jet,
                                                 spline_eval_pair)
 from waveflow_tpu_torch.ops.spline_tables import SplineTables
 
@@ -94,6 +128,11 @@ def _lin(kind):
     """The plain kind of the same table: the derivative in the coefficients
     of ``kind``, and what a custom rule hands to the transforms below."""
     return kind if kind[0] == 'S' else ('R', kind[1])
+
+
+def _live(ev, kinds) -> tuple:
+    """The kinds of the x-derivatives of ``kinds`` that are not zero."""
+    return tuple(k for k in map(ev._succ, kinds) if k is not None)
 
 
 def _add(a, b):
@@ -122,7 +161,7 @@ class _EVAL:
             outs = list(_run(_EVAL, (t_c, x),
                              (ev, tuple(_lin(k) for k in kinds))))
         succ = [ev._succ(k) for k in kinds]
-        live = tuple(k for k in succ if k is not None)
+        live = _live(ev, kinds)
         if t_x is not None and live:
             vals = iter(_run(_EVAL, (c, x), (ev, live)))
             for i, k in enumerate(succ):
@@ -283,8 +322,7 @@ def _at_level(op, params, tensors, interp):
     modes = torch.is_grad_enabled(), torch._C._is_fwd_grad_enabled()
 
     def down(ts):
-        return [None if a is None else _unwrap_for_grad(a, level)
-                for a in ts]
+        return _grad_down(ts, level)
 
     def up(outs):
         # (wrapping needs this level's interpreter back on the stack)
@@ -358,6 +396,26 @@ def _untraced(a, level, alive):
     return a
 
 
+def _grad_down(tensors, level) -> list:
+    """The operands of a grad or jvp level one level down."""
+    return [None if a is None else _unwrap_for_grad(a, level)
+            for a in tensors]
+
+
+def _vmap_down(tensors, level, size) -> tuple:
+    """(the operands of a vmap level one level down, whether any was
+    batched): the batched ones with their batch in front and the others
+    expanded along it, or all as they are where none is batched.  Called
+    below the level, where the fold runs."""
+    parts = [(None, None) if a is None else _unwrap_batched(a, level)
+             for a in tensors]
+    if all(d is None for _, d in parts):
+        return [a for a, _ in parts], False
+    return [None if a is None else
+            a.movedim(d, 0) if d is not None else a.expand((size,) + a.shape)
+            for a, d in parts], True
+
+
 def _traced(a, level, key) -> bool:
     if a is None or maybe_get_level(a) != level:
         return False
@@ -378,28 +436,209 @@ def _run(op, tensors, params) -> tuple:
     level, key = interp.level(), interp.key()
     if key == TransformType.Vmap:
         # fold the vmapped dimension into the rows: one launch per batch
-        size = interp.batch_size()
-        parts = [(None, None) if a is None else _unwrap_batched(a, level)
-                 for a in tensors]
         with interp.lower():
-            if all(d is None for _, d in parts):
-                return _run(op, [a for a, _ in parts], params)
-            out = _run(op, [None if a is None else
-                            (a.movedim(d, 0) if d is not None
-                             else a.expand((size,) + a.shape))
-                            for a, d in parts], params)
+            inner, folded = _vmap_down(tensors, level, interp.batch_size())
+            out = _run(op, inner, params)
+        if not folded:
+            return out
         return tuple(None if o is None else _add_batch_dim(o, 0, level)
                      for o in out)
     if key not in (TransformType.Grad, TransformType.Jvp):
         raise NotImplementedError(f"the spline evaluation under {key}")
     if any(_traced(a, level, key) for a in tensors):
         return _at_level(op, params, tensors, interp)
-    inner = [None if a is None else _unwrap_for_grad(a, level)
-             for a in tensors]
+    inner = _grad_down(tensors, level)
     with interp.lower():
         out = _run(op, inner, params)
     return tuple(None if o is None else _wrap_for_grad(o, level)
                  for o in out)
+
+
+# ---- the jet: one launch per evaluation site under jvp levels -------------
+
+_jet_on = True
+
+
+class _per_call:
+    """Within the block every site goes through the per-call entries, as
+    before the jet (the A/B of tests and chip_smoke.py)."""
+
+    def __enter__(self):
+        global _jet_on
+        self.before, _jet_on = _jet_on, False
+
+    def __exit__(self, *exc):
+        global _jet_on
+        _jet_on = self.before
+
+
+def _requests(ev, kinds, levels, traced, comp=()):
+    """The plain evaluations the chain of rules makes at one site, in its
+    order, as (component, kinds) — one launch each on the per-call path.
+    ``levels``: the jvp levels from the innermost down; ``traced(comp,
+    level)``: whether that level traces the component (a tuple of the
+    levels whose tangents it is) and x, which it traces together (a level
+    that traces one of them hands the rule a zero tangent of the other,
+    which it evaluates on: ``_jet`` leaves such a site to the per-call
+    path).  A level that traces neither passes the kinds through
+    (``_run``); one that traces both evaluates the plain kinds
+    (``_at_level``'s primal, ``_EVAL.raw``), their coefficient tangent and
+    the x-derivatives (``_EVAL.jvp``)."""
+    if not levels:
+        return [(comp, kinds)]
+    level, rest = levels[0], levels[1:]
+    if not traced(comp, level):
+        return _requests(ev, kinds, rest, traced, comp)
+    _, lin = _EVAL.raw((ev, kinds))
+    out = (_requests(ev, lin, rest, traced, comp)
+           + _requests(ev, lin, rest, traced, comp + (level,)))
+    live = _live(ev, kinds)
+    if live:
+        out += _requests(ev, live, rest, traced, comp)
+    return out
+
+
+def _terms(requests, key) -> tuple:
+    """The jet launch of a site's requests (``_requests``): its
+    components, {key(comp): (index, comp)} in the chain's order; its
+    terms, {(index, order, step mode): t} in order; and where each
+    request's value lies, {(key(comp), order, step mode): (t, comp)}.
+    Components of one key (the same bottom tensor) are one."""
+    order, terms, where = {}, {}, {}
+    for comp, kinds in requests:
+        m = order.setdefault(key(comp), (len(order), comp))[0]
+        for letter, d in kinds:
+            t = terms.setdefault((m, d, letter == 'S'), len(terms))
+            where[(key(comp), d, letter == 'S')] = (t, comp)
+    return order, terms, where
+
+
+def site_jet(ev, kinds, n_levels: int = 2) -> tuple:
+    """One site of ``ev`` under ``n_levels`` nested jvps that trace the
+    coefficients and x at every level (the Laplacian's shape): its
+    per-call launches as (component index, kinds), and the jet's terms as
+    (component index, order, step mode), as ``_jet`` derives them,
+    components in the chain's order (the coefficients first)."""
+    requests = _requests(ev, tuple(kinds),
+                         tuple(range(n_levels, 0, -1)), lambda c, l: True)
+    order, terms, _ = _terms(requests, lambda comp: comp)
+    return [(order[comp][0], ks) for comp, ks in requests], list(terms)
+
+
+def _widen(a, folds, levels, sizes):
+    """``a`` folded at ``folds`` (a subsequence of the vmap levels
+    ``levels``, innermost first; their batch dims in front, outermost
+    first) with the other levels' dims put in place, expanded: the
+    operand does not vary along them."""
+    present = set(folds)
+    for j, level in enumerate(levels):
+        if level not in present:
+            pos = sum(m in present for m in levels[j + 1:])
+            a = a.unsqueeze(pos)
+            shape = list(a.shape)
+            shape[pos] = sizes[level]
+            a = a.expand(shape)
+            present.add(level)
+    return a
+
+
+def _key(a):
+    return a.data_ptr(), tuple(a.shape), a.stride()
+
+
+def _jet(ev, kinds, c, x):
+    """The evaluations of one site under jvp levels alone, in one launch
+    of K4's jet entry: {(key of a bottom coefficient tensor, order, step
+    mode): value}; None where the jet does not apply (module docstring).
+
+    The operands are walked down the interpreter stack as ``_run`` walks
+    them (``_vmap_down``, ``_grad_down``), component by component (a
+    component is the tuple of the jvp levels whose tangent it is, () the
+    coefficients themselves), each beside its own x; the launch and the
+    served values are made below every transform, where the chain's own
+    evaluations run."""
+    keys = [i.key() for i in get_interpreter_stack() or ()]
+    if TransformType.Jvp not in keys or any(
+            k not in (TransformType.Jvp, TransformType.Vmap) for k in keys):
+        return None
+    # component -> [its coefficients, its x], and the vmap levels it folds
+    ops = {(): [unwrap_if_dead(c), unwrap_if_dead(x)]}
+    folds = {(): ()}
+    jvps, vmaps, sizes = [], [], {}
+    lowered = []
+    try:
+        while peek_interpreter_stack() is not None:
+            interp = retrieve_current_functorch_interpreter()
+            level, key = interp.level(), interp.key()
+            if key == TransformType.Jvp:
+                jvps.append(level)
+                for comp, (a, xa) in list(ops.items()):
+                    traced = _traced(a, level, key)
+                    if traced != _traced(xa, level, key):
+                        # the rule would get a zero tangent for the other
+                        # operand (autograd materialises it) and evaluate
+                        # on it: coefficients no walk can know
+                        return None
+                    if traced:
+                        ops[comp + (level,)] = _grad_down(
+                            [fwAD.unpack_dual(a).tangent, xa], level)
+                        folds[comp + (level,)] = folds[comp]
+                    ops[comp] = _grad_down([a, xa], level)
+                lowered.append(interp.lower())
+                lowered[-1].__enter__()
+            else:
+                vmaps.append(level)
+                sizes[level] = interp.batch_size()
+                lowered.append(interp.lower())
+                lowered[-1].__enter__()
+                for comp, pair in list(ops.items()):
+                    ops[comp], folded = _vmap_down(pair, level, sizes[level])
+                    folds[comp] += (level,) if folded else ()
+        if any(a.requires_grad or fwAD.unpack_dual(a).tangent is not None
+               for pair in ops.values() for a in pair):
+            return None
+        order, terms, where = _terms(
+            _requests(ev, kinds, tuple(jvps),
+                      lambda comp, l: comp + (l,) in ops),
+            lambda comp: _key(ops[comp][0]))
+        if (len(order) > cuda_spline.JET_COMPONENTS
+                or len(terms) > cuda_spline.JET_TERMS
+                or ev.n_derivatives > cuda_spline.JET_ORDERS):
+            return None
+        vmaps = tuple(v for v in vmaps if any(v in f for f in folds.values()))
+        x0 = _widen(ops[()][1], folds[()], vmaps, sizes)
+        out = spline_eval_jet(
+            ev.tables, ev.slopes, ev.records if x0.is_cuda else None,
+            [_widen(ops[comp][0], folds[comp], vmaps, sizes)
+             for _, comp in order.values()], x0, tuple(terms))
+        # a component that a vmap level did not fold takes that level's
+        # first row (it does not vary along it), as a tensor of its own:
+        # forward AD keeps a rule output's tangent beside its storage, so a
+        # view would cost a fill and a copy of the whole output
+        served = {}
+        for k, (t, comp) in where.items():
+            index = tuple(slice(None) if v in folds[comp] else 0
+                          for v in reversed(vmaps))
+            served[k] = out[t][index].contiguous() if 0 in index else out[t]
+        return served
+    finally:
+        for below in reversed(lowered):
+            below.__exit__(None, None, None)
+
+
+def _site(ev, kinds, c, x) -> tuple:
+    """One evaluation site: the chain of rules, its evaluations served
+    from one jet launch where the jet applies (module docstring)."""
+    served = None
+    if _jet_on and peek_interpreter_stack() is not None:
+        served = _jet(ev, kinds, c, x)
+    if served is None:
+        return _run(_EVAL, (c, x), (ev, kinds))
+    before, ev._served = ev._served, served
+    try:
+        return _run(_EVAL, (c, x), (ev, kinds))
+    finally:
+        ev._served = before
 
 
 class SplineEvaluator:
@@ -426,6 +665,16 @@ class SplineEvaluator:
         slopes = (t32[:, 1:] - t32[:, :-1]) * np.float32(self.n_mesh - 1)
         self.slopes = torch.as_tensor(
             np.concatenate([slopes, slopes[:, -1:]], axis=1), device=device)
+        # the values of the site being evaluated by the jet (``_site``)
+        self._served = None
+
+    @functools.cached_property
+    def records(self) -> torch.Tensor:
+        """The jet entry's layout of the value and slope tables: per cell,
+        each order's row and delta (``cell_records``).  Built at the first
+        jet launch on the card, which a graph's eager first epoch makes."""
+        return torch.as_tensor(cell_records(self.tables.cpu().numpy()),
+                               device=self.tables.device)
 
     def _succ(self, kind):
         """The kind of the x-derivative of an evaluation of ``kind``, or
@@ -458,7 +707,18 @@ class SplineEvaluator:
             else (self.tables[d], False)
 
     def _launch(self, kinds, coeffs, x) -> tuple:
-        """The values of one or two kinds at x: one K4 launch on the card."""
+        """The values of one or two kinds at x: one K4 launch on the card,
+        or, inside a site evaluated by the jet, its values."""
+        if self._served is not None:
+            out = []
+            for letter, d in kinds:
+                key = (_key(coeffs), d, letter == 'S')
+                if key not in self._served:
+                    raise RuntimeError(
+                        f"the chain of rules asked for kind {(letter, d)} on "
+                        "coefficients the jet of this site did not evaluate")
+                out.append(self._served[key])
+            return tuple(out)
         if len(kinds) == 1:
             table, step = self._table(kinds[0])
             return (spline_eval(table, coeffs, x, step),)
@@ -485,7 +745,7 @@ class SplineEvaluator:
         clipped to the table, the in-cell fraction is not: outside [0, 1]
         the edge cell extends linearly.  On a CUDA tensor the evaluation
         is kernel K4 and its backward K4's backward kernel."""
-        return _run(_EVAL, (coeffs, x), (self, (('F', d),)))[0]
+        return _site(self, (('F', d),), coeffs, x)[0]
 
     def pair(self, coeffs: torch.Tensor, x: torch.Tensor, d: int = 0):
         """(Σ_i c_i T_i^{(d)}(x), Σ_i c_i T_i^{(d+1)}(x)) in one launch (K4's
@@ -495,7 +755,7 @@ class SplineEvaluator:
         if not 0 <= d < self.n_derivatives - 1:
             raise ValueError(f"pair order d must be in [0, "
                              f"{self.n_derivatives - 2}], got {d}")
-        return _run(_EVAL, (coeffs, x), (self, (('G', d), ('F', d + 1))))
+        return _site(self, (('G', d), ('F', d + 1)), coeffs, x)
 
     def at_nodes(self, coeffs: torch.Tensor, idx: torch.Tensor,
                  d: int = 0) -> torch.Tensor:
