@@ -996,7 +996,8 @@ def profile_window(torch, run, n_epochs, label, unit='epochs', top=8):
         fail(f"{label}: the profiler saw no kernel")
     # the largest, and the port's own kernels wherever they rank
     own = ('sampler_kernel', 'basis_jet_', 'spline_eval_kernel',
-           'spline_eval_bwd_kernel', 'spline_eval_jet_kernel')
+           'spline_eval_bwd_kernel', 'spline_eval_jet_kernel',
+           'spline_eval_bwd_jet_kernel')
     for e in kern[:top] + [e for e in kern[top:]
                            if any(k in e.key for k in own)]:
         print(f"  {e.self_device_time_total / 1e3 / n_epochs:8.4f} ms/{unit[0]} "
@@ -2880,13 +2881,15 @@ def dp_gloo_phase(torch):
 # ---- 38-43. the table eval backend and the rest of the density side -------
 
 def table_counts():
-    """K1 and K4's four entry points (forward, pair, jet, backward)."""
+    """K1 and K4's five entry points (forward, pair, jet, backward,
+    backward jet)."""
     from waveflow_tpu_torch.ops import cuda_sampler, cuda_spline
     return {'sampler': cuda_sampler.launches,
             'spline_eval': cuda_spline.launches,
             'spline_eval_pair': cuda_spline.launches_pair,
             'spline_eval_jet': cuda_spline.launches_jet,
-            'spline_eval_bwd': cuda_spline.launches_bwd}
+            'spline_eval_bwd': cuda_spline.launches_bwd,
+            'spline_eval_bwd_jet': cuda_spline.launches_bwd_jet}
 
 
 def reset_table_counts():
@@ -2894,6 +2897,7 @@ def reset_table_counts():
     cuda_sampler.launches = cuda_jet.launches = 0
     cuda_spline.launches = cuda_spline.launches_pair = 0
     cuda_spline.launches_jet = cuda_spline.launches_bwd = 0
+    cuda_spline.launches_bwd_jet = 0
 
 
 def per_call_site(ev, requests, comps, x):
@@ -2953,8 +2957,71 @@ def jet_bound(torch, ev, N, x, terms, n_components):
     return bound_ms(n_bytes, n_ops)
 
 
+def per_call_bwd(ev, comps, x, vecs, c_groups, x_terms):
+    """The per-call launches and sums that one launch of the backward jet
+    entry replaces, on the card: a backward form (a g_x term per kind) as
+    one backward-kernel launch per kind (its g·B term's weight is its g_x
+    term's), both outputs, then the kinds' outputs added; a g·B form as one launch of the backward kernel without
+    its x output per term (a product weight formed first), added in groups,
+    then the groups -> (g_c or None, g_x or None)."""
+    from waveflow_tpu_torch.ops import cuda_spline
+
+    def table(d, step):
+        return ev.slopes[d] if step else ev.tables[d]
+
+    def add(a, b):
+        return b if a is None else a + b
+
+    g_c = g_x = None
+    if x_terms:
+        for ((_, d, st),), (v, m, dx, sx) in zip(c_groups, x_terms):
+            gc, gx = cuda_spline.spline_eval_bwd_cuda(
+                table(d, st), None if dx is None else table(dx, sx),
+                comps[m], x, vecs[v], True, True, st, sx)
+            g_c, g_x = add(g_c, gc), add(g_x, gx)
+        return g_c, g_x
+    for group in c_groups:
+        part = None
+        for factors, d, st in group:
+            w = vecs[factors[0]]
+            if len(factors) == 2:
+                w = w * vecs[factors[1]]
+            part = add(part, cuda_spline.spline_eval_bwd_cuda(
+                table(d, st), None, None, x, w, True, False, st)[0])
+        g_c = add(g_c, part)
+    return g_c, None
+
+
+def bwd_jet_bound(torch, ev, N, x, c_groups, x_terms, n_vecs, n_comps):
+    """(bound ms, by) of one backward jet launch: x, the weight vectors
+    and the components' rows read once, g_c and g_x written once, and the
+    distinct table rows its terms need at the cells of x by
+    ``table_rows``' rule (an order with a lerp term: the two rows around
+    each cell; with step terms only: the row at the cell), unpadded; per
+    row a fused multiply-add per base for each lerp basis and a multiply
+    for each step basis, a multiply per base for each g_c term and an add
+    between terms, a product per two-factor weight, a dot and a multiply
+    per g_x term and an add between them."""
+    n_b = ev.n_bases
+    terms = [(d, st) for g in c_groups for _, d, st in g] + [
+        (d, st) for _, _, d, st in x_terms if d is not None]
+    lerp = {d for d, st in terms if not st}
+    step = {d for d, st in terms if st}
+    rows = (len(lerp) * table_rows(torch, ev.n_mesh, x)
+            + len(step - lerp) * table_rows(torch, ev.n_mesh, x, step=True))
+    n_c = sum(len(g) for g in c_groups)
+    live_x = sum(d is not None for _, _, d, _ in x_terms)
+    n_bytes = 4 * (N * (1 + n_vecs + n_comps * n_b + (n_b if n_c else 0)
+                        + (1 if x_terms else 0)) + rows * n_b)
+    n_ops = N * (n_b * (2 * len(lerp) + len(step)) + n_b * (2 * n_c - 1)
+                 * (n_c > 0) + sum(len(f) == 2 for g in c_groups
+                                    for f, _, _ in g)
+                 + live_x * (2 * n_b + 1) + max(len(x_terms) - 1, 0))
+    return bound_ms(n_bytes, n_ops)
+
+
 class evaluations:
-    """Within the block, the table evaluator's four launch points
+    """Within the block, the table evaluator's five launch points
     (ops/spline_eval.py) call K4's plain versions when ``plain``, else
     their own wrappers, and every call is counted in ``calls``, by entry
     point: the plain chain on the card, and the chain's evaluations counted
@@ -2964,15 +3031,17 @@ class evaluations:
     def __init__(self, plain: bool):
         self.plain = plain
         self.calls = {'spline_eval': 0, 'spline_eval_pair': 0,
-                      'spline_eval_jet': 0, 'spline_eval_bwd': 0}
+                      'spline_eval_jet': 0, 'spline_eval_bwd': 0,
+                      'spline_eval_bwd_jet': 0}
         self.plain_calls = 0
 
     def __enter__(self):
         from waveflow_tpu_torch.ops import cuda_spline
         from waveflow_tpu_torch.ops import spline_eval as se
         self.saved = (se.spline_eval, se.spline_eval_pair, se.spline_eval_jet,
-                      se.spline_eval_bwd, cuda_spline.lerp_basis)
-        fwd, pair, jet, bwd, lerp = self.saved
+                      se.spline_eval_bwd, se.spline_eval_bwd_jet,
+                      cuda_spline.lerp_basis)
+        fwd, pair, jet, bwd, bwd_jet, lerp = self.saved
 
         def plain_pair(ta, tb, c, x, sa=False, sb=False):
             return (cuda_spline.spline_eval_plain(ta, c, x, sa),
@@ -2986,6 +3055,11 @@ class evaluations:
             gc, gx = cuda_spline.spline_eval_bwd_plain(td, tx, c, x, g, sd, sx)
             return gc if nc else None, gx if nx else None
 
+        def plain_bwd_jet(tables, slopes, records, comps, x, vecs, c_groups,
+                          x_terms):
+            return cuda_spline.spline_eval_bwd_jet_plain(
+                tables, slopes, comps, x, vecs, c_groups, x_terms)
+
         def counting(name, fn):
             def call(*args, **kw):
                 self.calls[name] += 1
@@ -2997,10 +3071,11 @@ class evaluations:
             return lerp(*args, **kw)
 
         chosen = ((cuda_spline.spline_eval_plain, plain_pair, plain_jet,
-                   plain_bwd) if self.plain else (fwd, pair, jet, bwd))
+                   plain_bwd, plain_bwd_jet) if self.plain
+                  else (fwd, pair, jet, bwd, bwd_jet))
         (se.spline_eval, se.spline_eval_pair, se.spline_eval_jet,
-         se.spline_eval_bwd) = (counting(n, f)
-                                for n, f in zip(self.calls, chosen))
+         se.spline_eval_bwd, se.spline_eval_bwd_jet) = (
+            counting(n, f) for n, f in zip(self.calls, chosen))
         # every plain version of K4 goes through the lerp of its rows
         cuda_spline.lerp_basis = counting_lerp
         return self
@@ -3009,7 +3084,8 @@ class evaluations:
         from waveflow_tpu_torch.ops import cuda_spline
         from waveflow_tpu_torch.ops import spline_eval as se
         (se.spline_eval, se.spline_eval_pair, se.spline_eval_jet,
-         se.spline_eval_bwd, cuda_spline.lerp_basis) = self.saved
+         se.spline_eval_bwd, se.spline_eval_bwd_jet,
+         cuda_spline.lerp_basis) = self.saved
 
 
 def rel_err(got, ref, scale=None) -> float:
@@ -3057,8 +3133,10 @@ def table_kernels_phase(torch, params):
     100k checkpoint's own conditioners.  The kernel entry points at N =
     512 and 40,000 and at ragged N: the forward kernel on the slope tables
     in step mode, the pair entry (value tables, slope tables, one of each),
-    the backward kernel with step-mode tables and without coefficients;
-    then the chain itself (every order's value, first and second jvp with
+    the backward kernel with value and step-mode tables and without
+    coefficients, the jet entry and the backward jet entry (its three
+    forms, each also to the bit against the per-call launches and sums it
+    replaces, and timed beside them); then the chain itself (every order's value, first and second jvp with
     the coefficients moving with x, both outputs of ``pair``) against the
     same chain on the plain versions, and no plain lerp run by the kernel
     chain.  The pair entry is timed against its plain version."""
@@ -3079,9 +3157,10 @@ def table_kernels_phase(torch, params):
     # x with NaN at every fifth row: step mode reads cell 0's slope there
     x_nan = x.clone()
     x_nan[::5] = float('nan')
-    worst = {'step': 0.0, 'pair': 0.0, 'bwd': 0.0, 'chain': 0.0, 'jet': 0.0}
+    worst = {'step': 0.0, 'pair': 0.0, 'bwd': 0.0, 'chain': 0.0, 'jet': 0.0,
+             'bwd_jet': 0.0}
     rows = {}
-    jet_equal = True
+    jet_equal = bwd_jet_equal = True
     for name, ev in evs.items():
         cc = coeffs[name].reshape(-1, ev.n_bases)[:N_max + 1].contiguous()
         n_b, nd = ev.n_bases, ev.n_derivatives
@@ -3111,7 +3190,9 @@ def table_kernels_phase(torch, params):
                                 magnitude(torch, tb, c, xx, sb)))
                 for tx, sd, sx, cx in ((S, False, True, c),
                                        (None, True, False, c),
-                                       (None, False, False, None)):
+                                       (None, False, False, None)) + (
+                        ((ev.tables[d + 1], False, False, c),)
+                        if d + 1 < nd else ()):
                     got = cuda_spline.spline_eval_bwd_cuda(
                         S if sd else T, tx, cx, xx, gg, step_d=sd,
                         step_d1=sx)
@@ -3162,26 +3243,34 @@ def table_kernels_phase(torch, params):
                   f"kernel in step mode on the slope table kernel_ms "
                   f"{s_ms:.4f} device_ms {sd_ms:.4f} plain_ms {sp_ms:.4f} "
                   f"bound_ms {sb_ms:.5f} ({sb_by})", flush=True)
-            # the backward kernel as the table backend launches it: g·B on
-            # the value table with g_x from the slope table in step mode,
-            # and g·B alone (no coefficients, no g_x); bound by
-            # check_spline_eval's rule, the step table's rows read once
+            # the backward kernel in the forms the table backend launches:
+            # g·B on the value table with g_x from the next value table (a
+            # grad-level site's per-kind backward), or from the slope table
+            # in step mode (the grad of a plain lerp); g·B alone on the
+            # value table and on the slope table in step mode (a tangent's
+            # terms, per call); bound by check_spline_eval's rule, a step
+            # table's rows read once
             gg = g[:N]
             rows_l = table_rows(torch, ev.n_mesh, xx)
             rows_s = table_rows(torch, ev.n_mesh, xx, step=True)
-            for form, tx, cx, bytes_, ops_ in (
-                    ('step g_x', S0, c,
+            for form, td, sd, tx, sx, cx, bytes_, ops_ in (
+                    ('value g_x', T0, False, T1, False, c,
+                     4 * (N * (3 + 2 * n_b) + 2 * rows_l * n_b),
+                     N * (7 * n_b + 7)),
+                    ('step g_x', T0, False, S0, True, c,
                      4 * (N * (3 + 2 * n_b) + (rows_l + rows_s) * n_b),
                      N * (5 * n_b + 7)),
-                    ('no coeffs', None, None,
-                     4 * (N * (3 + n_b) + rows_l * n_b), N * (3 * n_b + 6))):
-                def bwd(tx=tx, cx=cx):
+                    ('no coeffs', T0, False, None, False, None,
+                     4 * (N * (3 + n_b) + rows_l * n_b), N * (3 * n_b + 6)),
+                    ('step, no coeffs', S0, True, None, False, None,
+                     4 * (N * (3 + n_b) + rows_s * n_b), N * (n_b + 6))):
+                def bwd(td=td, sd=sd, tx=tx, sx=sx, cx=cx):
                     return cuda_spline.spline_eval_bwd_cuda(
-                        T0, tx, cx, xx, gg, step_d1=tx is not None)
+                        td, tx, cx, xx, gg, step_d=sd, step_d1=sx)
 
-                def bwd_plain(tx=tx, cx=cx):
+                def bwd_plain(td=td, sd=sd, tx=tx, sx=sx, cx=cx):
                     return cuda_spline.spline_eval_bwd_plain(
-                        T0, tx, cx, xx, gg, False, tx is not None)
+                        td, tx, cx, xx, gg, sd, sx)
 
                 bk_ms, bd_ms = cuda_ms(torch, bwd), device_ms(torch, bwd)
                 bp_ms = cuda_ms(torch, bwd_plain)
@@ -3250,6 +3339,89 @@ def table_kernels_phase(torch, params):
                   f"{rows[('jet', name, N)]['per_call_ms']:.4f} device_ms "
                   f"{pc_dev:.4f} | turns per-call / jet / jet / per-call "
                   f"{' / '.join(f'{v:.4f}' for v in turns)}", flush=True)
+        # the backward jet entry in the forms the gathered chain launches
+        # at this site (ops/spline_eval.py::site_bwd): its backward (every
+        # kind's g·B and g_x; the prior's one kind) and the IMADE site's
+        # tangent (4 terms, lerp and step, g·t_x formed in the kernel),
+        # against its plain version and, value for value, against the
+        # per-call backward launches and sums it replaces; x at 0, 1,
+        # outside [0, 1] and NaN
+        forms = se.site_bwd(ev, JET_SITES[name])
+        if name == 'OB prior':
+            del forms['tangent']
+        slots_all = {slot for slots, _, _ in forms.values() for slot in slots}
+        vec_all = {slot: torch.randn((N_max + 1,), generator=gen,
+                                     device='cuda') for slot in slots_all}
+
+        def bwd_operands(form, N, xx):
+            slots, c_groups, x_terms = forms[form]
+            return ([cc[:N]] if x_terms else [], xx,
+                    [vec_all[slot][:N] for slot in slots], c_groups, x_terms)
+
+        for N in (1, 3, 31, 512, 513, 8192, N_max, N_max + 1):
+            for form in forms:
+                comps, xx, vecs, c_groups, x_terms = bwd_operands(
+                    form, N, x_jet[:N])
+                got = cuda_spline.spline_eval_bwd_jet_cuda(
+                    ev.records, comps, xx, vecs, c_groups, x_terms, n_b)
+                ref = cuda_spline.spline_eval_bwd_jet_plain(
+                    ev.tables, ev.slopes, comps, xx, vecs, c_groups, x_terms)
+                # each output's scale: the sum of its terms' magnitudes
+                scale = cuda_spline.spline_eval_bwd_jet_plain(
+                    ev.tables.abs(), ev.slopes.abs(),
+                    [a.abs() for a in comps], xx, [v.abs() for v in vecs],
+                    c_groups, x_terms)
+                per = per_call_bwd(ev, comps, xx, vecs, c_groups, x_terms)
+                for out, r, sc, pc in zip(got, ref, scale, per):
+                    if r is None:
+                        continue
+                    worst['bwd_jet'] = max(worst['bwd_jet'],
+                                           nan_rel_err(out, r, sc))
+                    bwd_jet_equal &= same_values(out, pc)
+        # timed at the main paths' shapes beside the per-call launches and
+        # sums, in turns (per-call, entry, entry, per-call; CUDA events),
+        # each also by the profiler's device time
+        for N in (512, 8192, N_max):
+            for form in forms:
+                comps, xx, vecs, c_groups, x_terms = bwd_operands(form, N,
+                                                                  x[:N])
+
+                def new(ops=(comps, xx, vecs, c_groups, x_terms)):
+                    return cuda_spline.spline_eval_bwd_jet_cuda(
+                        ev.records, *ops, n_b)
+
+                def old(ops=(comps, xx, vecs, c_groups, x_terms)):
+                    return per_call_bwd(ev, *ops)
+
+                turns = [cuda_ms(torch, f) for f in (old, new, new, old)]
+                n_dev, o_dev = device_ms(torch, new), device_ms(torch, old)
+                n_plain = cuda_ms(
+                    torch, lambda: cuda_spline.spline_eval_bwd_jet_plain(
+                        ev.tables, ev.slopes, comps, xx, vecs, c_groups,
+                        x_terms))
+                b_ms, b_by = bwd_jet_bound(torch, ev, N, xx, c_groups,
+                                           x_terms, len(vecs), len(comps))
+                n_terms = sum(len(g) for g in c_groups)
+                p = cuda_spline.plan_bwd_jet(N, n_b, n_terms, len(x_terms),
+                                             len(vecs), len(comps))
+                replaced = len(x_terms) or n_terms
+                row = rows[('bwd_jet', form, name, N)] = dict(
+                    ms=(turns[1] + turns[2]) / 2, device_ms=n_dev,
+                    plain_ms=n_plain, bound_ms=b_ms, bound_by=b_by,
+                    per_call_ms=(turns[0] + turns[3]) / 2,
+                    per_call_device_ms=o_dev, per_call_launches=replaced,
+                    turns_ms=turns, plan=p)
+                print(f"K4 backward jet entry {name} {form} N={N} "
+                      f"({n_terms} g_c terms, {len(x_terms)} g_x terms, grid "
+                      f"{p.grid} x {p.threads} threads, {p.smem_bytes} B "
+                      f"staged): kernel_ms {row['ms']:.4f} device_ms "
+                      f"{n_dev:.4f} plain_ms {n_plain:.4f} bound_ms "
+                      f"{b_ms:.5f} ({b_by}; {n_dev / b_ms:.1f}x) | the "
+                      f"{replaced} per-call backward launches and their sums "
+                      f"it replaces: kernel_ms {row['per_call_ms']:.4f} "
+                      f"device_ms {o_dev:.4f} | turns per-call / entry / "
+                      f"entry / per-call "
+                      f"{' / '.join(f'{v:.4f}' for v in turns)}", flush=True)
         # the chain: kernel against the plain chain, launches counted
         for N in (512, N_max):
             c0 = cc[:N]
@@ -3307,17 +3479,23 @@ def table_kernels_phase(torch, params):
           f"step mode {worst['step']:.3e} (NaN x included), pair "
           f"{worst['pair']:.3e}, jet {worst['jet']:.3e} (x at 0, 1, outside "
           f"[0, 1], NaN; NaN where the plain version is), backward with "
-          f"step-mode tables / without coefficients {worst['bwd']:.3e} "
-          "against their plain versions, of max(1, the largest row's "
-          "Σ|c||B|) (limit 2e-5) | the jet's outputs "
+          f"step-mode tables / without coefficients {worst['bwd']:.3e}, "
+          f"backward jet {worst['bwd_jet']:.3e} (its three forms, NaN x "
+          "included) against their plain versions, of max(1, the largest "
+          "row's sum of term magnitudes) (limit 2e-5) | the jet's outputs "
           f"{'equal' if jet_equal else 'NOT equal'} to the per-call "
-          "launches' value for value", flush=True)
+          "launches' value for value | the backward jet's outputs "
+          f"{'equal' if bwd_jet_equal else 'NOT equal'} to the per-call "
+          "backward launches and sums value for value", flush=True)
     bad = {k: v for k, v in worst.items() if k != 'bisect' and not v <= 2e-5}
     if bad:
         fail(f"table-kernels: K4 disagrees with its plain versions: {bad}")
     if not jet_equal:
         fail("table-kernels: the jet entry differs from the per-call "
              "launches it replaces")
+    if not bwd_jet_equal:
+        fail("table-kernels: the backward jet entry differs from the "
+             "per-call backward launches and sums it replaces")
     rows['max_abs_err'] = worst
     return None, rows
 
@@ -3327,9 +3505,11 @@ def table_hpsi_phase(torch, params):
     walkers drawn by K1, the K4 chain against the plain chain on the card
     (TABLE_HPSI_RTOL of max|Hψ|); K4 launches per Hψ pass against the
     count the same pass makes on the CPU (the code's own evaluations, 8
-    walkers: the count does not depend on the batch); every Laplacian
-    form's launches and ms per pass; E_L 'table' against 'poly_pallas' on
-    the same walkers (TABLE_POLY_EL_BOUND)."""
+    walkers: the count does not depend on the batch), gathered and per
+    call; every Laplacian form's Hψ gathered (the jet, the gathered
+    backward) equal to the per-call chain's to the bit; every form's
+    launches and ms per pass; E_L 'table' against 'poly_pallas' on the
+    same walkers (TABLE_POLY_EL_BOUND)."""
     from waveflow_tpu_torch.models import get_waveflow_model
     from waveflow_tpu_torch.ops import spline_eval as se
     mt = flagship_model(torch, params, 'table')
@@ -3360,25 +3540,34 @@ def table_hpsi_phase(torch, params):
             ms = cuda_ms(torch, lambda: h(x), reps=3, warmup=1)
             row = dict(launches_per_pass=per_pass, derived=derived.calls,
                        ms=ms)
-            if mode in ('fwd_batched', 'fwd'):
-                # the same pass on the per-call entries: Hψ to the bit
-                with se._per_call():
-                    reset_table_counts()
-                    hpc = h(x)[:, 0]
-                    torch.cuda.synchronize()
-                    row['per_call_launches_per_pass'] = table_counts()
-                    row['per_call_ms'] = cuda_ms(torch, lambda: h(x), reps=3,
-                                                 warmup=1)
-                row['per_call_equal'] = same_values(hk, hpc)
-                print(f"table-hpsi {mode}: Hpsi from the jet "
-                      f"{'equal to' if row['per_call_equal'] else 'NOT equal to'}"
-                      f" the per-call chain's on the card | per-call "
-                      f"launches per pass {row['per_call_launches_per_pass']}"
-                      f" | per-call {row['per_call_ms']:.2f} ms per pass",
-                      flush=True)
-                if not row['per_call_equal']:
-                    fail(f"table-hpsi {mode}: Hpsi from the jet differs from "
-                         "the per-call chain's")
+            # the same pass on the per-call entries: Hψ to the bit (the jet
+            # under 'fwd_batched' and 'fwd', the gathered backward under
+            # 'hvp' and 'dense'), and the per-call launches against the
+            # same pass's evaluations on the CPU
+            with se._per_call():
+                with evaluations(plain=False) as derived_pc:
+                    he_hamiltonian(cpu, mode)(x[:8].cpu())
+                reset_table_counts()
+                hpc = h(x)[:, 0]
+                torch.cuda.synchronize()
+                row['per_call_launches_per_pass'] = table_counts()
+                row['per_call_ms'] = cuda_ms(torch, lambda: h(x), reps=3,
+                                             warmup=1)
+            row['per_call_equal'] = same_values(hk, hpc)
+            print(f"table-hpsi {mode}: Hpsi gathered "
+                  f"{'equal to' if row['per_call_equal'] else 'NOT equal to'}"
+                  f" the per-call chain's on the card | per-call "
+                  f"launches per pass {row['per_call_launches_per_pass']}"
+                  f" | per-call {row['per_call_ms']:.2f} ms per pass",
+                  flush=True)
+            if not row['per_call_equal']:
+                fail(f"table-hpsi {mode}: Hpsi gathered differs from the "
+                     "per-call chain's")
+            if {k: row['per_call_launches_per_pass'][k]
+                    for k in derived_pc.calls} != derived_pc.calls:
+                fail(f"table-hpsi {mode}: per-call K4 launches "
+                     f"{row['per_call_launches_per_pass']} against the "
+                     f"{derived_pc.calls} evaluations the code makes")
             if mode == 'fwd_batched':
                 with evaluations(plain=True):
                     hp = h(x)[:, 0]
@@ -3390,7 +3579,8 @@ def table_hpsi_phase(torch, params):
                   f"walkers: forward {per_pass['spline_eval']}, pair "
                   f"{per_pass['spline_eval_pair']}, jet "
                   f"{per_pass['spline_eval_jet']}, backward "
-                  f"{per_pass['spline_eval_bwd']} (the code's evaluations "
+                  f"{per_pass['spline_eval_bwd']}, backward jet "
+                  f"{per_pass['spline_eval_bwd_jet']} (the code's evaluations "
                   f"on the CPU: {derived.calls}) | {ms:.2f} ms per pass"
                   + (f" | kernel against the plain chain on the card: max "
                      f"|dHpsi| {row['rel_err']:.3e} of max|Hpsi| {scale:.4f}"
@@ -3470,12 +3660,34 @@ def table_eval_phase(torch, jax_raw, jax_clipped):
     return launches, row
 
 
-def graph_table_phase(torch):
+def train_epoch_evaluations(torch, params):
+    """K4's launches in one train-256 'table' epoch as the code makes them
+    on the CPU (8 walkers: the count does not depend on the batch),
+    gathered and per call: {'table': calls, 'per_call': calls}."""
+    from waveflow_tpu_torch.ops import spline_eval as se
+    from waveflow_tpu_torch.vmc import VMCConfig, VMCTrainer
+    t = VMCTrainer(VMCConfig(batch_size=8, window=1, log_every=1,
+                             eval_backend='table', device='cpu'))
+    t.model.load_state_dict(params)
+    t.train(1, verbose=False)
+    out = {}
+    for k, path in (('table', contextlib.nullcontext), ('per_call',
+                                                        se._per_call)):
+        with path(), evaluations(plain=False) as run:
+            t.train(1, verbose=False)
+        out[k] = run.calls
+    return out
+
+
+def graph_table_phase(torch, params):
     """train-256 under 'table' (the flagship config from the 100k
     checkpoint): the graphed adam window against its eager twin, to the
-    bit, K1 and K4 launches per replayed epoch; then ms per replayed epoch
-    against the 'poly_pallas' twin, windows of 2 x 10 in turns table,
-    poly, poly, table (CUDA events)."""
+    bit, K1 and K4 launches per replayed epoch; the gathered twin (the jet
+    and the gathered backward) against the per-call twin, to the bit, K4
+    launches per replayed epoch against the CPU-derived counts, and device
+    busy per replayed epoch by the profiler in turns; then ms per replayed
+    epoch against the 'poly_pallas' twin, windows of 2 x 10 in turns
+    table, poly, poly, table (CUDA events)."""
     from waveflow_tpu_torch.vmc import VMCConfig, VMCTrainer
 
     def trainer(graph, backend='table'):
@@ -3492,7 +3704,8 @@ def graph_table_phase(torch):
         lambda t, n: t.train_window(n, t.baseline),
         read=table_counts, reset=reset_table_counts,
         required=('sampler', 'spline_eval', 'spline_eval_pair',
-                  'spline_eval_jet', 'spline_eval_bwd'))
+                  'spline_eval_jet', 'spline_eval_bwd',
+                  'spline_eval_bwd_jet'))
     twins = {'table': trainer(None), 'per_call': trainer(None),
              'poly_pallas': trainer(None, 'poly_pallas')}
 
@@ -3519,34 +3732,58 @@ def graph_table_phase(torch):
     bitwise, rel, _ = compare_twins(torch, trainer_tensors(torch,
                                                            twins['table']),
                                     trainer_tensors(torch, twins['per_call']))
+    derived = train_epoch_evaluations(torch, params)
     row['jet_against_per_call'] = dict(
         bitwise=bitwise, max_rel_diff=rel, turns_ms=jet_ms,
-        launches_per_epoch=pc_launches,
+        launches_per_epoch=pc_launches, derived_per_epoch=derived,
         ms_per_replayed_epoch={k: sum(v) / len(v) for k, v in jet_ms.items()})
-    print(f"graph-table: jet against per-call after {6 * GRAPH_WINDOW} "
-          f"epochs each ({4 * GRAPH_WINDOW} replayed in turns): "
-          f"{'equal to the bit' if bitwise else 'NOT bitwise'} (largest "
-          f"relative difference {rel:.3e}) | ms per replayed epoch, turns "
-          f"per-call / jet / jet / per-call: {jet_ms['per_call'][0]:.3f} / "
-          f"{jet_ms['table'][0]:.3f} / {jet_ms['table'][1]:.3f} / "
-          f"{jet_ms['per_call'][1]:.3f} | K4 launches per replayed epoch: "
-          f"jet {pc_launches['table']}, per-call {pc_launches['per_call']}",
-          flush=True)
+
+    def backward(counts):
+        return counts['spline_eval_bwd'] + counts['spline_eval_bwd_jet']
+
+    print(f"graph-table: gathered (jet and backward jet) against per-call "
+          f"after {6 * GRAPH_WINDOW} epochs each ({4 * GRAPH_WINDOW} "
+          f"replayed in turns): {'equal to the bit' if bitwise else 'NOT bitwise'}"
+          f" (largest relative difference {rel:.3e}) | ms per replayed "
+          f"epoch, turns per-call / gathered / gathered / per-call: "
+          f"{jet_ms['per_call'][0]:.3f} / {jet_ms['table'][0]:.3f} / "
+          f"{jet_ms['table'][1]:.3f} / {jet_ms['per_call'][1]:.3f} | K4 "
+          f"launches per replayed epoch: gathered {pc_launches['table']} "
+          f"(backward {backward(pc_launches['table']):g}), per-call "
+          f"{pc_launches['per_call']} (backward "
+          f"{backward(pc_launches['per_call']):g}) | the code's evaluations "
+          f"per epoch on the CPU: gathered {derived['table']}, per-call "
+          f"{derived['per_call']}", flush=True)
     if not bitwise:
-        fail(f"graph-table: the jet's windows differ from the per-call "
+        fail(f"graph-table: the gathered windows differ from the per-call "
              f"entries' by {rel:.3e}")
+    for k in ('table', 'per_call'):
+        if {n: pc_launches[k][n] for n in derived[k]} != derived[k]:
+            fail(f"graph-table: {k} K4 launches per replayed epoch "
+                 f"{pc_launches[k]} against the {derived[k]} evaluations "
+                 "the code makes")
     # the device's side of the A/B: busy time and kernels per replayed
-    # epoch of each twin (the profiler; wall time drifts between turns)
-    for k in ('per_call', 'table'):
+    # epoch of each twin, in turns (the profiler; wall time drifts between
+    # turns)
+    busy = {'per_call': [], 'table': []}
+    kernels = {'per_call': [], 'table': []}
+    for k in ('per_call', 'table', 'table', 'per_call'):
         with se._per_call() if k == 'per_call' else contextlib.nullcontext():
             prof = profile_window(
                 torch, lambda: twins[k].train_window(10, twins[k].baseline),
-                10, f"graph-table {'per-call' if k == 'per_call' else 'jet'}"
+                10, f"graph-table {'per-call' if k == 'per_call' else 'gathered'}"
                 " twin, graphed window ", top=3)
-        row['jet_against_per_call'][f'{k}_busy_ms_per_epoch'] = \
-            prof['busy_ms'] / 10
-        row['jet_against_per_call'][f'{k}_kernels_per_epoch'] = \
-            prof['launches_per_unit']
+        busy[k].append(prof['busy_ms'] / 10)
+        kernels[k].append(prof['launches_per_unit'])
+    for k in ('per_call', 'table'):
+        row['jet_against_per_call'][f'{k}_busy_ms_per_epoch'] = busy[k]
+        row['jet_against_per_call'][f'{k}_kernels_per_epoch'] = kernels[k]
+    print(f"graph-table: device busy ms per replayed epoch, turns per-call / "
+          f"gathered / gathered / per-call: {busy['per_call'][0]:.4f} / "
+          f"{busy['table'][0]:.4f} / {busy['table'][1]:.4f} / "
+          f"{busy['per_call'][1]:.4f} | kernels per epoch "
+          f"{kernels['per_call'][0]} / {kernels['table'][0]} / "
+          f"{kernels['table'][1]} / {kernels['per_call'][1]}", flush=True)
     del twins['per_call']
     ms = {k: [] for k in twins}
     for k in ('table', 'poly_pallas', 'poly_pallas', 'table'):
@@ -3645,7 +3882,8 @@ def gm_density_phase(torch):
 # ---- 44-45. the reference-API layer and the evaluation artifacts ---------
 
 KERNEL_NAMES = ('basis_jet', 'sampler', 'sampler_linear', 'spline_eval',
-                'spline_eval_bwd', 'spline_eval_pair', 'spline_eval_jet')
+                'spline_eval_bwd', 'spline_eval_pair', 'spline_eval_jet',
+                'spline_eval_bwd_jet')
 
 
 def kernel_counts() -> dict:
@@ -4227,7 +4465,7 @@ def phase_table(torch, params, jax_raw, jax_clipped, ancestral_wps=None,
         # density side's new model and dataset ----
         ('table-eval', lambda: table_eval_phase(torch, jax_raw,
                                                 jax_clipped)),
-        ('graph-table', lambda: graph_table_phase(torch)),
+        ('graph-table', lambda: graph_table_phase(torch, params)),
         ('rqs-density', lambda: rqs_density_phase(torch)),
         ('gm-density', lambda: gm_density_phase(torch)),
         # ---- 44-45. the reference-API layer and the evaluation artifacts,
@@ -4472,6 +4710,8 @@ def main(argv=None) -> int:
     pair_row = tk[('I-spline', 512)]
     # the jet entry at the same shape: an IMADE site's 15 terms
     jet_row = tk[('jet', 'I-spline', 512)]
+    # the backward jet entry at the same shape: an IMADE site's backward
+    bwd_jet_row = tk[('bwd_jet', 'backward', 'I-spline', 512)]
     k4b_row = k4b[(0, 2 * DENSITY_POINTS)]
 
     def sampler_row(name, rows, shape):
@@ -4546,6 +4786,19 @@ def main(argv=None) -> int:
              per_call_ms=jet_row['per_call_ms'],
              per_call_device_ms=jet_row['per_call_device_ms'],
              per_call_launches=jet_row['per_call_launches']),
+        dict(name='spline_eval_bwd_jet', route='cuda',
+             source='waveflow_tpu_torch/csrc/spline_eval.cu',
+             replaces='waveflow_tpu/ops/pallas_spline.py:29',
+             launches=by_phase['graph-table']['spline_eval_bwd_jet'],
+             launches_by_path=by_path('spline_eval_bwd_jet'),
+             max_abs_err=tk['max_abs_err']['bwd_jet'],
+             ms=bwd_jet_row['ms'], device_ms=bwd_jet_row['device_ms'],
+             plain_ms=bwd_jet_row['plain_ms'],
+             bound_ms=bwd_jet_row['bound_ms'],
+             bound_by=bwd_jet_row['bound_by'], library_ms=None,
+             per_call_ms=bwd_jet_row['per_call_ms'],
+             per_call_device_ms=bwd_jet_row['per_call_device_ms'],
+             per_call_launches=bwd_jet_row['per_call_launches']),
         dict(name='spline_eval_bwd', route='cuda',
              source='waveflow_tpu_torch/csrc/spline_eval.cu',
              replaces='waveflow_tpu/ops/pallas_spline.py:29',

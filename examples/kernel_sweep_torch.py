@@ -12,6 +12,12 @@ tables, 15 terms over 4 components; the prior's ``__call__`` on its OB
 tables, 9 terms) over N = 512, 8,192, 40,000 and every block size of
 JET_THREADS — where plan_jet's choice comes from — each point also held,
 value for value, to the per-call launches it replaces, and timed beside
+them; its backward jet entry (``spline_bwd_jet``) in the three forms the
+table backend's grad-level sites launch (an IMADE site's backward, 2
+kinds with g_x; the prior's, 1 kind; the IMADE site's tangent, 4 terms)
+over the same N and every block size of BWD_THREADS — where
+plan_bwd_jet's choice comes from — each point held, value for value, to
+the per-call backward launches and sums it replaces, and timed beside
 them.
 Each point is first held against the kernel's plain version (the tolerances
 of chip_smoke.py), then timed twice: back-to-back calls by CUDA events (host
@@ -29,7 +35,8 @@ Two more parts, timed only:
 
 Usage (needs a CUDA card and nvcc; a few seconds after the build):
   python examples/kernel_sweep_torch.py [--check-only] [--out FILE.json]
-      [--only jet,sampler,sampler_linear,spline,spline_jet,host,inverse]
+      [--only jet,sampler,sampler_linear,spline,spline_jet,spline_bwd_jet,
+       host,inverse]
 """
 
 import argparse
@@ -45,11 +52,12 @@ sys.path.insert(0, str(ROOT))
 import torch
 
 from chip_smoke import (DENSITY, FLAGSHIP, cuda_ms, device_ms, fail,
-                        magnitude, per_call_site, rel_err, same_values)
+                        magnitude, nan_rel_err, per_call_bwd, per_call_site,
+                        rel_err, same_values)
 from waveflow_tpu_torch import ops
 from waveflow_tpu_torch.ops import (cuda_build, cuda_jet, cuda_sampler,
                                     cuda_spline)
-from waveflow_tpu_torch.ops.spline_eval import site_jet
+from waveflow_tpu_torch.ops.spline_eval import site_bwd, site_jet
 from waveflow_tpu_torch.ops.sampling import (sample_linear_density,
                                              sample_squared_amplitude)
 
@@ -251,6 +259,82 @@ def sweep_spline_jet(gen, timed):
     return rows
 
 
+def sweep_spline_bwd_jet(gen, timed):
+    """K4's backward jet entry over N and block sizes in the table
+    backend's three forms, against its plain version (2e-5 of the largest
+    sum of term magnitudes) and against the per-call backward launches and
+    sums of the same form, value for value; those timed beside it."""
+    deg, knots, mesh = (FLAGSHIP[k] for k in ('spline_degree', 'num_knots',
+                                              'n_mesh'))
+    ev_i = ops.make_evaluator(ops.get_tables('I', deg, knots, n_mesh=mesh),
+                              device='cuda')
+    ev_ob = ops.make_evaluator(ops.get_tables('B', deg, knots, n_mesh=mesh),
+                               use_ob=True, device='cuda')
+    i_forms = site_bwd(ev_i, (('G', 0), ('F', 1)))
+    forms = {'I-spline backward': (ev_i, i_forms['backward']),
+             'OB prior backward': (ev_ob, site_bwd(ev_ob,
+                                                   (('F', 0),))['backward']),
+             'I-spline tangent': (ev_i, i_forms['tangent'])}
+    rows = []
+    for form, (ev, (slots, c_groups, x_terms)) in forms.items():
+        n_terms = sum(len(g) for g in c_groups)
+        for N in (512, 8192, 40000):
+            comps = ([torch.randn((N, ev.n_bases), generator=gen,
+                                  device='cuda')] if x_terms else [])
+            vecs = [torch.randn((N,), generator=gen, device='cuda')
+                    for _ in slots]
+            x = torch.rand((N,), generator=gen, device='cuda') * 1.1 - 0.05
+            ref = cuda_spline.spline_eval_bwd_jet_plain(
+                ev.tables, ev.slopes, comps, x, vecs, c_groups, x_terms)
+            scale = cuda_spline.spline_eval_bwd_jet_plain(
+                ev.tables.abs(), ev.slopes.abs(), [c.abs() for c in comps],
+                x, [v.abs() for v in vecs], c_groups, x_terms)
+            per = per_call_bwd(ev, comps, x, vecs, c_groups, x_terms)
+            chosen = cuda_spline.plan_bwd_jet(N, ev.n_bases, n_terms,
+                                              len(x_terms), len(vecs),
+                                              len(comps))
+            for threads in cuda_spline.BWD_THREADS:
+                def run(threads=threads):
+                    return cuda_spline.spline_eval_bwd_jet_cuda(
+                        ev.records, comps, x, vecs, c_groups, x_terms,
+                        ev.n_bases, threads)
+                out = run()
+                torch.cuda.synchronize()
+                err = max(nan_rel_err(o, r, sc) for o, r, sc
+                          in zip(out, ref, scale) if r is not None)
+                same = all(same_values(o, pc) for o, pc in zip(out, per)
+                           if pc is not None)
+                if not (err <= 2e-5 and same):
+                    fail(f"K4 backward jet {form} N={N} threads={threads}: "
+                         f"{err:.3e} against its plain version, per-call "
+                         f"values {'equal' if same else 'NOT equal'}")
+                row = dict(kernel='spline_eval_bwd_jet', form=form, N=N,
+                           g_c_terms=n_terms, g_x_terms=len(x_terms),
+                           threads=threads,
+                           grid=cuda_spline.plan_bwd_jet(
+                               N, ev.n_bases, n_terms, len(x_terms),
+                               len(vecs), len(comps), threads).grid,
+                           planned=threads == chosen.threads,
+                           max_abs_err=err, per_call_equal=same)
+                if timed:
+                    row.update(ms=cuda_ms(torch, run),
+                               device_ms=device_ms(torch, run))
+                rows.append(row)
+                print(json.dumps(row), flush=True)
+            if timed:
+                def per_call():
+                    return per_call_bwd(ev, comps, x, vecs, c_groups,
+                                        x_terms)
+                row = dict(kernel='spline_eval_bwd per-call launches and sums',
+                           form=form, N=N,
+                           launches=len(x_terms) or n_terms,
+                           ms=cuda_ms(torch, per_call),
+                           device_ms=device_ms(torch, per_call))
+                rows.append(row)
+                print(json.dumps(row), flush=True)
+    return rows
+
+
 def host_us(fn, n=2000):
     """Mean host-clock microseconds of one call of ``fn`` (the device is
     left to run behind; synchronised before and after)."""
@@ -376,7 +460,8 @@ def main():
                    help='build and hold against the plain versions; no timing')
     p.add_argument('--out', default=None, help='write the rows here as JSON')
     p.add_argument('--only',
-                   default='jet,sampler,sampler_linear,spline,spline_jet,host',
+                   default='jet,sampler,sampler_linear,spline,spline_jet,'
+                           'spline_bwd_jet,host',
                    help='comma-separated parts to run')
     args = p.parse_args()
     if not torch.cuda.is_available():
@@ -399,6 +484,7 @@ def main():
              'sampler_linear': lambda: sweep_sampler(gen, timed, 'linear'),
              'spline': lambda: sweep_spline(gen, timed),
              'spline_jet': lambda: sweep_spline_jet(gen, timed),
+             'spline_bwd_jet': lambda: sweep_spline_bwd_jet(gen, timed),
              'host': lambda: host_path_pieces(gen),
              'inverse': lambda: sweep_inverse(gen)}
     rows = []

@@ -230,10 +230,11 @@ class _CountingGraph(graphs.EpochGraph):
 
 def test_launch_bookkeeping_adds_the_captured_counts_per_replay(monkeypatch):
     """An epoch whose body launches K3 12 times, K1 twice, K4's forward
-    and backward kernels once each, its pair entry 3 times and its jet
-    entry 8 times: the warm-up epoch counts as it runs, the capture counts
-    nothing (its count is put back), and each replay adds the capture's
-    count once; the graph holds the registered generator."""
+    and backward kernels once each, its pair entry 3 times, its jet entry
+    8 times and its backward jet entry 3 times: the warm-up epoch counts as
+    it runs, the capture counts nothing (its count is put back), and each
+    replay adds the capture's count once; the graph holds the registered
+    generator."""
     for m, a in ops.LAUNCH_COUNTERS:
         monkeypatch.setattr(m, a, 0)
 
@@ -244,23 +245,24 @@ def test_launch_bookkeeping_adds_the_captured_counts_per_replay(monkeypatch):
         cuda_spline.launches_bwd += 1
         cuda_spline.launches_pair += 3
         cuda_spline.launches_jet += 8
+        cuda_spline.launches_bwd_jet += 3
 
     gen = torch.Generator()
     epoch = _CountingGraph(body, generators=(gen,))
     epoch()
-    assert ops.read_launches() == (12, 2, 0, 1, 1, 3, 8)
-    assert epoch.launches == (12, 2, 0, 1, 1, 3, 8)
+    assert ops.read_launches() == (12, 2, 0, 1, 1, 3, 8, 3)
+    assert epoch.launches == (12, 2, 0, 1, 1, 3, 8, 3)
     for n in range(1, 5):
         epoch()
         assert epoch.graph.replays == n
         assert ops.read_launches() == (12 * (n + 1), 2 * (n + 1), 0,
                                           n + 1, n + 1, 3 * (n + 1),
-                                          8 * (n + 1))
+                                          8 * (n + 1), 3 * (n + 1))
     assert epoch.graph.generators == [gen]
     epoch.reset()
     epoch()
     assert epoch.graph.replays == 0
-    assert ops.read_launches() == (72, 12, 0, 6, 6, 18, 48)
+    assert ops.read_launches() == (72, 12, 0, 6, 6, 18, 48, 18)
 
 
 @pytest.mark.parametrize('optimizer,sampler', [

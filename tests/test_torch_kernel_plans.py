@@ -337,6 +337,7 @@ ENTRY_POINTS = {
                 'sampler_error_string'},
     'spline_eval': {'spline_eval_launch', 'spline_eval_pair_launch',
                     'spline_eval_bwd_launch', 'spline_eval_jet_launch',
+                    'spline_eval_bwd_jet_launch',
                     'spline_eval_error_string'},
 }
 

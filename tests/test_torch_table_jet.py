@@ -296,19 +296,23 @@ def flagship_cpu():
 
 
 # K4 launches per Hψ pass of the flagship, by form: (forward, pair, jet,
-# backward) with the jet, and on the per-call entries
-PASS_LAUNCHES = {'fwd_batched': ((0, 0, 8, 0), (18, 54, 0, 0)),
-                 'fwd': ((0, 0, 4, 0), (9, 27, 0, 0)),
-                 'hvp': ((25, 12, 0, 21), (25, 12, 0, 21)),
-                 'dense': ((25, 12, 0, 21), (25, 12, 0, 21))}
+# backward, backward jet) with the jet and the gathered backward, and on
+# the per-call entries
+PASS_LAUNCHES = {'fwd_batched': ((0, 0, 8, 0, 0), (18, 54, 0, 0, 0)),
+                 'fwd': ((0, 0, 4, 0, 0), (9, 27, 0, 0, 0)),
+                 'hvp': ((25, 12, 0, 1, 7), (25, 12, 0, 21, 0)),
+                 'dense': ((25, 12, 0, 1, 7), (25, 12, 0, 21, 0))}
 
 
 @pytest.mark.parametrize('mode', list(PASS_LAUNCHES))
 def test_launches_per_hpsi_pass(flagship_cpu, mode):
     """K4 launches per Hψ pass of the flagship as chip_smoke.py counts
     them on the CPU: 'fwd_batched' 72 → 8 jet launches (4 sites × 2
-    directions), 'fwd' 36 → 4, 'hvp' and 'dense' unchanged at 58 (grad
-    levels keep the per-call entries)."""
+    directions), 'fwd' 36 → 4; 'hvp' and 'dense' keep their 25 forward
+    and 12 pair launches (grad levels keep the per-call forward entries)
+    and gather the backward: 21 → 8 (the prior's one-kind backward on
+    the backward kernel, 3 IMADE backwards and 4 tangents on the backward
+    jet entry)."""
     smoke, _, m, x = flagship_cpu
     h = smoke.he_hamiltonian(m, mode)
     counts = []
@@ -321,9 +325,12 @@ def test_launches_per_hpsi_pass(flagship_cpu, mode):
 
 def test_launches_per_train_epoch(flagship_cpu):
     """One train-256 'table' epoch (ancestral, 'fwd_batched',
-    'clipped_score'): 19 K4 launches — 8 jet for Hψ, and the score's ψ,
-    differentiated in the parameters, on the per-call entries (1 forward,
-    3 pair, 7 backward) — where the per-call chain makes 83."""
+    'clipped_score'): 16 K4 launches — 8 jet for Hψ, and the score's ψ,
+    differentiated in the parameters, on the per-call forward entries (1
+    forward, 3 pair) with its backward gathered per site (the prior's on
+    the backward kernel, the 3 IMADE sites' on the backward jet entry:
+    4, where the per-call chain makes 7) — where the per-call chain makes
+    83."""
     from waveflow_tpu_torch.vmc import VMCConfig, VMCTrainer
     smoke, params, _, _ = flagship_cpu
     t = VMCTrainer(VMCConfig(batch_size=8, window=1, log_every=1,
@@ -336,9 +343,11 @@ def test_launches_per_train_epoch(flagship_cpu):
             t.train(1, verbose=False)
         counts.append(run.calls)
     assert counts[0] == {'spline_eval': 1, 'spline_eval_pair': 3,
-                         'spline_eval_jet': 8, 'spline_eval_bwd': 7}
+                         'spline_eval_jet': 8, 'spline_eval_bwd': 1,
+                         'spline_eval_bwd_jet': 3}
     assert counts[1] == {'spline_eval': 19, 'spline_eval_pair': 57,
-                         'spline_eval_jet': 0, 'spline_eval_bwd': 7}
+                         'spline_eval_jet': 0, 'spline_eval_bwd': 7,
+                         'spline_eval_bwd_jet': 0}
 
 
 def test_sites_that_keep_the_per_call_entries(ispline, monkeypatch):

@@ -110,6 +110,55 @@
 //     does not change the arithmetic of a row;
 //   * no shared memory: the records of the four evaluators of the table
 //     backend (about 8 MB) sit in the 50 MB L2.
+//
+// The BACKWARD JET entry (spline_eval_bwd_jet_kernel) serves a grad-level
+// evaluation site of the table backend: at one x per row it writes
+//     g_c[n, :] = Σ_t w_t[n] · B(d_t, mode_t, x[n])            (up to 4 terms)
+//     g_x[n]    = Σ_u v_u[n] · Σ_i C_mu[n, i] · B(d_u, mode_u, x[n])_i   (2)
+// where a weight w_t is one gradient component or the product of two
+// (g · t_x, rounded by __fmul_rn as the separate elementwise product
+// rounds), B the lerp of order d or, in step mode, its slope.  The terms of
+// g_c sum in groups: each group left to right, then the groups left to
+// right.  Where the per-call chain launches the backward kernel once per
+// kind of the site (or the basis alone twice per kind for a tangent) and
+// adds the kinds' outputs in further kernels, this entry takes one launch:
+// an IMADE pair site's backward is 2 kinds (g·B on two value tables, g_x
+// from two more), its tangent 4 terms (t_g·B^R + (g·t_x)·B^S per kind).
+// What bounds it: bytes (a row reads x, its weights and coefficient row
+// and writes n_bases + 1 floats), and below ~10^4 rows the launch.  Its
+// design:
+//   * the jet's cell records: the cell located once, every table load one
+//     float4 at 29 bases, step mode the delta row alone;
+//   * each coefficient row and each weight read once; each term's basis
+//     chunk formed from the records (a repeated (order, mode) is read again
+//     from L1);
+//   * the counts of terms are template arguments (an instance per count of
+//     g_c and g_x terms), so the loops over terms unroll to the launch's
+//     and no register is held for a term it lacks: at most 66 registers
+//     where a draft that read the counts from the launch held 76;
+//     on an NVIDIA H100 80GB HBM3 at 700.00 W its device time at 40,000
+//     rows fell from 0.0121 / 0.0086 / 0.0083 ms to 0.0100 / 0.0070 /
+//     0.0065 ms for an IMADE site's backward / tangent / the prior's
+//     backward (PERF.md names the runs);
+//   * every output equals the per-call chain's to the bit: each product
+//     __fmul_rn(w, B) as the backward kernel's g * lerp, the sums __fadd_rn
+//     in the chain's order (the per-kind sums `_add` makes, the tangent's
+//     (t_g0·B^R0 + (g0·t_x)·B^S0) + (t_g1·B^R1 + (g1·t_x)·B^S1) in which
+//     forward AD adds the per-kind tangents), and each g_x term with the
+//     backward kernel's lanes, in-lane fmaf order and xor-shuffle tree,
+//     then v · y; a kind with no x-derivative adds the 0 the backward
+//     kernel writes;
+//   * g_c staged: a block's rows of g_c are one contiguous span (rows ×
+//     n_bases floats), but a 29-float row is not 16-byte aligned, so each
+//     lane writes its chunk into shared memory and the block stores the
+//     span with 16-byte streaming stores (a block of a multiple of 4 rows
+//     starts every span on a 16-byte boundary; otherwise, and for the
+//     tail, 4-byte stores);
+//   * blocks of 128 threads (ops/cuda_spline.py::plan_bwd_jet; 64 to 256
+//     are accepted): measured on an NVIDIA H100 80GB HBM3 at 700.00 W, 128
+//     was fastest or within 4% of it at N = 512, 8,192 and 40,000 in the
+//     three forms (examples/kernel_sweep_torch.py --only spline_bwd_jet,
+//     PERF.md).  The block size does not change the arithmetic of a row.
 
 #include <cuda_runtime.h>
 
@@ -397,6 +446,207 @@ spline_eval_jet_kernel(const float* __restrict__ records,
       }
 }
 
+// ---- the backward jet entry ------------------------------------------------
+
+constexpr int BWD_VECS = 6;        // gradient components and tangents, (N,)
+constexpr int BWD_C_TERMS = 4;     // terms of g_c
+constexpr int BWD_X_TERMS = 2;     // terms of g_x
+constexpr int BWD_COMPONENTS = 2;  // coefficient components g_x reads
+constexpr int BWD_MAX_THREADS = 256;
+
+// one launch's terms, by value (every loop over them unrolled, so the
+// fields are read from the parameter space and a term's branch is
+// warp-uniform).  c term t: weight vec[c_a[t]] (times vec[c_b[t]] where
+// c_b[t] >= 0), basis (c_order[t], c_step[t]), c_open[t]: it opens a group.
+// x term u: weight vec[x_v[u]], coefficients comp[x_comp[u]], basis
+// (x_order[u], x_step[u]); x_order[u] < 0 adds 0
+struct BwdTerms {
+  const float* vec[BWD_VECS];
+  const float* comp[BWD_COMPONENTS];
+  int c_a[BWD_C_TERMS], c_b[BWD_C_TERMS], c_order[BWD_C_TERMS],
+      c_step[BWD_C_TERMS], c_open[BWD_C_TERMS];
+  int x_v[BWD_X_TERMS], x_comp[BWD_X_TERMS], x_order[BWD_X_TERMS],
+      x_step[BWD_X_TERMS];
+};
+
+// v[j] where j == index (an unrolled select keeps v in registers)
+__device__ __forceinline__ float pick(const float (&v)[BWD_VECS], int index) {
+  float r = 0.f;
+#pragma unroll
+  for (int j = 0; j < BWD_VECS; ++j)
+    if (j == index) r = v[j];
+  return r;
+}
+
+// the basis chunk i .. i + 3 of order d at this row's cell: the lerp
+// fmaf(delta, frac, row), or in step mode the slope delta · n_cells
+__device__ __forceinline__ void basis_chunk(const float* rec, int n_pad,
+                                            int i, int d, bool step,
+                                            float frac, float scale,
+                                            float (&b)[CHUNK]) {
+  float delta[CHUNK];
+  load_table<true>(rec + (2 * d + 1) * n_pad, i, n_pad, delta);
+  if (step) {
+#pragma unroll
+    for (int k = 0; k < CHUNK; ++k) b[k] = __fmul_rn(delta[k], scale);
+  } else {
+    float y[CHUNK];
+    load_table<true>(rec + 2 * d * n_pad, i, n_pad, y);
+#pragma unroll
+    for (int k = 0; k < CHUNK; ++k) b[k] = fmaf(delta[k], frac, y[k]);
+  }
+}
+
+// records: (n_cells, n_orders, 2, n_pad); NC terms of g_c (N, n_bases) and
+// NX of g_x (N,), an output with no terms null.  Dynamic shared memory:
+// (blockDim.x / lanes) * n_bases floats when NC > 0.  VEC: the components'
+// rows are 16-byte aligned.  The term counts are template arguments, so
+// every loop over terms unrolls to what the launch has and no register
+// is held for a term it does not
+template <bool VEC, int NC, int NX>
+__global__ void __launch_bounds__(BWD_MAX_THREADS)
+spline_eval_bwd_jet_kernel(const float* __restrict__ records,
+                           const float* __restrict__ x, const BwdTerms p,
+                           float* __restrict__ g_c, float* __restrict__ g_x,
+                           int N, int n_cells, int n_bases, int n_orders,
+                           int lanes_log2) {
+  extern __shared__ __align__(16) float stage[];
+  const int lanes = 1 << lanes_log2;
+  const int sub = threadIdx.x & (lanes - 1);
+  const int rows = blockDim.x >> lanes_log2;
+  const int local = threadIdx.x >> lanes_log2;
+  const long long row0 = static_cast<long long>(blockIdx.x) * rows;
+  const long long row = row0 + local;
+  const long long at = row < N ? row : N - 1;
+  int cell;
+  const float frac = locate(__ldcs(x + at), n_cells, &cell);
+  const float scale = static_cast<float>(n_cells);
+  const int n_pad = (n_bases + CHUNK - 1) / CHUNK * CHUNK;
+  const float* __restrict__ rec =
+      records + static_cast<size_t>(cell) * (2 * n_orders * n_pad);
+  float v[BWD_VECS];
+#pragma unroll
+  for (int j = 0; j < BWD_VECS; ++j)
+    v[j] = p.vec[j] != nullptr ? __ldcs(p.vec[j] + at) : 0.f;
+  float w[NC > 0 ? NC : 1];
+#pragma unroll
+  for (int t = 0; t < NC; ++t) {
+    w[t] = pick(v, p.c_a[t]);
+    if (p.c_b[t] >= 0) w[t] = __fmul_rn(w[t], pick(v, p.c_b[t]));
+  }
+  float acc[NX > 0 ? NX : 1];
+#pragma unroll
+  for (int u = 0; u < NX; ++u) acc[u] = 0.f;
+  for (int i = CHUNK * sub; i < n_pad; i += CHUNK * lanes) {
+    if constexpr (NC > 0) {
+      float total[CHUNK] = {}, group[CHUNK] = {};
+      bool summed = false;
+#pragma unroll
+      for (int t = 0; t < NC; ++t) {
+        float b[CHUNK];
+        basis_chunk(rec, n_pad, i, p.c_order[t], p.c_step[t], frac, scale, b);
+        const bool open = t == 0 || p.c_open[t];
+        if (open && t > 0) {
+#pragma unroll
+          for (int k = 0; k < CHUNK; ++k)
+            total[k] = summed ? __fadd_rn(total[k], group[k]) : group[k];
+          summed = true;
+        }
+#pragma unroll
+        for (int k = 0; k < CHUNK; ++k) {
+          const float term = __fmul_rn(w[t], b[k]);
+          group[k] = open ? term : __fadd_rn(group[k], term);
+        }
+      }
+      float* dst = stage + local * n_bases + i;
+#pragma unroll
+      for (int k = 0; k < CHUNK; ++k)
+        if (i + k < n_bases)
+          dst[k] = summed ? __fadd_rn(total[k], group[k]) : group[k];
+    }
+    if constexpr (NX > 0) {
+      float c[BWD_COMPONENTS][CHUNK];
+#pragma unroll
+      for (int m = 0; m < BWD_COMPONENTS; ++m) {
+        if (p.comp[m] != nullptr) {
+          load_once<VEC>(p.comp[m] + at * n_bases, i, n_bases, c[m]);
+        } else {
+#pragma unroll
+          for (int k = 0; k < CHUNK; ++k) c[m][k] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < NX; ++u) {
+        if (p.x_order[u] < 0) continue;
+        float b[CHUNK];
+        basis_chunk(rec, n_pad, i, p.x_order[u], p.x_step[u], frac, scale, b);
+#pragma unroll
+        for (int k = 0; k < CHUNK; ++k)
+          acc[u] = fmaf(p.x_comp[u] == 0 ? c[0][k] : c[1][k], b[k], acc[u]);
+      }
+    }
+  }
+  if constexpr (NX > 0) {
+    float gx = 0.f;
+#pragma unroll
+    for (int u = 0; u < NX; ++u) {
+      const float y = lane_sum(acc[u], lanes);
+      const float term =
+          p.x_order[u] >= 0 ? __fmul_rn(pick(v, p.x_v[u]), y) : 0.f;
+      gx = u == 0 ? term : __fadd_rn(gx, term);
+    }
+    if (sub == 0 && row < N) __stcs(g_x + row, gx);
+  }
+  if constexpr (NC > 0) {
+    __syncthreads();
+    const long long left = N - row0;
+    const int span = static_cast<int>(left < rows ? left : rows) * n_bases;
+    float* dst = g_c + row0 * n_bases;
+    int j = threadIdx.x;
+    if (reinterpret_cast<uintptr_t>(dst) % 16 == 0) {
+      const int n4 = span / CHUNK;
+      for (; j < n4; j += blockDim.x)
+        __stcs(reinterpret_cast<float4*>(dst) + j,
+               reinterpret_cast<const float4*>(stage)[j]);
+      j = CHUNK * n4 + threadIdx.x;
+    }
+    for (; j < span; j += blockDim.x) __stcs(dst + j, stage[j]);
+  }
+}
+
+// the instance of (VEC, NC, NX) for a launch; NX = 0 reads no components,
+// so VEC does not matter there
+template <int NC, int NX>
+void launch_bwd_jet(bool vec, int grid, int threads, size_t smem,
+                    cudaStream_t s, const float* records, const float* x,
+                    const BwdTerms& p, float* g_c, float* g_x, int N,
+                    int n_cells, int n_bases, int n_orders, int lanes_log2) {
+  if (vec && NX > 0)
+    spline_eval_bwd_jet_kernel<true, NC, NX><<<grid, threads, smem, s>>>(
+        records, x, p, g_c, g_x, N, n_cells, n_bases, n_orders, lanes_log2);
+  else
+    spline_eval_bwd_jet_kernel<false, NC, NX><<<grid, threads, smem, s>>>(
+        records, x, p, g_c, g_x, N, n_cells, n_bases, n_orders, lanes_log2);
+}
+
+template <int NC>
+void launch_bwd_jet_nx(int n_x, bool vec, int grid, int threads,
+                       size_t smem, cudaStream_t s, const float* records,
+                       const float* x, const BwdTerms& p, float* g_c,
+                       float* g_x, int N, int n_cells, int n_bases,
+                       int n_orders, int lanes_log2) {
+  static_assert(BWD_X_TERMS == 2, "one case per count of g_x terms");
+  if (n_x == 0)
+    launch_bwd_jet<NC, 0>(vec, grid, threads, smem, s, records, x, p, g_c,
+                          g_x, N, n_cells, n_bases, n_orders, lanes_log2);
+  else if (n_x == 1)
+    launch_bwd_jet<NC, 1>(vec, grid, threads, smem, s, records, x, p, g_c,
+                          g_x, N, n_cells, n_bases, n_orders, lanes_log2);
+  else
+    launch_bwd_jet<NC, 2>(vec, grid, threads, smem, s, records, x, p, g_c,
+                          g_x, N, n_cells, n_bases, n_orders, lanes_log2);
+}
+
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
@@ -542,6 +792,105 @@ extern "C" int spline_eval_jet_launch(const float* records, const float* c0,
     spline_eval_jet_kernel<false><<<grid, threads, 0, s>>>(
         records, c0, c1, c2, c3, x, outs, N, n_cells, n_bases, n_orders,
         lanes_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// c_terms: n_c quintuples (a, b, order, step, opens a group), b < 0 for one
+// factor; x_terms: n_x quadruples (v, component, order, step), order < 0
+// for a kind with no x-derivative; both on the host.  vecs: n_vecs (N,)
+// pointers; c0, c1: (N, n_bases) or null.  n_c = 0 with g_c null, n_x = 0
+// with g_x null
+extern "C" int spline_eval_bwd_jet_launch(
+    const float* records, const float* c0, const float* c1, const float* x,
+    const float* const* vecs, int n_vecs, const int* c_terms, int n_c,
+    const int* x_terms, int n_x, float* g_c, float* g_x, int N, int n_cells,
+    int n_bases, int n_orders, int lanes, int threads, int grid,
+    void* stream) {
+  if (N <= 0) return 0;
+  const auto invalid = static_cast<int>(cudaErrorInvalidValue);
+  if (records == nullptr || x == nullptr || n_cells < 1 || n_bases < 1 ||
+      n_orders < 1 || !aligned16(records) || n_vecs < 1 ||
+      n_vecs > BWD_VECS || vecs == nullptr)
+    return invalid;
+  if ((g_c == nullptr) != (n_c == 0) || (g_x == nullptr) != (n_x == 0) ||
+      n_c < 0 || n_c > BWD_C_TERMS || n_x < 0 || n_x > BWD_X_TERMS ||
+      (n_c == 0 && n_x == 0))
+    return invalid;
+  if (lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) != 0 ||
+      threads < 32 || threads > BWD_MAX_THREADS ||
+      (threads & (threads - 1)) != 0 || threads < lanes)
+    return invalid;
+  const int rows = threads / lanes;
+  if (grid != (N + rows - 1) / rows) return invalid;
+  const size_t smem =
+      g_c != nullptr ? sizeof(float) * rows * static_cast<size_t>(n_bases)
+                     : 0;
+  if (smem > 48 * 1024) return invalid;
+  BwdTerms p = {};
+  for (int j = 0; j < n_vecs; ++j) {
+    if (vecs[j] == nullptr) return invalid;
+    p.vec[j] = vecs[j];
+  }
+  p.comp[0] = c0;
+  p.comp[1] = c1;
+  for (int t = 0; t < n_c; ++t) {
+    const int* q = c_terms + 5 * t;
+    if (q[0] < 0 || q[0] >= n_vecs || q[1] >= n_vecs || q[2] < 0 ||
+        q[2] >= n_orders || (q[3] != 0 && q[3] != 1))
+      return invalid;
+    p.c_a[t] = q[0];
+    p.c_b[t] = q[1] < 0 ? -1 : q[1];
+    p.c_order[t] = q[2];
+    p.c_step[t] = q[3];
+    p.c_open[t] = q[4] != 0;
+  }
+  for (int t = n_c; t < BWD_C_TERMS; ++t) p.c_b[t] = -1;
+  for (int u = 0; u < n_x; ++u) {
+    const int* q = x_terms + 4 * u;
+    if (q[0] < 0 || q[0] >= n_vecs || q[1] < 0 || q[1] >= BWD_COMPONENTS ||
+        q[2] >= n_orders || (q[3] != 0 && q[3] != 1) ||
+        (q[2] >= 0 && p.comp[q[1]] == nullptr))
+      return invalid;
+    p.x_v[u] = q[0];
+    p.x_comp[u] = q[1];
+    p.x_order[u] = q[2] < 0 ? -1 : q[2];
+    p.x_step[u] = q[3];
+  }
+  // a component g_x does not read is not loaded
+  if (n_x == 0) p.comp[0] = p.comp[1] = nullptr;
+  int lanes_log2 = 0;
+  while ((1 << lanes_log2) < lanes) ++lanes_log2;
+  bool vec = n_bases % 4 == 0;
+  for (int m = 0; m < BWD_COMPONENTS; ++m)
+    if (p.comp[m] != nullptr && !aligned16(p.comp[m])) vec = false;
+  const auto s = static_cast<cudaStream_t>(stream);
+  static_assert(BWD_C_TERMS == 4, "one case per count of g_c terms");
+  switch (n_c) {
+    case 0:
+      launch_bwd_jet_nx<0>(n_x, vec, grid, threads, smem, s, records, x, p,
+                           g_c, g_x, N, n_cells, n_bases, n_orders,
+                           lanes_log2);
+      break;
+    case 1:
+      launch_bwd_jet_nx<1>(n_x, vec, grid, threads, smem, s, records, x, p,
+                           g_c, g_x, N, n_cells, n_bases, n_orders,
+                           lanes_log2);
+      break;
+    case 2:
+      launch_bwd_jet_nx<2>(n_x, vec, grid, threads, smem, s, records, x, p,
+                           g_c, g_x, N, n_cells, n_bases, n_orders,
+                           lanes_log2);
+      break;
+    case 3:
+      launch_bwd_jet_nx<3>(n_x, vec, grid, threads, smem, s, records, x, p,
+                           g_c, g_x, N, n_cells, n_bases, n_orders,
+                           lanes_log2);
+      break;
+    default:
+      launch_bwd_jet_nx<4>(n_x, vec, grid, threads, smem, s, records, x, p,
+                           g_c, g_x, N, n_cells, n_bases, n_orders,
+                           lanes_log2);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -26,7 +26,8 @@ from waveflow_tpu_torch.ops import cuda_jet, cuda_sampler, cuda_spline
 LAUNCH_COUNTERS = ((cuda_jet, 'launches'), (cuda_sampler, 'launches'),
                    (cuda_sampler, 'launches_linear'), (cuda_spline, 'launches'),
                    (cuda_spline, 'launches_bwd'), (cuda_spline, 'launches_pair'),
-                   (cuda_spline, 'launches_jet'))
+                   (cuda_spline, 'launches_jet'),
+                   (cuda_spline, 'launches_bwd_jet'))
 
 
 def read_launches() -> tuple:

@@ -22,10 +22,21 @@ ignored), which over a slope table is the x-derivative of the plain lerp
 16 terms at one x in one launch, each term a coefficient component (up to
 4) against the lerp of one tabulated order or its step-mode slope, from
 per-evaluator cell records (``cell_records``): the forward-mode chain of
-one evaluation site in one launch.  ``spline_eval``, ``spline_eval_pair``,
-``spline_eval_jet`` and ``spline_eval_bwd`` run the CUDA kernels on a CUDA
-tensor — one launch each, the backward too is a kernel on the card — and
-the plain gather-lerp on a CPU tensor, never a plain version on the card.
+one evaluation site in one launch.  The BACKWARD JET entry
+(``spline_eval_bwd_jet``) evaluates a grad-level site's backward in one
+launch from the same records:
+
+    g_c[n, :] = Σ_t w_t[n] · B^t(x[n])        (up to 4 terms, in groups)
+    g_x[n]    = Σ_u v_u[n] · Σ_i C_u[n, i] · B^u_i(x[n])      (up to 2)
+
+each weight one of up to 6 vectors (N,) or the product of two, B the lerp
+of one tabulated order or its step-mode slope: all kinds of a site at
+once, and a tangent's g·B terms with the product g·t_x formed in the
+kernel.  ``spline_eval``, ``spline_eval_pair``, ``spline_eval_jet``,
+``spline_eval_bwd`` and ``spline_eval_bwd_jet`` run the CUDA kernels on a
+CUDA tensor — one launch each, the backward too is a kernel on the card —
+and the plain gather-lerp on a CPU tensor, never a plain version on the
+card.
 ``onehot_matmul_eval`` is
 the gather-free formulation the TPU kernel uses (the JAX package's function
 of the same name); tests and chip_smoke.py hold the kernel against it, the
@@ -47,6 +58,7 @@ launches = 0          # the forward kernel
 launches_pair = 0     # the forward kernel's pair entry (two tables)
 launches_bwd = 0      # the backward kernel
 launches_jet = 0      # the jet entry (the terms of one evaluation site)
+launches_bwd_jet = 0  # the backward jet entry (a grad-level site's backward)
 
 # the kernels' constants (csrc/spline_eval.cu checks a plan against its own)
 THREADS = 256
@@ -61,6 +73,20 @@ JET_COMPONENTS = 4
 JET_ORDERS = 4
 JET_THREADS = (256, 128, 64, 32)
 JET_BLOCK = 64
+# the backward jet entry's limits: weight vectors, terms of g_c and of g_x,
+# coefficient components of one launch; the block sizes it takes (at least
+# 4 rows a block at up to 64 bases, so that every block's span of g_c
+# starts 16-byte aligned), and its plan's: 128 threads came out fastest,
+# or within 4% of it, at each of N = 512, 8,192 and 40,000 in the three
+# forms the table backend launches (examples/kernel_sweep_torch.py --only
+# spline_bwd_jet, PERF.md)
+BWD_VECS = 6
+BWD_C_TERMS = 4
+BWD_X_TERMS = 2
+BWD_COMPONENTS = 2
+BWD_THREADS = (256, 128, 64)
+BWD_BLOCK = 128
+BWD_SMEM_MAX = 48 * 1024
 
 # the C entry points of csrc/spline_eval.cu: (argtypes, restype)
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
@@ -69,6 +95,8 @@ SIGNATURES = {
     'spline_eval_pair_launch': ([_PTR] * 6 + [_INT] * 6 + [_PTR], _INT),
     'spline_eval_bwd_launch': ([_PTR] * 7 + [_INT] * 6 + [_PTR], _INT),
     'spline_eval_jet_launch': ([_PTR] * 8 + [_INT] * 8 + [_PTR], _INT),
+    'spline_eval_bwd_jet_launch': ([_PTR] * 5 + [_INT, _PTR, _INT, _PTR, _INT]
+                                   + [_PTR] * 2 + [_INT] * 7 + [_PTR], _INT),
     'spline_eval_error_string': ([_INT], ctypes.c_char_p)}
 
 
@@ -127,6 +155,48 @@ def plan_jet(N: int, n_bases: int, n_terms: int, n_components: int,
                          f"{threads}")
     per_block = threads // lanes
     return cuda_build.LaunchPlan(-(-N // per_block), threads, 0, 'jet', lanes)
+
+
+@functools.lru_cache(maxsize=256)
+def plan_bwd_jet(N: int, n_bases: int, n_c_terms: int, n_x_terms: int,
+                 n_vecs: int, n_components: int,
+                 threads: int | None = None) -> cuda_build.LaunchPlan:
+    """The backward jet entry's launch for N rows: the forward kernel's
+    lanes per row (so each g_x term sums as the backward kernel does), in
+    blocks of BWD_BLOCK threads, and the shared memory that stages a
+    block's rows of g_c (none without g_c terms).  ``threads``, one of
+    BWD_THREADS, forces the block (measurements only).  Raises beyond the
+    kernel's limits: BWD_C_TERMS terms of g_c, BWD_X_TERMS of g_x,
+    BWD_VECS weight vectors, BWD_COMPONENTS components, BWD_SMEM_MAX
+    bytes of staging."""
+    if N < 1 or n_bases < 1:
+        raise ValueError(f"the backward jet entry needs N, n_bases >= 1, got "
+                         f"N={N}, n_bases={n_bases}")
+    for what, n, low, limit in (
+            ('g_c terms', n_c_terms, 0, BWD_C_TERMS),
+            ('g_x terms', n_x_terms, 0, BWD_X_TERMS),
+            ('weight vectors', n_vecs, 1, BWD_VECS),
+            ('components', n_components, 0, BWD_COMPONENTS)):
+        if not low <= n <= limit:
+            raise ValueError(f"the backward jet entry takes {low} to {limit} "
+                             f"{what}, got {n}")
+    if n_c_terms == 0 and n_x_terms == 0:
+        raise ValueError("the backward jet entry needs a g_c or a g_x term")
+    if n_x_terms and not n_components:
+        raise ValueError("g_x terms need a coefficient component")
+    lanes = lanes_per_row(n_bases)
+    if threads is None:
+        threads = BWD_BLOCK
+    elif threads not in BWD_THREADS:
+        raise ValueError(f"threads must be one of {BWD_THREADS}, got "
+                         f"{threads}")
+    rows = threads // lanes
+    smem = 4 * rows * n_bases if n_c_terms else 0
+    if smem > BWD_SMEM_MAX:
+        raise ValueError(f"{rows} rows of {n_bases} bases take {smem} bytes "
+                         f"of staging, over {BWD_SMEM_MAX}")
+    return cuda_build.LaunchPlan(-(-N // rows), threads, smem, 'bwd_jet',
+                                 lanes)
 
 
 def cell_records(tables) -> np.ndarray:
@@ -193,6 +263,46 @@ def spline_eval_jet_plain(tables: torch.Tensor, slopes: torch.Tensor,
     (...,)."""
     return [spline_eval_plain(slopes[d] if step else tables[d], comps[m], x,
                               step) for m, d, step in terms]
+
+
+def _sum(a, b):
+    return b if a is None else a + b
+
+
+def term_weight(vecs, factors):
+    """A backward jet term's weight: one of ``vecs``, or the product of
+    two as the per-call chain forms it."""
+    return vecs[factors[0]] if len(factors) == 1 \
+        else vecs[factors[0]] * vecs[factors[1]]
+
+
+def spline_eval_bwd_jet_plain(tables: torch.Tensor, slopes: torch.Tensor,
+                              comps, x: torch.Tensor, vecs, c_groups,
+                              x_terms) -> tuple:
+    """Plain version of the backward jet entry, the per-call plain
+    functions composed in the chain's order: ``c_groups`` a sequence of
+    groups of terms (factors, order, step), factors one or two indices into
+    ``vecs``; each group summed left to right, then the groups ->
+    g_c (..., n_bases), None without groups.  ``x_terms`` a sequence of
+    (vector, component, order or None, step), summed left to right ->
+    g_x (...,), a term of order None adding zeros; None without terms."""
+    g_c = None
+    for group in c_groups:
+        part = None
+        for factors, d, step in group:
+            table = slopes[d] if step else tables[d]
+            part = _sum(part, spline_eval_bwd_plain(
+                table, None, None, x, term_weight(vecs, factors), step)[0])
+        g_c = _sum(g_c, part)
+    g_x = None
+    for v, m, d, step in x_terms:
+        if d is None:
+            term = torch.zeros_like(x)
+        else:
+            table = slopes[d] if step else tables[d]
+            term = vecs[v] * spline_eval_plain(table, comps[m], x, step)
+        g_x = _sum(g_x, term)
+    return g_c, g_x
 
 
 def onehot_matmul_eval(table: torch.Tensor, coeffs: torch.Tensor,
@@ -413,6 +523,98 @@ def spline_eval_jet_cuda(records: torch.Tensor, comps, x: torch.Tensor,
     return out
 
 
+def _bwd_jet_arrays(c_groups, x_terms, n_vecs, n_comps):
+    """The C entry's term arrays of a launch, checked: (c quintuples, x
+    quadruples, n_c, n_x)."""
+    c_terms = []
+    for group in c_groups:
+        if not group:
+            raise ValueError("an empty group of g_c terms")
+        for j, (factors, d, step) in enumerate(group):
+            if len(factors) not in (1, 2) or not all(
+                    0 <= a < n_vecs for a in factors):
+                raise ValueError(f"a g_c term's factors {factors} are not one "
+                                 f"or two of {n_vecs} vectors")
+            b = factors[1] if len(factors) == 2 else -1
+            c_terms.append((factors[0], b, int(d), int(bool(step)),
+                            int(j == 0)))
+    x_quads = []
+    for v, m, d, step in x_terms:
+        if not (0 <= v < n_vecs and (d is None or 0 <= m < n_comps)):
+            raise ValueError(f"a g_x term ({v}, {m}) names a vector or "
+                             "component that is not there")
+        x_quads.append((v, m, -1 if d is None else int(d), int(bool(step))))
+    return tuple(c_terms), tuple(x_quads)
+
+
+@functools.lru_cache(maxsize=64)
+def _bwd_jet_c_arrays(c_terms: tuple, x_quads: tuple):
+    return ((ctypes.c_int * max(1, 5 * len(c_terms)))(
+        *(v for q in c_terms for v in q)),
+            (ctypes.c_int * max(1, 4 * len(x_quads)))(
+        *(v for q in x_quads for v in q)))
+
+
+def spline_eval_bwd_jet_cuda(records: torch.Tensor, comps, x: torch.Tensor,
+                             vecs, c_groups, x_terms, n_bases: int,
+                             threads: int | None = None) -> tuple:
+    """Launch the backward jet entry: ``records`` (n_cells, n_orders, 2,
+    n_pad) from ``cell_records``, up to 2 coefficient components (...,
+    n_bases), x and up to 6 weight vectors (...,), f32 on the card;
+    ``c_groups`` and ``x_terms`` as ``spline_eval_bwd_jet_plain`` takes
+    them -> (g_c (..., n_bases) or None, g_x (...,) or None), each
+    allocated as a per-call launch allocates it."""
+    global launches_bwd_jet
+    if not x.is_cuda:
+        raise ValueError("the spline_eval kernels need their operands on "
+                         "one CUDA device")
+    if records.ndim != 4 or records.shape[2] != 2 \
+            or records.shape[3] != -(-n_bases // CHUNK) * CHUNK:
+        raise ValueError(f"records {tuple(records.shape)} are not the cell "
+                         f"records of {n_bases} bases")
+    for a in (records, x, *comps, *vecs):
+        if a.device != x.device or a.dtype != torch.float32:
+            raise ValueError("the backward jet entry takes float32 operands "
+                             "on one CUDA device")
+    if any(c.shape != x.shape + (n_bases,) for c in comps) \
+            or any(v.shape != x.shape for v in vecs):
+        raise ValueError(f"components {[tuple(c.shape) for c in comps]} and "
+                         f"vectors {[tuple(v.shape) for v in vecs]} do not "
+                         f"match x {tuple(x.shape)} and {n_bases} bases")
+    n_cells, n_orders = records.shape[:2]
+    c_terms, x_quads = _bwd_jet_arrays(c_groups, x_terms, len(vecs),
+                                       len(comps))
+    if any(not 0 <= q[2] < n_orders for q in c_terms) \
+            or any(q[2] >= n_orders for q in x_quads):
+        raise ValueError(f"a term names an order the records ({n_orders}) "
+                         "do not hold")
+    N = x.numel()
+    g_c = x.new_empty(x.shape + (n_bases,)) if c_terms else None
+    g_x = torch.empty_like(x) if x_quads else None
+    p = plan_bwd_jet(max(N, 1), n_bases, len(c_terms), len(x_quads),
+                     len(vecs), len(comps) if x_quads else 0, threads)
+    if N == 0:
+        return g_c, g_x
+    records, x = _dense(records), _dense(x)
+    comps = [_dense(c) for c in comps]
+    vecs = [_dense(v) for v in vecs]
+    cp = [c.data_ptr() for c in comps] + [None] * (BWD_COMPONENTS
+                                                   - len(comps))
+    c_arr, x_arr = _bwd_jet_c_arrays(c_terms, x_quads)
+    lib = cuda_build.bind('spline_eval', SIGNATURES)
+    err = lib.spline_eval_bwd_jet_launch(
+        records.data_ptr(), *cp, x.data_ptr(),
+        (ctypes.c_void_p * len(vecs))(*(v.data_ptr() for v in vecs)),
+        len(vecs), c_arr, len(c_terms), x_arr, len(x_quads),
+        None if g_c is None else g_c.data_ptr(),
+        None if g_x is None else g_x.data_ptr(), N, n_cells, n_bases,
+        n_orders, p.group, p.threads, p.grid,
+        cuda_build.current_stream(x.device.index))
+    launches_bwd_jet += 1
+    _raise_on(err, lib, 'spline_eval_bwd_jet')
+    return g_c, g_x
+
+
 def _check_plain(coeffs: torch.Tensor, x: torch.Tensor) -> None:
     if x.shape != coeffs.shape[:-1]:
         raise ValueError(f"x {tuple(x.shape)} does not match the batch of "
@@ -469,3 +671,18 @@ def spline_eval_jet(tables: torch.Tensor, slopes: torch.Tensor,
     for c in comps:
         _check_plain(c, x)
     return spline_eval_jet_plain(tables, slopes, comps, x, terms)
+
+
+def spline_eval_bwd_jet(tables: torch.Tensor, slopes: torch.Tensor,
+                        records: torch.Tensor, comps, x: torch.Tensor, vecs,
+                        c_groups, x_terms) -> tuple:
+    """K4's backward jet entry on a CUDA tensor (from the cell records),
+    its plain version on a CPU tensor (from the value and slope tables):
+    (g_c or None, g_x or None)."""
+    if x.is_cuda:
+        return spline_eval_bwd_jet_cuda(records, comps, x, vecs, c_groups,
+                                        x_terms, tables.shape[-1])
+    for c in comps:
+        _check_plain(c, x)
+    return spline_eval_bwd_jet_plain(tables, slopes, comps, x, vecs,
+                                     c_groups, x_terms)

@@ -29,9 +29,10 @@ the value it hands to the transforms below (the outer jvps and grads) is
 the plain lerp ``raw_eval``: those differentiate it as kind 'R'.  A
 ``torch.autograd.Function`` applies one rule at every level of nested
 transforms, so the three evaluations here — ``_EVAL`` (one or two kinds at
-one x), ``_BWD`` (the backward of one kind: g·B(x) and g·∂x) and ``_BASIS``
-(g·B(x) alone) — go through ``_run``, which takes the innermost functorch
-transform itself: a level where an operand is traced gets a single-level
+one x), ``_BWD`` (the backward of one or two kinds: Σ g·B(x) and Σ g·∂x)
+and ``_BASIS`` (a sum of w·B(x) terms alone) — go through ``_run``, which
+takes the innermost functorch transform itself: a level where an operand
+is traced gets a single-level
 Function whose forward evaluates the plain kinds one level down and whose
 jvp and backward rules are the custom ones; a level where none is traced
 is passed through; a vmap level folds its batch into the kernel's rows.
@@ -42,8 +43,8 @@ vmap(grad)).
 
 On the card every evaluation is kernel K4 (csrc/spline_eval.cu): its
 forward kernel (a slope table read in step mode), its pair entry for two
-kinds, its jet entry, or its backward kernel — no plain PyTorch arithmetic
-of the kernel's body runs on a CUDA tensor.
+kinds, its jet entry, its backward kernel or its backward jet entry — no
+plain PyTorch arithmetic of the kernel's body runs on a CUDA tensor.
 
 The jet.  An evaluation site — one call of ``__call__`` or ``pair`` —
 under jvp levels alone (any number of them, vmap levels among them, no
@@ -66,15 +67,30 @@ the site's kinds and on which operands each level traces, never on data,
 so the site stays capturable in a CUDA graph.  A site with a grad level
 anywhere (the score's ψ, the 'reference' estimator's Hψ, 'hvp', 'dense',
 SR's vjp of a jvp, SPRING's vmap(grad), the posterior) keeps the
-per-call entries: a backward rule runs after the site has returned, so
-its evaluations cannot be known before it (``_jet`` reads the stack's
-keys and returns before it lowers anything).  So does a site under a jvp
-level that traces its coefficients and not x or the reverse (SR's jvp in
-the parameters meets the first layer's x untraced): autograd hands the
-rule a zero tangent of its own making, and the rule evaluates on it; and
-a site whose set exceeds one jet launch (more than 16 terms, 4
-components or 4 tabulated orders: three jvp levels).  ``_per_call``
-(tests and chip_smoke.py) runs every site per call, for the A/B.
+per-call forward entries: a backward rule runs after the site has
+returned, so its evaluations cannot be known before it (``_jet`` reads
+the stack's keys and returns before it lowers anything).  So does a site
+under a jvp level that traces its coefficients and not x or the reverse
+(SR's jvp in the parameters meets the first layer's x untraced): autograd
+hands the rule a zero tangent of its own making, and the rule evaluates on
+it; and a site whose set exceeds one jet launch (more than 16 terms, 4
+components or 4 tabulated orders: three jvp levels).
+
+The gathered backward.  A grad-level site's backward is gathered inside
+the rules instead: ``_EVAL.vjp`` makes ONE ``_BWD`` evaluation of all the
+site's kinds that have a gradient (g_c = Σ_k g_k·B^kc_k, g_x = Σ_k
+g_k·E_kx_k, each sum in kind order), and ``_BWD.jvp`` ONE ``_BASIS``
+evaluation of its tangent's g·B terms (t_g·B^kc + (g·t_x)·B^succ(kc) per
+kind, the kinds added in order, the products g·t_x formed in the
+evaluation): each one launch of K4's backward jet entry, equal to the
+per-call launches and the sums between them to the bit.  Its g_x tangent
+keeps its forward and pair launches, and the vjp rules (grad of grad)
+stay per term.  A one-kind backward and a one-term basis keep K4's
+backward kernel (the prior, the density path, the posterior: one launch,
+as before), and a basis beyond one launch (more than 4 terms or 6
+vectors: a third nested level) runs per term.  ``_per_call`` (tests and
+chip_smoke.py) runs every site per call and every backward per kind and
+term, for the A/B.
 """
 
 from __future__ import annotations
@@ -119,8 +135,9 @@ from waveflow_tpu_torch import resolve_device
 from waveflow_tpu_torch.ops import cuda_spline
 from waveflow_tpu_torch.ops.cuda_spline import (cell_records, lerp_basis,
                                                 spline_eval, spline_eval_bwd,
+                                                spline_eval_bwd_jet,
                                                 spline_eval_jet,
-                                                spline_eval_pair)
+                                                spline_eval_pair, term_weight)
 from waveflow_tpu_torch.ops.spline_tables import SplineTables
 
 
@@ -172,88 +189,187 @@ class _EVAL:
     @staticmethod
     def vjp(t, grads, needs, p):
         (c, x), (ev, kinds) = t, p
+        live = [(k, g) for k, g in zip(kinds, grads) if g is not None]
+        if not live:
+            return None, None
+        if _jet_on:
+            # the site's kinds in one backward evaluation (gathered)
+            return _run(_BWD, (c, x, *(g for _, g in live)),
+                        (ev, tuple(_lin(k) for k, _ in live),
+                         tuple(ev._succ(k) for k, _ in live), needs[0],
+                         needs[1]))
         g_c = g_x = None
-        for k, g in zip(kinds, grads):
-            if g is None:
-                continue
+        for k, g in live:
             gc, gx = _run(_BWD, (c, x, g),
-                          (ev, _lin(k), ev._succ(k), needs[0], needs[1]))
+                          (ev, (_lin(k),), (ev._succ(k),), needs[0],
+                           needs[1]))
             g_c, g_x = _add(g_c, gc), _add(g_x, gx)
         return g_c, g_x
 
 
+def _term(kind):
+    """(order, step mode) of a kind: what the cell records hold of it."""
+    return kind[1], kind[0] == 'S'
+
+
+def _tangent_terms(ev, kcs, has_t_g, has_t_x) -> tuple:
+    """The g·B terms of the tangent of a backward evaluation of the kinds
+    ``kcs`` (``_BWD.jvp``): (slots, groups), ``slots`` naming the vector
+    of each index — ('t_g', k), ('g', k) or 't_x' — and ``groups`` one per
+    kind whose gradient or x is traced, t_g·B^kc then (g·t_x)·B^succ(kc)."""
+    slots, groups = [], []
+
+    def index(name):
+        if name not in slots:
+            slots.append(name)
+        return slots.index(name)
+
+    for j, kc in enumerate(kcs):
+        group = []
+        if has_t_g[j]:
+            group.append(((index(('t_g', j)),), kc))
+        if has_t_x and ev._succ(kc) is not None:
+            i_tx = index('t_x')
+            group.append(((index(('g', j)), i_tx), ev._succ(kc)))
+        if group:
+            groups.append(tuple(group))
+    return slots, tuple(groups)
+
+
+def _bwd_terms(kcs, kxs, need_c, need_x) -> tuple:
+    """A backward evaluation of the kinds ``kcs`` as the backward jet
+    entry's terms (``SplineEvaluator._launch_bwd``): (c_groups, x_terms),
+    one group of one term g_k·B^kc_k per kind, and g_k·E_kx_k(c, x) on the
+    coefficients, component 0, a kind without an x-derivative adding 0."""
+    c_groups = (tuple((((j,), *_term(kc)),) for j, kc in enumerate(kcs))
+                if need_c else ())
+    x_terms = (tuple((j, 0, *((None, False) if kx is None else _term(kx)))
+                     for j, kx in enumerate(kxs)) if need_x else ())
+    return c_groups, x_terms
+
+
+def site_bwd(ev, kinds) -> dict:
+    """One grad-level site of ``ev`` (its kinds) as the gathered chain
+    launches its backward, every gradient and x traced: {form: (slots,
+    c_groups, x_terms)} for 'backward' (every kind's g·B and g_x, vectors
+    g_k) and 'tangent' (its g·B terms under one jvp level that traces the
+    gradients and x), in the backward jet entry's terms, the kinds in
+    their order and orders and step modes in place of kinds."""
+    kcs = tuple(_lin(k) for k in kinds)
+    kxs = tuple(ev._succ(k) for k in kinds)
+    c_groups, x_terms = _bwd_terms(kcs, kxs, True, True)
+    slots, groups = _tangent_terms(ev, kcs, [True] * len(kinds), True)
+    return {'backward': ([('g', j) for j in range(len(kinds))], c_groups,
+                         x_terms),
+            'tangent': (slots, tuple(tuple((f, *_term(k)) for f, k in g)
+                                     for g in groups), ())}
+
+
+def _basis_sum(ev, x, vecs, groups):
+    """Σ over ``groups`` (each summed left to right, then the groups) of
+    w·B^k(x), a term (factors, k) with w one of ``vecs`` or the product of
+    two: one ``_BASIS`` evaluation where the gather is on and the terms fit
+    one launch of K4's backward jet entry; else per term, the products and
+    sums formed by torch, as the per-call chain forms them."""
+    n_terms = sum(len(g) for g in groups)
+    if _jet_on and n_terms > 1 and n_terms <= cuda_spline.BWD_C_TERMS \
+            and len(vecs) <= cuda_spline.BWD_VECS:
+        return _run(_BASIS, (x, *vecs), (ev, groups))[0]
+    total = None
+    for group in groups:
+        part = None
+        for factors, k in group:
+            part = _add(part, _run(_BASIS, (x, term_weight(vecs, factors)),
+                                   (ev, ((((0,), k),),)))[0])
+        total = _add(total, part)
+    return total
+
+
 class _BWD:
-    """The backward of an evaluation: tensors (c, x, g), params (ev, kc,
-    kx, need_c, need_x) -> (g·B^kc(x) or None, g·E_kx(c, x) or None), kx
-    None for a zero x-derivative; one launch of K4's backward kernel."""
+    """The backward of an evaluation of one or two kinds at one x: tensors
+    (c, x, g_1, ..., g_K), params (ev, kcs, kxs, need_c, need_x) ->
+    (Σ_k g_k·B^kc_k(x) or None, Σ_k g_k·E_kx_k(c, x) or None), kx None for
+    a zero x-derivative, each sum in kind order; one launch: K4's backward
+    kernel for one kind, its backward jet entry for two."""
 
     @staticmethod
     def forward(t, p):
-        c, x, g = t
-        ev, kc, kx, need_c, need_x = p
-        return ev._launch_bwd(kc, kx, c, x, g, need_c, need_x)
+        c, x, *gs = t
+        ev, kcs, kxs, need_c, need_x = p
+        return ev._launch_bwd(kcs, kxs, c, x, gs, need_c, need_x)
 
     @staticmethod
     def raw(p):
-        ev, kc, kx, need_c, need_x = p
-        return ev, kc, None if kx is None else _lin(kx), need_c, need_x
+        ev, kcs, kxs, need_c, need_x = p
+        return (ev, kcs, tuple(None if k is None else _lin(k) for k in kxs),
+                need_c, need_x)
 
     @staticmethod
     def jvp(t, dt, p):
-        (c, x, g), (t_c, t_x, t_g) = t, dt
-        ev, kc, kx, need_c, need_x = p
+        (c, x, *gs), (t_c, t_x, *t_gs) = t, dt
+        ev, kcs, kxs, need_c, need_x = p
         tg_c = tg_x = None
         if need_c:
-            if t_g is not None:
-                tg_c = _run(_BASIS, (t_g, x), (ev, kc))[0]
-            if t_x is not None and ev._succ(kc) is not None:
-                tg_c = _add(tg_c, _run(_BASIS, (g * t_x, x),
-                                       (ev, ev._succ(kc)))[0])
-            if tg_c is None:
-                tg_c = x.new_zeros(x.shape + (ev.n_bases,))
+            # per kind t_g·B^kc + (g·t_x)·B^succ(kc), the kinds added in
+            # order: one multi-term basis evaluation, the products g·t_x
+            # formed in it
+            slots, groups = _tangent_terms(
+                ev, kcs, [t_g is not None for t_g in t_gs], t_x is not None)
+            named = {'t_x': t_x}
+            for j, (g, t_g) in enumerate(zip(gs, t_gs)):
+                named[('g', j)], named[('t_g', j)] = g, t_g
+            tg_c = (_basis_sum(ev, x, [named[a] for a in slots], groups)
+                    if groups else x.new_zeros(x.shape + (ev.n_bases,)))
         if need_x:
-            if kx is not None:
+            for g, t_g, kx in zip(gs, t_gs, kxs):
                 # g · E_kx(c, x): the product rule around kx's own rule
-                if t_g is not None:
-                    tg_x = t_g * _run(_EVAL, (c, x), (ev, (kx,)))[0]
-                if t_c is not None or t_x is not None:
-                    tg_x = _add(tg_x, g * _EVAL.jvp((c, x), (t_c, t_x),
-                                                    (ev, (kx,)))[0])
-            if tg_x is None:
-                tg_x = torch.zeros_like(x)
+                part = None
+                if kx is not None:
+                    if t_g is not None:
+                        part = t_g * _run(_EVAL, (c, x), (ev, (kx,)))[0]
+                    if t_c is not None or t_x is not None:
+                        part = _add(part, g * _EVAL.jvp((c, x), (t_c, t_x),
+                                                        (ev, (kx,)))[0])
+                tg_x = _add(tg_x, torch.zeros_like(x) if part is None
+                            else part)
         return tg_c, tg_x
 
     @staticmethod
     def vjp(t, grads, needs, p):
-        (c, x, g), (gb_c, gb_x) = t, grads
-        ev, kc, kx, need_c, need_x = p
-        d_c = d_x = d_g = None
-        if gb_c is not None and need_c:
-            if needs[2]:
-                d_g = _run(_EVAL, (gb_c, x), (ev, (kc,)))[0]
-            if needs[1] and ev._succ(kc) is not None:
-                d_x = g * _run(_EVAL, (gb_c, x),
-                               (ev, (ev._succ(kc),)))[0]
-        if gb_x is not None and need_x and kx is not None:
-            if needs[2]:
-                d_g = _add(d_g, gb_x * _run(_EVAL, (c, x),
-                                            (ev, (kx,)))[0])
-            if needs[0] or needs[1]:
-                dc, dx = _EVAL.vjp((c, x), (gb_x * g,), needs, (ev, (kx,)))
-                d_c, d_x = dc, _add(d_x, dx)
-        return d_c, d_x, d_g
+        (c, x, *gs), (gb_c, gb_x) = t, grads
+        ev, kcs, kxs, need_c, need_x = p
+        d_c = d_x = None
+        d_gs = [None] * len(gs)
+        for j, (g, kc, kx) in enumerate(zip(gs, kcs, kxs)):
+            if gb_c is not None and need_c:
+                if needs[2 + j]:
+                    d_gs[j] = _run(_EVAL, (gb_c, x), (ev, (kc,)))[0]
+                if needs[1] and ev._succ(kc) is not None:
+                    d_x = _add(d_x, g * _run(_EVAL, (gb_c, x),
+                                             (ev, (ev._succ(kc),)))[0])
+            if gb_x is not None and need_x and kx is not None:
+                if needs[2 + j]:
+                    d_gs[j] = _add(d_gs[j], gb_x * _run(_EVAL, (c, x),
+                                                        (ev, (kx,)))[0])
+                if needs[0] or needs[1]:
+                    dc, dx = _EVAL.vjp((c, x), (gb_x * g,), needs, (ev, (kx,)))
+                    d_c, d_x = _add(d_c, dc), _add(d_x, dx)
+        return (d_c, d_x, *d_gs)
 
 
 class _BASIS:
-    """g · B^k(x), (..., n_bases), for a plain kind k ('R' or 'S'): tensors
-    (g, x), params (ev, k); one launch of K4's backward kernel without
-    its x output."""
+    """Σ_groups Σ_terms w·B^k(x), (..., n_bases), for plain kinds k ('R'
+    or 'S'): tensors (x, v_1, ..., v_V), params (ev, groups), a group a
+    tuple of terms (factors, k), w = v_a for factors (a,) or v_a·v_b for
+    (a, b); each group summed left to right, then the groups.  One launch:
+    K4's backward kernel without its x output for one single-factor term,
+    its backward jet entry otherwise."""
 
     @staticmethod
     def forward(t, p):
-        g, x = t
-        ev, k = p
-        return ev._launch_bwd(k, None, None, x, g, True, False)[:1]
+        x, *vecs = t
+        ev, groups = p
+        return (ev._launch_basis(groups, x, vecs),)
 
     @staticmethod
     def raw(p):
@@ -261,27 +377,60 @@ class _BASIS:
 
     @staticmethod
     def jvp(t, dt, p):
-        (g, x), (t_g, t_x), (ev, k) = t, dt, p
-        out = None
-        if t_g is not None:
-            out = _run(_BASIS, (t_g, x), (ev, k))[0]
-        if t_x is not None and ev._succ(k) is not None:
-            out = _add(out, _run(_BASIS, (g * t_x, x),
-                                 (ev, ev._succ(k)))[0])
-        return (x.new_zeros(x.shape + (ev.n_bases,)) if out is None
-                else out,)
+        (x, *vecs), (t_x, *t_vecs), (ev, groups) = t, dt, p
+        total = None
+        for group in groups:
+            # each term's tangent t_w·B^k + (w·t_x)·B^succ(k) as a group of
+            # its own, the terms of one group in one evaluation, the groups
+            # added in order (the per-call chain's tree of sums)
+            new_vecs, new_groups = [], []
+            for factors, k in group:
+                w, t_w = vecs[factors[0]], t_vecs[factors[0]]
+                if len(factors) == 2:
+                    b, t_b = vecs[factors[1]], t_vecs[factors[1]]
+                    t_w = _add(None if t_w is None else t_w * b,
+                               None if t_b is None else w * t_b)
+                    w = w * b
+                terms = []
+                if t_w is not None:
+                    new_vecs.append(t_w)
+                    terms.append(((len(new_vecs) - 1,), k))
+                if t_x is not None and ev._succ(k) is not None:
+                    new_vecs += [w, t_x]
+                    terms.append(((len(new_vecs) - 2, len(new_vecs) - 1),
+                                  ev._succ(k)))
+                if terms:
+                    new_groups.append(tuple(terms))
+            if new_groups:
+                total = _add(total, _basis_sum(ev, x, new_vecs,
+                                               tuple(new_groups)))
+        return (x.new_zeros(x.shape + (ev.n_bases,)) if total is None
+                else total,)
 
     @staticmethod
     def vjp(t, grads, needs, p):
-        (g, x), (gb,), (ev, k) = t, grads, p
-        d_g = d_x = None
+        (x, *vecs), (gb,), (ev, groups) = t, grads, p
+        d_x = None
+        d_vecs = [None] * len(vecs)
         if gb is None:
-            return None, None
-        if needs[0]:
-            d_g = _run(_EVAL, (gb, x), (ev, (k,)))[0]
-        if needs[1] and ev._succ(k) is not None:
-            d_x = g * _run(_EVAL, (gb, x), (ev, (ev._succ(k),)))[0]
-        return d_g, d_x
+            return (None, *d_vecs)
+        for group in groups:
+            for factors, k in group:
+                if any(needs[1 + a] for a in factors):
+                    d_w = _run(_EVAL, (gb, x), (ev, (k,)))[0]
+                    if len(factors) == 1:
+                        a, = factors
+                        d_vecs[a] = _add(d_vecs[a], d_w)
+                    else:
+                        a, b = factors
+                        if needs[1 + a]:
+                            d_vecs[a] = _add(d_vecs[a], d_w * vecs[b])
+                        if needs[1 + b]:
+                            d_vecs[b] = _add(d_vecs[b], d_w * vecs[a])
+                if needs[0] and ev._succ(k) is not None:
+                    d_x = _add(d_x, term_weight(vecs, factors) * _run(
+                        _EVAL, (gb, x), (ev, (ev._succ(k),)))[0])
+        return (d_x, *d_vecs)
 
 
 def _save(ctx, inputs):
@@ -461,7 +610,8 @@ _jet_on = True
 
 class _per_call:
     """Within the block every site goes through the per-call entries, as
-    before the jet (the A/B of tests and chip_smoke.py)."""
+    before the jet, and every backward per kind and term, as before the
+    gather (the A/B of tests and chip_smoke.py)."""
 
     def __enter__(self):
         global _jet_on
@@ -725,13 +875,38 @@ class SplineEvaluator:
         (ta, sa), (tb, sb) = (self._table(k) for k in kinds)
         return spline_eval_pair(ta, tb, coeffs, x, sa, sb)
 
-    def _launch_bwd(self, kc, kx, coeffs, x, grad, need_coeffs, need_x):
-        """(g·B^kc(x), g·E_kx(coeffs, x)), kx None for zero: one launch of
-        K4's backward kernel on the card."""
-        table, step = self._table(kc)
-        table_x, step_x = (None, False) if kx is None else self._table(kx)
-        return spline_eval_bwd(table, table_x, coeffs, x, grad, need_coeffs,
-                               need_x, step, step_x)
+    def _launch_bwd(self, kcs, kxs, coeffs, x, grads, need_coeffs, need_x):
+        """(Σ_k g_k·B^kc_k(x), Σ_k g_k·E_kx_k(coeffs, x)), kx None for
+        zero: one launch of K4's backward kernel on the card for one kind,
+        of its backward jet entry for two."""
+        if len(kcs) == 1:
+            table, step = self._table(kcs[0])
+            table_x, step_x = ((None, False) if kxs[0] is None
+                               else self._table(kxs[0]))
+            return spline_eval_bwd(table, table_x, coeffs, x, grads[0],
+                                   need_coeffs, need_x, step, step_x)
+        c_groups, x_terms = _bwd_terms(kcs, kxs, need_coeffs, need_x)
+        if not (c_groups or x_terms):
+            return None, None
+        return spline_eval_bwd_jet(
+            self.tables, self.slopes, self.records if x.is_cuda else None,
+            [coeffs], x, list(grads), c_groups, x_terms)
+
+    def _launch_basis(self, groups, x, vecs):
+        """Σ over the groups of w·B^k(x) (``_BASIS``): one launch of K4's
+        backward kernel without its x output for one single-factor term,
+        of its backward jet entry otherwise."""
+        if len(groups) == 1 and len(groups[0]) == 1 \
+                and len(groups[0][0][0]) == 1:
+            (((a,), k),), = groups
+            table, step = self._table(k)
+            return spline_eval_bwd(table, None, None, x, vecs[a], True, False,
+                                   step)[0]
+        c_groups = tuple(tuple((factors, *_term(k))
+                               for factors, k in group) for group in groups)
+        return spline_eval_bwd_jet(
+            self.tables, self.slopes, self.records if x.is_cuda else None,
+            [], x, list(vecs), c_groups, ())[0]
 
     def basis(self, x: torch.Tensor, d: int = 0) -> torch.Tensor:
         """Interpolated basis matrix T^{(d)} at x: (...,) -> (..., n_bases)."""
