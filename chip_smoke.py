@@ -59,16 +59,30 @@ Phases (any failure exits non-zero; nothing is caught):
      graph-metropolis — the Metropolis adam window as a CUDA graph against
                its eager twin from he1d_metropolis_seed7, as graph-train
                (walkers and accept rates compared too);
+ 46. graph-mala — the adam MALA window from he1d_mala_s3 the same way,
+               in turns of 2 x TWIN_WINDOW epochs (the drift's reverse
+               pass through K3's backward rule inside the capture), with
+               each graph phase's capture seconds and graph pool (the
+               memory reserved over the capture);
+ 47. graph-spring — SPRING + ancestral from r4_spring100k as graph-mala,
+               K1 and K3 launched by the replays, SPRING's step, skipped
+               and fallbacks counters advancing alike in both twins;
+ 48. graph-sr — SR + ancestral from he1d_sr, turns of 2 x SR_GRAPH_WINDOW
+               epochs (an eager SR epoch takes ~1.5 s);
+ 49. graph-natgrad-mcmc — SPRING + MALA from r4_spring100k (as
+               graph-mala) and SR + Metropolis from he1d_sr (as graph-sr),
+               the walkers warm-started on the trainer's stream;
   9. mala    — he1d_mala_s3 evaluated at the JAX protocol (clipped mean
                within 5 combined stderr of the JAX figure; raw reported),
-               then resumed with sampler='mala' for one window of 100
-               epochs: finite losses, accept rate in [0.3, 0.7], K3
+               then resumed with sampler='mala' for one graphed window of
+               100 epochs: finite losses, accept rate in [0.3, 0.7], K3
                launched, walkers/s;
  10. spring, sr — r4_spring100k evaluated (raw and clipped gated) and
-               resumed with optimizer='spring' for 100 epochs (SPRING's
-               skipped / fallbacks counters, K3 launches per step, 3
-               epochs profiled); he1d_sr resumed with optimizer='sr' for 20
-               (1 more profiled);
+               resumed with optimizer='spring' for one graphed window of
+               100 epochs (SPRING's skipped / fallbacks counters, K3
+               launches per step, 3 replayed epochs profiled); he1d_sr
+               resumed with optimizer='sr' for one of 20 (1 more
+               profiled);
  11. li      — r5_li_metro_refresh100_s3 (3 electrons) evaluated (raw and
                clipped gated) and resumed for one Metropolis window of 20
                epochs under the 'auto' refresh (K1 launched, 3 columns);
@@ -146,6 +160,14 @@ Phases (any failure exits non-zero; nothing is caught):
                events and copies per replayed epoch (profiler);
  31. dp-metropolis-1 — the same for the Metropolis window from
                he1d_metropolis_seed7 (the step size's all-reduce per sweep);
+ 50. dp-spring-1 (after dp-metropolis-1) — SPRING + ancestral from
+               r4_spring100k sharded over the world of one on NCCL, graphed
+               against its eager sharded twin as graph-spring (the
+               all-gathers, the chunked Gram matrix's all-gathers and the
+               update's psum captured), then adam + MALA from he1d_mala_s3
+               (the accept fraction's pmean) and SR from he1d_sr (a pmean
+               per CG iteration) the same way; NCCL events and copies per
+               replayed epoch;
  32. dp-gloo-2 (after nuts-waveflow) — two ranks on the one card over
                gloo, eager, spawned by this script (``--dp-gloo-rank``):
                the sharded clipped-score step, the chunked SPRING Gram and
@@ -239,6 +261,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import math
 import subprocess
@@ -1208,12 +1231,17 @@ def events_ms(torch, fn):
 
 def trainer_tensors(torch, t):
     """What a trainer carries from window to window, by name: losses,
-    baseline, parameters, Adam state, generator, walkers, accept rates."""
+    baseline, parameters, optimizer state (Adam's moments, SPRING's delta
+    and counters; SR keeps none), generator, walkers, accept rates."""
     out = {'losses': torch.tensor(t.losses, dtype=torch.float64),
            'baseline': t.baseline, 'generator': t.generator.get_state()}
     out.update({f'param {k}': v for k, v in t.model.state_dict().items()})
-    for i, st in t.step.optimizer.state_dict()['state'].items():
-        out.update({f'adam {i} {k}': v for k, v in st.items()})
+    opt = t.step.optimizer.state_dict()
+    if t.config.optimizer == 'adam':
+        for i, st in opt['state'].items():
+            out.update({f'adam {i} {k}': v for k, v in st.items()})
+    elif t.config.optimizer == 'spring':
+        out.update({f'spring {k}': v for k, v in opt.items()})
     if t.mcmc_state is not None:
         out.update({f'walkers {k}': v for k, v in
                     zip(t.mcmc_state._fields, t.mcmc_state)})
@@ -1241,32 +1269,87 @@ def compare_twins(torch, a, b):
     return bitwise, max(by_group.values(), default=0.0), by_group
 
 
-def graph_twins(torch, label, make, window_call, read=None, reset=None,
-                required=('basis_jet',)):
+@contextlib.contextmanager
+def capture_clock(torch):
+    """Every ``EpochGraph`` capture made inside: (seconds, bytes the caching
+    allocator reserved over it — the graph's private pool) appended to the
+    list yielded, the card synchronised on both sides.  Garbage is
+    collected and the cache emptied first, as the capture itself does, so
+    the reserved bytes before it are the live tensors' alone."""
+    from waveflow_tpu_torch.vmc import graphs
+    real, record = graphs.EpochGraph._capture, []
+
+    def timed(self):
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        reserved, t0 = torch.cuda.memory_reserved(), time.perf_counter()
+        out = real(self)
+        torch.cuda.synchronize()
+        record.append((time.perf_counter() - t0,
+                       torch.cuda.memory_reserved() - reserved))
+        return out
+    graphs.EpochGraph._capture = timed
+    try:
+        yield record
+    finally:
+        graphs.EpochGraph._capture = real
+
+
+def spring_counters(t):
+    """SPRING's step, skipped and fallbacks counters of a trainer, or None
+    for another optimizer."""
+    if t.config.optimizer != 'spring':
+        return None
+    return {k: int(v) for k, v in t.step.optimizer.state_dict().items()
+            if k != 'delta'}
+
+
+def replayed_window(t, n: int):
+    """``n`` epochs of a trainer's own window (replayed when it is graphed),
+    outside ``train``: the ancestral or the MCMC window."""
+    if t.config.sampler == 'ancestral':
+        return t.train_window(n, t.baseline)
+    return t.mcmc_window(t.mcmc_state, n, t.baseline, t.generator)
+
+
+def graph_twins(torch, label, make, read=None, reset=None,
+                required=('basis_jet',), after=None):
     """A trainer on the graph path and its eager twin (``graph=False``),
-    both from one state (``make(graph)``): turns of two windows of
-    GRAPH_WINDOW epochs in the order eager, graph, graph, eager, each timed
+    both from one state (``make(graph)``): turns of two windows (of the
+    trainers' ``window`` epochs) in the order eager, graph, graph, eager,
+    each timed
     by CUDA events with its kernel launches counted (the first graph turn
-    holds the warm-up epoch and the capture); then everything the two
-    carry compared (to the bit, or within GRAPH_MAX_REL), launches per
-    epoch compared, and 10 epochs of ``window_call(trainer, 10)`` (the
-    graph replayed) profiled.  ``read`` / ``reset`` are the launch
-    counters (K1 and K3 unless given), ``required`` the kernels the
-    replays must launch."""
+    holds the warm-up epoch and the capture, whose own seconds and graph
+    pool — ``torch.cuda.memory_reserved`` before and after — are read by
+    ``capture_clock``); then everything the two carry compared (to the
+    bit, or within GRAPH_MAX_REL), SPRING's counters too (they must
+    advance alike, one step per epoch), launches per epoch compared, and
+    ``window`` epochs of ``replayed_window`` (the graph replayed)
+    profiled: the profiler's processing time grows with the kernels it
+    saw, ~33,500 per SR epoch.  ``read`` / ``reset`` are the launch counters (K1 and K3
+    unless given), ``required`` the kernels the replays must launch;
+    ``after(eager, graphed)`` adds its figures to the row."""
     eager, graphed = make(False), make(None)
     if eager.graph or not graphed.graph:
         fail(f"{label}: the twins' graph flags are {eager.graph}, "
              f"{graphed.graph}")
+    window = graphed.config.window
     read, reset = read or read_counts, reset or reset_counts
-    n_turn = 2 * GRAPH_WINDOW
+    n_turn = 2 * window
     ms = {'eager': [], 'graph': []}
     counts = {kind: dict.fromkeys(read(), 0) for kind in ms}
-    for kind, t in (('eager', eager), ('graph', graphed), ('graph', graphed),
-                    ('eager', eager)):
-        reset()
-        _, dt = events_ms(torch, lambda: t.train(n_turn, verbose=False))
-        ms[kind].append(dt)
-        counts[kind] = {k: counts[kind][k] + v for k, v in read().items()}
+    counters0 = spring_counters(graphed)
+    reserved = []
+    with capture_clock(torch) as captures:
+        for kind, t in (('eager', eager), ('graph', graphed),
+                        ('graph', graphed), ('eager', eager)):
+            reset()
+            reserved.append(torch.cuda.memory_reserved())
+            _, dt = events_ms(torch, lambda: t.train(n_turn, verbose=False))
+            reserved[-1] = (reserved[-1], torch.cuda.memory_reserved())
+            ms[kind].append(dt)
+            counts[kind] = {k: counts[kind][k] + v for k, v in read().items()}
     n_ep = 2 * n_turn
     per_epoch = {kind: {k: v / n_ep for k, v in c.items()}
                  for kind, c in counts.items()}
@@ -1277,50 +1360,97 @@ def graph_twins(torch, label, make, window_call, read=None, reset=None,
     eager_ms = sum(ms['eager']) / n_ep
     graph_ms = ms['graph'][1] / n_turn
     first_ms = ms['graph'][0] / n_turn
+    if len(captures) != 1:
+        fail(f"{label}: {len(captures)} captures in the turns, not 1")
+    capture_s, pool_bytes = captures[0]
     out = dict(eager_ms_per_epoch=eager_ms, graph_ms_per_epoch=graph_ms,
                graph_first_turn_ms_per_epoch=first_ms,
                eager_walkers_per_s=B / eager_ms * 1e3,
                graph_walkers_per_s=B / graph_ms * 1e3,
                speedup=eager_ms / graph_ms, turns_ms=ms, bitwise=bitwise,
                max_rel_diff=rel, rel_diff_by_group=by_group,
-               launches_per_epoch=per_epoch)
+               launches_per_epoch=per_epoch, capture_s=capture_s,
+               graph_pool_mib=pool_bytes / 2 ** 20,
+               first_graph_turn_reserved_mib=[
+                   v / 2 ** 20 for v in reserved[1]])
     if graphed.accept_rates:
         out['accept_rate'] = sum(graphed.accept_rates[-n_ep:]) / n_ep
+    counters = {kind: spring_counters(t) for kind, t in
+                (('eager', eager), ('graph', graphed))}
+    if counters0 is not None:
+        out['spring_counters'] = dict(counters, start=counters0)
     print(f"{label}: eager, graph, graph, eager turns of 2 x "
-          f"{GRAPH_WINDOW} epochs at batch {B} (CUDA events): "
+          f"{window} epochs at batch {B} (CUDA events): "
           f"{' / '.join(f'{v:.1f}' for v in ms['eager'][:1] + ms['graph'] + ms['eager'][1:])} ms "
           f"| eager {eager_ms:.3f} ms per epoch, {out['eager_walkers_per_s']:.1f}"
           f" walkers/s | graph {graph_ms:.3f} ms per epoch (replays; "
           f"first turn {first_ms:.3f} with the warm-up and the capture), "
           f"{out['graph_walkers_per_s']:.1f} walkers/s, {out['speedup']:.2f}x "
-          f"| graph against eager after {n_ep} epochs: "
+          f"| capture {capture_s:.3f} s, graph pool {out['graph_pool_mib']:.1f}"
+          f" MiB (reserved {out['first_graph_turn_reserved_mib'][0]:.1f} -> "
+          f"{out['first_graph_turn_reserved_mib'][1]:.1f} MiB over the first "
+          f"graph turn) | graph against eager after {n_ep} epochs: "
           f"{'equal to the bit' if bitwise else 'NOT bitwise'} (largest "
           f"relative difference {rel:.3e}; by kind "
           f"{ {k: f'{v:.2e}' for k, v in by_group.items()} }) | launches per epoch eager "
           f"{per_epoch['eager']}, graph {per_epoch['graph']}"
           + (f" | mean accept rate {out['accept_rate']:.4f}"
-             if 'accept_rate' in out else ""), flush=True)
+             if 'accept_rate' in out else "")
+          + (f" | SPRING counters {counters0} -> eager {counters['eager']}, "
+             f"graph {counters['graph']}" if counters0 is not None else ""),
+          flush=True)
     if not all(math.isfinite(v) for v in losses):
         fail(f"{label}: the graphed run produced non-finite losses")
     if not (bitwise or rel <= GRAPH_MAX_REL):
         fail(f"{label}: the graph differs from its eager twin by {by_group} "
              f"relative (limit {GRAPH_MAX_REL:g})")
+    if counters0 is not None and (
+            counters['eager'] != counters['graph']
+            or counters['graph']['step'] != counters0['step'] + n_ep):
+        fail(f"{label}: SPRING's counters from {counters0}: {counters}")
     if per_epoch['graph'] != per_epoch['eager']:
         fail(f"{label}: launches per epoch differ: {per_epoch}")
     missing = [k for k in required if counts['graph'][k] == 0]
     if missing:
         fail(f"{label}: {missing} not launched by the graph's replays")
     out['profile'] = prof = profile_window(
-        torch, lambda: window_call(graphed, 10), 10,
+        torch, lambda: replayed_window(graphed, window), window,
         f"{label} graphed window ", top=10)
     # the profiler slows the host's side of a replay: the idle share of an
     # unprofiled replay is the profiled busy time against the events' time
-    out['idle_unprofiled'] = 1 - prof['busy_ms'] / 10 / graph_ms
-    print(f"{label}: device busy {prof['busy_ms'] / 10:.3f} ms per replayed "
+    out['idle_unprofiled'] = 1 - prof['busy_ms'] / window / graph_ms
+    print(f"{label}: device busy {prof['busy_ms'] / window:.3f} ms per replayed "
           f"epoch (profiler) against {graph_ms:.3f} ms per epoch unprofiled "
           f"(CUDA events): idle share {out['idle_unprofiled']:.4f}",
           flush=True)
+    if after is not None:
+        out.update(after(eager, graphed))
     return counts['graph'], out
+
+
+# the windows of the MALA, SPRING and SR twins (graph-mala, graph-spring,
+# graph-sr, graph-natgrad-mcmc, dp-spring-1), cut to keep the script's
+# length: turns of 2 x TWIN_WINDOW epochs, and of 2 x SR_GRAPH_WINDOW for
+# SR, whose eager epoch takes ~1-1.5 s at batch 256
+TWIN_WINDOW = 5
+SR_GRAPH_WINDOW = 2
+
+
+def twin_maker(run_dir, config, window=GRAPH_WINDOW):
+    """``make(graph)`` of ``graph_twins``: a trainer at batch 256 on
+    'poly_pallas' with windows of ``window`` epochs and ``config``,
+    resumed from the committed run ``run_dir`` (its parameters, optimizer
+    state and walkers, or walkers warm-started on the trainer's stream)."""
+    from waveflow_tpu_torch.vmc import VMCConfig, VMCTrainer
+
+    def make(graph):
+        t = VMCTrainer(VMCConfig(batch_size=256, window=window,
+                                 log_every=window, eval_backend='poly_pallas',
+                                 device='cuda', **config), graph=graph)
+        if not t.load_checkpoint(str(run_dir)):
+            fail(f"no checkpoint under {run_dir}")
+        return t
+    return make
 
 
 def graph_train_phase(torch):
@@ -1331,24 +1461,15 @@ def graph_train_phase(torch):
     run of a process equals later ones) and the 'reference' estimator on
     the main path's Laplacian (its running baseline through the graph's
     buffer)."""
-    from waveflow_tpu_torch.vmc import VMCConfig, VMCTrainer
     rows, total = {}, {'sampler': 0, 'basis_jet': 0}
     for label, extra in (
             ('train-256', {}),
             ('reference-256', dict(estimator='reference',
                                    laplacian_mode='dense')),
             ('reference-256 fwd_batched', dict(estimator='reference'))):
-        def make(graph, extra=extra):
-            t = VMCTrainer(VMCConfig(batch_size=256, window=GRAPH_WINDOW,
-                                     log_every=GRAPH_WINDOW,
-                                     eval_backend='poly_pallas',
-                                     device='cuda', **extra), graph=graph)
-            if not t.load_checkpoint(str(CHECKPOINT.parent)):
-                fail(f"no checkpoint under {CHECKPOINT.parent}")
-            return t
         launches, rows[label] = graph_twins(
-            torch, f"graph-train {label}", make,
-            lambda t, n: t.train_window(n, t.baseline))
+            torch, f"graph-train {label}",
+            twin_maker(CHECKPOINT.parent, extra))
         if launches['sampler'] == 0:
             fail(f"graph-train {label}: K1 was not launched by the replays")
         total = {k: total[k] + v for k, v in launches.items()}
@@ -1358,20 +1479,103 @@ def graph_train_phase(torch):
 def graph_metropolis_phase(torch):
     """The Metropolis adam window as a CUDA graph against its eager twin,
     from he1d_metropolis_seed7 with its walkers and Adam moments."""
-    from waveflow_tpu_torch.vmc import VMCConfig, VMCTrainer
-
-    def make(graph):
-        t = VMCTrainer(VMCConfig(batch_size=256, window=GRAPH_WINDOW,
-                                 log_every=GRAPH_WINDOW, sampler='metropolis',
-                                 eval_backend='poly_pallas', device='cuda'),
-                       graph=graph)
-        if not t.load_checkpoint(str(METROPOLIS_RUN)):
-            fail(f"no checkpoint under {METROPOLIS_RUN}")
-        return t
     launches, row = graph_twins(
-        torch, "graph-metropolis metropolis-256", make,
-        lambda t, n: t.mcmc_window(t.mcmc_state, n, t.baseline, t.generator))
+        torch, "graph-metropolis metropolis-256",
+        twin_maker(METROPOLIS_RUN, dict(sampler='metropolis')))
     return launches, {'metropolis-256': row}
+
+
+def graph_mala_phase(torch):
+    """The adam MALA window (``MALATrainWindow``: the sweeps, the update,
+    the refresh of log-prob and drift, K3's backward rule inside the
+    capture) as a CUDA graph against its eager twin from he1d_mala_s3."""
+    launches, row = graph_twins(
+        torch, "graph-mala mala-256",
+        twin_maker(MALA_RUN, dict(sampler='mala'), TWIN_WINDOW))
+    return launches, {'mala-256': row}
+
+
+def graph_spring_phase(torch):
+    """The SPRING ancestral window (its delta and counters written in
+    place, the Cholesky ladder inside the capture) as a CUDA graph against
+    its eager twin from r4_spring100k: K1 and K3 launched by the replays,
+    the counters advancing alike."""
+    launches, row = graph_twins(
+        torch, "graph-spring spring-256",
+        twin_maker(SPRING_RUN, SPRING_CONFIG, TWIN_WINDOW),
+        required=('sampler', 'basis_jet'))
+    return launches, {'spring-256': row}
+
+
+def graph_sr_phase(torch):
+    """The SR ancestral window (20 masked CG iterations of one jvp and one
+    vjp: the port's largest graph) against its eager twin from he1d_sr,
+    turns of 2 x SR_GRAPH_WINDOW epochs."""
+    launches, row = graph_twins(
+        torch, "graph-sr sr-256",
+        twin_maker(SR_RUN, SR_CONFIG, SR_GRAPH_WINDOW),
+        required=('sampler', 'basis_jet'))
+    return launches, {'sr-256': row}
+
+
+def graph_natgrad_mcmc_phase(torch):
+    """The natural-gradient updates over MCMC walkers as CUDA graphs
+    against their eager twins: SPRING + MALA from r4_spring100k and SR +
+    Metropolis from he1d_sr (ancestral runs: the walkers are warm-started
+    on the trainer's stream, the same in both twins)."""
+    rows, total = {}, {'sampler': 0, 'basis_jet': 0}
+    for label, run_dir, config, window in (
+            ('spring-mala-256', SPRING_RUN,
+             dict(SPRING_CONFIG, sampler='mala'), TWIN_WINDOW),
+            ('sr-metropolis-256', SR_RUN,
+             dict(SR_CONFIG, sampler='metropolis'), SR_GRAPH_WINDOW)):
+        launches, rows[label] = graph_twins(
+            torch, f"graph-natgrad-mcmc {label}",
+            twin_maker(run_dir, config, window))
+        total = {k: total[k] + v for k, v in launches.items()}
+    return total, rows
+
+
+def dp_spring_phase(torch):
+    """SPRING + ancestral sharded over a world of one process on NCCL
+    (``data_parallel=True``: the clip window's and the row norms'
+    all-gathers, the chunked all-gather Gram matrix and the update's psum
+    captured in the epoch) graphed against its eager sharded twin; then
+    the same for the other collectives of this slice's windows, adam +
+    MALA (the accept fraction's pmean per sweep) and SR (a pmean per CG
+    iteration).  Each as ``graph_twins``, both twins' steps and samplers
+    built on the walker axis, plus the NCCL events and copies per replayed
+    epoch (profiler; a world of one launches no NCCL kernel, a record)."""
+    rows, total = {}, {'sampler': 0, 'basis_jet': 0}
+    for label, run_dir, config, window, required in (
+            ('spring-256', SPRING_RUN, SPRING_CONFIG, TWIN_WINDOW,
+             ('sampler', 'basis_jet')),
+            ('mala-256', MALA_RUN, dict(sampler='mala'), TWIN_WINDOW,
+             ('basis_jet',)),
+            ('sr-256', SR_RUN, SR_CONFIG, SR_GRAPH_WINDOW,
+             ('sampler', 'basis_jet'))):
+        name = f"dp-spring-1 {label}"
+
+        def collectives(eager, graphed, window=window, name=name):
+            if not all(t.mesh is not None and t.mesh.backend == 'nccl'
+                       and t.mesh.size == 1 and t.walker_axis is not None
+                       for t in (eager, graphed)):
+                fail(f"{name}: walker meshes {eager.mesh}, {graphed.mesh}")
+            prof = collective_profile(
+                torch, lambda: replayed_window(graphed, window), window)
+            print(f"{name}: world of one over NCCL, per replayed epoch "
+                  f"(profiler): NCCL events {prof['nccl_per_epoch']:g} "
+                  f"{prof['nccl_by_name']}, copies "
+                  f"{prof['copies_per_epoch']:g}, device events "
+                  f"{prof['events_per_epoch']:g}, busy "
+                  f"{prof['busy_ms_per_epoch']:.4f} ms", flush=True)
+            return dict(collectives=prof)
+        launches, rows[label] = graph_twins(
+            torch, name,
+            twin_maker(run_dir, dict(config, data_parallel=True), window),
+            required=required, after=collectives)
+        total = {k: total[k] + v for k, v in launches.items()}
+    return total, rows
 
 
 def graph_eval_phase(torch):
@@ -1602,9 +1806,10 @@ def launch_device_ms(torch, fn, key: str, reps: int = 20) -> float:
 
 def window_phase(torch, label, run_dir, config, n_epochs, profile=0):
     """One training window resumed from a committed JAX run at batch 256
-    with the kernel backend: finite losses, walkers/s (host clock), the
-    MCMC accept rate, SPRING's counters, launches per epoch; ``profile``
-    further epochs under the profiler."""
+    with the kernel backend, graphed (the trainer's default on the card:
+    its first epoch warms up and captures): finite losses, walkers/s (host
+    clock), the MCMC accept rate, SPRING's counters, launches per epoch;
+    ``profile`` further replayed epochs under the profiler."""
     from waveflow_tpu_torch.vmc import VMCConfig, VMCTrainer
     t = VMCTrainer(VMCConfig(batch_size=256, window=n_epochs,
                              log_every=n_epochs, eval_backend='poly_pallas',
@@ -1624,6 +1829,7 @@ def window_phase(torch, label, run_dir, config, n_epochs, profile=0):
     launches = read_counts()
     wps = n_epochs * 256 / wall
     out = dict(walkers_per_s=wps, wall_s=wall, last_loss=losses[-1],
+               graphed=t.graph,
                launches_per_epoch={k: v / n_epochs
                                    for k, v in launches.items()})
     extra = ""
@@ -1637,7 +1843,9 @@ def window_phase(torch, label, run_dir, config, n_epochs, profile=0):
         extra += f" | counters {counters0} -> {out['counters']}"
     print(f"{label}: {run_dir.name} resumed at epoch {t.epoch - n_epochs}, "
           f"{n_epochs} epochs at batch 256, last loss {losses[-1]:.5f} | "
-          f"walkers/s {wps:.1f} (host clock){extra} | launches per epoch: "
+          f"walkers/s {wps:.1f} (host clock, "
+          f"{'graphed' if t.graph else 'eager'} window){extra} | launches "
+          "per epoch: "
           f"sampler {launches['sampler'] / n_epochs:g}, basis_jet "
           f"{launches['basis_jet'] / n_epochs:g}", flush=True)
     if len(losses) != n_epochs or not all(math.isfinite(v) for v in losses):
@@ -1647,9 +1855,11 @@ def window_phase(torch, label, run_dir, config, n_epochs, profile=0):
              "[0.3, 0.7]")
     if launches['basis_jet'] == 0:
         fail(f"K3 was not launched in {label}")
+    if not t.graph:
+        fail(f"{label}: the window ran eagerly")
     if profile:
-        profile_window(torch, lambda: t.train(profile, verbose=False),
-                       profile, f"{label} ")
+        profile_window(torch, lambda: replayed_window(t, profile), profile,
+                       f"{label} graphed window ")
     return launches, out
 
 
@@ -2186,27 +2396,18 @@ def h2d_fidelity_phase(torch):
     return launches, dict(fidelity=fid, ed_energy=e_ed, wall_s=wall)
 
 
-def graph_2d_phase(torch, label, run_dir, config, window_call, k1_per_epoch):
+def graph_2d_phase(torch, label, run_dir, config, k1_per_epoch):
     """A 2D window as a CUDA graph against its eager twin from a committed
     run (``graph_twins``: turns eager, graph, graph, eager of 2 windows of
     GRAPH_WINDOW epochs, everything to the bit, launches per epoch equal,
     10 replays profiled), K1's launches per epoch held to
     ``k1_per_epoch``; then one graphed window of 100 epochs timed by CUDA
     events."""
-    from waveflow_tpu_torch.vmc import VMCConfig, VMCTrainer
-
-    def make(graph, window=GRAPH_WINDOW):
-        t = VMCTrainer(VMCConfig(batch_size=256, window=window,
-                                 log_every=window, eval_backend='poly_pallas',
-                                 device='cuda', **config), graph=graph)
-        if not t.load_checkpoint(str(run_dir)):
-            fail(f"no checkpoint under {run_dir}")
-        return t
-    launches, row = graph_twins(torch, label, make, window_call)
+    launches, row = graph_twins(torch, label, twin_maker(run_dir, config))
     k1 = row['launches_per_epoch']['graph']['sampler']
     if k1 != k1_per_epoch:
         fail(f"{label}: K1 launched {k1} times per epoch, not {k1_per_epoch}")
-    t = make(None, window=100)
+    t = twin_maker(run_dir, config, window=100)(None)
     t.train(100, verbose=False)                  # warm-up epoch and capture
     _, ms = events_ms(torch, lambda: t.train(100, verbose=False))
     row['window_100_ms_per_epoch'] = ms / 100
@@ -2548,7 +2749,7 @@ def collective_profile(torch, run, n_epochs):
                                       for e in dev) / 1e3 / n_epochs)
 
 
-def dp_world1_phase(torch, label, run_dir, config, window_call):
+def dp_world1_phase(torch, label, run_dir, config):
     """A graphed adam window sharded over a world of one process on NCCL
     (``data_parallel=True``: the clip window's all-gather, the gradient's
     all-reduce and, with Metropolis walkers, the step size's all-reduce per
@@ -2560,17 +2761,8 @@ def dp_world1_phase(torch, label, run_dir, config, window_call):
     replayed windows of each in alternation (the collectives' overhead per
     replayed epoch) and one profiled window of each (the NCCL events and
     copies per replayed epoch; the sharded replay must hold more of them)."""
-    from waveflow_tpu_torch.vmc import VMCConfig, VMCTrainer
-
-    def make(dp):
-        t = VMCTrainer(VMCConfig(batch_size=256, window=GRAPH_WINDOW,
-                                 log_every=GRAPH_WINDOW,
-                                 eval_backend='poly_pallas', device='cuda',
-                                 data_parallel=dp, **config))
-        if not t.load_checkpoint(str(run_dir)):
-            fail(f"no checkpoint under {run_dir}")
-        return t
-    plain, sharded = make(False), make(True)
+    plain, sharded = (twin_maker(run_dir, dict(config, data_parallel=dp))(None)
+                      for dp in (False, True))
     mesh = sharded.mesh
     if not (plain.graph and sharded.graph and mesh.size == 1
             and mesh.backend == 'nccl'):
@@ -2594,12 +2786,12 @@ def dp_world1_phase(torch, label, run_dir, config, window_call):
     for i in range(DP_TIMING_TURNS):
         order = (('plain', plain), ('sharded', sharded))
         for kind, t in (order if i % 2 == 0 else order[::-1]):
-            _, dt = events_ms(torch, lambda: window_call(t, GRAPH_WINDOW))
+            _, dt = events_ms(torch, lambda: replayed_window(t, GRAPH_WINDOW))
             replays[kind].append(dt / GRAPH_WINDOW)
     med = {k: sorted(v)[len(v) // 2] for k, v in replays.items()}
     overhead = med['sharded'] - med['plain']
     prof = {kind: collective_profile(
-        torch, lambda: window_call(t, GRAPH_WINDOW), GRAPH_WINDOW)
+        torch, lambda: replayed_window(t, GRAPH_WINDOW), GRAPH_WINDOW)
         for kind, t in (('plain', plain), ('sharded', sharded))}
     extra_copies = (prof['sharded']['copies_per_epoch']
                     - prof['plain']['copies_per_epoch'])
@@ -2646,8 +2838,7 @@ def dp_world1_phase(torch, label, run_dir, config, window_call):
 
 def dp_nccl_phase(torch):
     launches, row = dp_world1_phase(
-        torch, 'dp-nccl-1 train-256', CHECKPOINT.parent, {},
-        lambda t, n: t.train_window(n, t.baseline))
+        torch, 'dp-nccl-1 train-256', CHECKPOINT.parent, {})
     if launches['sampler'] == 0:
         fail("dp-nccl-1: K1 was not launched by the sharded replays")
     return launches, row
@@ -2656,8 +2847,7 @@ def dp_nccl_phase(torch):
 def dp_metropolis_phase(torch):
     return dp_world1_phase(
         torch, 'dp-metropolis-1 metropolis-256', METROPOLIS_RUN,
-        dict(sampler='metropolis'),
-        lambda t, n: t.mcmc_window(t.mcmc_state, n, t.baseline, t.generator))
+        dict(sampler='metropolis'))
 
 
 def random_flagship(torch, device='cuda'):
@@ -3700,9 +3890,7 @@ def graph_table_phase(torch, params):
 
     from waveflow_tpu_torch.ops import spline_eval as se
     launches, row = graph_twins(
-        torch, "graph-table train-256", trainer,
-        lambda t, n: t.train_window(n, t.baseline),
-        read=table_counts, reset=reset_table_counts,
+        torch, "graph-table train-256", trainer, read=table_counts, reset=reset_table_counts,
         required=('sampler', 'spline_eval', 'spline_eval_pair',
                   'spline_eval_jet', 'spline_eval_bwd',
                   'spline_eval_bwd_jet'))
@@ -4360,8 +4548,8 @@ H2_2D_CONFIG = dict(BOX_2D, system_name='H2', ansatz='antisym',
 
 def phase_table(torch, params, jax_raw, jax_clipped, ancestral_wps=None,
                 k3_b2b_ms=None):
-    """Phases 23, 38-39, 30-31, 6-27 and 32-37, 40-45 in order, as (name,
-    run): run() ->
+    """Phases 23, 38-39, 30-31, 50, 6-8, 46-49, 9-27 and 32-37, 40-45 in
+    order, as (name, run): run() ->
     (the kernel
     launches on that path, or None, and the phase's figures)."""
     r4 = json.loads(JAX_EVAL_R4.read_text())[f'results/{SPRING_RUN.name}']
@@ -4381,6 +4569,7 @@ def phase_table(torch, params, jax_raw, jax_clipped, ancestral_wps=None,
         # (before the profiled graph phases, as k4-vmap) ----
         ('dp-nccl-1', lambda: dp_nccl_phase(torch)),
         ('dp-metropolis-1', lambda: dp_metropolis_phase(torch)),
+        ('dp-spring-1', lambda: dp_spring_phase(torch)),
         # ---- 6-8. graphs against eager, evaluation, resume, Metropolis ----
         ('graph-train', lambda: graph_train_phase(torch)),
         ('eval-4k', lambda: evaluation_phase(torch, jax_raw, jax_clipped)),
@@ -4388,6 +4577,11 @@ def phase_table(torch, params, jax_raw, jax_clipped, ancestral_wps=None,
         ('resume', lambda: resume_phase(torch)),
         ('metropolis-256', lambda: metropolis_phase(torch, ancestral_wps)),
         ('graph-metropolis', lambda: graph_metropolis_phase(torch)),
+        # ---- the MALA, SPRING and SR windows graphed against eager ----
+        ('graph-mala', lambda: graph_mala_phase(torch)),
+        ('graph-spring', lambda: graph_spring_phase(torch)),
+        ('graph-sr', lambda: graph_sr_phase(torch)),
+        ('graph-natgrad-mcmc', lambda: graph_natgrad_mcmc_phase(torch)),
         # ---- 9-12. MALA, SPRING, SR, Li: windows and the JAX gates ----
         ('mala-eval', lambda: gate_phase(
             torch, 'mala', MALA_RUN, dict(sampler='mala'),
@@ -4427,12 +4621,9 @@ def phase_table(torch, params, jax_raw, jax_clipped, ancestral_wps=None,
             torch, 'paired2d-eval', PAIRED2D_RUN, PAIRED2D_CONFIG, paired2d)),
         ('h2d-fidelity', lambda: h2d_fidelity_phase(torch)),
         ('graph-antisym', lambda: graph_2d_phase(
-            torch, 'graph-antisym', ANTISYM_RUN, ANTISYM_CONFIG,
-            lambda t, n: t.mcmc_window(t.mcmc_state, n, t.baseline,
-                                       t.generator), 0)),
+            torch, 'graph-antisym', ANTISYM_RUN, ANTISYM_CONFIG, 0)),
         ('paired2d-256', lambda: graph_2d_phase(
-            torch, 'paired2d-256', PAIRED2D_RUN, PAIRED2D_CONFIG,
-            lambda t, n: t.train_window(n, t.baseline), 4)),
+            torch, 'paired2d-256', PAIRED2D_RUN, PAIRED2D_CONFIG, 4)),
         # ---- 23-27. the probprog samplers ----
         ('posterior-hmc', lambda: posterior_phase(torch, 'hmc')),
         ('posterior-nuts', lambda: posterior_phase(torch, 'nuts')),
@@ -4510,10 +4701,11 @@ def main(argv=None) -> int:
         '--only', default=None,
         help="comma-separated phases of the table (phase_table: "
              "graph-train, eval-4k, graph-eval, resume, metropolis-256, "
-             "graph-metropolis, mala-eval, ..., poly-sample, antisym-eval, "
+             "graph-metropolis, graph-mala, graph-spring, graph-sr, "
+             "graph-natgrad-mcmc, mala-eval, ..., poly-sample, antisym-eval, "
              "..., paired2d-256, k4-vmap, posterior-hmc, posterior-nuts, "
              "posterior-smc, nuts-waveflow, dp-nccl-1, dp-metropolis-1, "
-             "dp-gloo-2, posterior-sharded-1, be4-eval, box4-eval, "
+             "dp-spring-1, dp-gloo-2, posterior-sharded-1, be4-eval, box4-eval, "
              "li-2d-eval, h2-2d-eval, table-kernels, table-hpsi, "
              "table-eval, graph-table, rqs-density, gm-density, compat, "
              "artifacts) to run alone "

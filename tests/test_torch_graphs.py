@@ -6,14 +6,17 @@ the static buffers, the copies in and out, the warm-up epoch, the
 trainer's capture life cycle — with a stand-in whose capture records the
 body and whose replay runs it eagerly (``EagerGraph``), and hold it to the
 eager windows to the bit: the ancestral adam window (both estimators, a
-non-zero baseline), the Metropolis window and the frozen-parameter
-evaluation.  Also: ``graph=True`` on the CPU raises; the launch
-bookkeeping adds the captured counts once per replay (a stand-in for the
-CUDA graph object); the trainer's rule of graphed pairs; a recovery after
-non-finite losses and a checkpoint load capture again; Adam's state in its
-capturable form from a JAX checkpoint and through the port's own."""
+non-zero baseline), the Metropolis and MALA windows, SR and SPRING with
+each kind of walker, and the frozen-parameter evaluation.  Also:
+``graph=True`` on the CPU raises; the launch bookkeeping adds the captured
+counts once per replay (a stand-in for the CUDA graph object); every
+(optimizer, sampler) pair is graphed; SPRING's state is written in place;
+a recovery after non-finite losses and a checkpoint load capture again;
+Adam's state in its capturable form from a JAX checkpoint and through the
+port's own."""
 
 import contextlib
+import copy
 import gc
 from pathlib import Path
 
@@ -35,8 +38,10 @@ from waveflow_tpu_torch.vmc import (
 )
 from waveflow_tpu_torch.vmc.estimators import TrainWindow
 from waveflow_tpu_torch.vmc.evaluate import evaluation_windows
-from waveflow_tpu_torch.vmc.metropolis import make_mcmc_train_window
-from waveflow_tpu_torch.vmc.trainer import GRAPHED, graph_windows
+from waveflow_tpu_torch.vmc.mala import MALATrainWindow, make_mala_train_window
+from waveflow_tpu_torch.vmc.metropolis import (
+    MCMCTrainWindow, make_mcmc_train_window)
+from waveflow_tpu_torch.vmc.trainer import graph_windows
 
 torch.set_num_threads(2)
 
@@ -71,24 +76,39 @@ class EagerGraph(graphs.EpochGraph):
         return _Replayer(self.body), (0,) * len(ops.read_launches())
 
 
-@pytest.fixture
-def eager_graphs(monkeypatch):
-    """The graph path of every window, on the CPU, through ``EagerGraph``."""
+def _stand_in(monkeypatch):
     monkeypatch.setattr(graphs, 'EpochGraph', EagerGraph)
     monkeypatch.setattr(graphs, 'use_graph',
                         lambda graph, device: graph is not False)
     EagerGraph.captures = 0
 
 
+@pytest.fixture
+def eager_graphs(monkeypatch):
+    """The graph path of every window, on the CPU, through ``EagerGraph``."""
+    _stand_in(monkeypatch)
+
+
+def _optimizer_tensors(t):
+    """The optimizer state's tensors by name: Adam's per parameter,
+    SPRING's delta and counters, none for SR."""
+    state = t.step.optimizer.state_dict()
+    if state == ():
+        return {}
+    if 'state' in state:
+        return {(i, k): v for i, st in state['state'].items()
+                for k, v in st.items()}
+    return dict(state)
+
+
 def _assert_same_training(a, b):
     assert a.losses == b.losses and np.isfinite(a.losses).all()
     for x, y in zip(a.model.parameters(), b.model.parameters()):
         assert torch.equal(x, y)
-    sa = a.step.optimizer.state_dict()['state']
-    sb = b.step.optimizer.state_dict()['state']
-    for i in sa:
-        for k in sa[i]:
-            assert torch.equal(sa[i][k], sb[i][k]), (i, k)
+    sa, sb = _optimizer_tensors(a), _optimizer_tensors(b)
+    assert sa.keys() == sb.keys()
+    for k in sa:
+        assert torch.equal(sa[k], sb[k]), k
     assert torch.equal(a.baseline, b.baseline)
     assert torch.equal(a.generator.get_state(), b.generator.get_state())
 
@@ -119,13 +139,17 @@ def test_run_window_graph_path_is_the_eager_window(estimator, eager_graphs):
 
 @pytest.mark.parametrize('kind', [
     dict(), dict(estimator='reference'), dict(sampler='metropolis'),
-    dict(sampler='metropolis', mcmc_refresh_every=2)])
+    dict(sampler='metropolis', mcmc_refresh_every=2), dict(sampler='mala'),
+    dict(optimizer='sr', sr_cg_iters=3), dict(optimizer='spring'),
+    dict(optimizer='spring', sampler='metropolis'),
+    dict(optimizer='sr', sampler='mala', sr_cg_iters=3)])
 def test_trainer_graph_path_is_the_eager_trainer(kind, eager_graphs):
     """Three windows of 2 epochs and one single epoch: the trainer on its
     graph path (one capture kept across windows; a refreshed or carried
-    Metropolis state and the previous window's baseline copied into the
-    static buffers) against ``graph=False``: losses, parameters, Adam
-    state, baseline, generator, walkers and accept rates to the bit."""
+    Metropolis or MALA state and the previous window's baseline copied into
+    the static buffers) against ``graph=False``, for adam, SR and SPRING:
+    losses, parameters, optimizer state (Adam's moments, SPRING's delta and
+    counters), baseline, generator, walkers and accept rates to the bit."""
     cfg = VMCConfig(window=2, **SMALL, **kind)
     eager = VMCTrainer(cfg, graph=False)
     graphed = VMCTrainer(cfg)
@@ -188,6 +212,10 @@ def _window_call(what):
         _, window = make_mcmc_train_window(t.step, t.model.log_pdf, 10.0,
                                            n_sweeps=1, graph=True)
         return window(t._init_mcmc_state(), 2, torch.zeros(()), t.generator)
+    if what == 'mala_window':
+        init, window = make_mala_train_window(t.step, t.model.log_pdf, 10.0,
+                                              n_sweeps=1, graph=True)
+        return window(init(t.sample(8)), 2, torch.zeros(()), t.generator)
     if what == 'evaluate_energy':
         return evaluate_energy(t.model.psi, t.h_fn, t.model.log_pdf, 10.0,
                                t.sample(8), n_blocks=2, sweeps_per_block=1,
@@ -196,8 +224,8 @@ def _window_call(what):
 
 
 @pytest.mark.parametrize('what', ['evaluation_windows', 'TrainWindow',
-                                  'mcmc_window', 'evaluate_energy',
-                                  'VMCTrainer'])
+                                  'mcmc_window', 'mala_window',
+                                  'evaluate_energy', 'VMCTrainer'])
 def test_graph_true_on_the_cpu_raises(what):
     with pytest.raises(ValueError, match='graph=True needs a CUDA device'):
         _window_call(what)
@@ -265,21 +293,58 @@ def test_launch_bookkeeping_adds_the_captured_counts_per_replay(monkeypatch):
     assert ops.read_launches() == (72, 12, 0, 6, 6, 18, 48, 18)
 
 
-@pytest.mark.parametrize('optimizer,sampler', [
-    ('adam', 'ancestral'), ('adam', 'metropolis'), ('adam', 'mala'),
-    ('sr', 'ancestral'), ('spring', 'metropolis')])
-def test_graphed_pairs(optimizer, sampler):
-    """``graph_windows``: the GRAPHED pairs by default on a CUDA device,
-    never on the CPU; graph=True for an eager pair raises, graph=False is
-    always eager."""
+@pytest.mark.parametrize('sampler', ['ancestral', 'metropolis', 'mala'])
+@pytest.mark.parametrize('optimizer', ['adam', 'sr', 'spring'])
+def test_graphed_pairs(optimizer, sampler, monkeypatch):
+    """Every (optimizer, sampler) pair is graphed: ``graph_windows`` says
+    yes on a CUDA device by default, never on the CPU, and no to
+    graph=False; the trainer on the graph path (the stand-in) holds one
+    graphed window of its sampler's kind, and ``graph=False`` none (its
+    MCMC window runs eagerly)."""
+    assert graph_windows('cuda') is True
+    assert graph_windows('cpu') is False
+    assert graph_windows('cuda', False) is False
+    _stand_in(monkeypatch)
     cfg = VMCConfig(optimizer=optimizer, sampler=sampler, **SMALL)
-    graphed = (optimizer, sampler) in GRAPHED
-    assert graph_windows(cfg, 'cuda') == graphed
-    assert graph_windows(cfg, 'cpu') is False
-    assert graph_windows(cfg, 'cuda', False) is False
-    if not graphed:
-        with pytest.raises(NotImplementedError, match='runs eagerly'):
-            graph_windows(cfg, 'cuda', True)
+    kind = {'ancestral': TrainWindow, 'metropolis': MCMCTrainWindow,
+            'mala': MALATrainWindow}[sampler]
+    t = VMCTrainer(cfg)
+    assert t.graph and [type(w) for w in t._graphed] == [kind]
+    assert t._graphed[0] is (t.train_window if sampler == 'ancestral'
+                             else t.mcmc_window)
+    eager = VMCTrainer(cfg, graph=False)
+    assert not eager.graph and not hasattr(eager, 'train_window')
+    assert all(w.graph is False for w in eager._graphed)
+
+
+def test_spring_state_is_written_in_place(eager_graphs):
+    """SPRING's delta and counters are the tensors the captured epoch was
+    recorded on: held from before the first window, they advance with every
+    epoch — the warm-up epoch and the replays — across windows (a step that
+    rebound ``step.optimizer.state`` to new tensors would leave them at
+    zero), and ``load_state_dict`` copies a saved state into them without
+    sharing the saved tensors."""
+    t = VMCTrainer(VMCConfig(window=2, optimizer='spring', **SMALL))
+    held = dict(t.step.optimizer.state_dict())
+    ptrs = {k: v.data_ptr() for k, v in held.items()}
+    deltas = []
+    for n in (2, 4):
+        t.train(2, verbose=False)
+        assert int(held['step']) == n
+        assert int(held['skipped']) == int(held['fallbacks']) == 0
+        deltas.append(held['delta'].clone())
+    assert EagerGraph.captures == 1
+    assert deltas[0].abs().sum() > 0 and not torch.equal(*deltas)
+    state = t.step.optimizer.state_dict()
+    assert all(state[k] is held[k] for k in held)
+    assert {k: v.data_ptr() for k, v in state.items()} == ptrs
+    saved = copy.deepcopy(state)
+    t.train(2, verbose=False)
+    assert int(held['step']) == 6 and int(saved['step']) == 4
+    t.step.optimizer.load_state_dict(saved)
+    assert int(held['step']) == 4 and torch.equal(held['delta'], deltas[1])
+    t.train(2, verbose=False)
+    assert int(saved['step']) == 4 and torch.equal(saved['delta'], deltas[1])
 
 
 def _nan_second_window(window):

@@ -19,7 +19,9 @@ from waveflow_tpu_torch.convert import params_from_jax
 from waveflow_tpu_torch.models import get_waveflow_model
 from waveflow_tpu_torch.physics import construct_hamiltonian_function
 from waveflow_tpu_torch.vmc import VMCConfig, VMCTrainer, make_train_step
+from waveflow_tpu_torch.vmc import trainer as trainer_module
 from waveflow_tpu_torch.vmc.estimators import _median, clip_by_global_norm
+from test_torch_graphs import EagerGraph, _stand_in
 
 torch.set_num_threads(2)
 
@@ -161,18 +163,17 @@ def test_trainer_divergence_recovery():
     dict(process_id=0),
     dict(sampler='metropolis', clip_stat='median_abs'),
     dict(data_parallel='chips'),
-    dict(data_parallel=2), dict(divergence_recovery=False)])
+    dict(data_parallel=2)])
 def test_trainer_refuses_unported_config(override):
     """What the trainer does not run raises NotImplementedError instead of
     being ignored: the MCMC windows with a clip statistic the JAX ones
-    ignore, no divergence recovery, a data_parallel mode other than False /
-    True / 'hosts', and the process fields without data_parallel (the JAX
-    trainer would train the same walkers in every process).  2D and the
-    antisym ansatz are ported (tests/test_torch_coords2d.py), and so are
-    data_parallel (tests/test_torch_parallel.py,
-    tests/test_torch_distributed.py), the table eval backend
-    (tests/test_torch_table_backend.py) and the artifacts
-    (tests/test_torch_utils.py)."""
+    ignore, a data_parallel mode other than False / True / 'hosts', and the
+    process fields without data_parallel (the JAX trainer would train the
+    same walkers in every process).  2D and the antisym ansatz are ported
+    (tests/test_torch_coords2d.py), and so are data_parallel
+    (tests/test_torch_parallel.py, tests/test_torch_distributed.py), the
+    table eval backend (tests/test_torch_table_backend.py), the artifacts
+    (tests/test_torch_utils.py) and ``divergence_recovery=False`` (below)."""
     with pytest.raises(NotImplementedError):
         VMCTrainer(device='cpu', **override)
 
@@ -251,3 +252,107 @@ def test_epoch_after_a_diverged_window_follows_jax():
     assert len(calls) == 6 and t.epoch == 6
     assert len(losses) == 4 and np.isfinite(losses).all()
     assert epochs == [0, 0, 2, 2]                 # the third window starts at 2
+
+
+# ---- divergence_recovery=False against the JAX trainer --------------------
+
+# 4 windows of 5 epochs; the second window's third loss is made NaN after
+# the window ran, in both packages (as tests/test_vmc.py plants one)
+NO_RECOVERY = dict(system_name='He', box_length=5.0, batch_size=16,
+                   spline_degree=4, num_knots=8, n_flow_layers=1,
+                   n_spline_base_mesh_points=400, log_every=1000,
+                   learning_rate=1e-3, window=5, divergence_recovery=False)
+NAN_CALL, NAN_AT = 1, 2
+
+
+@pytest.fixture(scope='module')
+def jax_run_without_recovery(tmp_path_factory):
+    """The JAX trainer with ``divergence_recovery=False``, 20 epochs: its
+    window calls (params and baseline in and out, losses) and its losses."""
+    from waveflow_tpu.vmc import VMCConfig as JVMCConfig
+    from waveflow_tpu.vmc import VMCTrainer as JVMCTrainer
+    jt = JVMCTrainer(JVMCConfig(
+        save_dir=str(tmp_path_factory.mktemp('jax_no_recovery')),
+        compilation_cache_dir=None, **NO_RECOVERY))
+    real, calls = jt.window_jit, []
+
+    def planted(params, opt_state, rng, baseline):
+        p, o, r, b, losses = real(params, opt_state, rng, baseline)
+        if len(calls) == NAN_CALL:
+            losses = losses.at[NAN_AT].set(jnp.nan)
+        calls.append(dict(params_in=params, baseline_in=baseline,
+                          params_out=p, baseline_out=b))
+        return p, o, r, b, losses
+    jt.window_jit = planted
+    losses = jt.train(num_epochs=20, verbose=False)
+    return jt, calls, losses
+
+
+def _same_tree(a, b) -> bool:
+    return all(np.array_equal(x, y) for x, y in zip(
+        jax.tree_util.tree_leaves(a), jax.tree_util.tree_leaves(b)))
+
+
+@pytest.mark.parametrize('graph', [False, True])
+def test_no_divergence_recovery_follows_jax(graph, jax_run_without_recovery,
+                                            monkeypatch):
+    """``divergence_recovery=False`` with a non-finite second window, eager
+    and on the graph path (the ``EagerGraph`` stand-in), against the JAX
+    trainer: in both, the window's losses are recorded (20 losses, the NaN
+    at epoch 7), the epoch is 20, the next window starts from the
+    parameters and the baseline (its returned mean, not zero) the poisoned
+    window left — no snapshot, no restore — and the run goes on with finite
+    losses.  The two packages' random streams are not compared."""
+    jt, jcalls, jlosses = jax_run_without_recovery
+    if graph:
+        _stand_in(monkeypatch)
+    t = VMCTrainer(VMCConfig(device='cpu', **NO_RECOVERY),
+                   graph=None if graph else False)
+    assert t.graph is graph
+    snapshots, real_snapshot = [], t._snapshot
+    monkeypatch.setattr(t, '_snapshot',
+                        lambda: snapshots.append(1) or real_snapshot())
+    calls = []
+
+    def params():
+        return [p.detach().clone() for p in t.model.parameters()]
+
+    def record(window):
+        def planted(*args):
+            entry = dict(params_in=params(), baseline_in=args[-1].clone())
+            losses, base = window(*args)
+            if len(calls) == NAN_CALL:
+                losses = losses.clone()
+                losses[NAN_AT] = float('nan')
+            calls.append(dict(entry, params_out=params(),
+                              baseline_out=base.clone()))
+            return losses, base
+        return planted
+    if graph:
+        t.train_window = record(t.train_window)
+    else:
+        monkeypatch.setattr(trainer_module, 'run_window',
+                            record(trainer_module.run_window))
+    losses = t.train(20, verbose=False)
+
+    nan_epoch = [5 * NAN_CALL + NAN_AT]
+    for got, n_calls in ((losses, len(calls)), (jlosses, len(jcalls))):
+        assert n_calls == 4 and len(got) == 20
+        assert np.flatnonzero(~np.isfinite(got)).tolist() == nan_epoch
+        assert np.isfinite(got[10:]).all()
+    assert t.epoch == jt.epoch == 20
+    assert snapshots == []
+    after = NAN_CALL + 1
+    assert all(torch.equal(a, b) for a, b in zip(
+        calls[after]['params_in'], calls[NAN_CALL]['params_out']))
+    assert _same_tree(jcalls[after]['params_in'],
+                      jcalls[NAN_CALL]['params_out'])
+    assert torch.equal(calls[after]['baseline_in'],
+                       calls[NAN_CALL]['baseline_out'])
+    assert np.array_equal(jcalls[after]['baseline_in'],
+                          jcalls[NAN_CALL]['baseline_out'])
+    assert calls[after]['baseline_in'] != 0
+    assert float(jcalls[after]['baseline_in']) != 0
+    assert torch.equal(t.baseline, calls[-1]['baseline_out'])
+    if graph:
+        assert EagerGraph.captures == 1

@@ -132,18 +132,19 @@ def make_sharded_train_window(psi, h_fn, sample_fn, params,
 def make_sharded_sr_window(model, h_fn, sample_fn, learning_rate: float,
                            global_batch: int, window: int, mesh: WalkerMesh,
                            damping: float = 1e-3, cg_iters: int = 20,
-                           max_update_norm: float | None = None):
+                           max_update_norm: float | None = None,
+                           generators=(), graph: bool | None = None):
     """The SR window (vmc/sr.py::make_sr_train_window) on this rank's
     walkers, every batch expectation of the CG solve averaged over the
     walker axis: each CG iteration is one all-reduce of a parameter-sized
-    vector, and every rank runs the same solve.  Eager, as the unsharded
-    SR window."""
-    from waveflow_tpu_torch.vmc.sr import make_sr_train_window
-    return make_sr_train_window(
-        model, h_fn, sample_fn, learning_rate,
-        local_batch_size(global_batch, mesh), window, damping=damping,
-        cg_iters=cg_iters, pmean_axis=mesh.axis,
-        max_update_norm=max_update_norm)
+    vector, and every rank runs the same solve.  Graphed or eager as
+    ``make_sharded_train_window``."""
+    from waveflow_tpu_torch.vmc.sr import make_sr_train_step
+    step = make_sr_train_step(model, h_fn, learning_rate, damping=damping,
+                              cg_iters=cg_iters, pmean_axis=mesh.axis,
+                              max_update_norm=max_update_norm)
+    return _window(step, sample_fn, local_batch_size(global_batch, mesh),
+                   window, mesh, generators, graph)
 
 
 def make_sharded_spring_window(model, h_fn, sample_fn, learning_rate: float,
@@ -152,24 +153,21 @@ def make_sharded_spring_window(model, h_fn, sample_fn, learning_rate: float,
                                momentum: float = 0.99,
                                max_update_norm: float | None = None,
                                score_row_clip: float | None = 10.0,
-                               score_row_clip_warmup: int | None = 1000):
+                               score_row_clip_warmup: int | None = 1000,
+                               generators=(), graph: bool | None = None):
     """The SPRING window on this rank's walkers: the global (B, B) Gram
     matrix from column-chunked all-gathers of the local score blocks,
     solved alike on every rank (vmc/sr.py); the state (previous update
-    and counters) replicated.  Eager, as the unsharded SPRING window."""
-    from waveflow_tpu_torch.vmc.estimators import run_window
+    and counters) replicated.  Graphed or eager as
+    ``make_sharded_train_window``."""
     from waveflow_tpu_torch.vmc.sr import make_spring_train_step
     step = make_spring_train_step(
         model, h_fn, learning_rate, damping=damping, momentum=momentum,
         pmean_axis=mesh.axis, max_update_norm=max_update_norm,
         score_row_clip=score_row_clip,
         score_row_clip_warmup=score_row_clip_warmup)
-    local_batch = local_batch_size(global_batch, mesh)
-
-    def run(baseline):
-        return run_window(step, sample_fn, local_batch, window, baseline)
-    run.step = step
-    return run
+    return _window(step, sample_fn, local_batch_size(global_batch, mesh),
+                   window, mesh, generators, graph)
 
 
 def make_sharded_mcmc_window(step, log_pdf, box_length: float,
@@ -194,12 +192,13 @@ def make_sharded_mala_window(step, log_pdf, box_length: float,
                              mesh: WalkerMesh, n_sweeps: int = 10,
                              target_accept: float = 0.574,
                              sort_fermions: bool | str = True,
-                             train_step=None):
+                             train_step=None, graph: bool | None = None):
     """The MALA window (vmc/mala.py::make_mala_train_window) on this rank's
-    walkers, with one collective step size; eager, as the unsharded MALA
-    window."""
+    walkers, with one collective step size; graphed or eager as
+    ``make_sharded_mcmc_window``."""
     from waveflow_tpu_torch.vmc.mala import make_mala_train_window
     return make_mala_train_window(
         step, log_pdf, box_length, n_sweeps=n_sweeps,
         target_accept=target_accept, pmean_axis=mesh.axis,
-        sort_fermions=sort_fermions, train_step=train_step)
+        sort_fermions=sort_fermions, train_step=train_step,
+        graph=use_graph(graph, mesh))

@@ -17,7 +17,8 @@ Walkers are independent, so one backward pass of the SUMMED log-density
 gives every walker's ∇ₓ log p.  Random draws come from an explicit
 ``torch.Generator``; every step also takes its proposal noise and accept
 uniforms explicitly, so a test can feed it the draws of the JAX package's
-own key.
+own key.  On a CUDA device the training window runs as a replayed CUDA
+graph of one epoch (``MALATrainWindow``, vmc/graphs.py).
 """
 
 from __future__ import annotations
@@ -27,7 +28,12 @@ from typing import NamedTuple
 import torch
 
 from waveflow_tpu_torch.parallel import mesh
-from waveflow_tpu_torch.vmc.metropolis import sector_projection
+from waveflow_tpu_torch.vmc.metropolis import (
+    MCMCTrainWindow, sector_projection,
+)
+
+# the drift's elementwise clip (the JAX sampler's default)
+GRAD_CLIP = 1e3
 
 
 class MALAState(NamedTuple):
@@ -38,11 +44,24 @@ class MALAState(NamedTuple):
     accept_rate: torch.Tensor   # () running acceptance estimate
 
 
+def log_prob_and_drift(log_pdf, grad_clip: float = GRAD_CLIP):
+    """``lp_grad(x (B, D)) -> (log p(x) (B,), ∇ₓ log p(x) clipped at
+    ±grad_clip (B, D))``, both detached: one backward pass of the summed
+    log-density."""
+    def lp_grad(x: torch.Tensor):
+        with torch.enable_grad():
+            xr = x.detach().requires_grad_()
+            lp = log_pdf(xr)
+            (g,) = torch.autograd.grad(lp.sum(), xr)
+        return lp.detach(), torch.clamp(g, -grad_clip, grad_clip)
+    return lp_grad
+
+
 def make_mala_sampler(log_pdf, target_accept: float = 0.574,
                       adapt_rate: float = 0.05,
                       axis_name: str | None = None,
                       bounds: tuple[float, float] | None = None,
-                      grad_clip: float = 1e3):
+                      grad_clip: float = GRAD_CLIP):
     """(init_fn, step_fn, run_fn) for MALA on ``log_pdf(x (B, D)) -> (B,)``.
 
     ``grad_clip`` bounds the drift elementwise: near a node of ψ the
@@ -52,13 +71,7 @@ def make_mala_sampler(log_pdf, target_accept: float = 0.574,
     ``pmean``-reduced over it, so every rank adapts the same step size."""
     if axis_name is not None:
         mesh.check_axis(axis_name)
-
-    def lp_grad(x: torch.Tensor):
-        with torch.enable_grad():
-            xr = x.detach().requires_grad_()
-            lp = log_pdf(xr)
-            (g,) = torch.autograd.grad(lp.sum(), xr)
-        return lp.detach(), torch.clamp(g, -grad_clip, grad_clip)
+    lp_grad = log_prob_and_drift(log_pdf, grad_clip)
 
     def init_fn(positions: torch.Tensor, step_size=0.1) -> MALAState:
         lp, g = lp_grad(positions)
@@ -127,7 +140,7 @@ def make_mala_train_window(step, log_pdf, box_length: float,
                            n_sweeps: int = 10, target_accept: float = 0.574,
                            pmean_axis: str | None = None,
                            sort_fermions: bool | str = True,
-                           train_step=None):
+                           train_step=None, graph: bool | None = None):
     """MALA-driven VMC training: walkers persist across epochs (the
     contract of ``metropolis.make_mcmc_train_window``).
 
@@ -147,30 +160,42 @@ def make_mala_train_window(step, log_pdf, box_length: float,
     baseline losses.mean(), accept_rates (n_epochs,), mstate)``, left on
     the device (no host read
     inside the window); ``noise`` (n_epochs, n_sweeps, B, D) and ``u``
-    (n_epochs, n_sweeps, B) replace the generator's draws when given."""
+    (n_epochs, n_sweeps, B) replace the generator's draws when given.
+    ``graph`` (default: on a CUDA device) runs the epochs as a replayed
+    CUDA graph (``MALATrainWindow``); explicit draws take ``graph=False``."""
     if train_step is not None:
         step = train_step
     proj = sector_projection(sort_fermions)
     to_sector = proj if proj is not None else (lambda x: x)
+
+    def density(x):
+        return log_pdf(to_sector(x))
     init_fn, step_fn, _ = make_mala_sampler(
-        lambda x: log_pdf(to_sector(x)), target_accept=target_accept,
-        axis_name=pmean_axis,
+        density, target_accept=target_accept, axis_name=pmean_axis,
         bounds=(-box_length, box_length))
+    return init_fn, MALATrainWindow(step, step_fn, log_prob_and_drift(density),
+                                    to_sector, n_sweeps, graph)
 
-    def run_window(mstate: MALAState, n_epochs: int, baseline,
-                   generator=None, noise=None, u=None):
-        losses, rates = [], []
-        for e in range(n_epochs):
-            for s in range(n_sweeps):
-                mstate = step_fn(
-                    mstate, generator,
-                    None if noise is None else noise[e, s],
-                    None if u is None else u[e, s])
-            rates.append(mstate.accept_rate)
-            losses.append(step(to_sector(mstate.positions), baseline))
-            fresh = init_fn(mstate.positions, mstate.step_size)
-            mstate = mstate._replace(log_prob=fresh.log_prob, grad=fresh.grad)
-        losses = torch.stack(losses)
-        return losses, losses.mean(), torch.stack(rates), mstate
 
-    return init_fn, run_window
+class MALATrainWindow(MCMCTrainWindow):
+    """The MALA window of ``make_mala_train_window``: the eager loop and the
+    graphed epoch of vmc/metropolis.py::MCMCTrainWindow over the five
+    fields of ``MALAState``.  The update takes the walkers projected into
+    the sector; the refresh after it recomputes log-prob and drift by
+    ``lp_grad`` alone — a reverse pass inside the captured epoch, through
+    K3's backward rule under 'poly_pallas' — and builds no constant from
+    the host, which a capture would refuse."""
+    state_type = MALAState
+
+    def __init__(self, step, step_fn, lp_grad, to_sector, n_sweeps: int,
+                 graph: bool | None = None):
+        super().__init__(step, step_fn, None, n_sweeps, graph)
+        self.lp_grad, self.to_sector = lp_grad, to_sector
+
+    def batch(self, mstate):
+        return self.to_sector(mstate.positions)
+
+    def refresh(self, mstate):
+        """Log-prob and drift under the updated parameters."""
+        lp, grad = self.lp_grad(mstate.positions)
+        return mstate._replace(log_prob=lp, grad=grad)

@@ -185,7 +185,12 @@ class MCMCTrainWindow:
     and accept rate out of their slots, and returns copies of the static
     walkers (a state the caller holds is never written later).  A new
     generator or walker shape captures again; ``reset()`` drops the
-    capture, as a swap of the optimizer's state tensors requires."""
+    capture, as a swap of the optimizer's state tensors requires.
+
+    A sampler's window states its walker state (``state_type``), the batch
+    the update takes (``batch``) and the refresh after the update
+    (``refresh``); vmc/mala.py::MALATrainWindow is the other one."""
+    state_type = MetropolisState
 
     def __init__(self, step, step_fn, log_pdf, n_sweeps: int,
                  graph: bool | None = None):
@@ -193,11 +198,19 @@ class MCMCTrainWindow:
         self.n_sweeps, self.graph = n_sweeps, graph
         self.reset()
 
+    def batch(self, mstate):
+        return mstate.positions
+
+    @torch.no_grad()
+    def refresh(self, mstate):
+        """The walkers' log-probs under the updated parameters."""
+        return mstate._replace(log_prob=self.log_pdf(mstate.positions))
+
     def reset(self) -> None:
         self.static = self.epochs = self.key = None
 
-    def __call__(self, mstate: MetropolisState, n_epochs: int, baseline,
-                 generator=None, noise=None, u=None):
+    def __call__(self, mstate, n_epochs: int, baseline, generator=None,
+                 noise=None, u=None):
         if graphs.use_graph(self.graph, mstate.positions.device):
             if noise is not None or u is not None:
                 raise ValueError("explicit noise / u run eagerly: pass "
@@ -211,9 +224,8 @@ class MCMCTrainWindow:
                     None if noise is None else noise[e, s],
                     None if u is None else u[e, s])
             rates.append(mstate.accept_rate)
-            losses.append(self.step(mstate.positions, baseline))
-            with torch.no_grad():
-                mstate = mstate._replace(log_prob=self.log_pdf(mstate.positions))
+            losses.append(self.step(self.batch(mstate), baseline))
+            mstate = self.refresh(mstate)
         losses = torch.stack(losses)
         return losses, losses.mean(), torch.stack(rates), mstate
 
@@ -225,14 +237,12 @@ class MCMCTrainWindow:
                                 for _ in range(3))
 
         def epoch():
-            m = MetropolisState(*walkers)
+            m = self.state_type(*walkers)
             for _ in range(self.n_sweeps):
                 m = self.step_fn(m, generator)
             rate.copy_(m.accept_rate)
-            loss.copy_(self.step(m.positions, baseline))
-            with torch.no_grad():
-                m = m._replace(log_prob=self.log_pdf(m.positions))
-            graphs.copy_into(walkers, m)
+            loss.copy_(self.step(self.batch(m), baseline))
+            graphs.copy_into(walkers, self.refresh(m))
         self.static = (walkers, baseline)
         self.epochs = graphs.EpochGraph(
             epoch, (loss, rate), () if generator is None else (generator,))
@@ -246,5 +256,5 @@ class MCMCTrainWindow:
         graphs.copy_into(walkers, mstate)
         static_baseline.copy_(baseline)
         losses, rates = self.epochs.window(n_epochs)
-        out = MetropolisState(*(f.clone() for f in walkers))
+        out = self.state_type(*(f.clone() for f in walkers))
         return losses, losses.mean(), rates, out

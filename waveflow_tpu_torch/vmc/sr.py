@@ -18,9 +18,10 @@ JAX), and keep their optimizer state behind
 ``step.optimizer`` with the ``state_dict`` / ``load_state_dict`` interface
 of a ``torch.optim`` optimizer: SR's is ``()``, SPRING's the dict
 {'delta': flat previous update, 'step', 'skipped', 'fallbacks'} of device
-tensors, its flat vector in the JAX ``ravel_pytree`` order
-(``convert.ravel_order``) so that a JAX SPRING state resumes.  No step reads
-the device from the host.
+tensors, written in place by every step (so a CUDA graph can replay it),
+its flat vector in the JAX ``ravel_pytree`` order (``convert.ravel_order``)
+so that a JAX SPRING state resumes.  No step reads the device from the
+host.
 
 Walkers sharded over ranks (``pmean_axis``, parallel/mesh.py): the clip
 window comes from every rank's local energies (an all-gather).  SR
@@ -101,23 +102,34 @@ class StepState:
     """A natural-gradient step's optimizer state behind the ``state_dict``
     / ``load_state_dict`` interface of ``torch.optim``, which the trainer
     snapshots, saves and restores for every optimizer alike.  ``state`` is
-    ``()`` (SR) or a dict of tensors (SPRING), replaced — never written in
-    place — by every step."""
+    ``()`` (SR) or a dict of tensors on the step's device (SPRING), which
+    every step writes in place, as Adam writes its moments: a CUDA graph
+    captured on them reads and writes the same tensors at every replay.
+    ``state_dict()`` hands out those tensors, as Adam's does."""
 
-    def __init__(self, state, device=None):
-        self.device = device
+    def __init__(self, state):
         self.state = state
 
     def state_dict(self):
         return self.state
 
     def load_state_dict(self, state):
-        """Tensors, or numpy arrays (checkpoints), onto the step's device."""
-        if isinstance(state, dict):
-            state = {k: v.to(self.device) if isinstance(v, torch.Tensor)
-                     else torch.tensor(v, device=self.device)
-                     for k, v in state.items()}
-        self.state = state
+        """Tensors, or numpy arrays (checkpoints), copied into the step's
+        own tensors (so none is shared with the caller's), each of the
+        shape it has."""
+        if not isinstance(state, dict):
+            self.state = state
+            return
+        if state.keys() != self.state.keys():
+            raise ValueError(f"optimizer state keys {sorted(state)}, "
+                             f"expected {sorted(self.state)}")
+        for k, v in state.items():
+            v = torch.as_tensor(v)
+            if v.shape != self.state[k].shape:
+                raise ValueError(f"optimizer state {k!r} of shape "
+                                 f"{tuple(v.shape)}, expected "
+                                 f"{tuple(self.state[k].shape)}")
+            self.state[k].copy_(v)
 
 
 def make_score_fn(model):
@@ -301,12 +313,16 @@ def make_spring_train_step(model, h_fn, learning_rate: float,
             eps = eps - eps.mean()
             zeta = eps - zeta_of
             eye = torch.eye(B, dtype=O.dtype, device=O.device)
-            grams = torch.stack([gram0 + (mult * B * damping) * eye
-                                 for mult in (1.0, 10.0, 100.0)])
-            L, info = torch.linalg.cholesky_ex(grams)
-            xs = torch.cholesky_solve(
-                zeta.expand(3, B)[..., None], L)[..., 0]    # (3, B)
-            xs = torch.where((info == 0)[:, None], xs, float('nan'))
+            # one factorisation and solve per damping: a single matrix runs
+            # on cuSOLVER, which a CUDA graph captures; torch's batched
+            # solve runs on MAGMA, which allocates under the capture
+            xs = []
+            for mult in (1.0, 10.0, 100.0):
+                L, info = torch.linalg.cholesky_ex(
+                    gram0 + (mult * B * damping) * eye)
+                x_m = torch.cholesky_solve(zeta[:, None], L)[:, 0]
+                xs.append(torch.where(info == 0, x_m, float('nan')))
+            xs = torch.stack(xs)                            # (3, B)
             ok = torch.isfinite(xs).all(-1)
             fell_back = ~ok[0]
             x = torch.where(ok[0], xs[0], torch.where(ok[1], xs[1], xs[2]))
@@ -323,11 +339,10 @@ def make_spring_train_step(model, h_fn, learning_rate: float,
             new_flat = flat0 - learning_rate * delta
             for p, t in zip(params, new_flat.split(sizes)):
                 p.copy_(t.view(p.shape))
-            step.optimizer.state = {
-                'delta': delta,
-                'step': state['step'] + 1,
-                'skipped': state['skipped'] + (~finite).to(torch.int32),
-                'fallbacks': state['fallbacks'] + fell_back.to(torch.int32)}
+            state['delta'].copy_(delta)
+            state['step'].add_(1)
+            state['skipped'].add_((~finite).to(torch.int32))
+            state['fallbacks'].add_(fell_back.to(torch.int32))
         return e_mean
 
     def init_state():
@@ -338,7 +353,7 @@ def make_spring_train_step(model, h_fn, learning_rate: float,
 
     step.init_state = init_state
     step.n_params = sum(sizes)
-    step.optimizer = StepState(init_state(), device)
+    step.optimizer = StepState(init_state())
     return step
 
 

@@ -12,7 +12,7 @@ evaluation with its derivative chain, kernel K4 on the card); one or two
 space dimensions with every coordinate map, and the antisymmetrized
 ansatz (``ansatz='antisym'``, models/antisym.py) under the JAX trainer's
 resolution (``resolve_ansatz``); checkpoint save / exact resume and
-divergence recovery; walkers sharded over processes (``data_parallel``,
+divergence recovery (or none, ``divergence_recovery=False``); walkers sharded over processes (``data_parallel``,
 below); evaluation artifacts beside the checkpoints (``save_artifacts``,
 vmc/artifacts.py).  The combinations the JAX trainer accepts and silently
 ignores raise ``NotImplementedError`` (``_check_combination``).
@@ -42,12 +42,12 @@ it, zero after a divergence recovery, and on the per-epoch path the host
 mean of the last ``window`` losses whenever ``epoch % window == 0``.  It is
 ``self.baseline`` and, as in JAX, not checkpointed.
 
-On a CUDA device the adam windows with ancestral or Metropolis walkers run
-as replayed CUDA graphs of one epoch (``graph_windows`` says which pairs;
-vmc/graphs.py), captured at the first window and kept across windows; a
-swap of the optimizer's state tensors (a divergence recovery, a checkpoint
-load) drops the capture.  MALA, SR and SPRING, and the single epochs after
-the last window, run eagerly.
+On a CUDA device every window — adam, SR or SPRING, with ancestral,
+Metropolis or MALA walkers — runs as a replayed CUDA graph of one epoch
+(``graph_windows``; vmc/graphs.py), as the JAX trainer jit-compiles every
+window; the capture is made at the first window and kept across windows,
+and a divergence recovery or a checkpoint load drops it.  The single epochs
+after the last window run eagerly.
 
 Every train step keeps its optimizer state behind ``step.optimizer``'s
 ``state_dict`` / ``load_state_dict`` (torch's Adam, or vmc/sr.py's
@@ -189,8 +189,9 @@ class VMCConfig:
     ansatz: str = 'sorted'
     interactions: bool = True
     # on a non-finite loss window, restore the last good state (snapshot
-    # every 10 windows) and continue with a reseeded walker stream; always
-    # on (False is not ported)
+    # every 10 windows) and continue with a reseeded walker stream; False
+    # takes no snapshot and keeps such a window: its losses are recorded
+    # and the run goes on from the state it left
     divergence_recovery: bool = True
     # shard the walker batch over processes: False (one process), True (a
     # 1-D walker group over the world) or 'hosts' (a hosts × chips grid,
@@ -223,7 +224,7 @@ _ONLY = {
     'sampler': ('ancestral', 'metropolis', 'mala'),
     'optimizer': ('adam', 'sr', 'spring'),
     'clip_stat': ('mean_abs', 'median_abs'),
-    'divergence_recovery': (True,),
+    'divergence_recovery': (True, False),
     'data_parallel': (False, True, 'hosts'),
 }
 
@@ -281,34 +282,19 @@ def resolve_ansatz(config: VMCConfig, n_particle: int):
     return 'sorted', c.xu_coord_type
 
 
-# the (optimizer, sampler) pairs whose windows run as CUDA graphs, for every
-# ansatz and coordinate map (the antisym ψ's permutation gather reads only
-# device buffers); the rest stay eager on the card (ROADMAP Queue 1 lists
-# why, pair by pair)
-GRAPHED = (('adam', 'ancestral'), ('adam', 'metropolis'))
-
-
-def graph_windows(config: VMCConfig, device, graph: bool | None = None,
-                  mesh=None) -> bool:
-    """Whether a trainer runs its windows as replayed CUDA graphs:
-    ``graph=None`` means yes for the ``GRAPHED`` pairs on a CUDA device;
-    ``graph=True`` raises ValueError on the CPU and NotImplementedError
-    for a pair that runs eagerly; ``graph=False`` runs every window
-    eagerly (the A/B of chip_smoke.py and bench_torch.py).  Walkers
-    sharded over a ``mesh``: NCCL's collectives are captured with the
-    epoch; gloo's cannot be, so under gloo ``graph=None`` means eager and
-    ``graph=True`` raises NotImplementedError (a stated policy, not a
-    fallback: parallel/sharding.py::use_graph)."""
-    pair = (config.optimizer, config.sampler)
-    if pair in GRAPHED:
-        if mesh is not None:
-            return sharding.use_graph(graph, mesh)
-        return graphs.use_graph(graph, device)
-    if graph:
-        raise NotImplementedError(
-            f"optimizer={pair[0]!r} with sampler={pair[1]!r} runs eagerly; "
-            f"graphed pairs: {GRAPHED}")
-    return False
+def graph_windows(device, graph: bool | None = None, mesh=None) -> bool:
+    """Whether a trainer runs its windows as replayed CUDA graphs, for every
+    (optimizer, sampler) pair, ansatz and coordinate map: ``graph=None``
+    means yes on a CUDA device; ``graph=True`` raises ValueError on the
+    CPU; ``graph=False`` runs every window eagerly (the A/B of
+    chip_smoke.py and bench_torch.py).  Walkers sharded over a ``mesh``:
+    NCCL's collectives are captured with the epoch; gloo's cannot be, so
+    under gloo ``graph=None`` means eager and ``graph=True`` raises
+    NotImplementedError (a stated policy, not a fallback:
+    parallel/sharding.py::use_graph)."""
+    if mesh is not None:
+        return sharding.use_graph(graph, mesh)
+    return graphs.use_graph(graph, device)
 
 
 def _to_numpy(tree):
@@ -434,7 +420,7 @@ class VMCTrainer:
         self.generator = torch.Generator(self.device).manual_seed(
             sharding.rank_seed(c.seed + 1, self.rank))
         self.shared_generator = self._shared_stream(c.seed + 1)
-        self.graph = graph_windows(c, self.device, graph, self.mesh)
+        self.graph = graph_windows(self.device, graph, self.mesh)
         # the windows that hold a CUDA graph (dropped by _drop_graphs)
         self._graphed = []
         self.mcmc_state = None
@@ -445,7 +431,8 @@ class VMCTrainer:
         if c.sampler == 'mala':
             self.mcmc_init, self.mcmc_window = make_mala_train_window(
                 self.step, self.model.log_pdf, c.box_length,
-                sort_fermions=sort, **mcmc_kw)
+                sort_fermions=sort, graph=self.graph, **mcmc_kw)
+            self._graphed.append(self.mcmc_window)
         elif c.sampler == 'metropolis':
             self.mcmc_init, self.mcmc_window = make_mcmc_train_window(
                 self.step, self.model.log_pdf, c.box_length,
@@ -718,7 +705,9 @@ class VMCTrainer:
         reseeded), and after a good window the epoch is start + (w + 1) ×
         window, w the window's index in this call: a dropped window's epochs
         count once a later window succeeds, as in the JAX trainer; the loss
-        trace keeps the good windows' losses only.
+        trace keeps the good windows' losses only.  With
+        ``divergence_recovery=False`` no snapshot is taken and every window
+        is kept as a good one is, its non-finite losses and mean included.
 
         Checkpoints are written only when ``config.save_dir`` is set (the
         JAX trainer always writes, to ``resolved_save_dir()``): every
@@ -788,7 +777,7 @@ class VMCTrainer:
             if refresh_stride and g and g % refresh_stride == 0:
                 self.mcmc_state = self._init_mcmc_state(
                     step_size=float(self.mcmc_state.step_size))
-            if w % 10 == 0:
+            if c.divergence_recovery and w % 10 == 0:
                 good = self._snapshot()
             if use_mcmc:
                 losses, baseline, rates, mstate = self.mcmc_window(
@@ -800,7 +789,8 @@ class VMCTrainer:
                                               self.local_batch, c.window,
                                               self.baseline)
             losses = losses.cpu()
-            if not bool(torch.isfinite(losses).all()):
+            if c.divergence_recovery and not bool(
+                    torch.isfinite(losses).all()):
                 if verbose:
                     print(f"window {w}: non-finite losses — restoring last "
                           "good state", flush=True)
