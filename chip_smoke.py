@@ -135,11 +135,30 @@ Phases (any failure exits non-zero; nothing is caught):
                launches whatever the number of chains;
  24-26. posterior-hmc, posterior-nuts, posterior-smc — the parameter
                posterior of examples/parameter_posterior_torch.py over the
-               example MFlow's 10,816 parameters, depth cut: gradient
-               evaluations per second, ms per step, tree depth, accept,
-               step size, K4 1 + 1 launches per gradient, the idle share of
-               a profiled stretch, held-out LL at init and under the BMA
+               example MFlow's 10,816 parameters, depth cut (HMC's steps
+               and SMC's temperatures replayed CUDA graphs, NUTS eager):
+               gradient evaluations per second, ms per step, tree depth,
+               accept, step size, K4 1 + 1 launches per gradient (a
+               replay's counted once per replay), the idle share of a
+               profiled stretch, held-out LL at init and under the BMA
                (finite, above the init's);
+ 51-53. graph-posterior-hmc, graph-posterior-smc, graph-density — HMC's
+               warm-up and kept steps (8 chains), SMC's temperature (128
+               particles) and the density trainer's epoch (MFlow, 20,000
+               points) as CUDA graphs against their eager twins from one
+               state, in turns eager, graph, graph, eager: everything they
+               carry to the bit; ms per replay and per eager step, capture
+               s, graph pool MiB, the idle share of a profiled replayed
+               turn, K4's launches per replay held to the code's count
+               (17 + 17, 5 + 0, 1 + 1); train_density_model graphed
+               against eager for Flow, IFlow and RQSFlow; an MFlow
+               continued with ``model=`` refused while a kept loss holds
+               its parameters' autograd graph, then graphed once it is
+               dropped;
+ 54. graph-posterior-smc-sharded-1 (after posterior-sharded-1) — the SMC
+               twin with its particles sharded over the world of one on
+               NCCL: the all-gather of the weights and the cross-rank
+               resample captured with the temperature, to the bit;
  27. nuts-waveflow — HMC and NUTS over He-1d walkers of the 100k
                checkpoint on the sorted sector, 256 chains warm-started at
                K1 ancestral draws: pooled moments within 0.25 of the
@@ -147,7 +166,8 @@ Phases (any failure exits non-zero; nothing is caught):
                launches per density call, chain-gradients per second;
  28. density — train_density_model at the full width of the density
                benchmark (MFlow, circles, 20,000 points), 200 epochs with a
-               metric checkpoint every 100; losses finite and falling, K2
+               metric checkpoint every 100, each epoch a replayed CUDA
+               graph; losses finite and falling, K2
                and both K4 kernels launched on that run, metrics finite,
                the round trip closes, the card agrees with the CPU;
  30. dp-nccl-1 (right after k4-vmap) — the train-256 adam window sharded
@@ -2166,7 +2186,8 @@ def density_phase(torch):
     Returns the launches of K2 and of both K4 kernels on that run."""
     from waveflow_tpu_torch.benchmark import get_dataset, train_density_model
     from waveflow_tpu_torch.benchmark.density import (
-        density_step, get_benchmark_model, metric_checkpoint)
+        density_epochs, density_optimizer, get_benchmark_model,
+        metric_checkpoint)
     from waveflow_tpu_torch.ops import cuda_sampler, cuda_spline
     n_epochs, log_every = 200, 100
     X = get_dataset('circles', DENSITY_POINTS)
@@ -2233,8 +2254,9 @@ def density_phase(torch):
     if not err <= 1e-4:
         fail("log_pdf on the card disagrees with the CPU")
 
-    # where an epoch's time goes: host clock per stage, then a profiled window
-    opt = torch.optim.Adam(model.parameters(), lr=1e-4, eps=1e-8)
+    # where an epoch's time goes: host clock per eager stage, then replayed
+    # epochs timed and profiled
+    opt = density_optimizer(model, 1e-4)
     X_dev = torch.as_tensor(X, device='cuda')
     held = {}
 
@@ -2260,16 +2282,19 @@ def density_phase(torch):
           f"LL) "
           f"{ms_ckpt:.1f} ms", flush=True)
 
-    def epochs(n):
-        for _ in range(n):
-            density_step(model, opt, X_dev)
-
-    # a second block of 100 epochs, warm, without its checkpoint
-    ms_epoch = host_ms(torch, lambda: epochs(100), n=1) / 100
+    # the last timed forward's autograd graph holds the parameters' grad
+    # accumulators, made on the default stream: a capture whose backward
+    # met them would wait on that stream, which CUDA refuses
+    held.clear()
+    epochs = density_epochs(model, opt, X_dev,
+                            torch.Generator('cuda').manual_seed(9))
+    epochs.window(1)        # the warm-up epoch and the capture
+    # a further block of 100 replayed epochs, without its checkpoint
+    ms_epoch = host_ms(torch, lambda: epochs.window(100), n=1) / 100
     print(f"density: points/s {DENSITY_POINTS / ms_epoch * 1e3:.1f} (a "
-          f"further block of 100 epochs, {ms_epoch:.2f} ms per epoch)",
-          flush=True)
-    profile_window(torch, lambda: epochs(10), 10, "density ")
+          f"further block of 100 replayed epochs, {ms_epoch:.3f} ms per "
+          "epoch)", flush=True)
+    profile_window(torch, lambda: epochs.window(10), 10, "density replayed ")
     return launches
 
 
@@ -2606,7 +2631,9 @@ def posterior_phase(torch, sampler, sharded=False):
     cuda_spline.launches = cuda_spline.launches_bwd = 0
     label = (f"posterior-sharded-1 {sampler}" if sharded
              else f"posterior-{sampler}")
-    n, unit = (1, 'temperatures') if sampler == 'smc' else (2, 'steps')
+    # the example's stretch: SMC's whole ladder again, HMC / NUTS 2 steps
+    n, unit = ((ex.SMC['n_temps'], 'temperatures') if sampler == 'smc'
+               else (2, 'steps'))
     fig = ex.run_posterior(
         sampler, device='cuda', seed=0, verbose=False,
         profile=lambda run: profile_window(torch, run, n, f"{label}: ",
@@ -2640,6 +2667,318 @@ def posterior_phase(torch, sampler, sharded=False):
     return launches, dict(fig, idle=prof['idle'])
 
 
+# the probprog and density twins (graph-density, graph-posterior-hmc,
+# graph-posterior-smc): a turn is 2 blocks of DENSITY_TWIN_BLOCK epochs,
+# HMC_TWIN_STEPS warm-up and as many kept steps, or SMC_TWIN_TEMPS
+# temperatures; the posterior at the example's prior scale and step size
+DENSITY_TWIN_BLOCK = 5
+HMC_TWIN_STEPS = 2
+SMC_TWIN_TEMPS = 3
+POSTERIOR_PRIOR_SCALE, POSTERIOR_STEP = 2.0, 2e-3
+# K4's (forward, backward) launches per replay, counted from the code: a
+# density epoch is one log_pdf and its backward; an HMC step n_leapfrog + 1
+# = 17 gradients of the vmapped posterior; an SMC temperature 5 moves, one
+# likelihood call each, no gradient
+K4_PER_REPLAY = {'density': (1, 1), 'hmc': (17, 17), 'smc': (5, 0)}
+
+
+def twin_turns(torch, label, make, turn, carried, units, unit, expected,
+               n_captures=1):
+    """A driver on the graph path and its eager twin (``make(graph)``, both
+    from one state): turns of ``units`` ``unit`` (``turn(twin)``) in the
+    order eager, graph, graph, eager, each timed by CUDA events with K4's
+    launches counted (the first graph turn holds the warm-up calls and the
+    captures, whose seconds and graph pools ``capture_clock`` reads); then
+    everything the two carry (``carried(twin)``, a dict of tensors)
+    compared, which must be equal to the bit, K4's launches per unit
+    held to ``expected`` = (forward, backward) on both twins, the graph's
+    ``n_captures`` made once, and one more graph turn profiled: the idle
+    share of an unprofiled replay is the profiled busy time against the
+    events' time.  Returns (K4's launches over the graph turns, the
+    figures)."""
+    from waveflow_tpu_torch.ops import cuda_spline
+    ms = {'eager': [], 'graph': []}
+    k4 = {kind: (0, 0) for kind in ms}
+    eager, graphed = make(False), make(None)
+    with capture_clock(torch) as captures:
+        for kind, t in (('eager', eager), ('graph', graphed),
+                        ('graph', graphed), ('eager', eager)):
+            cuda_spline.launches = cuda_spline.launches_bwd = 0
+            _, dt = events_ms(torch, lambda: turn(t))
+            ms[kind].append(dt)
+            k4[kind] = tuple(a + b for a, b in zip(k4[kind], k4_counts()))
+    per_unit = {kind: tuple(v / (2 * units) for v in c)
+                for kind, c in k4.items()}
+    bitwise, rel, by_group = compare_twins(torch, carried(eager),
+                                           carried(graphed))
+    eager_ms = sum(ms['eager']) / (2 * units)
+    graph_ms = ms['graph'][1] / units
+    prof = profile_window(torch, lambda: turn(graphed), units,
+                          f"{label} graphed ", unit=unit)
+    out = dict(eager_ms=eager_ms, graph_ms=graph_ms,
+               graph_first_turn_ms=ms['graph'][0] / units,
+               speedup=eager_ms / graph_ms, turns_ms=ms, bitwise=bitwise,
+               max_rel_diff=rel, rel_diff_by_group=by_group,
+               capture_s=[c[0] for c in captures],
+               graph_pool_mib=[c[1] / 2 ** 20 for c in captures],
+               k4_per_replay=per_unit['graph'], busy_ms=prof['busy_ms'] / units,
+               idle_unprofiled=1 - prof['busy_ms'] / units / graph_ms,
+               kernels_per_replay=prof['launches_per_unit'])
+    one = unit.rstrip('s')
+    print(f"{label}: eager, graph, graph, eager turns of {units} {unit} "
+          f"(CUDA events): "
+          f"{' / '.join(f'{v:.1f}' for v in ms['eager'][:1] + ms['graph'] + ms['eager'][1:])}"
+          f" ms | eager {eager_ms:.3f} ms per {one} | graph {graph_ms:.3f} ms "
+          f"per replay (first turn {out['graph_first_turn_ms']:.3f} with the "
+          f"warm-up and the capture), {out['speedup']:.2f}x | capture "
+          f"{', '.join(f'{s:.3f}' for s in out['capture_s'])} s, graph pool "
+          f"{', '.join(f'{p:.1f}' for p in out['graph_pool_mib'])} MiB | "
+          f"device busy {out['busy_ms']:.3f} ms per replay (profiler), idle "
+          f"share {out['idle_unprofiled']:.4f} | graph against eager: "
+          f"{'equal to the bit' if bitwise else 'NOT bitwise'} (largest "
+          f"relative difference {rel:.3e}; by kind "
+          f"{ {k: f'{v:.2e}' for k, v in by_group.items()} }) | K4 (forward, "
+          f"backward) per {one}: eager {per_unit['eager']}, graph "
+          f"{per_unit['graph']}, expected {expected}", flush=True)
+    if len(captures) != n_captures:
+        fail(f"{label}: {len(captures)} captures in the turns, not "
+             f"{n_captures}")
+    if not bitwise:
+        fail(f"{label}: the graph differs from its eager twin by {by_group} "
+             "relative")
+    if not per_unit['graph'] == per_unit['eager'] == tuple(map(float,
+                                                             expected)):
+        fail(f"{label}: K4 launched {per_unit} per {one}, not {expected}")
+    return dict(zip(('spline_eval', 'spline_eval_bwd'), k4['graph'])), out
+
+
+def graph_density_phase(torch):
+    """The density trainer's epoch as a CUDA graph against its eager twin:
+    the full-width MFlow on 20,000 circles points from seeded weights,
+    turns of 2 blocks of DENSITY_TWIN_BLOCK epochs (``density_epochs``,
+    what ``train_density_model`` runs between its metric checkpoints);
+    then ``train_density_model`` graphed against eager for the other three
+    model names (2 blocks of 5 epochs, a checkpoint after each): losses
+    and parameters to the bit."""
+    from types import SimpleNamespace
+    from waveflow_tpu_torch.benchmark import get_dataset, train_density_model
+    from waveflow_tpu_torch.benchmark.density import (
+        density_epochs, density_optimizer, get_benchmark_model)
+    X = get_dataset('circles', DENSITY_POINTS)
+    X_dev = torch.as_tensor(X, dtype=torch.float32, device='cuda')
+
+    def make(graph):
+        model = get_benchmark_model(
+            'MFlow', **DENSITY, generator=torch.Generator().manual_seed(5),
+            device='cuda')
+        opt = density_optimizer(model, 1e-4)
+        gen = torch.Generator('cuda').manual_seed(6)
+        return SimpleNamespace(model=model, opt=opt, gen=gen, losses=[],
+                               epochs=density_epochs(model, opt, X_dev, gen,
+                                                     graph))
+
+    def turn(t):
+        for _ in range(2):
+            t.losses.append(t.epochs.window(DENSITY_TWIN_BLOCK)[0])
+
+    def carried(t):
+        """Losses, parameters, Adam's moments and step, the permutations'
+        generator."""
+        out = {'losses': torch.cat(t.losses), 'generator': t.gen.get_state()}
+        out.update({f'param {k}': v for k, v in t.model.state_dict().items()})
+        for i, st in t.opt.state_dict()['state'].items():
+            out.update({f'adam {i} {k}': v for k, v in st.items()})
+        return out
+
+    launches, out = twin_turns(
+        torch, 'graph-density MFlow', make, turn, carried,
+        2 * DENSITY_TWIN_BLOCK, 'epochs', K4_PER_REPLAY['density'])
+    out['points_per_s'] = DENSITY_POINTS / out['graph_ms'] * 1e3
+    out['eager_points_per_s'] = DENSITY_POINTS / out['eager_ms'] * 1e3
+    print(f"graph-density: points/s graph {out['points_per_s']:.1f}, eager "
+          f"{out['eager_points_per_s']:.1f}", flush=True)
+    out['models'] = {}
+    for name in ('Flow', 'IFlow', 'RQSFlow'):
+        runs = []
+        for graph in (False, None):
+            with capture_clock(torch) as captures:
+                model, hist = train_density_model(
+                    X, model_name=name, num_epochs=10, log_every=5,
+                    n_model_sample=2000, verbose=False, device='cuda',
+                    graph=graph, **DENSITY)
+            runs.append((model, hist, len(captures)))
+        (a, ha, na), (b, hb, nb) = runs
+        same = ha['losses'] == hb['losses'] and all(
+            torch.equal(v, b.state_dict()[k])
+            for k, v in a.state_dict().items())
+        out['models'][name] = dict(bitwise=same, captures=(na, nb),
+                                   last_loss=hb['losses'][-1])
+        print(f"graph-density {name}: train_density_model graphed "
+              f"({nb} capture) against eager ({na}), 2 blocks of 5 epochs: "
+              f"losses and parameters "
+              f"{'equal to the bit' if same else 'DIFFER'}; last loss "
+              f"{hb['losses'][-1]:.5f}", flush=True)
+        if not same or (na, nb) != (0, 1) or not all(
+                math.isfinite(v) for v in hb['losses']):
+            fail(f"graph-density {name}: graphed against eager: "
+                 f"{out['models'][name]}")
+    out['continued'] = density_continuation(torch, X, X_dev)
+    return launches, out
+
+
+def density_continuation(torch, X, X_dev):
+    """``train_density_model(model=...)`` on an MFlow whose eager forward
+    left a loss alive: the graphed default refuses it before its first
+    epoch (RuntimeError, the parameters untouched), and once the loss is
+    dropped runs graphed (one capture), equal to the eager continuation,
+    which takes the kept loss, to the bit."""
+    from waveflow_tpu_torch.benchmark import train_density_model
+    from waveflow_tpu_torch.benchmark.density import get_benchmark_model
+
+    def fresh():
+        return get_benchmark_model(
+            'MFlow', **DENSITY, generator=torch.Generator().manual_seed(5),
+            device='cuda')
+
+    def train(model, graph):
+        with capture_clock(torch) as captures:
+            _, hist = train_density_model(
+                X, model=model, num_epochs=5, log_every=5, n_model_sample=2000,
+                verbose=False, device='cuda', graph=graph,
+                generator=torch.Generator().manual_seed(7), **DENSITY)
+        return hist['losses'], len(captures)
+
+    eager, graphed = fresh(), fresh()
+    kept = [-m.log_pdf(X_dev).mean() for m in (eager, graphed)]
+    before = {k: v.clone() for k, v in graphed.state_dict().items()}
+    try:
+        train(graphed, None)
+        refused = None
+    except RuntimeError as e:
+        refused = str(e)
+    untouched = all(torch.equal(v, graphed.state_dict()[k])
+                    for k, v in before.items())
+    eager_losses, _ = train(eager, False)
+    kept.clear()
+    graph_losses, n = train(graphed, None)
+    same = eager_losses == graph_losses and all(
+        torch.equal(v, graphed.state_dict()[k])
+        for k, v in eager.state_dict().items())
+    print(f"graph-density continued MFlow: with a kept loss the graphed "
+          f"default {'refused: ' + repr(refused) if refused else 'RAN'} "
+          f"(parameters {'untouched' if untouched else 'CHANGED'}); the "
+          f"loss dropped, {n} capture, 5 epochs against the eager "
+          f"continuation (which kept it): "
+          f"{'equal to the bit' if same else 'DIFFER'}", flush=True)
+    if refused is None or not untouched or n != 1 or not same:
+        fail("graph-density: model= continuation after an eager forward")
+    return dict(refused=refused, captures=n, bitwise=same)
+
+
+def posterior_twin_target(torch, ex, n_rows: int, spread: float):
+    """The example's posterior on the card, its log density and ``n_rows``
+    rows of flat0 plus ``spread`` standard normals (seeded)."""
+    _, log_prob, _, flat0, _ = ex.posterior_target(
+        prior_scale=POSTERIOR_PRIOR_SCALE, device='cuda', seed=0)
+    rows = flat0[None] + spread * torch.randn(
+        (n_rows, flat0.numel()), generator=torch.Generator('cuda').manual_seed(1),
+        device='cuda')
+    return log_prob, rows
+
+
+def graph_posterior_hmc_phase(torch):
+    """HMC over the example posterior (D = 10,816, 8 chains, 16 leapfrogs)
+    graphed against eager: turns of HMC_TWIN_STEPS warm-up steps, the step
+    size switched, HMC_TWIN_STEPS kept steps (``run_fn``; two captures:
+    the warm-up step and the kept step); state, traces, accepts and
+    generator to the bit; K4 17 + 17 per replayed step."""
+    from types import SimpleNamespace
+    from waveflow_tpu_torch.vmc import make_hmc_sampler
+    ex = posterior_example()
+    log_prob, chains = posterior_twin_target(torch, ex, 8, 0.01)
+    init_fn, _, run_fn = make_hmc_sampler(log_prob, n_leapfrog=16)
+
+    def make(graph):
+        return SimpleNamespace(state=init_fn(chains, step_size=POSTERIOR_STEP),
+                               gen=torch.Generator('cuda').manual_seed(2),
+                               graph=graph, traces=[], accepts=[])
+
+    def turn(t):
+        t.state, trace, info = run_fn(t.state, t.gen, HMC_TWIN_STEPS,
+                                      n_warmup=HMC_TWIN_STEPS,
+                                      return_info=True, graph=t.graph)
+        t.traces.append(trace)
+        t.accepts.append(info['accept'])
+
+    def carried(t):
+        out = {f'state {k}': v for k, v in zip(t.state._fields, t.state)}
+        out.update(trace=torch.cat(t.traces), accept=torch.cat(t.accepts),
+                   generator=t.gen.get_state())
+        return out
+    return twin_turns(torch, 'graph-posterior-hmc', make, turn, carried,
+                      2 * HMC_TWIN_STEPS, 'steps', K4_PER_REPLAY['hmc'],
+                      n_captures=2)
+
+
+def graph_posterior_smc_phase(torch, sharded=False):
+    """Tempered SMC over the example posterior (128 particles, 5 moves per
+    temperature) graphed against eager: turns of an SMC_TWIN_TEMPS ladder
+    (one capture: a temperature, β copied into its slot before each
+    replay); state, ESS, accepts and generators to the bit; K4 5 forward
+    launches per replayed temperature.  ``sharded``: the particles on the
+    walker group (parallel/probprog.py::make_sharded_smc; a world of one
+    over NCCL here), so the capture holds the weights' all-gather and the
+    cross-rank resample, the resample uniform from a shared generator."""
+    from types import SimpleNamespace
+    from waveflow_tpu_torch.parallel import make_sharded_smc, make_walker_mesh
+    from waveflow_tpu_torch.vmc import make_smc_sampler
+    ex = posterior_example()
+    log_prob, particles = posterior_twin_target(torch, ex, 128, 0.1)
+
+    def log_prior(th):
+        return -0.5 * (th ** 2).sum(-1) / POSTERIOR_PRIOR_SCALE ** 2
+
+    def log_like(th):
+        return log_prob(th) - log_prior(th)
+    smc_kw = dict(n_temps=SMC_TWIN_TEMPS, n_mcmc_moves=5,
+                  mcmc_step_size=POSTERIOR_STEP)
+    if sharded:
+        mesh = make_walker_mesh('cuda')
+        init_fn, sharded_run = make_sharded_smc(log_prior, log_like, mesh,
+                                                **smc_kw)
+        label = f"graph-posterior-smc-sharded-{mesh.size} ({mesh.backend})"
+
+        def run_fn(state, gen, shared, **kw):
+            return sharded_run(state, gen, shared, **kw)
+    else:
+        init_fn, smc_run = make_smc_sampler(log_prior, log_like, **smc_kw)
+        label = 'graph-posterior-smc'
+
+        def run_fn(state, gen, shared, **kw):
+            return smc_run(state, gen, **kw)
+
+    def make(graph):
+        return SimpleNamespace(state=init_fn(particles), graph=graph,
+                               gen=torch.Generator('cuda').manual_seed(2),
+                               shared=torch.Generator('cuda').manual_seed(3),
+                               ess=[], acc=[])
+
+    def turn(t):
+        t.state, ess, acc = run_fn(t.state, t.gen, t.shared,
+                                   return_accept=True, graph=t.graph)
+        t.ess.append(ess)
+        t.acc.append(acc)
+
+    def carried(t):
+        out = {f'state {k}': v for k, v in zip(t.state._fields, t.state)}
+        out.update(ess=torch.cat(t.ess), accept=torch.cat(t.acc),
+                   generator=t.gen.get_state(),
+                   shared_generator=t.shared.get_state())
+        return out
+    return twin_turns(torch, label, make, turn, carried, SMC_TWIN_TEMPS,
+                      'temperatures', K4_PER_REPLAY['smc'])
+
+
 def nuts_waveflow_phase(torch, params):
     """HMC and NUTS over He-1d walkers of the 100k checkpoint on the sorted
     sector (JAX's test_hmc_stationary_on_waveflow: the density clipped into
@@ -2647,7 +2986,9 @@ def nuts_waveflow_phase(torch, params):
     draws, depth cut: the pooled moments of the kept draws within 0.25 of
     4,096 ancestral draws'.  K3 launches per density call (4: the 3 IMADE
     layers and the prior) and chain-gradients per second: the rows of the
-    density calls that take a gradient, over the wall."""
+    density calls that take a gradient, over the wall (HMC replays its
+    steps as CUDA graphs: its calls are counted on the device, so that a
+    replay counts them again)."""
     from waveflow_tpu_torch.vmc import make_hmc_sampler, make_nuts_sampler
     m = flagship_model(torch, params, 'poly_pallas')
     L = 10.0
@@ -2655,12 +2996,13 @@ def nuts_waveflow_phase(torch, params):
     with torch.no_grad():
         anc = m.sample(4096, generator=torch.Generator('cuda').manual_seed(1))
     launches = read_counts()
-    calls = [0, 0]      # density calls; the rows of those under a gradient
+    # density calls; the rows of those under a gradient
+    calls = torch.zeros(2, dtype=torch.int64, device='cuda')
 
     def log_prob(x):
-        calls[0] += 1
+        calls[0].add_(1)
         if torch.is_grad_enabled():
-            calls[1] += x.shape[0]
+            calls[1].add_(x.shape[0])
         return m.log_pdf(torch.sort(torch.clamp(x, -L + 1e-3, L - 1e-3),
                                     -1).values)
 
@@ -2669,7 +3011,8 @@ def nuts_waveflow_phase(torch, params):
             ('hmc', make_hmc_sampler, dict(n_leapfrog=8), (30, 45)),
             ('nuts', make_nuts_sampler, dict(max_tree_depth=5), (20, 30))):
         init_fn, _, run_fn = make(log_prob, **kw)
-        before, calls[:] = read_counts()['basis_jet'], [0, 0]
+        before = read_counts()['basis_jet']
+        calls.zero_()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state = init_fn(anc[:WAVEFLOW_CHAINS], step_size=0.3)
@@ -2678,14 +3021,15 @@ def nuts_waveflow_phase(torch, params):
                                     return_info=True)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        n_calls, n_rows = calls.tolist()
         k3 = read_counts()['basis_jet'] - before
         mc = torch.sort(torch.clamp(trace[cut[1] // 3:].reshape(-1, 2),
                                     -L, L), -1).values
         d_mean = (mc.mean(0) - anc.mean(0)).abs().max().item()
         d_std = (mc.std(0) - anc.std(0)).abs().max().item()
-        row = dict(wall_s=wall, density_calls=calls[0],
-                   k3_per_call=k3 / calls[0],
-                   chain_grads_per_s=calls[1] / wall,
+        row = dict(wall_s=wall, density_calls=n_calls,
+                   k3_per_call=k3 / n_calls,
+                   chain_grads_per_s=n_rows / wall,
                    d_mean=d_mean, d_std=d_std,
                    step_size=float(state.step_size),
                    accept=float(info['accept'][cut[0]:].mean()))
@@ -3999,9 +4343,10 @@ def density_cut_phase(torch, label, X, X_test, n_epochs, model_name, **kw):
     """A density model trained by MLE on 1,000 points, ``n_epochs`` epochs
     with a metric checkpoint at the end (20,000 draws): losses finite and
     falling, the metrics finite, the round trip under 1e-4; K2 and K4
-    launches; points/s over a further warm block of 100 epochs."""
+    launches; points/s over a further block of 100 replayed epochs."""
     from waveflow_tpu_torch.benchmark import train_density_model
-    from waveflow_tpu_torch.benchmark.density import density_step
+    from waveflow_tpu_torch.benchmark.density import (
+        density_epochs, density_optimizer)
     reset_table_counts()
     from waveflow_tpu_torch.ops import cuda_sampler
     cuda_sampler.launches_linear = 0
@@ -4016,14 +4361,12 @@ def density_cut_phase(torch, label, X, X_test, n_epochs, model_name, **kw):
     launches['sampler_linear'] = cuda_sampler.launches_linear
     losses = hist['losses']
     first, last = sum(losses[:10]) / 10, sum(losses[-10:]) / 10
-    opt = torch.optim.Adam(model.parameters(), lr=1e-4, eps=1e-8)
-    X_dev = torch.as_tensor(X, device='cuda')
-
-    def block():
-        for _ in range(100):
-            density_step(model, opt, X_dev)
-
-    ms_epoch = host_ms(torch, block, n=1) / 100
+    epochs = density_epochs(model, density_optimizer(model, 1e-4),
+                            torch.as_tensor(X, dtype=torch.float32,
+                                            device='cuda'),
+                            torch.Generator('cuda').manual_seed(9))
+    epochs.window(1)        # the warm-up epoch and the capture
+    ms_epoch = host_ms(torch, lambda: epochs.window(100), n=1) / 100
     row = dict(first10=first, last10=last, test_ll=hist['test_ll'][-1],
                kl=hist['kl'][-1], hellinger=hist['hellinger'][-1],
                reconstruction=hist['reconstruction'][-1], wall_s=wall,
@@ -4033,7 +4376,7 @@ def density_cut_phase(torch, label, X, X_test, n_epochs, model_name, **kw):
           f"LL {row['test_ll']:.4f} KL {row['kl']:.4f} H2 "
           f"{row['hellinger']:.4f} recon {row['reconstruction']:.3e} | "
           f"{wall:.2f} s | points/s {row['points_per_s']:.1f} ({ms_epoch:.3f}"
-          f" ms per epoch, a further warm block of 100) | launches "
+          f" ms per epoch, a further block of 100 replayed) | launches "
           f"{launches}", flush=True)
     if not (all(math.isfinite(v) for v in losses) and last < first):
         fail(f"{label}: the loss did not fall ({first} -> {last})")
@@ -4548,8 +4891,8 @@ H2_2D_CONFIG = dict(BOX_2D, system_name='H2', ansatz='antisym',
 
 def phase_table(torch, params, jax_raw, jax_clipped, ancestral_wps=None,
                 k3_b2b_ms=None):
-    """Phases 23, 38-39, 30-31, 50, 6-8, 46-49, 9-27 and 32-37, 40-45 in
-    order, as (name, run): run() ->
+    """Phases 23, 38-39, 30-31, 50, 6-8, 46-49, 9-26, 51-53, 27 and
+    32-37, 40-45 in order, as (name, run): run() ->
     (the kernel
     launches on that path, or None, and the phase's figures)."""
     r4 = json.loads(JAX_EVAL_R4.read_text())[f'results/{SPRING_RUN.name}']
@@ -4628,11 +4971,18 @@ def phase_table(torch, params, jax_raw, jax_clipped, ancestral_wps=None,
         ('posterior-hmc', lambda: posterior_phase(torch, 'hmc')),
         ('posterior-nuts', lambda: posterior_phase(torch, 'nuts')),
         ('posterior-smc', lambda: posterior_phase(torch, 'smc')),
+        # ---- 51-53. the posterior's and the density trainer's graphs
+        # against their eager twins ----
+        ('graph-posterior-hmc', lambda: graph_posterior_hmc_phase(torch)),
+        ('graph-posterior-smc', lambda: graph_posterior_smc_phase(torch)),
+        ('graph-density', lambda: graph_density_phase(torch)),
         ('nuts-waveflow', lambda: nuts_waveflow_phase(torch, params)),
         # ---- 32-33. two gloo ranks on the card; the sharded posterior ----
         ('dp-gloo-2', lambda: dp_gloo_phase(torch)),
         ('posterior-sharded-1', lambda: posterior_phase(torch, 'hmc',
                                                         sharded=True)),
+        ('graph-posterior-smc-sharded-1',
+         lambda: graph_posterior_smc_phase(torch, sharded=True)),
         # ---- 34-37. the committed JAX runs no earlier phase loads ----
         ('be4-eval', lambda: gate_phase(
             torch, 'be4-eval', BE4_RUN, BE4_CONFIG,
@@ -4704,8 +5054,10 @@ def main(argv=None) -> int:
              "graph-metropolis, graph-mala, graph-spring, graph-sr, "
              "graph-natgrad-mcmc, mala-eval, ..., poly-sample, antisym-eval, "
              "..., paired2d-256, k4-vmap, posterior-hmc, posterior-nuts, "
-             "posterior-smc, nuts-waveflow, dp-nccl-1, dp-metropolis-1, "
-             "dp-spring-1, dp-gloo-2, posterior-sharded-1, be4-eval, box4-eval, "
+             "posterior-smc, graph-posterior-hmc, graph-posterior-smc, "
+             "graph-density, nuts-waveflow, dp-nccl-1, dp-metropolis-1, "
+             "dp-spring-1, dp-gloo-2, posterior-sharded-1, "
+             "graph-posterior-smc-sharded-1, be4-eval, box4-eval, "
              "li-2d-eval, h2-2d-eval, table-kernels, table-hpsi, "
              "table-eval, graph-table, rqs-density, gm-density, compat, "
              "artifacts) to run alone "

@@ -11,8 +11,12 @@ of the posterior predictive (Bayesian model average over the draws).
 Usage:
   python examples/parameter_posterior_torch.py [--sampler nuts|hmc|smc]
       [--n-train 300] [--n-steps 200] [--n-warmup 150] [--device cuda]
-      [--seed 0] [--sharded]
+      [--seed 0] [--sharded] [--eager]
   torchrun --nproc-per-node N examples/parameter_posterior_torch.py --sharded
+
+On the card HMC's steps and SMC's temperatures replay as CUDA graphs, as
+the JAX example jits its scans (vmc/hmc.py, vmc/smc.py; under gloo they
+run eagerly); --eager runs them op by op.  NUTS is eager either way.
 
 --sharded splits the chains (SMC: the particles) over the ranks of the
 process group (parallel/probprog.py; without torchrun, a world of one
@@ -62,17 +66,21 @@ N_DRAWS = 64
 
 class Counted:
     """A log density that counts its batched calls, the gradient
-    evaluations among them, and their rows."""
+    evaluations among them, and their rows, in device tensors that each
+    call adds to: a replayed CUDA graph calls nothing in Python, and
+    repeats the additions it captured."""
 
-    def __init__(self, fn):
+    def __init__(self, fn, device):
         self.fn = fn
-        self.calls = self.grad_calls = self.grad_rows = 0
+        self.calls, self.grad_calls, self.grad_rows = (
+            torch.zeros((), dtype=torch.int64, device=device)
+            for _ in range(3))
 
     def __call__(self, theta):
-        self.calls += 1
+        self.calls.add_(1)
         if torch.is_grad_enabled():
-            self.grad_calls += 1
-            self.grad_rows += theta.shape[0]
+            self.grad_calls.add_(1)
+            self.grad_rows.add_(theta.shape[0])
         return self.fn(theta)
 
 
@@ -81,22 +89,11 @@ def sync(device):
         torch.cuda.synchronize(device)
 
 
-def run_posterior(sampler='nuts', n_train=300, n_test=1000, n_chains=8,
-                  n_steps=200, n_warmup=150, prior_scale=2.0,
-                  step_size=2e-3, nuts_depth=6, hmc_leapfrog=16,
-                  n_particles=SMC['n_particles'], n_temps=SMC['n_temps'],
-                  n_mcmc_moves=SMC['n_mcmc_moves'], device=None, seed=0,
-                  verbose=True, profile=None, sharded=False) -> dict:
-    """Sample the posterior over the example MFlow's parameters and
-    evaluate it on held-out points; returns the run's figures.
-    ``profile(run)``, where given, is handed a stretch of two more steps
-    (SMC: one more temperature) after the timed run, and its result goes
-    into the figures as 'profile'.  ``sharded``: the chains or particles
-    split over the walker group (``make_walker_mesh``)."""
-    device = resolve_device(device)
-    mesh = make_walker_mesh(device) if sharded else None
-    if mesh is not None:
-        device = mesh.device
+def posterior_target(n_train=300, n_test=1000, prior_scale=2.0,
+                     device=None, seed=0):
+    """(model, log_prob (chains, D) -> (chains,), unravel, flat0, X_test):
+    the example MFlow, its weights from ``seed``, and the posterior over
+    its parameters given ``n_train`` circles points."""
     X = get_dataset('circles', n_samples=n_train + n_test)
     X_train = torch.as_tensor(X[:n_train], device=device)
     X_test = torch.as_tensor(X[n_train:], device=device)
@@ -104,7 +101,32 @@ def run_posterior(sampler='nuts', n_train=300, n_test=1000, n_chains=8,
                                 generator=torch.Generator().manual_seed(seed))
     log_prob, unravel, flat0 = make_parameter_posterior(
         model, X_train, prior_scale=prior_scale)
-    log_prob = Counted(log_prob)
+    return model, log_prob, unravel, flat0, X_test
+
+
+def run_posterior(sampler='nuts', n_train=300, n_test=1000, n_chains=8,
+                  n_steps=200, n_warmup=150, prior_scale=2.0,
+                  step_size=2e-3, nuts_depth=6, hmc_leapfrog=16,
+                  n_particles=SMC['n_particles'], n_temps=SMC['n_temps'],
+                  n_mcmc_moves=SMC['n_mcmc_moves'], device=None, seed=0,
+                  verbose=True, profile=None, sharded=False,
+                  graph=None) -> dict:
+    """Sample the posterior over the example MFlow's parameters and
+    evaluate it on held-out points; returns the run's figures.
+    ``profile(run)``, where given, is handed a stretch of two more steps
+    (SMC: the ``n_temps`` temperatures again, from the final state) after
+    the timed run, on the same samplers (replays, where they are graphed),
+    and its result goes into the figures as 'profile'.  ``sharded``: the
+    chains or particles split over the walker group (``make_walker_mesh``).
+    ``graph``: the samplers' (None graphs HMC and SMC on the card, False
+    runs them eagerly; NUTS is eager)."""
+    device = resolve_device(device)
+    mesh = make_walker_mesh(device) if sharded else None
+    if mesh is not None:
+        device = mesh.device
+    model, log_prob, unravel, flat0, X_test = posterior_target(
+        n_train, n_test, prior_scale, device, seed)
+    log_prob = Counted(log_prob, device)
     D = flat0.numel()
     if verbose:
         print(f"posterior dimension: {D} flow parameters", flush=True)
@@ -133,30 +155,25 @@ def run_posterior(sampler='nuts', n_train=300, n_test=1000, n_chains=8,
         smc_kw = dict(n_temps=n_temps, n_mcmc_moves=n_mcmc_moves,
                       mcmc_step_size=step_size)
         if mesh is None:
-            init_fn, run_fn = make_smc_sampler(log_prior, log_like, **smc_kw)
+            init_fn, run_fn = make_smc_sampler(log_prior, log_like,
+                                               **smc_kw)
             state, ess, acc = run_fn(init_fn(particles), gen,
-                                     return_accept=True)
+                                     return_accept=True, graph=graph)
         else:
             init_fn, run_fn = make_sharded_smc(log_prior, log_like, mesh,
                                                **smc_kw)
             state, ess, acc = run_fn(init_fn(particles), run_gen, gen,
-                                     return_accept=True)
+                                     return_accept=True, graph=graph)
         draws = (state.particles if mesh is None
                  else all_gather(state.particles, mesh.axis))
         figures.update(accept=float(acc.mean()), ess_min=float(ess.min()),
                        n_resamples=int((ess < 0.5).sum()))
         n_iter = n_temps
-        more = make_smc_sampler(log_prior, log_like, n_temps=1,
-                                n_mcmc_moves=n_mcmc_moves,
-                                mcmc_step_size=step_size)[1]
 
         def stretch():
             if mesh is None:
-                return more(state, gen)
-            return make_sharded_smc(log_prior, log_like, mesh, n_temps=1,
-                                    n_mcmc_moves=n_mcmc_moves,
-                                    mcmc_step_size=step_size)[1](
-                state, run_gen, gen)
+                return run_fn(state, gen, graph=graph)
+            return run_fn(state, run_gen, gen, graph=graph)
     else:
         chains = flat0[None] + 0.01 * torch.randn(
             (n_chains, D), generator=gen, device=device)
@@ -166,14 +183,15 @@ def run_posterior(sampler='nuts', n_train=300, n_test=1000, n_chains=8,
         if mesh is None:
             init_fn, _, run_fn = maker(log_prob, **kw)
             state = init_fn(chains, step_size=step_size)
-            state, trace, info = run_fn(state, gen, n_steps,
-                                        n_warmup=n_warmup, return_info=True)
+            state, trace, info = run_fn(
+                state, gen, n_steps, n_warmup=n_warmup, return_info=True,
+                graph=graph)
             keep = trace[n_steps // 2:]
         else:
             init_fn, make_run = make_sharded_chain_sampler(maker, log_prob,
                                                            mesh, **kw)
             state = init_fn(chains, step_size=step_size)
-            state, trace, info = make_run(n_steps, n_warmup)(
+            state, trace, info = make_run(n_steps, n_warmup, graph)(
                 state, run_gen, return_info=True)
             # every rank's chains over the kept half: (steps, chains, D)
             keep = all_gather(trace[n_steps // 2:].transpose(0, 1),
@@ -190,21 +208,21 @@ def run_posterior(sampler='nuts', n_train=300, n_test=1000, n_chains=8,
 
         def stretch():
             if mesh is None:
-                return run_fn(state, gen, 2)
-            return make_run(2)(state, run_gen)
+                return run_fn(state, gen, 2, graph=graph)
+            return make_run(2, graph=graph)(state, run_gen)
     sync(device)
     wall = time.perf_counter() - t0
     k4 = (cuda_spline.launches - k4[0], cuda_spline.launches_bwd - k4[1])
+    calls, grad_calls = int(log_prob.calls), int(log_prob.grad_calls)
     figures.update(
         sampler=sampler, D=D, ranks=1 if mesh is None else mesh.size,
         sampling_s=wall, ms_per_step=1e3 * wall / n_iter,
-        density_calls=log_prob.calls, grad_calls=log_prob.grad_calls,
-        grad_evals_per_s=log_prob.grad_rows / wall,
-        grad_calls_per_s=log_prob.grad_calls / wall,
-        n_draws=draws.shape[0])
+        density_calls=calls, grad_calls=grad_calls,
+        grad_evals_per_s=int(log_prob.grad_rows) / wall,
+        grad_calls_per_s=grad_calls / wall, n_draws=draws.shape[0])
     # kernel launches (a CPU run runs K4's plain version and counts none)
-    figures.update(k4_per_density_call=k4[0] / max(log_prob.calls, 1),
-                   k4_bwd_per_grad_call=k4[1] / max(log_prob.grad_calls, 1))
+    figures.update(k4_per_density_call=k4[0] / max(calls, 1),
+                   k4_bwd_per_grad_call=k4[1] / max(grad_calls, 1))
     if verbose:
         print(f"{sampler} sampling: {wall:.1f}s, {draws.shape[0]} posterior "
               f"draws", flush=True)
@@ -240,6 +258,9 @@ def main():
     p.add_argument('--sharded', action='store_true',
                    help='shard chains/particles over the ranks of the '
                         'process group (torchrun), or a world of one')
+    p.add_argument('--eager', action='store_true',
+                   help='run HMC and SMC op by op, not as replayed CUDA '
+                        'graphs')
     p.add_argument('--device', default='cuda',
                    help="'cuda' (default) or 'cpu'")
     p.add_argument('--seed', type=int, default=0,
@@ -249,7 +270,8 @@ def main():
     figures = run_posterior(
         args.sampler, args.n_train, args.n_test, args.n_chains, args.n_steps,
         args.n_warmup, args.prior_scale, args.step_size, device=device,
-        seed=args.seed, sharded=args.sharded)
+        seed=args.seed, sharded=args.sharded,
+        graph=False if args.eager else None)
     figures['device'] = (torch.cuda.get_device_name(device)
                          if device.type == 'cuda' else 'cpu')
     print(json.dumps(figures), flush=True)

@@ -3,7 +3,10 @@
 
 Usage:
   python examples/run_benchmark_torch.py --dataset circles --model MFlow \
-      --num-epochs 30000
+      --num-epochs 30000 [--eager]
+
+On the card each epoch is a replayed CUDA graph, as the JAX example jits
+its blocks of epochs; --eager runs it op by op.
 """
 
 import argparse
@@ -35,6 +38,9 @@ def main():
                    help='samples drawn for the KDE metrics '
                         '(reference example uses 20k)')
     p.add_argument('--save-dir', default=None)
+    p.add_argument('--eager', action='store_true',
+                   help='run each epoch op by op, not as a replayed CUDA '
+                        'graph')
     p.add_argument('--device', default='cuda',
                    help="'cuda' (default) or 'cpu'")
     args = p.parse_args()
@@ -52,7 +58,8 @@ def main():
                         spline_degree=args.spline_degree,
                         n_knots=args.n_knots, log_every=args.log_every,
                         n_model_sample=args.n_model_sample,
-                        save_dir=save_dir, device=args.device)
+                        save_dir=save_dir, device=args.device,
+                        graph=False if args.eager else None)
 
 
 if __name__ == '__main__':

@@ -5,8 +5,12 @@ MFlow / RQSFlow models on the 2D benchmark datasets with periodic metric
 checkpoints
 (KDE-KL, Hellinger², reconstruction distance, held-out log-likelihood).
 Torch Adam, one full-batch step per epoch on a per-epoch permutation of
-the training set; eager PyTorch, losses read back once per block of
-epochs.
+the training set drawn on the device.  The JAX package jits a ``lax.scan``
+over each block of epochs; here one epoch over static tensors (the
+parameters, Adam's state, a loss slot) is a replayed CUDA graph on the card
+(``density_epochs``, vmc/graphs.py) and the eager twin elsewhere.  Losses
+are read back once per block; the metric checkpoints run eagerly between
+blocks, as JAX's do.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from waveflow_tpu_torch.bijections import (
 )
 from waveflow_tpu_torch.models import Flow, get_model
 from waveflow_tpu_torch.models.priors import Normal, Uniform
+from waveflow_tpu_torch.vmc import graphs
 
 
 def get_benchmark_model(model_name: str = 'MFlow', spline_reg: float = 0.02,
@@ -87,14 +92,49 @@ def get_benchmark_model(model_name: str = 'MFlow', spline_reg: float = 0.02,
     raise ValueError(f"unknown model {model_name!r}")
 
 
+def density_optimizer(model, learning_rate: float) -> torch.optim.Adam:
+    """The trainer's Adam: ``capturable`` on a CUDA device (its step count
+    on the device, so that an update can be captured), graphed or not, so
+    that the two compare like with like; torch refuses it on the CPU."""
+    params = list(model.parameters())
+    return torch.optim.Adam(params, lr=learning_rate, eps=1e-8,
+                            capturable=params[0].is_cuda)
+
+
 def density_step(model, opt: torch.optim.Optimizer,
                  batch: torch.Tensor) -> torch.Tensor:
-    """One MLE step on ``batch``; returns the loss (a device scalar)."""
-    opt.zero_grad(set_to_none=True)
-    loss = -model.log_pdf(batch).mean()
-    loss.backward()
-    opt.step()
+    """One MLE step on ``batch``; returns the loss (a device scalar).  The
+    backward runs on the calling thread, as the VMC step's does
+    (vmc/estimators.py::make_train_step): on the autograd engine's worker
+    thread the order of the gradient sums follows the process's history."""
+    with torch.autograd.set_multithreading_enabled(False):
+        opt.zero_grad(set_to_none=True)
+        loss = -model.log_pdf(batch).mean()
+        loss.backward()
+        opt.step()
     return loss.detach()
+
+
+def density_epochs(model, opt: torch.optim.Optimizer, X: torch.Tensor,
+                   generator: torch.Generator, graph: bool | None = None):
+    """The trainer's epochs as a window (vmc/graphs.py): ``window(n)``
+    runs n epochs and returns ``[losses (n,)]`` on the device.  An epoch
+    permutes ``X`` (on its device) by a draw from ``generator`` (on the
+    same device) and takes one ``density_step`` on it.  ``graph`` (default:
+    on a CUDA device) replays it as a CUDA graph; True on the CPU raises.
+    Graphed, it raises RuntimeError at once while an autograd graph over
+    the model's parameters made outside it is still alive
+    (``graphs.check_leaves_free``)."""
+    loss = torch.zeros((), device=X.device)
+
+    def epoch():
+        perm = torch.randperm(X.shape[0], generator=generator,
+                              device=X.device)
+        loss.copy_(density_step(model, opt, X[perm]))
+    graph = graphs.use_graph(graph, X.device)
+    if graph:
+        graphs.check_leaves_free(model.parameters())
+    return graphs.make_window(epoch, (loss,), (generator,), graph)
 
 
 def metric_checkpoint(model, n_model_sample: int,
@@ -125,13 +165,18 @@ def train_density_model(X: np.ndarray, model_name: str = 'MFlow',
                         prior_spline_degree: int = 3,
                         prior_n_knots: int = 15, *, device=None,
                         generator: torch.Generator | None = None,
-                        model=None):
+                        model=None, graph: bool | None = None):
     """MLE-train a density model; returns (model, history).
 
     ``generator`` (a CPU generator, default: seeded with ``seed``) draws
-    the initial weights, the per-epoch permutations and the seed of the
-    device generator that the metric checkpoints sample with.  ``model``
-    continues from an existing module instead of a fresh one.  With
+    the initial weights and the seeds of two device generators: the one
+    the metric checkpoints sample with and the one the per-epoch
+    permutations come from.  ``graph`` (default: on a CUDA device) runs
+    each epoch as a replayed CUDA graph (``density_epochs``); False gives
+    the eager twin, True on the CPU raises ValueError.  ``model``
+    continues from an existing module instead of a fresh one; graphed,
+    no autograd graph over its parameters may still be alive (a kept
+    loss): that raises RuntimeError before the first epoch.  With
     ``X_test``, each metric checkpoint also records the held-out mean
     log-likelihood (history['test_ll'] / test_ll.txt) and the best
     snapshot is kept in history['best_params'] (a CPU state dict)."""
@@ -146,8 +191,11 @@ def train_density_model(X: np.ndarray, model_name: str = 'MFlow',
             generator=generator, device=device)
     sample_gen = torch.Generator(device).manual_seed(
         int(torch.randint(2 ** 62, (), generator=generator)))
-    opt = torch.optim.Adam(model.parameters(), lr=learning_rate, eps=1e-8)
+    perm_gen = torch.Generator(device).manual_seed(
+        int(torch.randint(2 ** 62, (), generator=generator)))
     X_dev = torch.as_tensor(X, dtype=torch.float32, device=device)
+    epochs = density_epochs(model, density_optimizer(model, learning_rate),
+                            X_dev, perm_gen, graph)
 
     def snapshot():
         return {k: v.detach().cpu().clone()
@@ -161,11 +209,8 @@ def train_density_model(X: np.ndarray, model_name: str = 'MFlow',
     best_params = snapshot()
     epoch = 0
     while epoch < num_epochs:
-        losses = []
-        for _ in range(block):
-            perm = torch.randperm(X_dev.shape[0], generator=generator)
-            losses.append(density_step(model, opt, X_dev[perm.to(device)]))
-        history['losses'].extend(torch.stack(losses).tolist())
+        losses, = epochs.window(block)
+        history['losses'].extend(losses.tolist())
         epoch += block
         if epoch % log_every == 0 or epoch >= num_epochs:
             m = metric_checkpoint(model, n_model_sample, sample_gen, X_test)

@@ -27,12 +27,14 @@ as they do eagerly.
 The kernel wrappers (ops/cuda_*.py) count their launches in Python, and a
 replay launches without passing through them: ``EpochGraph`` keeps what the
 capture counted, puts the counters back (the capture launched nothing), and
-adds that count on every replay (``ops.add_launches``).
+adds that count on every replay (``ops.add_launches``).  A count that
+must hold across replays of a caller's body lives on the device, and the
+body adds to it.
 
 A window states only its body and the static tensors it writes each epoch
 (a loss, an accept rate, a row of block values): ``window(n)`` runs n
 epochs and stacks those slots, eagerly (``Epochs``) or replayed
-(``EpochGraph``).
+(``EpochGraph``); ``make_window`` picks one.
 
 A failed capture or replay raises.  Nothing here falls back to eager
 execution, and a graph needs a CUDA device (``use_graph``).
@@ -57,6 +59,27 @@ def use_graph(graph: bool | None, device) -> bool:
     if graph and device.type != 'cuda':
         raise ValueError(f"graph=True needs a CUDA device, got {device}")
     return bool(graph)
+
+
+def check_leaves_free(leaves) -> None:
+    """Raise RuntimeError if an autograd graph made outside a window still
+    holds the grad accumulator of one of ``leaves`` (the tensors a body
+    differentiates), as a loss kept from an eager forward does.  A capture
+    whose backward met such an accumulator would wait on the stream it was
+    made on, which CUDA refuses; once nothing holds it, the window's own
+    forward makes it anew on the capture's stream.  The probe tags the
+    accumulator, lets go of it and asks again: the tag survives only if
+    something else held it."""
+    with torch.enable_grad():
+        for t in (t for t in leaves if t.requires_grad):
+            t.view_as(t).grad_fn.next_functions[0][0].metadata['probe'] = 1
+            acc = t.view_as(t).grad_fn.next_functions[0][0]
+            if acc.metadata.pop('probe', None):
+                raise RuntimeError(
+                    "an autograd graph over the parameters is still alive "
+                    "(a loss kept from an eager forward?): a CUDA graph "
+                    "cannot capture a backward through it; drop it before "
+                    "training graphed, or pass graph=False")
 
 
 def copy_into(buffers, values) -> None:
@@ -152,3 +175,11 @@ class EpochGraph(Epochs):
         counted = tuple(a - b for a, b in zip(ops.read_launches(), before))
         ops.set_launches(before)
         return graph, counted
+
+
+def make_window(body, outputs=(), generators=(), graph: bool = False):
+    """``body`` as a window: replayed as a CUDA graph (``EpochGraph``) when
+    ``graph``, else eager (``Epochs``)."""
+    if graph:
+        return EpochGraph(body, outputs, generators)
+    return Epochs(body, outputs)

@@ -23,6 +23,13 @@ ops/spline_eval.py).
 Random draws come from an explicit ``torch.Generator``; ``step_fn`` takes
 its momentum and accept uniforms as tensors, so a test can feed it the
 draws of the JAX package's own key.
+
+JAX runs the warm-up and the kept steps each as one ``lax.scan``.  On a
+CUDA device ``run_fn`` replays one captured warm-up step and one captured
+kept step (vmc/graphs.py) over a static state written in place, the
+switch of the step size between them outside the graphs; elsewhere the
+same two steps run eagerly.  The captures are kept for the next call at
+the same shape and generator, and one set of them at a time.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from torch.func import functional_call, vmap
 
 from waveflow_tpu_torch.convert import ravel_layout
 from waveflow_tpu_torch.parallel import mesh
+from waveflow_tpu_torch.vmc import graphs
 
 # dual averaging (Hoffman & Gelman 2014, Alg. 6), as in the JAX package
 DA_GAMMA, DA_KAPPA, DA_T0 = 0.05, 0.75, 10
@@ -57,8 +65,10 @@ def value_and_grad(log_prob_fn: Callable, q: torch.Tensor):
     backward pass for every chain.  For a target whose rows are
     independent — every target on these paths: a Gaussian, walkers of a
     wavefunction, the vmapped parameter posterior — it equals JAX's
-    per-row ``vmap(grad(...))``."""
-    with torch.enable_grad():
+    per-row ``vmap(grad(...))``.  The backward runs on the calling thread
+    (vmc/estimators.py::make_train_step says why)."""
+    with torch.enable_grad(), \
+            torch.autograd.set_multithreading_enabled(False):
         q = q.detach().requires_grad_(True)
         lp = log_prob_fn(q)
         (g,) = torch.autograd.grad(lp.sum(), q)
@@ -96,8 +106,11 @@ def make_hmc_sampler(log_prob_fn: Callable, n_leapfrog: int = 16,
     init_fn(position, step_size=0.1) -> HMCState;
     step_fn(state, momentum (B, D), u (B,), warmup=False,
             return_info=False) -> HMCState (and the mean accept statistic);
-    run_fn(state, generator, n_steps, n_warmup=0, return_info=False)
-        -> (state, trace (n_steps, B, D)) (and a dict of per-step figures).
+    run_fn(state, generator, n_steps, n_warmup=0, return_info=False,
+           graph=None)
+        -> (state, trace (n_steps, B, D)) (and a dict of per-step figures);
+        ``graph`` (default: on a CUDA device) replays each step as a CUDA
+        graph, True on the CPU raises ValueError.
 
     A step costs n_leapfrog + 1 gradient evaluations of the batch: the
     gradient at the end of one leapfrog step starts the next.  ``axis_name``:
@@ -149,32 +162,59 @@ def make_hmc_sampler(log_prob_fn: Callable, n_leapfrog: int = 16,
         return (state, accept_prob) if return_info else state
 
     def run_fn(state: HMCState, generator: torch.Generator, n_steps: int,
-               n_warmup: int = 0, return_info: bool = False):
+               n_warmup: int = 0, return_info: bool = False,
+               graph: bool | None = None):
         """``n_warmup`` adapting steps, then the step size set to exp(log ε̄)
         and ``n_steps`` kept steps; draws from ``generator``."""
-        B, D = state.position.shape
-        dev = state.position.device
-        accepts = []
-
-        def one(state, warmup):
-            momentum = torch.randn((B, D), generator=generator, device=dev)
-            u = torch.rand((B,), generator=generator, device=dev)
-            state, acc = step_fn(state, momentum, u, warmup, True)
-            accepts.append(acc)
-            return state
-
-        for _ in range(n_warmup):
-            state = one(state, True)
+        static, warm, kept = windows(
+            state, generator, graphs.use_graph(graph, state.position.device))
+        graphs.copy_into(static, state)
+        warm_accepts, = warm.window(n_warmup)
         if n_warmup > 0:
-            state = state._replace(step_size=torch.exp(state.log_step_bar))
-        trace = state.position.new_empty((n_steps, B, D))
-        for i in range(n_steps):
-            state = one(state, False)
-            trace[i] = state.position
+            static.step_size.copy_(torch.exp(static.log_step_bar))
+        trace, kept_accepts = kept.window(n_steps)
+        state = HMCState(*(f.clone() for f in static))
         if return_info:
-            return state, trace, {'accept': torch.stack(accepts)
-                                  if accepts else None}
+            accepts = torch.cat([warm_accepts, kept_accepts])
+            return state, trace, {'accept': accepts if accepts.numel()
+                                  else None}
         return state, trace
+
+    captured = {}       # the graphed run's windows, for one key at a time
+
+    def windows(state, generator, graph: bool):
+        """(the static state, the warm-up step, the kept step): windows
+        over a copy of ``state``'s tensors that their steps write in place,
+        eager or replayed (``graph``).  The captures are kept for the next
+        call at the same shape, device and generator, and dropped at the
+        next call with another."""
+        key = (tuple(state.position.shape), state.position.device, generator)
+        if graph and key in captured:
+            return captured[key]
+        static = HMCState(*(f.clone() for f in state))
+        accept = torch.zeros((), device=static.position.device)
+
+        def step(warmup):
+            def body():
+                new, acc = step_fn(
+                    static,
+                    torch.randn(static.position.shape, generator=generator,
+                                device=static.position.device),
+                    torch.rand(static.position.shape[:1],
+                               generator=generator,
+                               device=static.position.device),
+                    warmup, True)
+                graphs.copy_into(static, new)
+                accept.copy_(acc)
+            return body
+        out = (static,
+               graphs.make_window(step(True), (accept,), (generator,), graph),
+               graphs.make_window(step(False), (static.position, accept),
+                                  (generator,), graph))
+        if graph:
+            captured.clear()
+            captured[key] = out
+        return out
 
     return init_fn, step_fn, run_fn
 

@@ -229,9 +229,17 @@ def make_nuts_sampler(log_prob_fn: Callable, max_tree_depth: int = 8,
         return (state, info) if return_info else state
 
     def run_fn(state: NUTSState, generator: torch.Generator, n_steps: int,
-               n_warmup: int = 0, return_info: bool = False):
+               n_warmup: int = 0, return_info: bool = False,
+               graph: bool | None = None):
         """``n_warmup`` adapting steps, then the step size set to exp(log ε̄)
-        and ``n_steps`` kept steps; draws from ``generator``."""
+        and ``n_steps`` kept steps; draws from ``generator``.  Eager
+        always: a trajectory ends on a host read (``live.any()``), which a
+        CUDA graph cannot hold, so ``graph=True`` raises
+        NotImplementedError (None and False are eager)."""
+        if graph:
+            raise NotImplementedError(
+                "NUTS ends its trajectories on host reads, which a CUDA "
+                "graph cannot capture: it runs eagerly (graph=None)")
         B, D = state.position.shape
         dev = state.position.device
         infos = []

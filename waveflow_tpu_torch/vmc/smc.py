@@ -24,6 +24,14 @@ collectives at every temperature.
 Random draws come from an explicit ``torch.Generator``, or from a list of
 ``SMCDraws`` per temperature, so a test can feed the draws of the JAX
 package's own key.
+
+JAX runs the temperatures as one ``lax.scan``.  On a CUDA device a run that
+draws from generators replays one captured temperature (vmc/graphs.py)
+over a static state written in place; each temperature's β is copied into
+a static slot before its replay, device to device.  Elsewhere, and for a
+run fed explicit ``draws`` (copied into static draw slots before each
+temperature), the same temperature runs eagerly.  The capture is kept for
+the next call at the same shape and generators, one at a time.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from waveflow_tpu_torch.parallel import mesh
+from waveflow_tpu_torch.vmc import graphs
 
 
 class SMCState(NamedTuple):
@@ -82,13 +91,15 @@ def make_smc_sampler(log_prior_fn: Callable, log_like_fn: Callable,
 
     init_fn(particles) -> SMCState;
     run_fn(state, generator=None, draws=None, return_accept=False,
-           shared_generator=None)
+           shared_generator=None, graph=None)
         -> (state, ess_trace (n_temps,)) (and the mean move acceptance per
         temperature, (n_temps,)); ``draws`` is a sequence of n_temps
         SMCDraws, else they come from ``generator``, and each resample
         uniform from ``shared_generator`` when it is given (a generator in
         the same state on every rank, which a sharded run without
-        ``draws`` needs).
+        ``draws`` needs).  ``graph`` (default: on a CUDA device, without
+        ``draws``) replays each temperature as a CUDA graph; True on the
+        CPU or with ``draws`` raises ValueError.
 
     ``axis_name``: the axis the population is sharded over; each rank
     passes its own particles, and draws whose ``u_resample`` is the same on
@@ -112,11 +123,16 @@ def make_smc_sampler(log_prior_fn: Callable, log_like_fn: Callable,
                         log_like_fn(particles), torch.zeros((), **f32),
                         torch.ones((), **f32))
 
+    def global_count(N: int) -> int:
+        return N if axis_name is None else N * mesh.axis_size(axis_name)
+
     @torch.no_grad()
-    def temp_step(state: SMCState, beta_new: torch.Tensor, d: SMCDraws):
-        n = state.particles.shape[0]
-        if axis_name is not None:
-            n = n * mesh.axis_size(axis_name)
+    def temp_step(state: SMCState, beta_new: torch.Tensor, d: SMCDraws,
+                  log_n: torch.Tensor):
+        """One temperature; ``log_n`` is log of the global particle count,
+        a device scalar made outside the window's body (a host copy
+        cannot be captured)."""
+        n = global_count(state.particles.shape[0])
         # reweight by the likelihood increment, normalised over the GLOBAL
         # population
         log_w = state.log_weights + (beta_new - state.beta) * state.log_like
@@ -140,7 +156,6 @@ def make_smc_sampler(log_prior_fn: Callable, log_like_fn: Callable,
                                                 axis_name)
             rows = torch.where(do_resample, moved, rows)
             particles, log_like = rows[:, :-1], rows[:, -1]
-        log_n = torch.log(torch.tensor(float(n), device=log_w.device))
         log_w = torch.where(do_resample, -log_n, log_w)
 
         # rejuvenate with random-walk Metropolis sweeps at beta_new
@@ -159,27 +174,72 @@ def make_smc_sampler(log_prior_fn: Callable, log_like_fn: Callable,
 
     def run_fn(state: SMCState, generator: torch.Generator | None = None,
                draws=None, return_accept: bool = False,
-               shared_generator: torch.Generator | None = None):
+               shared_generator: torch.Generator | None = None,
+               graph: bool | None = None):
         if axis_name is not None and draws is None \
                 and shared_generator is None:
             raise ValueError("a sharded SMC run draws its resample uniform "
                              "from shared_generator: pass one")
-        N, D = state.particles.shape
         dev = state.particles.device
+        if graph and draws is not None:
+            raise ValueError("a run with explicit draws is eager: pass "
+                             "graph=False with them")
+        static, beta, slots, temperature = window(
+            state, generator, shared_generator, draws,
+            draws is None and graphs.use_graph(graph, dev))
         betas = torch.linspace(0.0, 1.0, n_temps + 1, dtype=torch.float32,
                                device=dev)[1:]
+        graphs.copy_into(static, state)
         ess, acc = [], []
         for t in range(n_temps):
-            d = draws[t] if draws is not None else \
-                draw(generator, n_mcmc_moves, N, D, dev)
+            beta.copy_(betas[t])
+            if draws is not None:
+                graphs.copy_into(slots, draws[t])
+            e, a = temperature.window(1)
+            ess.append(e)
+            acc.append(a)
+        state = SMCState(*(f.clone() for f in static))
+        if return_accept:
+            return state, torch.cat(ess), torch.cat(acc)
+        return state, torch.cat(ess)
+
+    captured = {}       # the graphed run's window, for one key at a time
+
+    def window(state, generator, shared_generator, draws, graph: bool):
+        """(the static state, the β slot, the draw slots or None, one
+        temperature over them as a window, eager or replayed (``graph``)).
+        The temperature draws from ``generator`` (the resample uniform
+        from ``shared_generator`` where it is given), or reads the draw
+        slots, which the caller fills from ``draws`` before each call.  A
+        capture is kept for the next call at the same shape, device and
+        generators, and dropped at the next call with others."""
+        N, D = state.particles.shape
+        dev = state.particles.device
+        key = ((N, D), dev, generator, shared_generator)
+        if graph and key in captured:
+            return captured[key]
+        static = SMCState(*(f.clone() for f in state))
+        beta, accept = (torch.zeros((), device=dev) for _ in range(2))
+        slots = (None if draws is None
+                 else SMCDraws(*(torch.empty_like(x) for x in draws[0])))
+        log_n = torch.log(torch.tensor(float(global_count(N)), device=dev))
+
+        def body():
+            d = slots if slots is not None else draw(
+                generator, n_mcmc_moves, N, D, dev)
             if shared_generator is not None:
                 d = d._replace(u_resample=torch.rand(
                     (), generator=shared_generator, device=dev))
-            state, a = temp_step(state, betas[t], d)
-            ess.append(state.ess)
-            acc.append(a)
-        if return_accept:
-            return state, torch.stack(ess), torch.stack(acc)
-        return state, torch.stack(ess)
+            new, a = temp_step(static, beta, d, log_n)
+            graphs.copy_into(static, new)
+            accept.copy_(a)
+        gens = tuple(g for g in (generator, shared_generator)
+                     if g is not None)
+        out = (static, beta, slots,
+               graphs.make_window(body, (static.ess, accept), gens, graph))
+        if graph:
+            captured.clear()
+            captured[key] = out
+        return out
 
     return init_fn, run_fn
