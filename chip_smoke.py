@@ -135,9 +135,10 @@ Phases (any failure exits non-zero; nothing is caught):
                launches whatever the number of chains;
  24-26. posterior-hmc, posterior-nuts, posterior-smc — the parameter
                posterior of examples/parameter_posterior_torch.py over the
-               example MFlow's 10,816 parameters, depth cut (HMC's steps
-               and SMC's temperatures replayed CUDA graphs, NUTS eager):
-               gradient evaluations per second, ms per step, tree depth,
+               example MFlow's 10,816 parameters, depth cut (HMC's steps,
+               NUTS's trajectory bodies and SMC's temperatures replayed
+               CUDA graphs): gradient evaluations per second, ms per step,
+               NUTS's replays and host reads per step, tree depth,
                accept, step size, K4 1 + 1 launches per gradient (a
                replay's counted once per replay), the idle share of a
                profiled stretch, held-out LL at init and under the BMA
@@ -159,11 +160,27 @@ Phases (any failure exits non-zero; nothing is caught):
                twin with its particles sharded over the world of one on
                NCCL: the all-gather of the weights and the cross-rank
                resample captured with the temperature, to the bit;
+ 55. graph-posterior-nuts (after graph-posterior-smc) — NUTS over the
+               example posterior (8 chains, max_tree_depth 6) graphed
+               against eager in turns of 2 warm-up steps, the step-size
+               switch and 2 kept steps: six captures (the step's start, a
+               subtree's start, a leaf, a merge, the warm-up and the kept
+               end); state, traces, tree depths, leaf counts, accepts,
+               replays and host reads per step and the generator to the
+               bit; K4 1 + leaves forward and backward launches per step
+               on both twins; capture s and pools, ms per gradient,
+               chain-gradients/s, replays and host reads per step, the idle
+               share per gradient of a profiled turn;
+ 56. graph-posterior-nuts-sharded-1 (after 54) — the NUTS twin with the
+               graph twin's chains sharded over the world of one on NCCL
+               (the warm-up end's pmean captured), against the unsharded
+               eager twin, to the bit;
  27. nuts-waveflow — HMC and NUTS over He-1d walkers of the 100k
                checkpoint on the sorted sector, 256 chains warm-started at
-               K1 ancestral draws: pooled moments within 0.25 of the
-               ancestral ones (JAX's test_hmc_stationary_on_waveflow), K3 4
-               launches per density call, chain-gradients per second;
+               K1 ancestral draws, both replayed as CUDA graphs: pooled
+               moments within 0.25 of the ancestral ones (JAX's
+               test_hmc_stationary_on_waveflow), K3 4 launches per density
+               call (replays counted), chain-gradients per second;
  28. density — train_density_model at the full width of the density
                benchmark (MFlow, circles, 20,000 points), 200 epochs with a
                metric checkpoint every 100, each epoch a replayed CUDA
@@ -2649,7 +2666,9 @@ def posterior_phase(torch, sampler, sharded=False):
              else f"{fig['n_resamples']} resamples, ")
           + f"accept {fig['accept']:.4f}"
           + (f", mean tree depth {fig['mean_tree_depth']:.3f} (max "
-             f"{fig['max_tree_depth']})" if sampler == 'nuts' else '')
+             f"{fig['max_tree_depth']}), {fig['calls_per_step']:.2f} "
+             f"replays and {fig['host_reads_per_step']:.2f} host reads per "
+             "step" if sampler == 'nuts' else '')
           + (f" | ranks {fig['ranks']}" if sharded else '')
           + f" | K4 per density call {fig['k4_per_density_call']:g}, "
           f"backward per gradient {fig['k4_bwd_per_grad_call']:g} | idle "
@@ -2668,17 +2687,20 @@ def posterior_phase(torch, sampler, sharded=False):
 
 
 # the probprog and density twins (graph-density, graph-posterior-hmc,
-# graph-posterior-smc): a turn is 2 blocks of DENSITY_TWIN_BLOCK epochs,
-# HMC_TWIN_STEPS warm-up and as many kept steps, or SMC_TWIN_TEMPS
-# temperatures; the posterior at the example's prior scale and step size
+# -nuts, -smc): a turn is 2 blocks of DENSITY_TWIN_BLOCK epochs,
+# HMC_TWIN_STEPS (NUTS_TWIN_STEPS) warm-up and as many kept steps, or
+# SMC_TWIN_TEMPS temperatures; the posterior at the example's prior scale
+# and step size
 DENSITY_TWIN_BLOCK = 5
 HMC_TWIN_STEPS = 2
+NUTS_TWIN_STEPS = 2
 SMC_TWIN_TEMPS = 3
+POSTERIOR_NUTS_DEPTH = 6         # the example's max_tree_depth
 POSTERIOR_PRIOR_SCALE, POSTERIOR_STEP = 2.0, 2e-3
 # K4's (forward, backward) launches per replay, counted from the code: a
 # density epoch is one log_pdf and its backward; an HMC step n_leapfrog + 1
 # = 17 gradients of the vmapped posterior; an SMC temperature 5 moves, one
-# likelihood call each, no gradient
+# likelihood call each, no gradient (a NUTS step's count follows its tree)
 K4_PER_REPLAY = {'density': (1, 1), 'hmc': (17, 17), 'smc': (5, 0)}
 
 
@@ -2691,10 +2713,11 @@ def twin_turns(torch, label, make, turn, carried, units, unit, expected,
     captures, whose seconds and graph pools ``capture_clock`` reads); then
     everything the two carry (``carried(twin)``, a dict of tensors)
     compared, which must be equal to the bit, K4's launches per unit
-    held to ``expected`` = (forward, backward) on both twins, the graph's
-    ``n_captures`` made once, and one more graph turn profiled: the idle
-    share of an unprofiled replay is the profiled busy time against the
-    events' time.  Returns (K4's launches over the graph turns, the
+    held to ``expected`` = (forward, backward) on both twins (or to
+    ``expected(eager twin)``, where the count follows the run), the
+    graph's ``n_captures`` made once, and one more graph turn profiled: the
+    idle share of an unprofiled replay is the profiled busy time against
+    the events' time.  Returns (K4's launches over the graph turns, the
     figures)."""
     from waveflow_tpu_torch.ops import cuda_spline
     ms = {'eager': [], 'graph': []}
@@ -2711,6 +2734,8 @@ def twin_turns(torch, label, make, turn, carried, units, unit, expected,
                 for kind, c in k4.items()}
     bitwise, rel, by_group = compare_twins(torch, carried(eager),
                                            carried(graphed))
+    if callable(expected):
+        expected = expected(eager)
     eager_ms = sum(ms['eager']) / (2 * units)
     graph_ms = ms['graph'][1] / units
     prof = profile_window(torch, lambda: turn(graphed), units,
@@ -2979,6 +3004,104 @@ def graph_posterior_smc_phase(torch, sharded=False):
                       'temperatures', K4_PER_REPLAY['smc'])
 
 
+def graph_posterior_nuts_phase(torch, sharded=False):
+    """NUTS over the example posterior (D = 10,816, 8 chains,
+    max_tree_depth 6) graphed against eager: turns of NUTS_TWIN_STEPS
+    warm-up steps, the step size switched, NUTS_TWIN_STEPS kept steps
+    (``run_fn``; six captures: the step's start, a subtree's start, a leaf,
+    a merge, the warm-up and the kept end); state, traces, tree depths,
+    leaf counts, accepts, body calls and host reads per step and the
+    generator to the bit; K4's forward and backward launches per step
+    1 + the leaves the batch built, on both twins (the trees set the count:
+    it is read from the eager twin's runs).  Chain-gradients per second and
+    ms per gradient from the second graph turn; the idle share per
+    gradient from the profiled turn.  ``sharded``: the graph twin's chains
+    on the walker group (parallel/probprog.py::make_sharded_chain_sampler;
+    a world of one over NCCL here), the warm-up end's pmean captured,
+    against the unsharded eager twin."""
+    from types import SimpleNamespace
+    from waveflow_tpu_torch.parallel import (
+        make_sharded_chain_sampler, make_walker_mesh)
+    from waveflow_tpu_torch.vmc import make_nuts_sampler
+    ex = posterior_example()
+    log_prob, chains = posterior_twin_target(torch, ex, 8, 0.01)
+    kw = dict(max_tree_depth=POSTERIOR_NUTS_DEPTH)
+    init_fn, _, run_fn = make_nuts_sampler(log_prob, **kw)
+    n, steps = NUTS_TWIN_STEPS, 2 * NUTS_TWIN_STEPS
+    label = 'graph-posterior-nuts'
+    if sharded:
+        mesh = make_walker_mesh('cuda')
+        sharded_init, make_run = make_sharded_chain_sampler(
+            make_nuts_sampler, log_prob, mesh, **kw)
+        label = f"graph-posterior-nuts-sharded-{mesh.size} ({mesh.backend})"
+    twins = {}
+
+    def make(graph):
+        t = SimpleNamespace(gen=torch.Generator('cuda').manual_seed(2),
+                            traces=[], infos=[])
+        if sharded and graph is None:
+            t.state = sharded_init(chains, step_size=POSTERIOR_STEP)
+            run = make_run(n, n)
+            t.run = lambda: run(t.state, t.gen, return_info=True)
+        else:
+            t.state = init_fn(chains, step_size=POSTERIOR_STEP)
+            t.run = lambda: run_fn(t.state, t.gen, n, n_warmup=n,
+                                   return_info=True, graph=graph)
+        twins['eager' if graph is False else 'graph'] = t
+        return t
+
+    def turn(t):
+        t.state, trace, info = t.run()
+        t.traces.append(trace)
+        t.infos.append(info)
+
+    def carried(t):
+        out = {f'state {k}': v for k, v in zip(t.state._fields, t.state)}
+        out.update(trace=torch.cat(t.traces), generator=t.gen.get_state())
+        out.update({f'info {k}': torch.cat([i[k] for i in t.infos])
+                    for k in t.infos[0]})
+        return out
+
+    def gradients(info):
+        """The batch's gradients in a turn: one per step and per leaf."""
+        return steps + int(info['leaves'].sum())
+
+    def expected(eager):
+        per_step = sum(gradients(i) for i in eager.infos) / (2 * steps)
+        return per_step, per_step
+
+    launches, out = twin_turns(torch, label, make, turn, carried, steps,
+                               'steps', expected, n_captures=6)
+    g, e = twins['graph'], twins['eager']
+    grads = [gradients(i) for i in g.infos]     # graph turns 1, 2, profiled
+    ms_per_grad = out['turns_ms']['graph'][1] / grads[1]
+    busy_per_grad = out['busy_ms'] * steps / grads[2]
+    kept = g.infos[1]
+    out.update(
+        chains=chains.shape[0], gradients_per_step=grads[1] / steps,
+        ms_per_gradient=ms_per_grad,
+        chain_grads_per_s=chains.shape[0] / ms_per_grad * 1e3,
+        eager_chain_grads_per_s=chains.shape[0] * sum(
+            gradients(i) for i in e.infos) / sum(out['turns_ms']['eager'])
+        * 1e3,
+        busy_ms_per_gradient=busy_per_grad,
+        idle_per_gradient=1 - busy_per_grad / ms_per_grad,
+        replays_per_step=float(kept['calls'].float().mean()),
+        host_reads_per_step=float(kept['host_reads'].float().mean()),
+        mean_tree_depth=float(torch.cat([i['depth'] for i in g.infos[:2]])
+                              .float().mean()))
+    print(f"{label}: {out['gradients_per_step']:.2f} gradients per step "
+          f"(second graph turn), mean tree depth "
+          f"{out['mean_tree_depth']:.3f} | {out['replays_per_step']:.2f} "
+          f"replays and {out['host_reads_per_step']:.2f} host reads per "
+          f"step | graph {ms_per_grad:.4f} ms per gradient, "
+          f"{out['chain_grads_per_s']:.1f} chain-gradients/s; eager "
+          f"{out['eager_chain_grads_per_s']:.1f} | profiled turn: busy "
+          f"{busy_per_grad:.4f} ms per gradient, idle share per gradient "
+          f"{out['idle_per_gradient']:.4f}", flush=True)
+    return launches, out
+
+
 def nuts_waveflow_phase(torch, params):
     """HMC and NUTS over He-1d walkers of the 100k checkpoint on the sorted
     sector (JAX's test_hmc_stationary_on_waveflow: the density clipped into
@@ -2987,8 +3110,8 @@ def nuts_waveflow_phase(torch, params):
     4,096 ancestral draws'.  K3 launches per density call (4: the 3 IMADE
     layers and the prior) and chain-gradients per second: the rows of the
     density calls that take a gradient, over the wall (HMC replays its
-    steps as CUDA graphs: its calls are counted on the device, so that a
-    replay counts them again)."""
+    steps and NUTS its trajectory bodies as CUDA graphs: the calls are
+    counted on the device, so that a replay counts them again)."""
     from waveflow_tpu_torch.vmc import make_hmc_sampler, make_nuts_sampler
     m = flagship_model(torch, params, 'poly_pallas')
     L = 10.0
@@ -4891,8 +5014,8 @@ H2_2D_CONFIG = dict(BOX_2D, system_name='H2', ansatz='antisym',
 
 def phase_table(torch, params, jax_raw, jax_clipped, ancestral_wps=None,
                 k3_b2b_ms=None):
-    """Phases 23, 38-39, 30-31, 50, 6-8, 46-49, 9-26, 51-53, 27 and
-    32-37, 40-45 in order, as (name, run): run() ->
+    """Phases 23, 38-39, 30-31, 50, 6-8, 46-49, 9-26, 51-53, 55, 27,
+    32-33, 54, 56, 34-37 and 40-45 in order, as (name, run): run() ->
     (the kernel
     launches on that path, or None, and the phase's figures)."""
     r4 = json.loads(JAX_EVAL_R4.read_text())[f'results/{SPRING_RUN.name}']
@@ -4975,6 +5098,7 @@ def phase_table(torch, params, jax_raw, jax_clipped, ancestral_wps=None,
         # against their eager twins ----
         ('graph-posterior-hmc', lambda: graph_posterior_hmc_phase(torch)),
         ('graph-posterior-smc', lambda: graph_posterior_smc_phase(torch)),
+        ('graph-posterior-nuts', lambda: graph_posterior_nuts_phase(torch)),
         ('graph-density', lambda: graph_density_phase(torch)),
         ('nuts-waveflow', lambda: nuts_waveflow_phase(torch, params)),
         # ---- 32-33. two gloo ranks on the card; the sharded posterior ----
@@ -4983,6 +5107,8 @@ def phase_table(torch, params, jax_raw, jax_clipped, ancestral_wps=None,
                                                         sharded=True)),
         ('graph-posterior-smc-sharded-1',
          lambda: graph_posterior_smc_phase(torch, sharded=True)),
+        ('graph-posterior-nuts-sharded-1',
+         lambda: graph_posterior_nuts_phase(torch, sharded=True)),
         # ---- 34-37. the committed JAX runs no earlier phase loads ----
         ('be4-eval', lambda: gate_phase(
             torch, 'be4-eval', BE4_RUN, BE4_CONFIG,
@@ -5055,9 +5181,10 @@ def main(argv=None) -> int:
              "graph-natgrad-mcmc, mala-eval, ..., poly-sample, antisym-eval, "
              "..., paired2d-256, k4-vmap, posterior-hmc, posterior-nuts, "
              "posterior-smc, graph-posterior-hmc, graph-posterior-smc, "
-             "graph-density, nuts-waveflow, dp-nccl-1, dp-metropolis-1, "
-             "dp-spring-1, dp-gloo-2, posterior-sharded-1, "
-             "graph-posterior-smc-sharded-1, be4-eval, box4-eval, "
+             "graph-posterior-nuts, graph-density, nuts-waveflow, "
+             "dp-nccl-1, dp-metropolis-1, dp-spring-1, dp-gloo-2, "
+             "posterior-sharded-1, graph-posterior-smc-sharded-1, "
+             "graph-posterior-nuts-sharded-1, be4-eval, box4-eval, "
              "li-2d-eval, h2-2d-eval, table-kernels, table-hpsi, "
              "table-eval, graph-table, rqs-density, gm-density, compat, "
              "artifacts) to run alone "

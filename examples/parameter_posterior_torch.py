@@ -14,9 +14,11 @@ Usage:
       [--seed 0] [--sharded] [--eager]
   torchrun --nproc-per-node N examples/parameter_posterior_torch.py --sharded
 
-On the card HMC's steps and SMC's temperatures replay as CUDA graphs, as
-the JAX example jits its scans (vmc/hmc.py, vmc/smc.py; under gloo they
-run eagerly); --eager runs them op by op.  NUTS is eager either way.
+On the card HMC's steps, NUTS's trajectory bodies (a step's start, a
+subtree's start, a leaf, a merge, a step's end) and SMC's temperatures
+replay as CUDA graphs, as the JAX example jits its scans (vmc/hmc.py,
+vmc/nuts.py, vmc/smc.py; under gloo they run eagerly); --eager runs them
+op by op.
 
 --sharded splits the chains (SMC: the particles) over the ranks of the
 process group (parallel/probprog.py; without torchrun, a world of one
@@ -27,8 +29,9 @@ launches are each rank's own.
 
 The last line is one JSON object of the run's figures: the card, the
 posterior dimension, the sampling wall time, gradient evaluations per
-second, the adapted step size and acceptance, NUTS's mean tree depth, K4
-launches per gradient, and the three held-out log-likelihoods.
+second, the adapted step size and acceptance, NUTS's mean tree depth and
+its body calls (replays on the card) and host reads per step, K4 launches
+per gradient, and the three held-out log-likelihoods.
 """
 
 import argparse
@@ -118,8 +121,8 @@ def run_posterior(sampler='nuts', n_train=300, n_test=1000, n_chains=8,
     the timed run, on the same samplers (replays, where they are graphed),
     and its result goes into the figures as 'profile'.  ``sharded``: the
     chains or particles split over the walker group (``make_walker_mesh``).
-    ``graph``: the samplers' (None graphs HMC and SMC on the card, False
-    runs them eagerly; NUTS is eager)."""
+    ``graph``: the samplers' (None replays them as CUDA graphs on the
+    card, False runs them eagerly)."""
     device = resolve_device(device)
     mesh = make_walker_mesh(device) if sharded else None
     if mesh is not None:
@@ -204,6 +207,9 @@ def run_posterior(sampler='nuts', n_train=300, n_test=1000, n_chains=8,
             figures['mean_tree_depth'] = float(
                 info['depth'][n_warmup:].float().mean())
             figures['max_tree_depth'] = int(info['depth'].max())
+            figures['calls_per_step'] = float(info['calls'].float().mean())
+            figures['host_reads_per_step'] = float(
+                info['host_reads'].float().mean())
         n_iter = n_warmup + n_steps
 
         def stretch():
@@ -259,7 +265,7 @@ def main():
                    help='shard chains/particles over the ranks of the '
                         'process group (torchrun), or a world of one')
     p.add_argument('--eager', action='store_true',
-                   help='run HMC and SMC op by op, not as replayed CUDA '
+                   help='run the samplers op by op, not as replayed CUDA '
                         'graphs')
     p.add_argument('--device', default='cuda',
                    help="'cuda' (default) or 'cpu'")

@@ -1,6 +1,6 @@
-"""The density trainer's epochs and the HMC and SMC runs as CUDA graphs
-(benchmark/density.py, vmc/hmc.py, vmc/smc.py over vmc/graphs.py), on the
-CPU.
+"""The density trainer's epochs and the HMC, NUTS and SMC runs as CUDA
+graphs (benchmark/density.py, vmc/hmc.py, vmc/nuts.py, vmc/smc.py over
+vmc/graphs.py), on the CPU.
 
 As in test_torch_graphs.py, the graph path runs its own code — the static
 state written in place, the slots, the warm-up call, the captures kept
@@ -8,9 +8,11 @@ across calls — through a stand-in whose capture records the body and
 whose replay runs it eagerly, and is held to the eager path to the bit:
 ``train_density_model`` (MFlow and Flow, 2 blocks of 3 epochs), HMC's
 ``run_fn`` (warm-up, the step-size switch, kept steps, a second call on
-the same captures) and SMC's (3 temperatures, resampling).  Also:
-``graph=True`` on the CPU raises; NUTS and explicit SMC draws stay eager;
-sharded runs under gloo are eager; a sampler holds one set of captures; a
+the same captures), NUTS's (the same, with trees that stop by U-turn, by
+divergence and by a NaN density, and trees that reach max_tree_depth; a
+Gaussian and the posterior) and SMC's (3 temperatures, resampling).  Also:
+``graph=True`` on the CPU raises; explicit SMC draws stay eager; sharded
+runs under gloo are eager; a sampler holds one set of captures; a
 graphed ``model=`` continuation is refused while a kept loss holds the
 parameters' autograd graph; the example's ``Counted`` figures, kept on the
 device, equal the eager run's."""
@@ -126,6 +128,90 @@ def test_hmc_graph_run_is_the_eager_run(eager_graphs):
     assert runs[1][0][0].step_size != 1e-3
 
 
+SCALES = torch.tensor([0.5, 1.0, 2.0])
+
+
+def _gaussian(x):
+    return -0.5 * ((x / SCALES) ** 2).sum(-1)
+
+
+class _NaNOutside:
+    """A Gaussian that is NaN outside |x| < 1.5, counting its NaN rows."""
+
+    def __init__(self):
+        self.nan_rows = 0
+
+    def __call__(self, x):
+        out = torch.where(x.abs().amax(-1) < 1.5, -0.5 * (x ** 2).sum(-1),
+                          torch.nan)
+        self.nan_rows += int(torch.isnan(out).sum())
+        return out
+
+
+def _nuts_case(case):
+    """(log_prob, chains, max_tree_depth, step size) of a NUTS twin."""
+    x0 = torch.randn((4, 3), generator=torch.Generator().manual_seed(0))
+    if case == 'mflow':
+        log_prob, flat0 = _posterior()
+        return log_prob, flat0[None] + 0.01 * torch.randn(
+            (3, flat0.numel()), generator=torch.Generator().manual_seed(1)), \
+            3, 1e-3
+    if case == 'nan':
+        return _NaNOutside(), 0.1 * x0, 4, 0.5
+    return _gaussian, x0, *{'u_turn': (4, 0.3), 'divergence': (4, 10.0),
+                            'max_depth': (3, 0.01)}[case]
+
+
+@pytest.mark.parametrize('case', ['u_turn', 'divergence', 'nan', 'max_depth',
+                                  'mflow'])
+def test_nuts_graph_run_is_the_eager_run(case, eager_graphs):
+    """NUTS's ``run_fn``: 2 warm-up steps, the switch to exp(log ε̄), 2 kept
+    steps, then a second call of 2 kept steps on the same captures (six:
+    the step's start, a subtree's start, a leaf, a merge, the warm-up and
+    the kept end): every state field, the traces, the tree depths, leaf
+    counts, accept statistics, the host reads and body calls per step, and
+    the generator equal the eager run's to the bit.  The cases: trees that
+    stop by U-turn on an anisotropic Gaussian, by divergence (ε = 10), at
+    a NaN density, trees that reach max_tree_depth (ε = 0.01), and the
+    small MFlow posterior."""
+    log_prob, chains, depth, eps = _nuts_case(case)
+    init_fn, _, run_fn = nuts.make_nuts_sampler(log_prob,
+                                                max_tree_depth=depth)
+    runs = []
+    for graph in (False, None):
+        gen = torch.Generator().manual_seed(2)
+        first = run_fn(init_fn(chains, step_size=eps), gen, 2, n_warmup=2,
+                       return_info=True, graph=graph)
+        assert EagerGraph.captures == (0 if graph is False else 6)
+        kept = [f.clone() for f in first[0]]
+        second = run_fn(first[0], gen, 2, return_info=True, graph=graph)
+        assert all(torch.equal(a, b) for a, b in zip(kept, first[0]))
+        runs.append((first, second, gen.get_state()))
+    assert EagerGraph.captures == 6
+    for (a_state, a_trace, a_info), (b_state, b_trace, b_info) in zip(
+            runs[0][:2], runs[1][:2]):
+        for field, x, y in zip(nuts.NUTSState._fields, a_state, b_state):
+            assert torch.equal(x, y), field
+        assert torch.equal(a_trace, b_trace)
+        assert a_info.keys() == b_info.keys()
+        for k in a_info:
+            assert torch.equal(a_info[k], b_info[k]), k
+    assert torch.equal(runs[0][2], runs[1][2])
+    info = runs[1][0][2]
+    # one gradient per leaf; a step of d doublings is 2 + 2d + n calls
+    doublings = info['depth'].max(1).values
+    assert torch.equal(info['calls'], 2 + 2 * doublings + info['leaves'])
+    if case == 'u_turn':
+        assert (info['depth'] < depth).any() and (info['depth'] > 1).any()
+    elif case == 'divergence':
+        assert (info['depth'][0] == 1).all() and info['accept'][0] == 0
+    elif case == 'nan':
+        assert log_prob.nan_rows > 0
+    elif case == 'max_depth':
+        assert (info['depth'] == depth).any()
+    assert runs[1][0][0].step_size != eps
+
+
 def test_smc_graph_run_is_the_eager_run(eager_graphs):
     """Tempered SMC over the same posterior, 16 particles, 3 temperatures
     with an ESS threshold that resamples: state, ESS trace, acceptances and
@@ -171,28 +257,26 @@ def _graph_true_call(what):
     if what == 'hmc':
         init_fn, _, run_fn = hmc.make_hmc_sampler(log_prob, n_leapfrog=2)
         return run_fn(init_fn(flat0[None]), torch.Generator(), 1, graph=True)
+    if what == 'nuts':
+        init_fn, _, run_fn = nuts.make_nuts_sampler(log_prob,
+                                                    max_tree_depth=2)
+        return run_fn(init_fn(flat0[None]), torch.Generator(), 1, graph=True)
     init_fn, run_fn = smc.make_smc_sampler(
         lambda th: -0.5 * (th ** 2).sum(-1), log_prob, n_temps=2)
     return run_fn(init_fn(flat0[None].repeat(4, 1)), torch.Generator(),
                   graph=True)
 
 
-@pytest.mark.parametrize('what', ['density', 'hmc', 'smc'])
+@pytest.mark.parametrize('what', ['density', 'hmc', 'nuts', 'smc'])
 def test_graph_true_on_the_cpu_raises(what):
     with pytest.raises(ValueError, match='graph=True needs a CUDA device'):
         _graph_true_call(what)
 
 
 def test_eager_only_paths():
-    """NUTS ends its trajectories on host reads: graph=True raises; SMC
-    fed explicit draws is eager (graph=True raises, None runs); under gloo
-    a sharded run resolves graph=None to eager and True raises, under NCCL
-    the sampler resolves it."""
+    """SMC fed explicit draws is eager (graph=True raises, None runs)."""
     def target(x):
         return -0.5 * (x ** 2).sum(-1)
-    init_fn, _, run_fn = nuts.make_nuts_sampler(target, max_tree_depth=2)
-    with pytest.raises(NotImplementedError, match='host reads'):
-        run_fn(init_fn(torch.zeros(2, 3)), torch.Generator(), 1, graph=True)
     init_fn, run_fn = smc.make_smc_sampler(target, target, n_temps=1,
                                            n_mcmc_moves=1)
     d = [smc.draw(torch.Generator(), 1, 4, 3, 'cpu')]
@@ -242,13 +326,13 @@ class HeldGraph(EagerGraph):
         HeldGraph.windows.add(self)
 
 
-@pytest.mark.parametrize('sampler', ['hmc', 'smc'])
+@pytest.mark.parametrize('sampler', ['hmc', 'nuts', 'smc'])
 def test_a_sampler_holds_one_set_of_captures(sampler, eager_graphs,
                                              monkeypatch):
     """A sampler keeps the captures of its last graphed run, for the next
     call at the same shape and generator: calls with a second generator,
-    and back, leave one set alive (HMC's warm-up and kept steps, SMC's
-    temperature), not one per generator."""
+    and back, leave one set alive (HMC's warm-up and kept steps, NUTS's six
+    bodies, SMC's temperature), not one per generator."""
     monkeypatch.setattr(graphs, 'EpochGraph', HeldGraph)
 
     def target(x):
@@ -260,6 +344,12 @@ def test_a_sampler_holds_one_set_of_captures(sampler, eager_graphs,
         def call(gen):
             return run_fn(init_fn(x0), gen, 1, n_warmup=1)
         per_set = 2
+    elif sampler == 'nuts':
+        init_fn, _, run_fn = nuts.make_nuts_sampler(target, max_tree_depth=3)
+
+        def call(gen):
+            return run_fn(init_fn(x0), gen, 1, n_warmup=1)
+        per_set = 6
     else:
         init_fn, run_fn = smc.make_smc_sampler(target, target, n_temps=2,
                                                n_mcmc_moves=1)
@@ -276,23 +366,26 @@ def test_a_sampler_holds_one_set_of_captures(sampler, eager_graphs,
     assert EagerGraph.captures == 3 * per_set
 
 
-@pytest.mark.parametrize('sampler', ['hmc', 'smc'])
+@pytest.mark.parametrize('sampler', ['hmc', 'nuts', 'smc'])
 def test_counted_figures_equal_the_eager_run(sampler, eager_graphs):
     """The example's figures on the graph path: ``Counted`` adds to device
     counters inside the body, which a replay repeats, so the density
     calls, gradient calls and rows equal the eager run's."""
     ex = _example()
     kw = dict(n_train=24, n_test=16, n_chains=2, n_steps=2, n_warmup=2,
-              hmc_leapfrog=2, n_particles=4, n_temps=3, n_mcmc_moves=2,
-              device='cpu', verbose=False)
+              hmc_leapfrog=2, nuts_depth=2, n_particles=4, n_temps=3,
+              n_mcmc_moves=2, device='cpu', verbose=False)
     eager = ex.run_posterior(sampler, graph=False, **kw)
     assert EagerGraph.captures == 0
     graphed = ex.run_posterior(sampler, **kw)
-    assert EagerGraph.captures == (2 if sampler == 'hmc' else 1)
-    for key in ('density_calls', 'grad_calls', 'n_draws', 'accept'):
+    assert EagerGraph.captures == {'hmc': 2, 'nuts': 6, 'smc': 1}[sampler]
+    keys = ('density_calls', 'grad_calls', 'n_draws', 'accept')
+    if sampler == 'nuts':
+        keys += ('mean_tree_depth', 'calls_per_step', 'host_reads_per_step')
+    for key in keys:
         assert graphed[key] == eager[key], key
     assert graphed['density_calls'] > 0
-    assert (graphed['grad_calls'] > 0) == (sampler == 'hmc')
+    assert (graphed['grad_calls'] > 0) == (sampler != 'smc')
 
 
 def test_graphed_continuation_refused_while_a_loss_is_kept(eager_graphs):

@@ -8,7 +8,8 @@ for ONE step size; vmc/smc.py: weights normalised over every rank, the
 ESS over the global count, the resample across ranks).  This module gives
 each rank its rows and its random streams, and resolves a run's ``graph``
 on the group's backend: under NCCL the collectives are captured with the
-step (HMC, SMC), under gloo the runs are eager (``sharding.use_graph``).
+step (HMC, NUTS's warm-up end, SMC), under gloo the runs are eager
+(``sharding.use_graph``).
 JAX's ``chain_state_spec`` (which fields of a state shard and which
 replicate) has no counterpart: a rank's state holds its own chains and the
 replicated step size alike.
@@ -34,7 +35,7 @@ def make_sharded_chain_sampler(make_sampler, log_prob_fn, mesh: WalkerMesh,
         the rank's own (``sharding.walker_generator``), so the chains are
         independent while the warm-up's step size is collective.
         ``graph``: as the sampler's, under gloo None is eager and True
-        raises NotImplementedError (NUTS is eager on every backend)."""
+        raises NotImplementedError."""
     init_fn, _, run_fn = make_sampler(log_prob_fn, axis_name=mesh.axis,
                                       **sampler_kw)
 
@@ -43,7 +44,7 @@ def make_sharded_chain_sampler(make_sampler, log_prob_fn, mesh: WalkerMesh,
 
     def make_run(n_steps: int, n_warmup: int = 0, graph: bool | None = None):
         if mesh.backend == 'gloo':
-            # under NCCL the sampler resolves None itself: NUTS to eager
+            # under NCCL the sampler resolves None itself
             graph = use_graph(graph, mesh)
 
         def run(state, generator, return_info: bool = False):
