@@ -33,7 +33,8 @@ Phases (any failure exits non-zero; nothing is caught):
                train-256, where its first eager run of a process used to
                part from later ones) and the 'reference' estimator on
                'fwd_batched': turns eager, graph, graph, eager of 2 windows
-               of GRAPH_WINDOW epochs (CUDA events); losses, parameters,
+               of GRAPH_WINDOW epochs (TWIN_WINDOW for the two reference
+               twins; CUDA events); losses, parameters,
                Adam state, baseline and generator equal to the bit (or
                within GRAPH_MAX_REL),
                launches per epoch equal; 10 replayed epochs profiled;
@@ -98,8 +99,8 @@ Phases (any failure exits non-zero; nothing is caught):
                'dense';
  15. reference-256 — the reference design ('reference' + 'dense', adam)
                and 'reference' on 'fwd_batched' from the 100k checkpoint,
-               one window of 20 epochs each: finite losses, the baseline
-               equal to the window's mean loss, walkers/s, 5 epochs
+               one window of 10 epochs each: finite losses, the baseline
+               equal to the window's mean loss, walkers/s, 2 epochs
                profiled;
  16. poly-sample — sampling_backend='poly' at 65,536 walkers: the draws
                against the float64 CDF of the polynomial density, the raw
@@ -234,7 +235,15 @@ Phases (any failure exits non-zero; nothing is caught):
                entry, the step mode, the backward kernel on step-mode
                tables and without coefficients and the jet entry (beside
                its per-call launches, in turns) timed at N = 512, 8,192,
-               40,000;
+               40,000; then the 'reference' gradient under 'dense' and
+               SPRING's score matrix under 'table' at 256 K1 walkers,
+               kernels against the plain chain (REF_GRAD_RTOL), launches
+               equal to the CPU's count, and every launch of the forms the
+               trainer menu adds (the grad-of-grad rules' per-term
+               forward and backward launches, the backward kernel's g_x
+               from a slope table, the vmap fold's backward launches)
+               recorded there and replayed against its plain version,
+               one of each timed beside its bound;
  39. table-hpsi — the 100k checkpoint under 'table', Hψ at 4,096 K1
                walkers under every Laplacian form: K4 launches per pass
                equal to the evaluations the same pass makes on the CPU;
@@ -254,6 +263,17 @@ Phases (any failure exits non-zero; nothing is caught):
                bit after 3 turns of 2 x 10 epochs, ms per replayed epoch in
                turns per-call, jet, jet, per-call); then ms per replayed
                epoch against 'poly_pallas' in turns;
+ 57. graph-table-menu (after graph-table) — the trainer menu under
+               'table' (TABLE_MENU: the reference design under 'dense',
+               'hvp' and 'fwd_batched', SR, SPRING, Metropolis, MALA, each
+               from the committed run its 'poly_pallas' twin loads)
+               graphed against its eager twin as graph-mala: to the bit,
+               K3 not launched, K4 per replayed epoch by entry equal to the
+               CPU's count for one epoch of the recipe, K1 launched by the
+               ancestral ones; E_L against 'poly_pallas' on the run's
+               starting walkers (TABLE_POLY_EL_BOUND,
+               TABLE_POLY_EL_MEAN_BOUND); ms per replayed epoch against
+               the 'poly_pallas' twin in turns;
  42. rqs-density — RQSFlow on benchmarks/circles_parity.py's split, 300
                epochs (cut from 12,000): loss falls, round trip under 1e-4,
                points/s;
@@ -1473,16 +1493,17 @@ TWIN_WINDOW = 5
 SR_GRAPH_WINDOW = 2
 
 
-def twin_maker(run_dir, config, window=GRAPH_WINDOW):
+def twin_maker(run_dir, config, window=GRAPH_WINDOW,
+               eval_backend='poly_pallas'):
     """``make(graph)`` of ``graph_twins``: a trainer at batch 256 on
-    'poly_pallas' with windows of ``window`` epochs and ``config``,
+    ``eval_backend`` with windows of ``window`` epochs and ``config``,
     resumed from the committed run ``run_dir`` (its parameters, optimizer
     state and walkers, or walkers warm-started on the trainer's stream)."""
     from waveflow_tpu_torch.vmc import VMCConfig, VMCTrainer
 
     def make(graph):
         t = VMCTrainer(VMCConfig(batch_size=256, window=window,
-                                 log_every=window, eval_backend='poly_pallas',
+                                 log_every=window, eval_backend=eval_backend,
                                  device='cuda', **config), graph=graph)
         if not t.load_checkpoint(str(run_dir)):
             fail(f"no checkpoint under {run_dir}")
@@ -1497,16 +1518,17 @@ def graph_train_phase(torch):
     its backward runs on the calling thread, vmc/estimators.py, so its first
     run of a process equals later ones) and the 'reference' estimator on
     the main path's Laplacian (its running baseline through the graph's
-    buffer)."""
+    buffer); the two reference twins in windows of TWIN_WINDOW."""
     rows, total = {}, {'sampler': 0, 'basis_jet': 0}
-    for label, extra in (
-            ('train-256', {}),
+    for label, extra, window in (
+            ('train-256', {}, GRAPH_WINDOW),
             ('reference-256', dict(estimator='reference',
-                                   laplacian_mode='dense')),
-            ('reference-256 fwd_batched', dict(estimator='reference'))):
+                                   laplacian_mode='dense'), TWIN_WINDOW),
+            ('reference-256 fwd_batched', dict(estimator='reference'),
+             TWIN_WINDOW)):
         launches, rows[label] = graph_twins(
             torch, f"graph-train {label}",
-            twin_maker(CHECKPOINT.parent, extra))
+            twin_maker(CHECKPOINT.parent, extra, window))
         if launches['sampler'] == 0:
             fail(f"graph-train {label}: K1 was not launched by the replays")
         total = {k: total[k] + v for k, v in launches.items()}
@@ -2061,14 +2083,14 @@ def reference_grad_phase(torch, params):
 def reference_window_phase(torch):
     """The reference design — estimator='reference' with
     laplacian_mode='dense', adam, ancestral walkers, the kernel backend —
-    from the 100k checkpoint: one window of 20 epochs at batch 256, then
-    5 epochs profiled; and one window of 20 of 'reference' on
+    from the 100k checkpoint: one window of 10 epochs at batch 256, then
+    2 epochs profiled; and one window of 10 of 'reference' on
     'fwd_batched'.  Every loss finite; the window's baseline equal to the
     bit to the mean of its losses; walkers/s and launches per epoch."""
     from waveflow_tpu_torch.vmc import VMCConfig, VMCTrainer
     rows, total = {}, {'sampler': 0, 'basis_jet': 0}
     for mode in ('dense', 'fwd_batched'):
-        t = VMCTrainer(VMCConfig(batch_size=256, window=20, log_every=20,
+        t = VMCTrainer(VMCConfig(batch_size=256, window=10, log_every=10,
                                  estimator='reference', laplacian_mode=mode,
                                  eval_backend='poly_pallas', device='cuda'))
         if not t.load_checkpoint(str(CHECKPOINT.parent)):
@@ -2076,25 +2098,25 @@ def reference_window_phase(torch):
         n0 = len(t.losses)
         reset_counts()
         t0 = time.perf_counter()
-        t.train(20, verbose=False)
+        t.train(10, verbose=False)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = read_counts()
         losses = t.losses[n0:]
         mean = torch.tensor(losses, device='cuda').mean()
-        wps = 20 * 256 / wall
+        wps = 10 * 256 / wall
         rows[mode] = dict(walkers_per_s=wps, wall_s=wall, last_loss=losses[-1],
-                          launches_per_epoch={k: v / 20
+                          launches_per_epoch={k: v / 10
                                               for k, v in launches.items()})
-        print(f"reference-256 {mode}: 20 epochs at batch 256 from the 100k "
+        print(f"reference-256 {mode}: 10 epochs at batch 256 from the 100k "
               f"checkpoint, losses finite: "
               f"{all(math.isfinite(v) for v in losses)}, last "
               f"{losses[-1]:.5f}, baseline {t.baseline.item():.6f} "
               f"(= the window's mean loss: {torch.equal(t.baseline, mean)}) "
               f"| walkers/s {wps:.1f} (host clock) | launches per epoch: "
-              f"sampler {launches['sampler'] / 20:g}, basis_jet "
-              f"{launches['basis_jet'] / 20:g}", flush=True)
-        if len(losses) != 20 or not all(math.isfinite(v) for v in losses):
+              f"sampler {launches['sampler'] / 10:g}, basis_jet "
+              f"{launches['basis_jet'] / 10:g}", flush=True)
+        if len(losses) != 10 or not all(math.isfinite(v) for v in losses):
             fail(f"reference-256 {mode} produced non-finite losses")
         if not torch.equal(t.baseline, mean):
             fail(f"reference-256 {mode}: baseline {t.baseline.item()} is not "
@@ -2104,7 +2126,7 @@ def reference_window_phase(torch):
                  f"{mode}: {launches}")
         total = {k: total[k] + v for k, v in launches.items()}
         if mode == 'dense':
-            profile_window(torch, lambda: t.train(5, verbose=False), 5,
+            profile_window(torch, lambda: t.train(2, verbose=False), 2,
                            "reference-256 dense ")
     return total, rows
 
@@ -2441,11 +2463,12 @@ def h2d_fidelity_phase(torch):
 def graph_2d_phase(torch, label, run_dir, config, k1_per_epoch):
     """A 2D window as a CUDA graph against its eager twin from a committed
     run (``graph_twins``: turns eager, graph, graph, eager of 2 windows of
-    GRAPH_WINDOW epochs, everything to the bit, launches per epoch equal,
-    10 replays profiled), K1's launches per epoch held to
+    TWIN_WINDOW epochs, everything to the bit, launches per epoch equal,
+    a window of replays profiled), K1's launches per epoch held to
     ``k1_per_epoch``; then one graphed window of 100 epochs timed by CUDA
     events."""
-    launches, row = graph_twins(torch, label, twin_maker(run_dir, config))
+    launches, row = graph_twins(torch, label,
+                                twin_maker(run_dir, config, TWIN_WINDOW))
     k1 = row['launches_per_epoch']['graph']['sampler']
     if k1 != k1_per_epoch:
         fail(f"{label}: K1 launched {k1} times per epoch, not {k1_per_epoch}")
@@ -3538,10 +3561,10 @@ def dp_gloo_phase(torch):
 # ---- 38-43. the table eval backend and the rest of the density side -------
 
 def table_counts():
-    """K1 and K4's five entry points (forward, pair, jet, backward,
-    backward jet)."""
-    from waveflow_tpu_torch.ops import cuda_sampler, cuda_spline
-    return {'sampler': cuda_sampler.launches,
+    """K1, K3 (which 'table' bypasses) and K4's five entry points (forward,
+    pair, jet, backward, backward jet)."""
+    from waveflow_tpu_torch.ops import cuda_jet, cuda_sampler, cuda_spline
+    return {'sampler': cuda_sampler.launches, 'basis_jet': cuda_jet.launches,
             'spline_eval': cuda_spline.launches,
             'spline_eval_pair': cuda_spline.launches_pair,
             'spline_eval_jet': cuda_spline.launches_jet,
@@ -4123,6 +4146,10 @@ def table_kernels_phase(torch, params):
         with evaluations(plain=True):
             ref = bisection_inverse(ev_i, w, y)
     worst['bisect'] = (got - ref).abs().max().item()
+    # the forms the trainer menu's paths launch beyond this grid
+    menu_worst, menu_rows = menu_kernel_rows(torch, params)
+    worst['menu'] = max(menu_worst.values())
+    rows['menu'] = menu_rows
     back = (ev_i(w, got) - y).abs().max().item()
     print(f"K4 under the 'bisect' inverse (512 I-spline rows): "
           f"{n_bisect['spline_eval']} forward launches (30 bisections + 2 x "
@@ -4138,7 +4165,8 @@ def table_kernels_phase(torch, params):
           f"[0, 1], NaN; NaN where the plain version is), backward with "
           f"step-mode tables / without coefficients {worst['bwd']:.3e}, "
           f"backward jet {worst['bwd_jet']:.3e} (its three forms, NaN x "
-          "included) against their plain versions, of max(1, the largest "
+          f"included), the menu's launches {worst['menu']:.3e} (replayed) "
+          "against their plain versions, of max(1, the largest "
           "row's sum of term magnitudes) (limit 2e-5) | the jet's outputs "
           f"{'equal' if jet_equal else 'NOT equal'} to the per-call "
           "launches' value for value | the backward jet's outputs "
@@ -4255,25 +4283,37 @@ def table_hpsi_phase(torch, params):
         e_p = he_hamiltonian(mp, 'fwd_batched')(x)[:, 0] / psi_p
         ms_poly = cuda_ms(torch, lambda: he_hamiltonian(mp, 'fwd_batched')(x),
                           reps=3, warmup=1)
-    big = psi_p.abs() > 0.05 * psi_p.abs().max()
-    d = (e_t - e_p).abs()[big]
-    rows['el_table_vs_poly'] = dict(max=d.max().item(), mean=d.mean().item(),
-                                    walkers=int(big.sum()),
-                                    poly_pallas_ms=ms_poly, k1=k1)
-    print(f"table-hpsi: E_L 'table' against 'poly_pallas' on the same 4096 "
-          f"walkers (|psi| > 0.05 max|psi|: {int(big.sum())}): max "
-          f"{d.max().item():.4e} (bound {TABLE_POLY_EL_BOUND:g}), mean "
-          f"{d.mean().item():.4e} (bound {TABLE_POLY_EL_MEAN_BOUND:g}) | "
-          f"'poly_pallas' Hpsi pass {ms_poly:.2f} ms | K1 {k1} launches for "
-          "the walkers", flush=True)
-    if not (d.max().item() <= TABLE_POLY_EL_BOUND
-            and d.mean().item() <= TABLE_POLY_EL_MEAN_BOUND):
-        fail("table-hpsi: E_L under 'table' is further from 'poly' than the "
-             "float64 interpolation error allows")
+    rows['el_table_vs_poly'] = dict(
+        el_against_poly("table-hpsi", e_t, e_p, psi_p,
+                        f" | 'poly_pallas' Hpsi pass {ms_poly:.2f} ms | K1 "
+                        f"{k1} launches for the walkers"),
+        poly_pallas_ms=ms_poly, k1=k1)
     # the path: the walkers' draw and one 'fwd_batched' Hψ pass, each read
     # just after its own reset (the later passes and timings are not it)
     launches = dict(rows['fwd_batched']['launches_per_pass'], sampler=k1)
     return launches, rows
+
+
+def el_against_poly(label, e_t, e_p, psi_p, note=""):
+    """E_L under 'table' (``e_t``) against 'poly_pallas' (``e_p``) on the
+    same walkers where |ψ| > 0.05 max|ψ| (``psi_p``, JAX's
+    test_waveflow_poly_vs_table_backends criterion): the largest within
+    TABLE_POLY_EL_BOUND and the mean within TABLE_POLY_EL_MEAN_BOUND, the
+    float64 interpolation error -> dict(max, mean, walkers)."""
+    big = psi_p.abs() > 0.05 * psi_p.abs().max()
+    d = (e_t - e_p).abs()[big]
+    row = dict(max=d.max().item(), mean=d.mean().item(),
+               walkers=int(big.sum()))
+    print(f"{label}: E_L 'table' against 'poly_pallas' on the same "
+          f"{psi_p.numel()} walkers (|psi| > 0.05 max|psi|: "
+          f"{row['walkers']}): max {row['max']:.4e} (bound "
+          f"{TABLE_POLY_EL_BOUND:g}), mean {row['mean']:.4e} (bound "
+          f"{TABLE_POLY_EL_MEAN_BOUND:g}){note}", flush=True)
+    if not (row['max'] <= TABLE_POLY_EL_BOUND
+            and row['mean'] <= TABLE_POLY_EL_MEAN_BOUND):
+        fail(f"{label}: E_L under 'table' is further from 'poly_pallas' "
+             "than the float64 interpolation error allows")
+    return row
 
 
 def table_eval_phase(torch, jax_raw, jax_clipped):
@@ -4317,25 +4357,6 @@ def table_eval_phase(torch, jax_raw, jax_clipped):
     return launches, row
 
 
-def train_epoch_evaluations(torch, params):
-    """K4's launches in one train-256 'table' epoch as the code makes them
-    on the CPU (8 walkers: the count does not depend on the batch),
-    gathered and per call: {'table': calls, 'per_call': calls}."""
-    from waveflow_tpu_torch.ops import spline_eval as se
-    from waveflow_tpu_torch.vmc import VMCConfig, VMCTrainer
-    t = VMCTrainer(VMCConfig(batch_size=8, window=1, log_every=1,
-                             eval_backend='table', device='cpu'))
-    t.model.load_state_dict(params)
-    t.train(1, verbose=False)
-    out = {}
-    for k, path in (('table', contextlib.nullcontext), ('per_call',
-                                                        se._per_call)):
-        with path(), evaluations(plain=False) as run:
-            t.train(1, verbose=False)
-        out[k] = run.calls
-    return out
-
-
 def graph_table_phase(torch, params):
     """train-256 under 'table' (the flagship config from the 100k
     checkpoint): the graphed adam window against its eager twin, to the
@@ -4345,24 +4366,14 @@ def graph_table_phase(torch, params):
     busy per replayed epoch by the profiler in turns; then ms per replayed
     epoch against the 'poly_pallas' twin, windows of 2 x 10 in turns
     table, poly, poly, table (CUDA events)."""
-    from waveflow_tpu_torch.vmc import VMCConfig, VMCTrainer
-
-    def trainer(graph, backend='table'):
-        t = VMCTrainer(VMCConfig(batch_size=256, window=GRAPH_WINDOW,
-                                 log_every=GRAPH_WINDOW, eval_backend=backend,
-                                 device='cuda'), graph=graph)
-        if not t.load_checkpoint(str(CHECKPOINT.parent)):
-            fail(f"no checkpoint under {CHECKPOINT.parent}")
-        return t
-
     from waveflow_tpu_torch.ops import spline_eval as se
+    trainer = twin_maker(CHECKPOINT.parent, {}, GRAPH_WINDOW, 'table')
     launches, row = graph_twins(
         torch, "graph-table train-256", trainer, read=table_counts, reset=reset_table_counts,
         required=('sampler', 'spline_eval', 'spline_eval_pair',
                   'spline_eval_jet', 'spline_eval_bwd',
                   'spline_eval_bwd_jet'))
-    twins = {'table': trainer(None), 'per_call': trainer(None),
-             'poly_pallas': trainer(None, 'poly_pallas')}
+    twins = {'table': trainer(None), 'per_call': trainer(None)}
 
     def turn(k):
         """2 windows of GRAPH_WINDOW replayed epochs of twin ``k`` (the
@@ -4387,7 +4398,11 @@ def graph_table_phase(torch, params):
     bitwise, rel, _ = compare_twins(torch, trainer_tensors(torch,
                                                            twins['table']),
                                     trainer_tensors(torch, twins['per_call']))
-    derived = train_epoch_evaluations(torch, params)
+    # K4's launches in one epoch as the code makes them on the CPU
+    derived = {'table': menu_epoch_evaluations(torch, params, {})['calls']}
+    with se._per_call():
+        derived['per_call'] = menu_epoch_evaluations(torch, params,
+                                                     {})['calls']
     row['jet_against_per_call'] = dict(
         bitwise=bitwise, max_rel_diff=rel, turns_ms=jet_ms,
         launches_per_epoch=pc_launches, derived_per_epoch=derived,
@@ -4439,20 +4454,419 @@ def graph_table_phase(torch, params):
           f"{busy['per_call'][1]:.4f} | kernels per epoch "
           f"{kernels['per_call'][0]} / {kernels['table'][0]} / "
           f"{kernels['table'][1]} / {kernels['per_call'][1]}", flush=True)
-    del twins['per_call']
-    ms = {k: [] for k in twins}
-    for k in ('table', 'poly_pallas', 'poly_pallas', 'table'):
-        _, dt = events_ms(torch, lambda: twins[k].train(2 * GRAPH_WINDOW,
-                                                        verbose=False))
-        ms[k].append(dt / (2 * GRAPH_WINDOW))
-    row['ms_per_replayed_epoch'] = {k: sum(v) / len(v) for k, v in ms.items()}
-    print(f"graph-table: ms per replayed epoch, turns table / poly_pallas / "
-          f"poly_pallas / table: {ms['table'][0]:.3f} / "
+    row.update(against_poly_turns(
+        torch, "graph-table", twins['table'],
+        twin_maker(CHECKPOINT.parent, {}, GRAPH_WINDOW)))
+    return launches, row
+
+
+# the trainer menu under 'table' (graph-table-menu): each recipe resumed
+# from the committed run its 'poly_pallas' twin loads, (label, run, config,
+# window); the reference design under its three Laplacian forms
+TABLE_MENU = (
+    ('reference-256', CHECKPOINT.parent,
+     dict(estimator='reference', laplacian_mode='dense'), TWIN_WINDOW),
+    ('reference-256 hvp', CHECKPOINT.parent,
+     dict(estimator='reference', laplacian_mode='hvp'), TWIN_WINDOW),
+    ('reference-256 fwd_batched', CHECKPOINT.parent,
+     dict(estimator='reference'), TWIN_WINDOW),
+    ('sr-256', SR_RUN, SR_CONFIG, SR_GRAPH_WINDOW),
+    ('spring-256', SPRING_RUN, SPRING_CONFIG, TWIN_WINDOW),
+    ('metropolis-256', METROPOLIS_RUN, dict(sampler='metropolis'),
+     TWIN_WINDOW),
+    ('mala-256', MALA_RUN, dict(sampler='mala'), TWIN_WINDOW))
+
+
+def is_step_g_x(args, kw) -> bool:
+    """Whether a call of ``spline_eval_bwd`` (its arguments) asks for g_x
+    from a table read in step mode: the grad of a plain lerp."""
+    need_x = args[6] if len(args) > 6 else kw.get('need_x', True)
+    step_d1 = args[8] if len(args) > 8 else kw.get('step_d1', False)
+    return args[1] is not None and bool(need_x) and bool(step_d1)
+
+
+class evaluation_forms(evaluations):
+    """``evaluations`` that also counts two forms apart, in ``forms``: the
+    backward-kernel calls whose g_x reads a slope table in step mode
+    ('bwd step g_x': the grad of a plain lerp), and every evaluation made
+    inside the vjp rules of a backward or a basis evaluation ('grad of
+    grad', by entry point: the per-term launches of the grad-of-grad
+    rules).  ``record``: every call kept in ``calls_made`` as (entry
+    point, its arguments, its keywords, made inside a grad-of-grad rule),
+    for replaying it."""
+
+    def __init__(self, plain: bool, record: bool = False):
+        super().__init__(plain)
+        self.forms = {'bwd step g_x': 0,
+                      'grad of grad': dict.fromkeys(self.calls, 0)}
+        self.record = record
+        self.calls_made = []
+
+    def __enter__(self):
+        from waveflow_tpu_torch.ops import spline_eval as se
+        super().__enter__()
+        self.depth = 0
+        self.saved_forms = ((se._BWD, se._BWD.__dict__['vjp']),
+                            (se._BASIS, se._BASIS.__dict__['vjp']))
+        for name in self.calls:
+            def call(*args, _fn=getattr(se, name), _name=name, **kw):
+                if self.depth:
+                    self.forms['grad of grad'][_name] += 1
+                if _name == 'spline_eval_bwd' and is_step_g_x(args, kw):
+                    self.forms['bwd step g_x'] += 1
+                if self.record:
+                    self.calls_made.append((_name, args, kw,
+                                            self.depth > 0))
+                return _fn(*args, **kw)
+            setattr(se, name, call)
+
+        def nested(rule):
+            def vjp(*args):
+                self.depth += 1
+                try:
+                    return rule(*args)
+                finally:
+                    self.depth -= 1
+            return staticmethod(vjp)
+        for cls, rule in self.saved_forms:
+            cls.vjp = nested(rule.__func__)
+        return self
+
+    def __exit__(self, *exc):
+        for cls, rule in self.saved_forms:
+            cls.vjp = rule
+        super().__exit__(*exc)
+
+
+def replay_against_plain(torch, name, args, kw):
+    """One recorded K4 call (``evaluation_forms``) launched again on its
+    own operands by the kernel and by its plain version: (the kernel's
+    call, the plain call, the largest error of its outputs against the
+    plain ones over the rows' sum of term magnitudes, N, its bound (ms,
+    by))."""
+    import types
+    from waveflow_tpu_torch.ops import cuda_spline as cs
+    if name == 'spline_eval':
+        table, coeffs, x, step = (list(args) + [kw.get('step', False)])[:4]
+        n_b = table.shape[-1]
+
+        def kernel():
+            return cs.spline_eval_cuda(table, coeffs, x, step)
+
+        def plain():
+            return cs.spline_eval_plain(table, coeffs, x, step)
+        err = nan_rel_err(kernel(), plain(),
+                          magnitude(torch, table, coeffs, x, step))
+        # coefficients and x read once, the output written once, the rows
+        # x reads; per base a fused multiply-add for the lerp (none in step
+        # mode) and one for the dot
+        bound = bound_ms(4 * (x.numel() * (n_b + 2) + table_rows(
+            torch, table.shape[0], x, step) * n_b),
+            x.numel() * ((2 if step else 4) * n_b + 3))
+    elif name == 'spline_eval_bwd':
+        names = ('table_d', 'table_d1', 'coeffs', 'x', 'grad', 'need_coeffs',
+                 'need_x', 'step_d', 'step_d1')
+        defaults = dict(need_coeffs=True, need_x=True, step_d=False,
+                        step_d1=False)
+        a = dict(defaults, **dict(zip(names, args)), **kw)
+        td, tx, c, x, g = (a[k] for k in names[:5])
+        n_b = td.shape[-1]
+
+        def kernel():
+            return cs.spline_eval_bwd_cuda(td, tx, c, x, g, a['need_coeffs'],
+                                           a['need_x'], a['step_d'],
+                                           a['step_d1'])
+
+        def plain():
+            return cs.spline_eval_bwd_plain(td, tx, c, x, g, a['step_d'],
+                                            a['step_d1'])
+        got, ref = kernel(), plain()
+        err = 0.0
+        if a['need_coeffs']:
+            err = max(err, nan_rel_err(got[0], ref[0], ref[0]))
+        g_x = a['need_x'] and tx is not None and c is not None
+        if g_x:
+            err = max(err, nan_rel_err(got[1], ref[1], g * magnitude(
+                torch, tx, c, x, a['step_d1'])))
+        # x and g read, the coefficients where g_x is asked for, g_c and
+        # g_x written, the rows of each table x reads; per base a fused
+        # multiply-add for each lerp, a multiply for g·B, a fused
+        # multiply-add for g_x's dot (the backward kernel's rows of
+        # table-kernels)
+        N = x.numel()
+        rows = table_rows(torch, td.shape[0], x, a['step_d']) + (
+            table_rows(torch, tx.shape[0], x, a['step_d1']) if g_x else 0)
+        n_ops = N * (n_b * ((0 if a['step_d'] else 2) + 1 + (
+            (0 if a['step_d1'] else 2) + 2 if g_x else 0)) + 7)
+        bound = bound_ms(4 * (N * (2 + n_b * bool(a['need_coeffs'])
+                                   + (n_b + 1) * g_x) + rows * n_b), n_ops)
+    else:
+        tables, slopes, records, comps, x, vecs, c_groups, x_terms = args
+        n_b = tables.shape[-1]
+
+        def kernel():
+            return cs.spline_eval_bwd_jet_cuda(records, comps, x, vecs,
+                                               c_groups, x_terms, n_b)
+
+        def plain():
+            return cs.spline_eval_bwd_jet_plain(tables, slopes, comps, x,
+                                                vecs, c_groups, x_terms)
+        scale = cs.spline_eval_bwd_jet_plain(
+            tables.abs(), slopes.abs(), [c.abs() for c in comps], x,
+            [v.abs() for v in vecs], c_groups, x_terms)
+        err = max(nan_rel_err(o, r, s) for o, r, s in
+                  zip(kernel(), plain(), scale) if r is not None)
+        bound = bwd_jet_bound(
+            torch, types.SimpleNamespace(n_bases=n_b, n_mesh=tables.shape[1]),
+            x.numel(), x, c_groups, x_terms, len(vecs), len(comps))
+    return kernel, plain, err, x.numel(), bound
+
+
+# the K4 calls of the menu's paths that menu_kernel_rows replays, by form
+# (the forward and the backward kernel inside the grad-of-grad rules; the
+# backward kernel with g_x from a slope table in step mode, its table_d1;
+# the backward jet entry and the backward kernel under SPRING's vmap
+# fold): (path, test on (entry point, arguments, keywords, made inside a
+# grad-of-grad rule))
+MENU_FORMS = {
+    'grad-of-grad forward': (
+        'reference-grad dense',
+        lambda n, a, k, gog: gog and n == 'spline_eval'),
+    'grad-of-grad backward': (
+        'reference-grad dense',
+        lambda n, a, k, gog: gog and n == 'spline_eval_bwd'),
+    'step g_x backward': (
+        'reference-grad dense',
+        lambda n, a, k, gog: n == 'spline_eval_bwd' and is_step_g_x(a, k)),
+    'vmap-fold backward jet': (
+        'spring score', lambda n, a, k, gog: n == 'spline_eval_bwd_jet'),
+    'vmap-fold backward': (
+        'spring score', lambda n, a, k, gog: n == 'spline_eval_bwd'),
+}
+
+
+def menu_kernel_rows(torch, params):
+    """K4's launches on the trainer menu's paths that table-kernels' grid
+    does not make, recorded where the paths make them on the card and
+    replayed against their plain versions: the 'reference' loss's
+    gradient under 'dense' (the reference design's; per-term launches of
+    the grad-of-grad rules, and the backward kernel's g_x from a slope
+    table in step mode) and SPRING's score matrix O = vmap(grad(log|ψ|))
+    (the vmap fold's backward launches, the walkers folded into the rows),
+    each at 256 walkers drawn by K1 from the 100k checkpoint under
+    'table'.  Each path whole, kernels against the plain chain on the
+    card, within REF_GRAD_RTOL of its global norm, its K4 launches equal
+    to the evaluations the same call makes on the CPU (8 walkers), no
+    plain lerp on the card; every recorded launch of each form (MENU_FORMS)
+    against its plain version on its own operands (scale: the rows' sum of
+    term magnitudes, as table-kernels); the largest launch of each form
+    timed (b2b, device, plain) beside its bound.  -> (worst error by form,
+    rows)."""
+    from waveflow_tpu_torch.models import get_waveflow_model
+    from waveflow_tpu_torch.vmc import make_loss_fn
+    from waveflow_tpu_torch.vmc.sr import make_score_fn
+
+    def paths(model, x):
+        h = he_hamiltonian(model, 'dense')
+        loss_fn = make_loss_fn(model.psi, h, estimator='reference')
+        base = torch.full((), -1.8, device=x.device)
+        ps = list(model.parameters())
+        flatten, scores = make_score_fn(model)
+        flat = flatten()
+
+        def ref_grad():
+            with torch.autograd.set_multithreading_enabled(False):
+                g = torch.autograd.grad(loss_fn(x, base), ps,
+                                        allow_unused=True)
+            return torch.cat([(torch.zeros_like(p) if a is None else a)
+                              .reshape(-1) for p, a in zip(ps, g)])
+        return {'reference-grad dense': ref_grad,
+                'spring score': lambda: scores(flat, x)}
+
+    mt = flagship_model(torch, params, 'table')
+    x = torch.sort(mt.sample(256, generator=torch.Generator(
+        'cuda').manual_seed(13)), dim=-1).values
+    cpu = get_waveflow_model(
+        2, base_spline_degree=FLAGSHIP['spline_degree'],
+        i_spline_degree=FLAGSHIP['spline_degree'],
+        n_prior_internal_knots=FLAGSHIP['num_knots'],
+        n_i_internal_knots=FLAGSHIP['num_knots'], i_spline_reg=0.05,
+        n_flow_layers=3, box_size=10.0, eval_backend='table',
+        generator=torch.Generator().manual_seed(0), device='cpu')
+    cpu.load_state_dict(params)
+    on_cpu = paths(cpu, x[:8].cpu())
+    recorded, rows = {}, {}
+    for name, fn in paths(mt, x).items():
+        with evaluation_forms(plain=False) as derived:
+            on_cpu[name]()
+        reset_table_counts()
+        with evaluation_forms(plain=False, record=True) as run:
+            got = fn()
+        torch.cuda.synchronize()
+        launched = table_counts()
+        with evaluations(plain=True):
+            ref = fn()
+        rel = ((got - ref).norm() / ref.norm()).item()
+        recorded[name] = run.calls_made
+        rows[name] = dict(rel_err=rel, launches=launched,
+                          derived=derived.calls, forms=derived.forms)
+        print(f"table-kernels {name} (256 walkers, 'table'): kernels "
+              f"against the plain chain on the card {rel:.3e} of the "
+              f"global norm (limit {REF_GRAD_RTOL:g}) | K4 launches "
+              f"{ {k: launched[k] for k in derived.calls} } (the code's "
+              f"evaluations on the CPU {derived.calls}; the backward "
+              f"kernel's g_x from a slope table "
+              f"{derived.forms['bwd step g_x']}, inside the grad-of-grad "
+              f"rules {derived.forms['grad of grad']}) | plain lerps on "
+              f"the card {run.plain_calls}", flush=True)
+        if not (torch.isfinite(got).all() and rel <= REF_GRAD_RTOL):
+            fail(f"table-kernels {name}: kernels against the plain chain "
+                 f"{rel:.3e}")
+        if run.plain_calls or run.calls != derived.calls or {
+                k: launched[k] for k in derived.calls} != derived.calls:
+            fail(f"table-kernels {name}: K4 launches {launched} against the "
+                 f"{derived.calls} evaluations the code makes on the CPU "
+                 f"({run.plain_calls} plain lerps on the card)")
+    worst = {}
+    for form, (path, test) in MENU_FORMS.items():
+        calls = [(n, a, k) for n, a, k, gog in recorded[path]
+                 if test(n, a, k, gog)]
+        if not calls:
+            fail(f"table-kernels: {path} made no launch of the form {form}")
+        replays = [replay_against_plain(torch, *c) for c in calls]
+        worst[form] = max(r[2] for r in replays)
+        kernel, plain, _, N, (b_ms, b_by) = max(replays, key=lambda r: r[3])
+        rows[form] = row = dict(
+            launches=len(calls), max_abs_err=worst[form], N=N,
+            ms=cuda_ms(torch, kernel), device_ms=device_ms(torch, kernel),
+            plain_ms=cuda_ms(torch, plain), bound_ms=b_ms, bound_by=b_by,
+            rows=sorted({r[3] for r in replays}))
+        print(f"K4 {form}: {len(calls)} launches in one {path} (rows "
+              f"{row['rows']}), each against its plain version on its own "
+              f"operands: max {worst[form]:.3e} (limit 2e-5) | at N={N}: "
+              f"kernel_ms {row['ms']:.4f} device_ms {row['device_ms']:.4f} "
+              f"plain_ms {row['plain_ms']:.4f} bound_ms {b_ms:.5f} ({b_by})",
+              flush=True)
+    return worst, rows
+
+
+def menu_epoch_evaluations(torch, params, config):
+    """K4's launches in one epoch of a recipe under 'table' as the code
+    makes them on the CPU (8 walkers, the flagship model with the 100k
+    checkpoint's parameters: the count depends on neither), in a window of
+    one epoch after a first one (the MCMC warm start), by entry point and
+    by ``evaluation_forms``' forms.  A launch made once per window would
+    show here and not per replayed epoch, and the card's gate would part."""
+    from waveflow_tpu_torch.vmc import VMCConfig, VMCTrainer
+    t = VMCTrainer(VMCConfig(batch_size=8, window=1, log_every=1,
+                             eval_backend='table', device='cpu', **config))
+    t.model.load_state_dict(params)
+    t.train(1, verbose=False)
+    with evaluation_forms(plain=False) as run:
+        t.train(1, verbose=False)
+    return dict(calls={k: float(v) for k, v in run.calls.items()},
+                bwd_step_g_x=float(run.forms['bwd step g_x']),
+                grad_of_grad={k: float(v) for k, v in
+                              run.forms['grad of grad'].items()})
+
+
+def menu_el_gate(torch, label, run_dir, config):
+    """E_L = Hψ/ψ under 'table' against 'poly_pallas' (each trainer's own
+    Laplacian form, ``el_against_poly``) on the walkers the recipe's run
+    starts from: the committed run's MCMC walkers, or the first ancestral
+    draw on the trainer's stream, sorted."""
+    ts = {b: twin_maker(run_dir, config, 1, b)(False)
+          for b in ('table', 'poly_pallas')}
+    t = ts['table']
+    with torch.no_grad():
+        x = (t.mcmc_state.positions if t.mcmc_state is not None
+             else t.sample(256))
+        x = torch.sort(x, dim=-1).values
+        e, psi = {}, {}
+        for b, tb in ts.items():
+            psi[b] = tb.model.psi(x)
+            e[b] = tb.h_fn(x)[:, 0] / psi[b]
+    return el_against_poly(f"graph-table-menu {label} (the run's starting "
+                           "walkers)", e['table'], e['poly_pallas'],
+                           psi['poly_pallas'])
+
+
+def against_poly_turns(torch, label, graphed, make_poly):
+    """ms per replayed epoch of a graphed 'table' trainer against its
+    'poly_pallas' twin ``make_poly(None)`` (graphed, warmed up and captured
+    first), turns of 2 windows in the order table, poly, poly, table (CUDA
+    events)."""
+    poly = make_poly(None)
+    n = 2 * graphed.config.window
+    poly.train(n, verbose=False)
+    ms = {'table': [], 'poly_pallas': []}
+    for k, t in (('table', graphed), ('poly_pallas', poly),
+                 ('poly_pallas', poly), ('table', graphed)):
+        _, dt = events_ms(torch, lambda: t.train(n, verbose=False))
+        ms[k].append(dt / n)
+    mean = {k: sum(v) / len(v) for k, v in ms.items()}
+    print(f"{label}: ms per replayed epoch, turns table / "
+          f"poly_pallas / poly_pallas / table: {ms['table'][0]:.3f} / "
           f"{ms['poly_pallas'][0]:.3f} / {ms['poly_pallas'][1]:.3f} / "
           f"{ms['table'][1]:.3f} | table over poly_pallas "
-          f"{row['ms_per_replayed_epoch']['table'] / row['ms_per_replayed_epoch']['poly_pallas']:.3f}x",
-          flush=True)
-    return launches, row
+          f"{mean['table'] / mean['poly_pallas']:.3f}x", flush=True)
+    return dict(turns_ms_against_poly=ms,
+                ms_per_replayed_epoch_table=mean['table'],
+                ms_per_replayed_epoch_poly_pallas=mean['poly_pallas'])
+
+
+def graph_table_menu_phase(torch, params):
+    """The trainer menu under 'table' on the card (TABLE_MENU: the
+    reference design under 'dense', 'hvp' and 'fwd_batched', SR, SPRING,
+    Metropolis and MALA, each from its committed run), each through
+    ``VMCTrainer`` with graphed windows against its eager twin
+    (``graph_twins``): equal to the bit (losses, parameters, optimizer
+    state, walkers, SPRING's counters); K3 not launched; K4's launches per
+    replayed epoch, by entry point, equal to the count the code makes on
+    the CPU for the same recipe (``menu_epoch_evaluations``; its forms —
+    the backward kernel's g_x from a slope table, the grad-of-grad rules'
+    per-term launches — printed beside it); K1 launched by the ancestral
+    recipes; E_L against 'poly_pallas' on the run's starting walkers
+    (``menu_el_gate``); then ms per replayed epoch against the
+    'poly_pallas' twin in turns."""
+    rows, total = {}, {}
+    for label, run_dir, config, window in TABLE_MENU:
+        derived = menu_epoch_evaluations(torch, params, config)
+        el = menu_el_gate(torch, label, run_dir, config)
+        ancestral = config.get('sampler', 'ancestral') == 'ancestral'
+        required = (('sampler',) if ancestral else ()) + tuple(
+            k for k, v in derived['calls'].items() if v)
+        launches, row = graph_twins(
+            torch, f"graph-table-menu {label}",
+            twin_maker(run_dir, config, window, 'table'), read=table_counts,
+            reset=reset_table_counts, required=required,
+            after=lambda eager, graphed, label=label, run_dir=run_dir,
+            config=config, window=window: against_poly_turns(
+                torch, f"graph-table-menu {label}", graphed,
+                twin_maker(run_dir, config, window)))
+        per_epoch = row['launches_per_epoch']['graph']
+        row.update(el_table_vs_poly=el, derived_per_epoch=derived)
+        print(f"graph-table-menu {label}: K4 launches per replayed epoch "
+              f"{ {k: per_epoch[k] for k in derived['calls']} } | the code's "
+              f"evaluations per epoch on the CPU {derived['calls']} (of "
+              f"which the backward kernel's g_x from a slope table "
+              f"{derived['bwd_step_g_x']:g}, the grad-of-grad rules' "
+              f"per-term launches {derived['grad_of_grad']}) | K1 "
+              f"{per_epoch['sampler']:g}, K3 {per_epoch['basis_jet']:g} per "
+              "replayed epoch", flush=True)
+        if not row['bitwise']:
+            fail(f"graph-table-menu {label}: the graph is not equal to its "
+                 f"eager twin to the bit: {row['rel_diff_by_group']}")
+        if launches['basis_jet']:
+            fail(f"graph-table-menu {label}: K3 launched "
+                 f"{launches['basis_jet']} times under 'table'")
+        if {k: per_epoch[k] for k in derived['calls']} != derived['calls']:
+            fail(f"graph-table-menu {label}: K4 launches per replayed epoch "
+                 f"{per_epoch} against the {derived['calls']} evaluations "
+                 "the code makes")
+        rows[label] = row
+        total = {k: total.get(k, 0) + v for k, v in launches.items()}
+    return total, rows
 
 
 def circles_split():
@@ -5015,7 +5429,7 @@ H2_2D_CONFIG = dict(BOX_2D, system_name='H2', ansatz='antisym',
 def phase_table(torch, params, jax_raw, jax_clipped, ancestral_wps=None,
                 k3_b2b_ms=None):
     """Phases 23, 38-39, 30-31, 50, 6-8, 46-49, 9-26, 51-53, 55, 27,
-    32-33, 54, 56, 34-37 and 40-45 in order, as (name, run): run() ->
+    32-33, 54, 56, 34-37, 40-41, 57 and 42-45 in order, as (name, run): run() ->
     (the kernel
     launches on that path, or None, and the phase's figures)."""
     r4 = json.loads(JAX_EVAL_R4.read_text())[f'results/{SPRING_RUN.name}']
@@ -5133,6 +5547,7 @@ def phase_table(torch, params, jax_raw, jax_clipped, ancestral_wps=None,
         ('table-eval', lambda: table_eval_phase(torch, jax_raw,
                                                 jax_clipped)),
         ('graph-table', lambda: graph_table_phase(torch, params)),
+        ('graph-table-menu', lambda: graph_table_menu_phase(torch, params)),
         ('rqs-density', lambda: rqs_density_phase(torch)),
         ('gm-density', lambda: gm_density_phase(torch)),
         # ---- 44-45. the reference-API layer and the evaluation artifacts,
@@ -5186,7 +5601,8 @@ def main(argv=None) -> int:
              "posterior-sharded-1, graph-posterior-smc-sharded-1, "
              "graph-posterior-nuts-sharded-1, be4-eval, box4-eval, "
              "li-2d-eval, h2-2d-eval, table-kernels, table-hpsi, "
-             "table-eval, graph-table, rqs-density, gm-density, compat, "
+             "table-eval, graph-table, graph-table-menu, rqs-density, "
+             "gm-density, compat, "
              "artifacts) to run alone "
              "after the build; a partial run prints no kernels line")
     # one rank of dp-gloo-2, which the phase starts itself
@@ -5430,6 +5846,7 @@ def main(argv=None) -> int:
              bound_ms=k4_row['bound_ms'], bound_by=k4_row['bound_by'],
              library_ms=None, onehot_matmul_ms=k4_row['onehot_ms'],
              vmap=rows['k4-vmap']['forward'],
+             grad_of_grad=tk['menu']['grad-of-grad forward'],
              forward_mode=dict(step_mode_abs_err=tk['max_abs_err']['step'],
                                chain_abs_err=tk['max_abs_err']['chain'],
                                bisect_abs_err=tk['max_abs_err']['bisect'],
@@ -5469,7 +5886,8 @@ def main(argv=None) -> int:
              bound_by=bwd_jet_row['bound_by'], library_ms=None,
              per_call_ms=bwd_jet_row['per_call_ms'],
              per_call_device_ms=bwd_jet_row['per_call_device_ms'],
-             per_call_launches=bwd_jet_row['per_call_launches']),
+             per_call_launches=bwd_jet_row['per_call_launches'],
+             vmap_fold=tk['menu']['vmap-fold backward jet']),
         dict(name='spline_eval_bwd', route='cuda',
              source='waveflow_tpu_torch/csrc/spline_eval.cu',
              replaces='waveflow_tpu/ops/pallas_spline.py:29',
@@ -5482,7 +5900,10 @@ def main(argv=None) -> int:
              ms=k4b_row['ms'], device_ms=k4b_row['device_ms'],
              plain_ms=k4b_row['plain_ms'],
              bound_ms=k4b_row['bound_ms'], bound_by=k4b_row['bound_by'],
-             library_ms=None, vmap=rows['k4-vmap']['backward']),
+             library_ms=None, vmap=rows['k4-vmap']['backward'],
+             step_g_x=tk['menu']['step g_x backward'],
+             grad_of_grad=tk['menu']['grad-of-grad backward'],
+             vmap_fold=tk['menu']['vmap-fold backward']),
     ]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall, the "
           "build included", flush=True)
