@@ -59,17 +59,18 @@ Phases (any failure exits non-zero; nothing is caught):
                launched; walkers/s beside the ancestral figure;
      graph-metropolis — the Metropolis adam window as a CUDA graph against
                its eager twin from he1d_metropolis_seed7, as graph-train
-               (walkers and accept rates compared too);
+               but in turns of one window (walkers and accept rates
+               compared too);
  46. graph-mala — the adam MALA window from he1d_mala_s3 the same way,
-               in turns of 2 x TWIN_WINDOW epochs (the drift's reverse
+               in turns of one window of TWIN_WINDOW epochs (the drift's reverse
                pass through K3's backward rule inside the capture), with
                each graph phase's capture seconds and graph pool (the
                memory reserved over the capture);
  47. graph-spring — SPRING + ancestral from r4_spring100k as graph-mala,
                K1 and K3 launched by the replays, SPRING's step, skipped
                and fallbacks counters advancing alike in both twins;
- 48. graph-sr — SR + ancestral from he1d_sr, turns of 2 x SR_GRAPH_WINDOW
-               epochs (an eager SR epoch takes ~1.5 s);
+ 48. graph-sr — SR + ancestral from he1d_sr, turns of one window of
+               SR_GRAPH_WINDOW epochs (an eager SR epoch takes ~1.5 s);
  49. graph-natgrad-mcmc — SPRING + MALA from r4_spring100k (as
                graph-mala) and SR + Metropolis from he1d_sr (as graph-sr),
                the walkers warm-started on the trainer's stream;
@@ -122,7 +123,7 @@ Phases (any failure exits non-zero; nothing is caught):
                JAX figure, the ED energy printed;
  21. graph-antisym — the antisym Metropolis adam window from
                r5_he2d2e_antisym at lr 3e-5 as a CUDA graph against its
-               eager twin, as graph-train (walkers and accept rates to the
+               eager twin, as graph-mala (walkers and accept rates to the
                bit too), then one graphed window of 100 epochs;
  22. paired2d-256 — the paired2d ancestral adam window from the r4 run the
                same way (K1 4 launches per epoch, one per column);
@@ -267,13 +268,25 @@ Phases (any failure exits non-zero; nothing is caught):
                'table' (TABLE_MENU: the reference design under 'dense',
                'hvp' and 'fwd_batched', SR, SPRING, Metropolis, MALA, each
                from the committed run its 'poly_pallas' twin loads)
-               graphed against its eager twin as graph-mala: to the bit,
+               graphed against its eager twin as graph-mala (the
+               reference recipes in turns of two windows): to the bit,
                K3 not launched, K4 per replayed epoch by entry equal to the
                CPU's count for one epoch of the recipe, K1 launched by the
                ancestral ones; E_L against 'poly_pallas' on the run's
                starting walkers (TABLE_POLY_EL_BOUND,
                TABLE_POLY_EL_MEAN_BOUND); ms per replayed epoch against
                the 'poly_pallas' twin in turns;
+ 58. catalogue (after h2-2d-eval) — every system of
+               examples/catalogue_sweep_torch.py (its 12 1D systems and the
+               2D H, He+ and H2+) from scratch at full width, seed 2, batch
+               256: the graphed window against its eager twin in turns
+               eager, graph, graph, eager of one window of
+               CATALOGUE_WINDOW epochs, to the bit, every loss finite, K1
+               per replayed epoch equal to the CPU's count (one per
+               coordinate), K3 0 under 'poly'; then H, He_off_center and
+               box3 (1, 2 and 3 electrons) again under 'poly_pallas': K3
+               per replayed epoch equal to the CPU's count, and K3 at the
+               shapes of each path against the plain core;
  42. rqs-density — RQSFlow on benchmarks/circles_parity.py's split, 300
                epochs (cut from 12,000): loss falls, round trip under 1e-4,
                points/s;
@@ -1269,6 +1282,10 @@ def metropolis_phase(torch, ancestral_wps):
 # the graph-against-eager phases: epochs per window (each turn trains two
 # windows, so the second hands the 'reference' loss a non-zero baseline)
 GRAPH_WINDOW = 10
+# the windows per turn of the twins whose estimator reads no baseline
+# (every one but the 'reference' recipes), cut from two to keep the
+# script's length
+ONE_WINDOW = dict(turn_windows=1)
 # a graphed run against its eager twin, where the card is not bitwise: the
 # largest relative difference allowed, as the resume phase allows (ROADMAP
 # Queue 3 names any difference met)
@@ -1371,10 +1388,11 @@ def replayed_window(t, n: int):
 
 
 def graph_twins(torch, label, make, read=None, reset=None,
-                required=('basis_jet',), after=None):
+                required=('basis_jet',), after=None, turn_windows=2,
+                profile=True):
     """A trainer on the graph path and its eager twin (``graph=False``),
-    both from one state (``make(graph)``): turns of two windows (of the
-    trainers' ``window`` epochs) in the order eager, graph, graph, eager,
+    both from one state (``make(graph)``): turns of ``turn_windows`` windows
+    (of the trainers' ``window`` epochs) in the order eager, graph, graph, eager,
     each timed
     by CUDA events with its kernel launches counted (the first graph turn
     holds the warm-up epoch and the capture, whose own seconds and graph
@@ -1386,14 +1404,15 @@ def graph_twins(torch, label, make, read=None, reset=None,
     profiled: the profiler's processing time grows with the kernels it
     saw, ~33,500 per SR epoch.  ``read`` / ``reset`` are the launch counters (K1 and K3
     unless given), ``required`` the kernels the replays must launch;
-    ``after(eager, graphed)`` adds its figures to the row."""
+    ``after(eager, graphed)`` adds its figures to the row;
+    ``profile=False`` leaves the profiled window out."""
     eager, graphed = make(False), make(None)
     if eager.graph or not graphed.graph:
         fail(f"{label}: the twins' graph flags are {eager.graph}, "
              f"{graphed.graph}")
     window = graphed.config.window
     read, reset = read or read_counts, reset or reset_counts
-    n_turn = 2 * window
+    n_turn = turn_windows * window
     ms = {'eager': [], 'graph': []}
     counts = {kind: dict.fromkeys(read(), 0) for kind in ms}
     counters0 = spring_counters(graphed)
@@ -1436,7 +1455,7 @@ def graph_twins(torch, label, make, read=None, reset=None,
                 (('eager', eager), ('graph', graphed))}
     if counters0 is not None:
         out['spring_counters'] = dict(counters, start=counters0)
-    print(f"{label}: eager, graph, graph, eager turns of 2 x "
+    print(f"{label}: eager, graph, graph, eager turns of {turn_windows} x "
           f"{window} epochs at batch {B} (CUDA events): "
           f"{' / '.join(f'{v:.1f}' for v in ms['eager'][:1] + ms['graph'] + ms['eager'][1:])} ms "
           f"| eager {eager_ms:.3f} ms per epoch, {out['eager_walkers_per_s']:.1f}"
@@ -1470,16 +1489,18 @@ def graph_twins(torch, label, make, read=None, reset=None,
     missing = [k for k in required if counts['graph'][k] == 0]
     if missing:
         fail(f"{label}: {missing} not launched by the graph's replays")
-    out['profile'] = prof = profile_window(
-        torch, lambda: replayed_window(graphed, window), window,
-        f"{label} graphed window ", top=10)
-    # the profiler slows the host's side of a replay: the idle share of an
-    # unprofiled replay is the profiled busy time against the events' time
-    out['idle_unprofiled'] = 1 - prof['busy_ms'] / window / graph_ms
-    print(f"{label}: device busy {prof['busy_ms'] / window:.3f} ms per replayed "
-          f"epoch (profiler) against {graph_ms:.3f} ms per epoch unprofiled "
-          f"(CUDA events): idle share {out['idle_unprofiled']:.4f}",
-          flush=True)
+    if profile:
+        out['profile'] = prof = profile_window(
+            torch, lambda: replayed_window(graphed, window), window,
+            f"{label} graphed window ", top=10)
+        # the profiler slows the host's side of a replay: the idle share of
+        # an unprofiled replay is the profiled busy time against the
+        # events' time
+        out['idle_unprofiled'] = 1 - prof['busy_ms'] / window / graph_ms
+        print(f"{label}: device busy {prof['busy_ms'] / window:.3f} ms per "
+              f"replayed epoch (profiler) against {graph_ms:.3f} ms per "
+              f"epoch unprofiled (CUDA events): idle share "
+              f"{out['idle_unprofiled']:.4f}", flush=True)
     if after is not None:
         out.update(after(eager, graphed))
     return counts['graph'], out
@@ -1487,8 +1508,9 @@ def graph_twins(torch, label, make, read=None, reset=None,
 
 # the windows of the MALA, SPRING and SR twins (graph-mala, graph-spring,
 # graph-sr, graph-natgrad-mcmc, dp-spring-1), cut to keep the script's
-# length: turns of 2 x TWIN_WINDOW epochs, and of 2 x SR_GRAPH_WINDOW for
-# SR, whose eager epoch takes ~1-1.5 s at batch 256
+# length: windows of TWIN_WINDOW epochs, and of SR_GRAPH_WINDOW for SR,
+# whose eager epoch takes ~1-1.5 s at batch 256 (turns of one window,
+# ONE_WINDOW, but for the 'reference' recipes)
 TWIN_WINDOW = 5
 SR_GRAPH_WINDOW = 2
 
@@ -1540,7 +1562,7 @@ def graph_metropolis_phase(torch):
     from he1d_metropolis_seed7 with its walkers and Adam moments."""
     launches, row = graph_twins(
         torch, "graph-metropolis metropolis-256",
-        twin_maker(METROPOLIS_RUN, dict(sampler='metropolis')))
+        twin_maker(METROPOLIS_RUN, dict(sampler='metropolis')), **ONE_WINDOW)
     return launches, {'metropolis-256': row}
 
 
@@ -1550,7 +1572,7 @@ def graph_mala_phase(torch):
     capture) as a CUDA graph against its eager twin from he1d_mala_s3."""
     launches, row = graph_twins(
         torch, "graph-mala mala-256",
-        twin_maker(MALA_RUN, dict(sampler='mala'), TWIN_WINDOW))
+        twin_maker(MALA_RUN, dict(sampler='mala'), TWIN_WINDOW), **ONE_WINDOW)
     return launches, {'mala-256': row}
 
 
@@ -1562,18 +1584,18 @@ def graph_spring_phase(torch):
     launches, row = graph_twins(
         torch, "graph-spring spring-256",
         twin_maker(SPRING_RUN, SPRING_CONFIG, TWIN_WINDOW),
-        required=('sampler', 'basis_jet'))
+        required=('sampler', 'basis_jet'), **ONE_WINDOW)
     return launches, {'spring-256': row}
 
 
 def graph_sr_phase(torch):
     """The SR ancestral window (20 masked CG iterations of one jvp and one
     vjp: the port's largest graph) against its eager twin from he1d_sr,
-    turns of 2 x SR_GRAPH_WINDOW epochs."""
+    turns of one window of SR_GRAPH_WINDOW epochs."""
     launches, row = graph_twins(
         torch, "graph-sr sr-256",
         twin_maker(SR_RUN, SR_CONFIG, SR_GRAPH_WINDOW),
-        required=('sampler', 'basis_jet'))
+        required=('sampler', 'basis_jet'), **ONE_WINDOW)
     return launches, {'sr-256': row}
 
 
@@ -1590,7 +1612,7 @@ def graph_natgrad_mcmc_phase(torch):
              dict(SR_CONFIG, sampler='metropolis'), SR_GRAPH_WINDOW)):
         launches, rows[label] = graph_twins(
             torch, f"graph-natgrad-mcmc {label}",
-            twin_maker(run_dir, config, window))
+            twin_maker(run_dir, config, window), **ONE_WINDOW)
         total = {k: total[k] + v for k, v in launches.items()}
     return total, rows
 
@@ -1632,7 +1654,7 @@ def dp_spring_phase(torch):
         launches, rows[label] = graph_twins(
             torch, name,
             twin_maker(run_dir, dict(config, data_parallel=True), window),
-            required=required, after=collectives)
+            required=required, after=collectives, **ONE_WINDOW)
         total = {k: total[k] + v for k, v in launches.items()}
     return total, rows
 
@@ -2462,13 +2484,14 @@ def h2d_fidelity_phase(torch):
 
 def graph_2d_phase(torch, label, run_dir, config, k1_per_epoch):
     """A 2D window as a CUDA graph against its eager twin from a committed
-    run (``graph_twins``: turns eager, graph, graph, eager of 2 windows of
+    run (``graph_twins``: turns eager, graph, graph, eager of one window of
     TWIN_WINDOW epochs, everything to the bit, launches per epoch equal,
     a window of replays profiled), K1's launches per epoch held to
     ``k1_per_epoch``; then one graphed window of 100 epochs timed by CUDA
     events."""
     launches, row = graph_twins(torch, label,
-                                twin_maker(run_dir, config, TWIN_WINDOW))
+                                twin_maker(run_dir, config, TWIN_WINDOW),
+                                **ONE_WINDOW)
     k1 = row['launches_per_epoch']['graph']['sampler']
     if k1 != k1_per_epoch:
         fail(f"{label}: K1 launched {k1} times per epoch, not {k1_per_epoch}")
@@ -2494,16 +2517,20 @@ WAVEFLOW_CHAINS = 256            # JAX's test_hmc_stationary_on_waveflow
 WAVEFLOW_MOMENT_ATOL = 0.25      # its tolerance
 
 
-def posterior_example():
-    """examples/parameter_posterior_torch.py as a module: its model
-    settings and ``run_posterior``."""
+def example_module(stem: str):
+    """examples/<stem>.py as a module."""
     import importlib.util
-    path = ROOT / 'examples' / 'parameter_posterior_torch.py'
-    spec = importlib.util.spec_from_file_location('parameter_posterior_torch',
-                                                  path)
+    spec = importlib.util.spec_from_file_location(
+        stem, ROOT / 'examples' / f'{stem}.py')
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def posterior_example():
+    """examples/parameter_posterior_torch.py as a module: its model
+    settings and ``run_posterior``."""
+    return example_module('parameter_posterior_torch')
 
 
 def k4_counts():
@@ -4840,6 +4867,7 @@ def graph_table_menu_phase(torch, params):
             torch, f"graph-table-menu {label}",
             twin_maker(run_dir, config, window, 'table'), read=table_counts,
             reset=reset_table_counts, required=required,
+            turn_windows=2 if config.get('estimator') == 'reference' else 1,
             after=lambda eager, graphed, label=label, run_dir=run_dir,
             config=config, window=window: against_poly_turns(
                 torch, f"graph-table-menu {label}", graphed,
@@ -5426,10 +5454,163 @@ H2_2D_CONFIG = dict(BOX_2D, system_name='H2', ansatz='antisym',
                     sampler='metropolis')
 
 
+# the catalogue phase: every system of examples/catalogue_sweep_torch.py's
+# SWEEP and SWEEP_2D from scratch (seed 2, batch 256, full width), its
+# graphed window against its eager twin in turns of one window of this many
+# epochs; then one system per electron count again under 'poly_pallas'
+CATALOGUE_WINDOW = 10
+CATALOGUE_POLY_PALLAS = ('H', 'He_off_center', 'box3')
+
+
+@contextlib.contextmanager
+def k1_k3_calls():
+    """Within the block, every call of the K1 wrapper's entry
+    (``sample_squared_amplitude`` as the model's sampler calls it) and of
+    the K3 core (``cuda_jet.basis_jet``, the 'poly_pallas' jets) counted
+    in the dict yielded, whatever the device: on the CPU the count of
+    launches the same run makes on the card."""
+    from waveflow_tpu_torch.models import waveflow as wf
+    from waveflow_tpu_torch.ops import cuda_jet
+    calls = {'sampler': 0, 'basis_jet': 0}
+    real = (wf.sample_squared_amplitude, cuda_jet.basis_jet)
+
+    def counting(name, fn):
+        def call(*args, **kw):
+            calls[name] += 1
+            return fn(*args, **kw)
+        return call
+    wf.sample_squared_amplitude = counting('sampler', real[0])
+    cuda_jet.basis_jet = counting('basis_jet', real[1])
+    try:
+        yield calls
+    finally:
+        wf.sample_squared_amplitude, cuda_jet.basis_jet = real
+
+
+def catalogue_epoch_calls(config) -> dict:
+    """K1 and K3 launches in one ancestral epoch of a sweep system as the
+    code makes them on the CPU: a window of one epoch after a first one, 8
+    walkers and narrow splines (degree 3, 6 knots, a 300-point mesh) with
+    the flow's depth kept — the count depends on neither the batch nor
+    the widths."""
+    from waveflow_tpu_torch.vmc import VMCConfig, VMCTrainer
+    t = VMCTrainer(VMCConfig(batch_size=8, window=1, log_every=1,
+                             spline_degree=3, num_knots=6,
+                             n_spline_base_mesh_points=300, device='cpu',
+                             **config))
+    t.train(1, verbose=False)
+    with k1_k3_calls() as calls:
+        t.train(1, verbose=False)
+    return {k: float(v) for k, v in calls.items()}
+
+
+def catalogue_maker(config):
+    """``make(graph)`` of ``graph_twins``: a sweep system from scratch at
+    batch 256 and full width, windows of CATALOGUE_WINDOW epochs."""
+    from waveflow_tpu_torch.vmc import VMCConfig, VMCTrainer
+
+    def make(graph):
+        return VMCTrainer(VMCConfig(batch_size=256, window=CATALOGUE_WINDOW,
+                                    log_every=CATALOGUE_WINDOW,
+                                    device='cuda', **config), graph=graph)
+    return make
+
+
+def k3_at_path_shapes(torch, label, make):
+    """K3 at the shapes a system's path gives it: the core calls of one
+    eager epoch of ``make(False)`` recorded, then each distinct (sites,
+    table) launched again, kernel against the plain core on the card
+    (phase 3's tolerance, rtol 2e-5 and atol 2e-4), timed beside its plain
+    version and its bound."""
+    from waveflow_tpu_torch.ops import cuda_jet
+    t = make(False)
+    seen, real = {}, cuda_jet.basis_jet_cuda
+
+    def record(x, A, nc, k):
+        seen.setdefault((tuple(x.shape), tuple(A.shape)),
+                        (x.detach().clone(), A, nc, k))
+        return real(x, A, nc, k)
+    cuda_jet.basis_jet_cuda = record
+    try:
+        t.train(1, verbose=False)
+    finally:
+        cuda_jet.basis_jet_cuda = real
+    if not seen:
+        fail(f"{label}: the path launched no K3")
+    rows = {}
+    for (x_shape, a_shape), (x, A, nc, k) in seen.items():
+        out_k = cuda_jet.basis_jet_cuda(x, A, nc, k)
+        out_p = cuda_jet.basis_jet_plain(x, A, nc, k)
+        torch.cuda.synchronize()
+        err = (out_k - out_p).abs().max().item()
+        if not torch.allclose(out_k, out_p, rtol=2e-5, atol=2e-4):
+            fail(f"{label}: K3 at x {x_shape}, table {a_shape} disagrees "
+                 f"with the plain core: max {err:.3e}")
+        R, N = x.numel(), A.shape[1]
+        b_ms, b_by = bound_ms(4 * (R + A.numel() + R * N), 2 * R * N * k)
+        rows[f"x {x_shape} table {a_shape}"] = row = dict(
+            max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+            ms=cuda_ms(torch, lambda: cuda_jet.basis_jet_cuda(x, A, nc, k)),
+            plain_ms=cuda_ms(torch,
+                             lambda: cuda_jet.basis_jet_plain(x, A, nc, k)))
+        print(f"{label}: K3 at x {x_shape}, table {a_shape} (R = {R}): max|d| "
+              f"{err:.3e} (rtol 2e-5, atol 2e-4) | kernel_ms {row['ms']:.4f} "
+              f"plain_ms {row['plain_ms']:.4f} bound_ms {b_ms:.5f} ({b_by})",
+              flush=True)
+    return rows
+
+
+def catalogue_phase(torch):
+    """Every system of the catalogue sweep (examples/catalogue_sweep_torch.py:
+    the 12 1D systems and the 3 2D one-electron systems) from scratch at
+    full width through ``VMCTrainer``, its graphed window against its eager
+    twin (``graph_twins``, turns eager, graph, graph, eager of one window of
+    CATALOGUE_WINDOW epochs): losses, parameters, Adam state, baseline and
+    generator equal to the bit, every loss finite, K1 launches per replayed
+    epoch equal to the CPU's count (``catalogue_epoch_calls``: one per
+    coordinate), K3 0 under the default 'poly'.  Then CATALOGUE_POLY_PALLAS
+    (one 1D system per electron count) again under 'poly_pallas': K3 per
+    replayed epoch equal to the CPU's count, and K3 at the shapes of that
+    system's path held against the plain core (``k3_at_path_shapes``)."""
+    sweep = example_module('catalogue_sweep_torch')
+    runs = [(dims, name, L, extra, 'poly') for dims in (1, 2)
+            for name, L, extra in sweep.sweep_of(dims)]
+    runs += [(1, name, L, extra, 'poly_pallas')
+             for name, L, extra in sweep.SWEEP
+             if name in CATALOGUE_POLY_PALLAS]
+    rows, total = {}, {}
+    for dims, name, L, extra, backend in runs:
+        label = f"catalogue {name} {dims}D {backend}"
+        config = dict(system_name=name, n_space_dimension=dims,
+                      box_length=L, seed=sweep.SEED, eval_backend=backend,
+                      **extra)
+        derived = catalogue_epoch_calls(config)
+        make = catalogue_maker(config)
+        launches, row = graph_twins(
+            torch, label, make,
+            required=tuple(k for k, v in derived.items() if v),
+            turn_windows=1, profile=False)
+        per_epoch = row['launches_per_epoch']['graph']
+        print(f"{label}: launches per replayed epoch {per_epoch} | the "
+              f"code's on the CPU {derived}", flush=True)
+        if not row['bitwise']:
+            fail(f"{label}: the graph is not equal to its eager twin to the "
+                 f"bit: {row['rel_diff_by_group']}")
+        if per_epoch != derived:
+            fail(f"{label}: launches per replayed epoch {per_epoch} against "
+                 f"the {derived} the code makes on the CPU")
+        row['derived_per_epoch'] = derived
+        if backend == 'poly_pallas':
+            row['k3_at_path_shapes'] = k3_at_path_shapes(torch, label, make)
+        rows[label] = row
+        total = {k: total.get(k, 0) + v for k, v in launches.items()}
+    return total, rows
+
+
 def phase_table(torch, params, jax_raw, jax_clipped, ancestral_wps=None,
                 k3_b2b_ms=None):
     """Phases 23, 38-39, 30-31, 50, 6-8, 46-49, 9-26, 51-53, 55, 27,
-    32-33, 54, 56, 34-37, 40-41, 57 and 42-45 in order, as (name, run): run() ->
+    32-33, 54, 56, 34-37, 58, 40-41, 57 and 42-45 in order, as (name, run): run() ->
     (the kernel
     launches on that path, or None, and the phase's figures)."""
     r4 = json.loads(JAX_EVAL_R4.read_text())[f'results/{SPRING_RUN.name}']
@@ -5542,6 +5723,8 @@ def phase_table(torch, params, jax_raw, jax_clipped, ancestral_wps=None,
             torch, 'h2-2d-eval', H2_2D_RUN, H2_2D_CONFIG,
             r5['h2_2d2e_antisym'],
             fidelity=(ED40_H2, r5['h2_2d2e_antisym']['fidelity_ed40']))),
+        # ---- 58. the system catalogue from scratch ----
+        ('catalogue', lambda: catalogue_phase(torch)),
         # ---- 40-43. the table backend's evaluation and window; the
         # density side's new model and dataset ----
         ('table-eval', lambda: table_eval_phase(torch, jax_raw,
@@ -5600,7 +5783,8 @@ def main(argv=None) -> int:
              "dp-nccl-1, dp-metropolis-1, dp-spring-1, dp-gloo-2, "
              "posterior-sharded-1, graph-posterior-smc-sharded-1, "
              "graph-posterior-nuts-sharded-1, be4-eval, box4-eval, "
-             "li-2d-eval, h2-2d-eval, table-kernels, table-hpsi, "
+             "li-2d-eval, h2-2d-eval, catalogue, table-kernels, "
+             "table-hpsi, "
              "table-eval, graph-table, graph-table-menu, rqs-density, "
              "gm-density, compat, "
              "artifacts) to run alone "
