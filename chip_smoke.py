@@ -287,6 +287,20 @@ Phases (any failure exits non-zero; nothing is caught):
                box3 (1, 2 and 3 electrons) again under 'poly_pallas': K3
                per replayed epoch equal to the CPU's count, and K3 at the
                shapes of each path against the plain core;
+ 59. quality (after catalogue) — examples/round5_quality_torch.py's paths
+               at full width from scratch, graphed against eager in turns
+               of one window, each to the bit, peak memory and graph pool
+               printed: the He-2d antisym decay (one window at lr 3e-4
+               checkpointed; trainers at lr 3e-5 load it, each Adam must
+               read 3e-5; windows of QUALITY_WINDOW epochs); Li on
+               Metropolis walkers, 3 sweeps, a refresh every window, two
+               windows (K1 over the graph twin = the CPU's count, the
+               refresh's draws included); the ng batches — adam, SR,
+               SPRING at 16,384 walkers, adam and SR at 65,536, windows of
+               NG_TWIN_WINDOW epochs, K1 / K3 per replayed epoch = the
+               CPU's count; the 65,536 adam twin again under 'poly_pallas'
+               (K3 12 per epoch) and K3 at its path's shapes (R = 131,072,
+               the staged regime) against the plain core;
  42. rqs-density — RQSFlow on benchmarks/circles_parity.py's split, 300
                epochs (cut from 12,000): loss falls, round trip under 1e-4,
                points/s;
@@ -5607,10 +5621,146 @@ def catalogue_phase(torch):
     return total, rows
 
 
+# the quality phase: examples/round5_quality_torch.py's recipes at full
+# width from scratch, each graphed window against its eager twin in turns
+# of one window: the antisym decay and the Li refresh in windows of this
+# many epochs, the ng batches in windows of NG_TWIN_WINDOW
+QUALITY_WINDOW = 5
+NG_TWIN_WINDOW = 2
+
+
+def refresh_calls(config, n_windows: int) -> dict:
+    """K1 and K3 launches of ``n_windows`` MCMC windows from scratch with a
+    refresh every window (the warm start and each refresh) as the code
+    makes them on the CPU, at 8 walkers, narrow splines and windows of one
+    epoch: the count depends on none of them."""
+    from waveflow_tpu_torch.vmc import VMCConfig, VMCTrainer
+    t = VMCTrainer(VMCConfig(**dict(config, batch_size=8, window=1,
+                                    log_every=1, mcmc_refresh_every=1,
+                                    spline_degree=3, num_knots=6,
+                                    n_spline_base_mesh_points=300,
+                                    device='cpu')))
+    with k1_k3_calls() as calls:
+        t.train(n_windows, verbose=False)
+    return {k: float(v) for k, v in calls.items()}
+
+
+def quality_twin(torch, label, make, derived, per_epoch=True):
+    """``graph_twins`` of ``make`` in turns of one window, unprofiled, held
+    to the bit and to the CPU's launch count ``derived`` (per replayed
+    epoch, or over the graph twin's turns when ``per_epoch`` is False);
+    the peak device memory over the turns added to the row."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    launches, row = graph_twins(
+        torch, label, make, required=tuple(k for k, v in derived.items() if v),
+        turn_windows=1, profile=False)
+    row['peak_memory_mib'] = torch.cuda.max_memory_allocated() / 2 ** 20
+    got = (row['launches_per_epoch']['graph'] if per_epoch
+           else {k: float(v) for k, v in launches.items()})
+    print(f"{label}: launches {'per replayed epoch' if per_epoch else 'over the graph twin'}"
+          f" {got} | the code's on the CPU {derived} | peak device memory "
+          f"{row['peak_memory_mib']:.1f} MiB, graph pool "
+          f"{row['graph_pool_mib']:.1f} MiB", flush=True)
+    if not row['bitwise']:
+        fail(f"{label}: the graph is not equal to its eager twin to the bit: "
+             f"{row['rel_diff_by_group']}")
+    if got != derived:
+        fail(f"{label}: launches {got} against the {derived} the code makes "
+             "on the CPU")
+    row['derived'] = derived
+    return launches, row
+
+
+def quality_phase(torch):
+    """examples/round5_quality_torch.py's paths at full width on the card:
+
+      * the antisym decay: stage_antisym's recipe (He, 2D, L = 5, batch
+        256, Metropolis, lr 3e-4, seed 2) trains one window and writes its
+        checkpoint; trainers at lr 3e-5 load it — each Adam must read lr
+        3e-5 — and run graphed against eager, to the bit;
+      * the Li refresh: Li on Metropolis walkers, 3 sweeps, a refresh every
+        window, two windows per twin (the warm start, one refresh), to the
+        bit, K1 over the graph twin equal to the CPU's count;
+      * the ng batches: adam, SR and SPRING at 16,384 walkers, adam and SR
+        at 65,536 (the ng_scale recipes, windows of NG_TWIN_WINDOW epochs),
+        to the bit, K1 / K3 per replayed epoch equal to the CPU's count,
+        peak memory and graph pool printed; the 65,536 adam twin again
+        under 'poly_pallas', K3 at its path's shapes (the staged regime)
+        against the plain core."""
+    from waveflow_tpu_torch.vmc import VMCConfig, VMCTrainer
+    r5 = example_module('round5_quality_torch')
+    jobs = {j.key: j for j in r5.plan()}
+    rows, total = {}, {}
+
+    def add(label, launches, row):
+        rows[label] = row
+        total.update({k: total.get(k, 0) + v for k, v in launches.items()})
+
+    # ---- the antisym decay ----
+    job = jobs['he2d2e_antisym']
+    decay_lr = job.decay[1]
+    base = dict(job.cfg, window=QUALITY_WINDOW, log_every=QUALITY_WINDOW,
+                device='cuda')
+    with tempfile.TemporaryDirectory() as run_dir:
+        first = VMCTrainer(VMCConfig(**dict(base, save_dir=run_dir)))
+        first.train(QUALITY_WINDOW, verbose=False)
+        del first
+
+        def make_decay(graph):
+            t = VMCTrainer(VMCConfig(**dict(base, learning_rate=decay_lr)),
+                           graph=graph)
+            if not t.load_checkpoint(run_dir):
+                fail(f"quality decay: no checkpoint under {run_dir}")
+            lr = t.step.optimizer.param_groups[0]['lr']
+            if lr != decay_lr:
+                fail(f"quality decay: the loaded Adam reads lr {lr}, its "
+                     f"config {decay_lr}")
+            return t
+        derived = {'sampler': 0.0, 'basis_jet': 0.0}
+        add('decay', *quality_twin(torch, 'quality decay (He-2d antisym, lr '
+                                   f'{job.cfg["learning_rate"]:g} -> '
+                                   f'{decay_lr:g})', make_decay, derived))
+    print(f"quality decay: the loaded Adam reads lr {decay_lr:g}", flush=True)
+
+    # ---- the Li refresh ----
+    li = dict(jobs['li_metro_refresh100_s3'].cfg, window=QUALITY_WINDOW,
+              mcmc_refresh_every=QUALITY_WINDOW)
+
+    def make_li(graph):
+        return VMCTrainer(VMCConfig(**dict(li, log_every=QUALITY_WINDOW,
+                                           device='cuda')), graph=graph)
+    add('li refresh', *quality_twin(
+        torch, 'quality Li refresh (3 sweeps, every window)', make_li,
+        refresh_calls(li, 2), per_epoch=False))
+
+    # ---- the ng batches; the 65,536 adam again under 'poly_pallas' ----
+    ng = [(key, dict(job.cfg, window=NG_TWIN_WINDOW))
+          for key, job in jobs.items()
+          if job.stage == 'ng_scale' and not job.post.get('not_run')]
+    ng.append(('ng_adam_65k poly_pallas',
+               dict(jobs['ng_adam_65k'].cfg, window=NG_TWIN_WINDOW,
+                    eval_backend='poly_pallas')))
+    for key, config in ng:
+        def make(graph, config=config):
+            return VMCTrainer(VMCConfig(**dict(
+                config, log_every=NG_TWIN_WINDOW, device='cuda')),
+                graph=graph)
+        label = f"quality {key} (batch {config['batch_size']})"
+        launches, row = quality_twin(torch, label, make, catalogue_epoch_calls(
+            {k: v for k, v in config.items()
+             if k not in ('batch_size', 'window')}))
+        if config.get('eval_backend') == 'poly_pallas':
+            row['k3_at_path_shapes'] = k3_at_path_shapes(torch, label, make)
+        add(key, launches, row)
+    return total, rows
+
+
 def phase_table(torch, params, jax_raw, jax_clipped, ancestral_wps=None,
                 k3_b2b_ms=None):
     """Phases 23, 38-39, 30-31, 50, 6-8, 46-49, 9-26, 51-53, 55, 27,
-    32-33, 54, 56, 34-37, 58, 40-41, 57 and 42-45 in order, as (name, run): run() ->
+    32-33, 54, 56, 34-37, 58-59, 40-41, 57 and 42-45 in order, as (name, run): run() ->
     (the kernel
     launches on that path, or None, and the phase's figures)."""
     r4 = json.loads(JAX_EVAL_R4.read_text())[f'results/{SPRING_RUN.name}']
@@ -5725,6 +5875,8 @@ def phase_table(torch, params, jax_raw, jax_clipped, ancestral_wps=None,
             fidelity=(ED40_H2, r5['h2_2d2e_antisym']['fidelity_ed40']))),
         # ---- 58. the system catalogue from scratch ----
         ('catalogue', lambda: catalogue_phase(torch)),
+        # ---- 59. the round-5 quality studies' paths ----
+        ('quality', lambda: quality_phase(torch)),
         # ---- 40-43. the table backend's evaluation and window; the
         # density side's new model and dataset ----
         ('table-eval', lambda: table_eval_phase(torch, jax_raw,
@@ -5783,7 +5935,7 @@ def main(argv=None) -> int:
              "dp-nccl-1, dp-metropolis-1, dp-spring-1, dp-gloo-2, "
              "posterior-sharded-1, graph-posterior-smc-sharded-1, "
              "graph-posterior-nuts-sharded-1, be4-eval, box4-eval, "
-             "li-2d-eval, h2-2d-eval, catalogue, table-kernels, "
+             "li-2d-eval, h2-2d-eval, catalogue, quality, table-kernels, "
              "table-hpsi, "
              "table-eval, graph-table, graph-table-menu, rqs-density, "
              "gm-density, compat, "

@@ -574,7 +574,13 @@ class VMCTrainer:
         JAX trainer's flat Adam moments, SPRING dict or pre-round-4 flat
         delta.  An Adam trainer re-initialises its moments on any other
         form, with the JAX trainer's notice; a SPRING trainer raises
-        ValueError on one it cannot take; SR keeps no state."""
+        ValueError on one it cannot take; SR keeps no state.
+
+        Only the state is read, as optax's state holds only the moments
+        and the count: the hyperparameters (Adam's ``lr``, ``betas``,
+        ``eps``, ``capturable``; SPRING's and SR's are not in their state)
+        stay those this trainer's config built, so a run resumed at
+        another learning rate trains at it."""
         opt, kind = self.step.optimizer, self.config.optimizer
         if kind == 'adam':
             opt.state.clear()
@@ -587,12 +593,17 @@ class VMCTrainer:
                     for name, p in self.model.named_parameters():
                         opt.state[p] = moments[name]
                 elif isinstance(saved, dict) and 'param_groups' in saved:
-                    # the device decides the form, not the saved groups
-                    # (Adam takes them over): a capturable step count
-                    # lives on the card, the CPU's stays a host tensor
+                    # Adam's load_state_dict takes every hyperparameter
+                    # from the saved groups: hand it this trainer's own,
+                    # the saved parameter indices kept (the device's
+                    # capturable decides where the step count lives)
                     saved = _to_tensors(saved)
-                    for g in saved['param_groups']:
-                        g['capturable'] = capturable
+                    own = opt.state_dict()['param_groups']
+                    if len(own) != len(saved['param_groups']):
+                        raise ValueError("not this trainer's Adam groups")
+                    saved['param_groups'] = [
+                        {**mine, 'params': g['params']}
+                        for mine, g in zip(own, saved['param_groups'])]
                     opt.load_state_dict(saved)
                 else:
                     raise ValueError("not an Adam state")
