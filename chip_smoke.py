@@ -12,7 +12,8 @@ Phases (any failure exits non-zero; nothing is caught):
                kernel (back-to-back calls, and the kernel alone by the
                profiler's device time), plain version and (where one
                exists) a single library call: K1 sampler 'squared' and K3
-               basis jet at the flagship's shapes, K2 sampler 'linear' and
+               basis jet at the flagship's shapes (K3 also at the batch
+               sweep's, K3_TIMED_SITES), K2 sampler 'linear' and
                K4 table-lerp evaluation with its backward kernel at the
                density model's (K4 also at ragged sizes, on a table of 13
                bases and on unaligned views); K1 also on
@@ -301,6 +302,15 @@ Phases (any failure exits non-zero; nothing is caught):
                CPU's count; the 65,536 adam twin again under 'poly_pallas'
                (K3 12 per epoch) and K3 at its path's shapes (R = 131,072,
                the staged regime) against the plain core;
+ 60. scaling (after quality) — examples/batch_sweep_torch.py's window
+               ('poly_pallas') and examples/mcmc_scale_torch.py's
+               Metropolis (3 sweeps) and MALA (1 sweep) windows at
+               SCALING_BATCH walkers, graphed against eager in turns of one
+               window of SCALING_WINDOW epochs, to the bit, K1 / K3 per
+               replayed epoch = the CPU's count; the tail pass (vmc/evaluate.py::record_tail) on the 100k
+               checkpoint: the evaluation's chain continued to the bit, the
+               'dense' and finite-difference Hψ at its walkers within the
+               lap-forms limits;
  42. rqs-density — RQSFlow on benchmarks/circles_parity.py's split, 300
                epochs (cut from 12,000): loss falls, round trip under 1e-4,
                points/s;
@@ -970,10 +980,44 @@ def check_spline_eval(torch, model, gen):
     return rows, rows_b
 
 
+def k3_timed_row(torch, label, x, A, nc, k, out_k, out_p):
+    """K3 at x (R sites) on the jet table A, its output ``out_k`` held by
+    the caller against the plain core's ``out_p``: the error, kernel_ms
+    (CUDA events, wrapper in), device_ms (profiler), plain_ms, library_ms
+    (``torch.matmul`` of a built (R, cells × coefficients) W on A) and the
+    bound, printed and returned."""
+    from waveflow_tpu_torch.ops import cuda_jet
+    R = x.numel()
+    err = (out_k - out_p).abs().max().item()
+    W = torch.zeros((R, nc * k), device='cuda')
+    k_ms = cuda_ms(torch, lambda: cuda_jet.basis_jet_cuda(x, A, nc, k))
+    d_ms = device_ms(torch, lambda: cuda_jet.basis_jet_cuda(x, A, nc, k))
+    p_ms = cuda_ms(torch, lambda: cuda_jet.basis_jet_plain(x, A, nc, k))
+    lib_ms = cuda_ms(torch, lambda: torch.matmul(W, A))
+    lib_d_ms = device_ms(torch, lambda: torch.matmul(W, A))
+    N = A.shape[1]
+    b_ms, b_by = bound_ms(4 * (R + A.numel() + R * N), 2 * R * N * k)
+    print(f"{label} R={R}: max|d| {err:.3e} "
+          f"(rtol 2e-5, atol 2e-4) | kernel_ms {k_ms:.4f} device_ms "
+          f"{d_ms:.4f} plain_ms {p_ms:.4f} library_ms {lib_ms:.4f} "
+          f"library_device_ms {lib_d_ms:.4f} (matmul of a built W) "
+          f"bound_ms {b_ms:.5f} ({b_by})", flush=True)
+    return dict(max_abs_err=err, ms=k_ms, device_ms=d_ms, plain_ms=p_ms,
+                library_ms=lib_ms, library_device_ms=lib_d_ms, bound_ms=b_ms,
+                bound_by=b_by, plan=cuda_jet.last_plan)
+
+
+# K3's timed sites per jet call: the flagship's train-256 (512) and
+# eval-65k (131,072), and the batch sweep's 1,024 / 4,096 / 16,384 walkers
+# (examples/batch_sweep_torch.py, two coordinates each).  Timed here, before
+# any profiled graph phase: after those the profiler drops eager launches
+K3_TIMED_SITES = (512, 2048, 8192, 32768, 131072)
+
+
 def check_basis_jet(torch, ops, tabs_i, tabs_b, gen):
     """K3 against the plain core, and its derivative rules against the
     plain backend, for the I-spline (29 bases) and OB (28 bases) jets: at
-    R = 512 and 131,072 (timed), and at ragged sizes on both sides of the
+    K3_TIMED_SITES (timed), and at ragged sizes on both sides of the
     kernel's direct/staged switch, x partly outside [0, 1] throughout."""
     from waveflow_tpu_torch.ops import cuda_jet
     switch = cuda_jet.STAGED_MIN_SITES
@@ -985,7 +1029,7 @@ def check_basis_jet(torch, ops, tabs_i, tabs_b, gen):
         ev_p = ops.make_poly_evaluator(tabs, use_ob=use_ob,
                                        jet_backend='xla', device='cuda')
         A, nc, k = ev_k.A_jet, ev_k.n_cells, ev_k.ncoef
-        for R in (512, 131072):
+        for R in K3_TIMED_SITES:
             x = torch.rand((R,), generator=gen, device='cuda') * 1.1 - 0.05
             out_k = cuda_jet.basis_jet_cuda(x, A, nc, k)
             out_p = cuda_jet.basis_jet_plain(x, A, nc, k)
@@ -995,25 +1039,8 @@ def check_basis_jet(torch, ops, tabs_i, tabs_b, gen):
                 if not torch.allclose(a, b, rtol=2e-5, atol=2e-4):
                     fail(f"K3 {label} {what} R={R} disagrees: max "
                          f"{(a - b).abs().max().item():.3e}")
-            err = (out_k - out_p).abs().max().item()
-            W = torch.zeros((R, nc * k), device='cuda')
-            k_ms = cuda_ms(torch, lambda: cuda_jet.basis_jet_cuda(x, A, nc, k))
-            d_ms = device_ms(torch, lambda: cuda_jet.basis_jet_cuda(x, A, nc, k))
-            p_ms = cuda_ms(torch, lambda: cuda_jet.basis_jet_plain(x, A, nc, k))
-            lib_ms = cuda_ms(torch, lambda: torch.matmul(W, A))
-            lib_d_ms = device_ms(torch, lambda: torch.matmul(W, A))
-            N = A.shape[1]
-            b_ms, b_by = bound_ms(4 * (R + A.numel() + R * N), 2 * R * N * k)
-            rows[(label, R)] = dict(max_abs_err=err, ms=k_ms, device_ms=d_ms,
-                                    plain_ms=p_ms, library_ms=lib_ms,
-                                    library_device_ms=lib_d_ms,
-                                    bound_ms=b_ms, bound_by=b_by,
-                                    plan=cuda_jet.last_plan)
-            print(f"K3 basis_jet {label} R={R}: max|d| {err:.3e} "
-                  f"(rtol 2e-5, atol 2e-4) | kernel_ms {k_ms:.4f} device_ms "
-                  f"{d_ms:.4f} plain_ms {p_ms:.4f} library_ms {lib_ms:.4f} "
-                  f"library_device_ms {lib_d_ms:.4f} (matmul of a built W) "
-                  f"bound_ms {b_ms:.5f} ({b_by})", flush=True)
+            rows[(label, R)] = k3_timed_row(torch, f"K3 basis_jet {label}",
+                                            x, A, nc, k, out_k, out_p)
         seen = {}
         for R in ragged:
             x = torch.rand((R,), generator=gen, device='cuda') * 1.1 - 0.05
@@ -5629,14 +5656,16 @@ QUALITY_WINDOW = 5
 NG_TWIN_WINDOW = 2
 
 
-def refresh_calls(config, n_windows: int) -> dict:
+def refresh_calls(config, n_windows: int, refresh_every=1) -> dict:
     """K1 and K3 launches of ``n_windows`` MCMC windows from scratch with a
-    refresh every window (the warm start and each refresh) as the code
-    makes them on the CPU, at 8 walkers, narrow splines and windows of one
-    epoch: the count depends on none of them."""
+    refresh every ``refresh_every`` windows (the warm start and each
+    refresh; 'auto' as the config resolves it) as the code makes them on
+    the CPU, at 8 walkers, narrow splines and windows of one epoch: the
+    count depends on none of them."""
     from waveflow_tpu_torch.vmc import VMCConfig, VMCTrainer
     t = VMCTrainer(VMCConfig(**dict(config, batch_size=8, window=1,
-                                    log_every=1, mcmc_refresh_every=1,
+                                    log_every=1,
+                                    mcmc_refresh_every=refresh_every,
                                     spline_degree=3, num_knots=6,
                                     n_spline_base_mesh_points=300,
                                     device='cpu')))
@@ -5757,10 +5786,101 @@ def quality_phase(torch):
     return total, rows
 
 
+# the scaling phase: examples/batch_sweep_torch.py's and
+# examples/mcmc_scale_torch.py's windows at this batch, graphed against
+# eager in turns of one window of SCALING_WINDOW epochs (K3 at the batch
+# sweep's sites is timed in phase 3, K3_TIMED_SITES)
+SCALING_BATCH = 4096
+SCALING_WINDOW = 2
+# the tail pass on the committed 100k checkpoint, cut to a few blocks
+SCALING_TAIL = dict(k=8, n_blocks=2, skip_blocks=2, sweeps_per_block=5,
+                    n_warmup_sweeps=20, batch_size=4096)
+
+
+def scaling_phase(torch, params):
+    """The batch and MCMC scaling studies' paths on the card:
+
+      * examples/batch_sweep_torch.py's window (the flagship at seed 0, adam
+        without a clip) at SCALING_BATCH walkers under 'poly_pallas', and
+        examples/mcmc_scale_torch.py's Metropolis (3 sweeps) and MALA (1
+        sweep) windows at SCALING_BATCH ('poly', step 0.5, the sampler's
+        target acceptance), each graphed against its eager twin in turns
+        of one window of SCALING_WINDOW epochs (``quality_twin``): to the
+        bit, every loss finite, K1 / K3 per replayed epoch (over the graph
+        twin's two windows from scratch for the MCMC twins: the warm start)
+        equal to the CPU's count;
+      * the tail pass (vmc/evaluate.py::record_tail) once on the committed
+        100k checkpoint after an evaluation cut to SCALING_TAIL's blocks: it
+        continues the evaluation's chain (the last block's raw mean equal
+        to the bit), its rows are finite, and at them the 'dense' form
+        lies within LAP_FORMS_RTOL and the finite difference (where its
+        stencil stays inside the box and the sorted sector) within
+        LAP_FD_RTOL of max|Hψ| from the pass's own Hψ."""
+    from waveflow_tpu_torch.vmc import (VMCConfig, VMCTrainer,
+                                        evaluate_trainer, record_tail)
+    sweep = example_module('batch_sweep_torch')
+    mcmc = example_module('mcmc_scale_torch')
+    rows, total = {}, {}
+    recipes = [('batch_sweep poly_pallas', 'poly_pallas', {})]
+    recipes += [(f'mcmc_scale {sampler} s{sweeps}', 'poly',
+                 dict(sampler=sampler, mcmc_sweeps=sweeps, mcmc_step_size=0.5,
+                      mcmc_target_accept=mcmc.TARGET_ACCEPT[sampler]))
+                for sampler, sweeps in (('metropolis', 3), ('mala', 1))]
+    for name, backend, extra in recipes:
+        def make(graph, backend=backend, extra=extra):
+            return sweep.build(SCALING_BATCH, SCALING_WINDOW, backend, 'cuda',
+                               graph=graph, **extra)
+        config = {k: v for k, v in sweep.config(
+            SCALING_BATCH, SCALING_WINDOW, backend, **extra).items()
+            if k not in ('batch_size', 'window', 'log_every')}
+        label = f"scaling {name} (batch {SCALING_BATCH})"
+        if extra:
+            # the MCMC twin's K1 is its warm start: counted over the graph
+            # twin's two windows from scratch
+            derived, per_epoch = refresh_calls(config, 2, 'auto'), False
+        else:
+            derived, per_epoch = catalogue_epoch_calls(config), True
+        launches, row = quality_twin(torch, label, make, derived, per_epoch)
+        rows[name] = row
+        total = {k: total.get(k, 0) + v for k, v in launches.items()}
+
+    trainer = VMCTrainer(VMCConfig(batch_size=256, device='cuda'))
+    trainer.model.load_state_dict(params)
+    cut = {k: v for k, v in SCALING_TAIL.items()
+           if k not in ('k', 'n_blocks', 'skip_blocks')}
+    ev = evaluate_trainer(trainer, n_blocks=SCALING_TAIL['skip_blocks'],
+                          **cut)
+    tail = record_tail(trainer, evaluation=ev, **SCALING_TAIL)
+    scale = tail['hpsi_scale']
+    dense = max(abs(r['hpsi_dense'] - r['hpsi']) for r in tail['rows']) / scale
+    fd = max((abs(r['hpsi_fd'] - r['hpsi']) for r in tail['rows']
+              if r['fd_inside']), default=0.0) / scale
+    finite = all(math.isfinite(v) for r in tail['rows']
+                 for v in (r['el'], r['el_dense'], r['el_fd'],
+                           r['el_float64']))
+    top = tail['rows'][0]
+    print(f"scaling tail (100k checkpoint, {SCALING_TAIL['batch_size']} "
+          f"walkers): same chain {tail['same_chain']} (last block "
+          f"{tail['last_block_mean']:.7f} / {tail['evaluation_last_block_mean']:.7f}) "
+          f"| top E_L {top['el']:.5f} at wall {top['wall_distance']:.4f}, "
+          f"gap {top['pair_distance']:.4f}; dense {dense:.3e}, finite "
+          f"difference {fd:.3e} of max|Hpsi| {scale:.4f} (limits "
+          f"{LAP_FORMS_RTOL:g}, {LAP_FD_RTOL:g}); float64 E_L "
+          f"{top['el_float64']:.5f}", flush=True)
+    if not tail['same_chain']:
+        fail("scaling tail: the pass did not continue the evaluation's chain")
+    if not finite or dense > LAP_FORMS_RTOL or fd > LAP_FD_RTOL:
+        fail(f"scaling tail: the forms disagree at the tail (dense {dense:.3e},"
+             f" finite difference {fd:.3e}) or a value is not finite")
+    rows['tail'] = dict(same_chain=tail['same_chain'], dense_rel=dense,
+                        fd_rel=fd, top=top, el_quantiles=tail['el_quantiles'])
+    return total, rows
+
+
 def phase_table(torch, params, jax_raw, jax_clipped, ancestral_wps=None,
                 k3_b2b_ms=None):
     """Phases 23, 38-39, 30-31, 50, 6-8, 46-49, 9-26, 51-53, 55, 27,
-    32-33, 54, 56, 34-37, 58-59, 40-41, 57 and 42-45 in order, as (name, run): run() ->
+    32-33, 54, 56, 34-37, 58-60, 40-41, 57 and 42-45 in order, as (name, run): run() ->
     (the kernel
     launches on that path, or None, and the phase's figures)."""
     r4 = json.loads(JAX_EVAL_R4.read_text())[f'results/{SPRING_RUN.name}']
@@ -5877,6 +5997,8 @@ def phase_table(torch, params, jax_raw, jax_clipped, ancestral_wps=None,
         ('catalogue', lambda: catalogue_phase(torch)),
         # ---- 59. the round-5 quality studies' paths ----
         ('quality', lambda: quality_phase(torch)),
+        # ---- 60. the batch and MCMC scaling studies' paths ----
+        ('scaling', lambda: scaling_phase(torch, params)),
         # ---- 40-43. the table backend's evaluation and window; the
         # density side's new model and dataset ----
         ('table-eval', lambda: table_eval_phase(torch, jax_raw,
@@ -5935,7 +6057,8 @@ def main(argv=None) -> int:
              "dp-nccl-1, dp-metropolis-1, dp-spring-1, dp-gloo-2, "
              "posterior-sharded-1, graph-posterior-smc-sharded-1, "
              "graph-posterior-nuts-sharded-1, be4-eval, box4-eval, "
-             "li-2d-eval, h2-2d-eval, catalogue, quality, table-kernels, "
+             "li-2d-eval, h2-2d-eval, catalogue, quality, scaling, "
+             "table-kernels, "
              "table-hpsi, "
              "table-eval, graph-table, graph-table-menu, rqs-density, "
              "gm-density, compat, "

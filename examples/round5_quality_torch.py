@@ -43,10 +43,24 @@ its name and power limit, as nvidia-smi gives them).  Rows go to
 ``<out-dir>/r5_<key>``; a row already there is skipped on a rerun.  Nothing
 is written under results/.
 
+The flagship and antisym rows also carry ``trace_chunks``: the medians of
+each 10,000 epochs of the loss trace beside those of JAX's committed trace.
+``--tail-k K`` adds the tail pass after the evaluation
+(vmc/evaluate.py::record_tail: the K largest local energies of 8 more
+blocks of the evaluation's own chain, each walker with its place and the
+'dense', finite-difference and float64 local energies there) as the row's
+``tail``; ``--eval-seeds 7,8,9`` evaluates the weights again at each
+evaluation seed (each with its tail under ``--tail-k``), from the saved
+checkpoint when the row is already there, without training again.
+
   python3 examples/round5_quality_torch.py --only flagship
   python3 examples/round5_quality_torch.py \\
       --keys he2d2e_antisym,h2_2d2e_antisym --out-dir runs/antisym
   python3 examples/round5_quality_torch.py --only ng_scale
+  python3 examples/round5_quality_torch.py \\
+      --keys flagship_fwd_batched_100k,h2_2d2e_antisym --seed 4 --tail-k 32
+  python3 examples/round5_quality_torch.py --keys flagship_fwd_batched_100k \\
+      --out-dir runs/r5 --eval-seeds 7,8,9 --tail-k 32   # no training
   python3 examples/round5_quality_torch.py --device cpu \\
       --keys box2_2d_antisym --epochs 200 --decay-epochs 100 \\
       --out-dir runs/rehearsal         # a CPU rehearsal
@@ -75,7 +89,8 @@ from waveflow_tpu_torch.physics import (exact_free_fermion_energy,
                                         exact_free_fermion_energy_2d,
                                         exact_ground_state_2d_2e)
 from waveflow_tpu_torch.utils.fidelity import fidelity_2d_2e
-from waveflow_tpu_torch.vmc import VMCConfig, VMCTrainer, evaluate_trainer
+from waveflow_tpu_torch.vmc import (VMCConfig, VMCTrainer, evaluate_trainer,
+                                   record_tail)
 from waveflow_tpu_torch.vmc import graphs
 
 # the JAX script's rows (read only); its 40-point EDs sit beside them
@@ -92,6 +107,12 @@ FLAGSHIP_EXACT = -1.81604
 FLAGSHIP_BAND = (-1.81600, -1.81570)
 BUDGET_S = 180.0
 EVAL_KW = dict(sweeps_per_block=25, n_warmup_sweeps=250)
+# the evaluation seed of every row (evaluate_trainer's default)
+ROW_EVAL_SEED = 7
+# the tail pass: blocks run on past the evaluation's
+TAIL_BLOCKS = 8
+# the loss trace's chunks set beside JAX's committed results/r5_<key>/loss.npy
+TRACE_CHUNK = 10_000
 # JAX's row fields that are TPU figures (times; the TPU's memory verdict on
 # ng_spring_65k), left out of the row printed beside
 TPU_FIELDS = ('epochs_per_sec', 'wall_s', 'walkers_per_sec',
@@ -202,6 +223,26 @@ STAGES = ('flagship', 'antisym', 'li_refresh', 'box4', 'ng_scale',
 def _trace_median(losses, frac=0.2):
     tail = np.asarray(losses)[int(len(losses) * (1 - frac)):]
     return float(np.median(tail))
+
+
+def trace_chunks(save_dir, key: str, chunk: int = TRACE_CHUNK):
+    """The medians of each ``chunk`` epochs of the row's loss trace
+    (``<save_dir>/loss.npy``) and of JAX's committed trace for the same
+    row (results/r5_<key>/loss.npy, the seed suffix dropped), each with
+    the median of its last 2,000 epochs and of its last 20%; None for a
+    trace that is not there."""
+    def medians(path):
+        if not path.exists():
+            return None
+        losses = np.load(path)
+        return {'chunks': [float(np.median(losses[i:i + chunk]))
+                           for i in range(0, len(losses), chunk)],
+                'last_2000': float(np.median(losses[-2000:])),
+                'last_20pct': _trace_median(losses)}
+    return {'chunk': chunk,
+            'port': medians(Path(save_dir) / 'loss.npy'),
+            'jax': medians(JAX_ROWS.parent / f"r5_{key.split('_seed')[0]}"
+                           / 'loss.npy')}
 
 
 def combined_sigma(value, stderr, ref, ref_stderr):
@@ -385,12 +426,14 @@ def run_vmc(job: Job, run: Run, need_trainer: bool = False):
     epochs = job.epochs if a.epochs is None else a.epochs
     t0 = time.time()
     t = VMCTrainer(cfg)
+    if a.init_from is not None and not t.load_checkpoint(a.init_from):
+        raise FileNotFoundError(f"no checkpoint in {a.init_from}")
     _zero_launches()
     losses = t.train(num_epochs=epochs, verbose=False)
-    if job.decay:
-        decay_epochs, decay_lr = job.decay
-        if a.decay_epochs is not None:
-            decay_epochs = a.decay_epochs
+    decay_epochs, decay_lr = job.decay or (0, None)
+    if a.decay_epochs is not None:
+        decay_epochs = a.decay_epochs
+    if job.decay and decay_epochs:
         cfg2 = VMCConfig(**{**cfg.__dict__, 'learning_rate': decay_lr})
         t2 = VMCTrainer(cfg2)
         assert t2.load_checkpoint(cfg.save_dir)
@@ -416,6 +459,40 @@ def run_vmc(job: Job, run: Run, need_trainer: bool = False):
     run.out[key] = row
     run.save()
     return row, t
+
+
+def wants_trainer(run: Run) -> bool:
+    """Whether the row's trainer is needed after its evaluation: for the
+    evaluation seeds or the tail pass."""
+    return bool(run.args.eval_seeds or run.args.tail_k)
+
+
+def evaluate_seeds(job: Job, row: dict, trainer, run: Run):
+    """The trained weights evaluated again at each of ``--eval-seeds`` (the
+    JAX protocol, another evaluation chain each; the row's own seed, 7,
+    reproduces the row's figures), each followed by the tail pass of
+    ``--tail-k`` walkers on its chain (``record_tail``); kept in the row as
+    ``eval_seeds`` by seed, and the tail of the row's own chain as
+    ``tail``.  Seeds already in the row are not run again."""
+    a = run.args
+    seeds = a.eval_seeds or ([ROW_EVAL_SEED] if a.tail_k else [])
+    done = row.setdefault('eval_seeds', {})
+    for seed in seeds:
+        if str(seed) in done and (not a.tail_k or 'tail' in done[str(seed)]):
+            continue
+        ev = evaluate_trainer(trainer, n_blocks=job.eval_blocks,
+                              batch_size=job.eval_batch, seed=seed, **EVAL_KW)
+        entry = {**_evaluation_row(ev), 'finite': _finite([], ev)}
+        if a.tail_k:
+            entry['tail'] = record_tail(
+                trainer, k=a.tail_k, n_blocks=TAIL_BLOCKS,
+                skip_blocks=job.eval_blocks, batch_size=job.eval_batch,
+                seed=seed, evaluation=ev, **EVAL_KW)
+        done[str(seed)] = entry
+        run.save()
+    own = done.get(str(ROW_EVAL_SEED), {})
+    if 'tail' in own:
+        row['tail'] = own['tail']
 
 
 def finish(job: Job, row: dict, run: Run):
@@ -461,16 +538,22 @@ def ed_2d2e(name: str, n_states: int, out_dir: Path):
 
 def stage_flagship(jobs, run: Run):
     for job in jobs:
-        row, _ = run_vmc(job, run)
+        row, trainer = run_vmc(job, run, need_trainer=wants_trainer(run))
         row['exact_richardson'] = job.post['exact']
         row['deviation_eval'] = row['eval_clipped'] - job.post['exact']
+        row['trace_chunks'] = trace_chunks(run.config(job, run.key(job))
+                                           .save_dir, run.key(job),
+                                           run.args.trace_chunk)
+        if trainer is not None and wants_trainer(run):
+            evaluate_seeds(job, row, trainer, run)
         finish(job, row, run)
 
 
 def stage_antisym(jobs, run: Run):
     for job in jobs:
         key = run.key(job)
-        if key in run.out and 'fidelity_ed40' in run.out[key]:
+        if (key in run.out and 'fidelity_ed40' in run.out[key]
+                and not wants_trainer(run)):
             continue
         row, trainer = run_vmc(job, run, need_trainer=True)
         exact, floor = job.post['exact'], job.post['floor']
@@ -481,14 +564,20 @@ def stage_antisym(jobs, run: Run):
             row['below_floor'] = bool(row['eval_clipped'] < floor)
             row['below_floor_sigma'] = ((floor - row['eval_clipped'])
                                         / row['eval_clipped_stderr'])
-        t0 = time.time()
-        _, psi_ed, sites, x = ed_2d2e(job.post['ed'], job.post['n_states'],
-                                      run.out_dir)
-        fid = fidelity_2d_2e(trainer.model.psi,
-                             psi_ed[:, 0] if job.post['n_states'] == 1
-                             else psi_ed, sites, x, device=trainer.device)
-        row['fidelity_ed40'] = float(fid)
-        row['fidelity_wall_s'] = time.time() - t0
+        row['trace_chunks'] = trace_chunks(run.config(job, key).save_dir, key,
+                                           run.args.trace_chunk)
+        if 'fidelity_ed40' not in row:
+            t0 = time.time()
+            _, psi_ed, sites, x = ed_2d2e(job.post['ed'],
+                                          job.post['n_states'], run.out_dir)
+            fid = fidelity_2d_2e(trainer.model.psi,
+                                 psi_ed[:, 0] if job.post['n_states'] == 1
+                                 else psi_ed, sites, x,
+                                 device=trainer.device)
+            row['fidelity_ed40'] = float(fid)
+            row['fidelity_wall_s'] = time.time() - t0
+        if wants_trainer(run):
+            evaluate_seeds(job, row, trainer, run)
         finish(job, row, run)
 
 
@@ -627,9 +716,29 @@ def parse_args(argv=None):
     ap.add_argument('--epochs', type=int, default=None,
                     help='training epochs of every row (default: the plan)')
     ap.add_argument('--decay-epochs', type=int, default=None,
-                    help='epochs of every decay (default: the plan)')
+                    help='epochs of every decay (default: the plan; 0: no '
+                         'decay)')
+    ap.add_argument('--init-from', default=None,
+                    help='a checkpoint directory (the port\'s or the JAX '
+                         'trainer\'s) every trained row starts from: '
+                         'tests/_jax_shared_init.py writes JAX\'s initial '
+                         'state')
+    ap.add_argument('--trace-chunk', type=int, default=TRACE_CHUNK,
+                    help='epochs per median of trace_chunks (default '
+                         f'{TRACE_CHUNK:,})')
     ap.add_argument('--budget-s', type=float, default=None,
                     help=f'the ng rows\' budget (default {BUDGET_S:g} s)')
+    ap.add_argument('--eval-seeds', default=None,
+                    type=lambda v: [int(s) for s in v.split(',')],
+                    help='flagship and antisym rows: evaluate the weights '
+                         'again at each of these evaluation seeds (e.g. '
+                         '7,8,9), from the saved checkpoint when the row is '
+                         'already there (no training)')
+    ap.add_argument('--tail-k', type=int, default=0,
+                    help='flagship and antisym rows: after each evaluation, '
+                         'the tail pass keeps the K largest local energies '
+                         'of its chain with the other Laplacian forms there '
+                         '(vmc/evaluate.py::record_tail; 0: no pass)')
     return ap, ap.parse_args(argv)
 
 

@@ -18,6 +18,8 @@ MFlow params are the pair ``(transform_params, sp_params)``; Flow params
 are ``transform_params`` alone (its priors have none).  The antisymmetrized
 Waveflow's parameters are its φ's, under φ's names (models/antisym.py), so
 ``params_from_jax`` loads a JAX antisym run as it loads a Waveflow.
+``params_to_jax`` is the way back: a port Waveflow's parameters as the
+JAX pytree, so that the JAX package can evaluate weights the port trained.
 ``load_jax_checkpoint`` reads a checkpoint pickle written by the JAX
 trainer without JAX or optax installed; ``adam_state_from_jax`` and
 ``mcmc_state_from_jax`` carry its optimizer moments and Metropolis or MALA
@@ -139,6 +141,58 @@ def params_from_jax(tree) -> dict:
 
 # MFlow params have the Waveflow layout: (transform_params, sp_params)
 mflow_params_from_jax = params_from_jax
+
+
+def _array(v) -> np.ndarray:
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu().numpy()
+    return np.array(v, np.float32)
+
+
+def _mlp_tree(state: dict, prefix: str) -> list:
+    n = sum(1 for name in state if name.startswith(f'{prefix}W.'))
+    return [(_array(state[f'{prefix}W.{k}']), _array(state[f'{prefix}b.{k}']))
+            for k in range(n)]
+
+
+def params_to_jax(source, n_layers: int | None = None):
+    """The inverse of ``params_from_jax``: a Waveflow's (or MFlow's)
+    parameters as the JAX package's pytree, ``(transform_params,
+    (mlp, zero_params))`` of numpy float32 arrays in JAX's containers: a
+    list of layers, ``()`` for a layer without parameters, an IMADE
+    layer's conditioner ``(mlp, zero_params)`` with ``mlp`` a list of
+    ``(W, b)``, an affine MADE layer a tuple of ``(W, b)``.
+
+    ``source`` is the module (its ``transform.layers`` give the layer
+    count) or a state dict (a module's, or a port checkpoint's
+    ``params``); for a state dict the count is ``n_layers``, by default
+    the factory's layout, BoxTransform then (IMADE, Reverse) per flow
+    layer.  Imports no JAX: the JAX side reads the tree as it reads its
+    own checkpoints."""
+    if isinstance(source, torch.nn.Module):
+        n_layers = len(source.transform.layers)
+        source = source.state_dict()
+    state = dict(source)
+    indices = {int(name.split('.')[2]) for name in state
+               if name.startswith('transform.layers.')}
+    if n_layers is None:
+        n_layers = 2 * len(indices) + 1
+    layers = []
+    for i in range(n_layers):
+        prefix = f'transform.layers.{i}.'
+        if f'{prefix}conditioner.zero_params' in state:
+            layers.append((_mlp_tree(state, f'{prefix}conditioner.mlp.'),
+                           _array(state[f'{prefix}conditioner.zero_params'])))
+        elif f'{prefix}transform.W.0' in state:
+            layers.append(tuple(_mlp_tree(state, f'{prefix}transform.')))
+        else:
+            layers.append(())
+    if indices - set(range(n_layers)):
+        raise ValueError(f"layers {sorted(indices - set(range(n_layers)))} "
+                         f"lie past n_layers={n_layers}")
+    prior = (_mlp_tree(state, 'conditioner.mlp.'),
+             _array(state['conditioner.zero_params']))
+    return (layers, prior)
 
 
 def load_jax_checkpoint(path) -> dict:

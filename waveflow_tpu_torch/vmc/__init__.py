@@ -9,6 +9,7 @@ from waveflow_tpu_torch.vmc.metropolis import (
 from waveflow_tpu_torch.vmc.mala import MALAState, make_mala_sampler
 from waveflow_tpu_torch.vmc.evaluate import (
     EnergyEvaluation, block_statistics, evaluate_energy, evaluate_trainer,
+    record_tail,
 )
 from waveflow_tpu_torch.vmc.hmc import (
     HMCState, make_hmc_sampler, make_parameter_posterior,

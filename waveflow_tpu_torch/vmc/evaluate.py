@@ -13,10 +13,15 @@ and the running accept rate; the blocked stderr, the 2× / 4× block-doubling
 stderrs and the opt-in clip ladder come from the block arrays
 (``block_statistics``, numpy float64 as in the reference).  The block
 values stay on the device until the last block; the host reads them once.
+
+``record_tail`` (the port's own) runs the same chain on past the
+evaluation and keeps its largest local energies, each with the other
+Laplacian forms' values there.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import NamedTuple
 
 import numpy as np
@@ -215,3 +220,172 @@ def evaluate_trainer(trainer, n_blocks: int = 64, sweeps_per_block: int = 25,
         c.box_length, positions, generator, n_blocks=n_blocks,
         sweeps_per_block=sweeps_per_block, n_warmup_sweeps=n_warmup_sweeps,
         sort_fermions=sort_fermions, clip_ladder=clip_ladder, graph=graph)
+
+
+def _distances(x: np.ndarray, n_el: int, dim: int, box_length: float):
+    """(the least electron-electron distance, the least distance between
+    two electrons' first coordinates, the distance to the nearer wall of
+    the box [−L, L]^D) of each walker of x (k, n_el · dim)."""
+    xe = x.reshape(len(x), n_el, dim)
+    if n_el > 1:
+        diff = xe[:, :, None, :] - xe[:, None, :, :]
+        off = ~np.eye(n_el, dtype=bool)
+        pair = np.sqrt((diff ** 2).sum(-1))[:, off].min(-1)
+        xgap = np.abs(diff[..., 0])[:, off].min(-1)
+    else:
+        pair = xgap = np.full(len(x), np.inf)
+    wall = np.minimum(x + box_length, box_length - x).min(-1)
+    return pair, xgap, wall
+
+
+def record_tail(trainer, k: int = 32, n_blocks: int = 8,
+                skip_blocks: int = 64, sweeps_per_block: int = 25,
+                n_warmup_sweeps: int = 250, batch_size: int | None = None,
+                seed: int = 7, fd_eps: float = 0.05,
+                evaluation: EnergyEvaluation | None = None,
+                graph: bool | None = None) -> dict:
+    """The ``k`` largest local energies met by ``evaluate_trainer``'s chain
+    run on for ``n_blocks`` more blocks, each with where it sits and what
+    the other Laplacian forms give there: a separate pass, so that the
+    evaluation's own numbers are untouched.
+
+    The chain is the evaluation's: the same draws (a generator seeded by
+    ``seed``), step size, warm-up and ``skip_blocks`` blocks of frozen-step
+    sweeps, with no E_L pass until the last of them, whose raw mean is
+    held to ``evaluation.block_means[-1]`` when ``evaluation`` is given
+    (``same_chain``: the pass continues the chain that made the figures).
+    Then ``n_blocks`` blocks, each ``sweeps_per_block`` sweeps and an E_L
+    pass through the trainer's own ``h_fn`` (``el``); the ``k`` largest of
+    those ``n_blocks × B`` values are kept, largest first, with:
+
+      x, log|ψ|; the least electron-electron distance and the distance to
+      the nearer wall of [−L, L]^D (for two electrons in 1D the first is
+      the gap x₂ − x₁);
+      Hψ and E_L by the 'dense' Hessian trace and by the central finite
+      difference of step ``fd_eps`` over every coordinate, and whether
+      that stencil stays inside the box and the sorted sector
+      (``fd_inside``; outside it the difference reads ψ where it is not
+      defined) (the Laplacian
+      forms chip_smoke.py's lap-forms phase holds to each other; at the
+      default step the f32 difference on the flagship 100k checkpoint lies
+      closer to the analytic form than at the gate's 0.1, where the O(ε²)
+      term is most of the gap, or at 0.02, where the f32 rounding is);
+      E_L in float64 through a float64 copy of the model ('fwd_batched'),
+      where the model's backend is plain PyTorch (not 'poly_pallas' on a
+      card).
+
+    Also the pass's E_L quantiles, its raw and clipped means (the clip
+    window as the evaluation's), and ``hpsi_scale``, max |Hψ| over the
+    pass's last block, against which the forms' differences are read."""
+    from waveflow_tpu_torch.physics.hamiltonian import (
+        construct_hamiltonian_function, get_potential, laplacian_numerical,
+    )
+    c = trainer.config
+    model, h_fn = trainer.model, trainer.h_fn
+    B = batch_size or max(4096, c.batch_size)
+    n_el, dim = int(trainer.n_particle), c.n_space_dimension
+    generator = torch.Generator(trainer.device).manual_seed(seed)
+    positions = model.sample(B, generator=generator)
+    sort = n_el > 1 and sector_mode(trainer.xu_coord_type)
+    init_fn, step_fn, _ = make_metropolis_sampler(
+        model.log_pdf, bounds=(-c.box_length, c.box_length),
+        proposal_map=sector_projection(sort))
+    walkers = tuple(f.clone() for f in init_fn(positions, step_size=0.4))
+
+    def sweep():
+        graphs.copy_into(walkers, step_fn(MetropolisState(*walkers),
+                                          generator))
+
+    def frozen_block():
+        state = MetropolisState(*walkers)
+        for _ in range(sweeps_per_block):
+            state = step_fn(state, generator)._replace(
+                step_size=state.step_size)
+        graphs.copy_into(walkers, state)
+
+    use = graphs.use_graph(graph, positions.device)
+    gens = () if generator is None else (generator,)
+    graphs.make_window(sweep, generators=gens, graph=use).window(
+        n_warmup_sweeps)
+    blocks = graphs.make_window(frozen_block, generators=gens, graph=use)
+
+    def local_energy(x):
+        with torch.no_grad():
+            return h_fn(x)[:, 0] / _safe_psi(model.psi(x))
+
+    for _ in range(skip_blocks):
+        blocks()
+    out = {'k': k, 'n_blocks': n_blocks, 'skip_blocks': skip_blocks,
+           'sweeps_per_block': sweeps_per_block, 'n_walkers': B,
+           'seed': seed, 'fd_eps': fd_eps}
+    if evaluation is not None and skip_blocks:
+        last = float(local_energy(walkers[0]).mean())
+        out['last_block_mean'] = last
+        out['evaluation_last_block_mean'] = float(evaluation.block_means[-1])
+        out['same_chain'] = bool(last == out['evaluation_last_block_mean'])
+    values, xs = [], []
+    for _ in range(n_blocks):
+        blocks()
+        x = walkers[0].clone()
+        values.append(local_energy(x))
+        xs.append(x)
+    e, x = torch.cat(values), torch.cat(xs)
+    center = _median(e)
+    mad = (e - center).abs().mean()
+    clip = 5.0 * mad
+    q = torch.quantile(e.double().cpu(),
+                       torch.tensor([0.5, 0.99, 0.999, 0.9999, 1.0],
+                                    dtype=torch.float64))
+    top_e, order = torch.topk(e, min(k, len(e)))
+    top_x = x[order]
+    with torch.no_grad():
+        hpsi = h_fn(x[-B:])[:, 0]
+        out['hpsi_scale'] = float(hpsi.abs().max())
+    out.update(
+        el_mean=float(e.mean()),
+        el_clipped_mean=float(torch.clamp(e, center - clip,
+                                          center + clip).mean()),
+        el_clip_window=[float(center - clip), float(center + clip)],
+        el_quantiles=dict(zip(('0.5', '0.99', '0.999', '0.9999', 'max'),
+                              map(float, q))),
+        above_clip=int((e > center + clip).sum()),
+        top_k_share_of_raw_mean=float((top_e.sum()
+                                       - len(top_e) * e.mean()) / len(e)))
+    v_fn = get_potential(trainer.protons, n_space_dimensions=dim,
+                         interactions=c.interactions)
+    dense = construct_hamiltonian_function(
+        model.psi, protons=trainer.protons, n_space_dimensions=dim,
+        laplacian_mode='dense', interactions=c.interactions)
+    lap_fd = laplacian_numerical(model.psi, eps=fd_eps,
+                                 n_dims=top_x.shape[-1])
+    with torch.no_grad():
+        psi = model.psi(top_x)
+        h_pass = h_fn(top_x)[:, 0]
+        h_dense = dense(top_x)[:, 0]
+        h_fd = -0.5 * lap_fd(top_x) + v_fn(top_x) * psi
+    forms = {'': h_pass, '_dense': h_dense, '_fd': h_fd}
+    columns = {f'hpsi{s}': h for s, h in forms.items()}
+    columns.update({f'el{s}': h / _safe_psi(psi) for s, h in forms.items()})
+    if c.eval_backend == 'poly' or top_x.device.type == 'cpu':
+        m64 = copy.deepcopy(model).double()
+        x64 = top_x.double()
+        h64 = construct_hamiltonian_function(
+            m64.psi, protons=trainer.protons, n_space_dimensions=dim,
+            laplacian_mode='fwd_batched', interactions=c.interactions)
+        with torch.no_grad():
+            columns['el_float64'] = h64(x64)[:, 0] / _safe_psi(m64.psi(x64))
+        del m64
+    columns = {name: v.double().cpu().numpy() for name, v in columns.items()}
+    xn = top_x.double().cpu().numpy()
+    pair, xgap, wall = _distances(xn, n_el, dim, c.box_length)
+    # the stencil x ± ε stays in the box, and in the sorted sector (no two
+    # electrons' first coordinates closer than ε) where ψ is defined on it
+    inside = (wall > fd_eps) & ((xgap > fd_eps) if sort else True)
+    log_psi = np.log(np.abs(psi.double().cpu().numpy()))
+    out['rows'] = [
+        {'x': xn[i].tolist(), 'pair_distance': float(pair[i]),
+         'wall_distance': float(wall[i]), 'log_abs_psi': float(log_psi[i]),
+         'fd_inside': bool(inside[i]),
+         **{name: float(v[i]) for name, v in columns.items()}}
+        for i in range(len(xn))]
+    return out
