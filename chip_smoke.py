@@ -18,7 +18,9 @@ Phases (any failure exits non-zero; nothing is caught):
                density model's (K4 also at ragged sizes, on a table of 13
                bases and on unaligned views); K1 also on
                a table too large for shared memory (the streamed regime)
-               and on meshes that take the kernel's other branches;
+               and on meshes that take the kernel's other branches, and
+               on the big ansatz's 36-base prior table (``streamed_k1``,
+               the studies phase's rows);
                print each kernel's launch plan at those shapes;
   4. checkpoint — load the committed JAX flagship checkpoint, draw 65,536
                ancestral walkers and compute the raw mean local energy,
@@ -311,6 +313,16 @@ Phases (any failure exits non-zero; nothing is caught):
                checkpoint: the evaluation's chain continued to the bit, the
                'dense' and finite-difference Hψ at its walkers within the
                lap-forms limits;
+ 61. studies (after scaling) — examples/frontier_2d2e_torch.py's He recipe
+               from scratch on the 'paired2d' sector (which the trainer
+               must resolve) and examples/sr_study_torch.py's
+               big_spring_0.05_m0.9_tr and big_sr_cg_0.05_tr (31 knots, 4
+               layers), each graphed against eager in turns of one window,
+               to the bit, K1 / K3 per replayed epoch = the CPU's count,
+               the big rows' K1 in the 'streamed' regime; K1 on the big
+               prior's real 36-base table against its plain version at B =
+               256 and 4,096 (phase 3 of a whole run, ``streamed_k1``),
+               timed beside the staged 28-base table;
  42. rqs-density — RQSFlow on benchmarks/circles_parity.py's split, 300
                epochs (cut from 12,000): loss falls, round trip under 1e-4,
                points/s;
@@ -585,7 +597,7 @@ def poly_quantile_err(torch, ev, c, u, x):
     return (below / cdf[..., -1] - u.double()).abs()
 
 
-def check_sampler(torch, gen, kind, ev, coeffs_of, B_max):
+def check_sampler(torch, gen, kind, ev, coeffs_of, B_max, in_probability=False):
     """A sampler kernel (K1: kind 'squared', K2: kind 'linear') against its
     plain path on the inputs the main path gives it: the model's conditional
     coefficients ``coeffs_of(points)[:, column]`` of both ancestral columns,
@@ -602,7 +614,14 @@ def check_sampler(torch, gen, kind, ev, coeffs_of, B_max):
     f32 versions are held to a float64 plain draw on the same inputs,
     measured as the probability between the draw and the exact quantile:
     the kernel's largest must not exceed the f32 plain path's by more than
-    2 ulps of u."""
+    2 ulps of u.
+
+    ``in_probability``: the u <= 1 - 1e-4 draws too are held in
+    probability rather than in x (a density near zero over some cells lets
+    the two f32 prefix sums' rounding move a draw across them): at each
+    batch the kernel's largest |F64(x) − u| must not exceed the f32 plain
+    path's by more than the worst-case rounding of an f32 prefix sum over
+    the mesh's cells, n_cells × 2^-24 of the total; |dx| is reported."""
     import types
     from waveflow_tpu_torch.ops import cuda_sampler
     from waveflow_tpu_torch.ops.sampling import (
@@ -631,8 +650,9 @@ def check_sampler(torch, gen, kind, ev, coeffs_of, B_max):
         c1 = coeffs_of(torch.stack([x0, torch.zeros_like(x0)], -1))[:, 1]
     rows, tail = {}, {'dx': [], 'k64': [], 'p64': [], 'qk': [], 'qp': []}
     ragged = (1, 3, 255, 257, 300, 1000, B_max - 1)
+    body_tol = (n_mesh - 1) * 2.0 ** -24
     for B in (256, B_max, 'tail') + ragged:
-        errs = []
+        errs, body_q = [], {'k': [], 'p': []}
         for col, c in enumerate((c0, c1)):
             if B == 'tail':
                 c, uu = c[:n_tail].contiguous(), u_tail[col]
@@ -646,6 +666,10 @@ def check_sampler(torch, gen, kind, ev, coeffs_of, B_max):
             diff = (x_k - x_p).abs()
             t = uu > 1.0 - 1e-4
             errs.append(diff[~t])
+            if in_probability and B != 'tail':
+                for side, x in (('k', x_k), ('p', x_p)):
+                    body_q[side].append(quantile_err(
+                        torch, ev.table_t, c[~t], uu[~t], x[~t], kind))
             if t.any():
                 ct, ut = c[t], uu[t]
                 x64 = sample(ev_64, ct.double(), ut.double(), impl='plain')
@@ -660,7 +684,18 @@ def check_sampler(torch, gen, kind, ev, coeffs_of, B_max):
             continue
         diff = torch.cat(errs)
         err, med = diff.max().item(), diff.median().item()
-        if err > 6e-5:
+        q = {}
+        if in_probability:
+            q = {k: torch.cat(v).max().item() for k, v in body_q.items()}
+            print(f"{name} B={B} (n_bases {n_b}): max|F64(x) - u| over u <= "
+                  f"1 - 1e-4: kernel {q['k']:.3e}, f32 plain {q['p']:.3e} "
+                  f"(bound: plain + {body_tol:.3e}) | max|dx| {err:.3e}, "
+                  f"{(diff > 6e-5).sum().item()} draws beyond 6e-5", flush=True)
+            if q['k'] > q['p'] + body_tol:
+                fail(f"{name} lies farther from the float64 quantile than its "
+                     f"plain version at B={B}: {q['k']:.3e} > {q['p']:.3e} + "
+                     f"{body_tol:.3e}")
+        elif err > 6e-5:
             fail(f"{name} disagrees with its plain version at B={B}: max "
                  f"{err:.3e} for u <= 1 - 1e-4 (atol 6e-5), "
                  f"{(diff > 6e-5).sum().item()} draws beyond it")
@@ -676,6 +711,8 @@ def check_sampler(torch, gen, kind, ev, coeffs_of, B_max):
         rows[B] = dict(max_abs_err=err, median_abs_err=med, ms=k_ms,
                        device_ms=d_ms, plain_ms=p_ms, bound_ms=b_ms,
                        bound_by=b_by, plan=cuda_sampler.last_plan)
+        if q:
+            rows[B].update(quantile_err=q['k'], plain_quantile_err=q['p'])
         print(f"{name} B={B} (n_bases {n_b}, n_mesh {n_mesh}): max|dx| "
               f"{err:.3e} over u <= 1 - 1e-4 (atol 6e-5), median {med:.3e} | "
               f"kernel_ms {k_ms:.4f} device_ms {d_ms:.4f} plain_ms {p_ms:.4f} "
@@ -5877,10 +5914,137 @@ def scaling_phase(torch, params):
     return total, rows
 
 
+# the studies phase: examples/frontier_2d2e_torch.py's and
+# examples/sr_study_torch.py's recipes at full width from scratch; K1 on the
+# big ansatz's prior table at these batches (the SR study's and its
+# evaluation's), the staged flagship table timed beside it
+STUDIES_SR_ROWS = ('big_spring_0.05_m0.9_tr', 'big_sr_cg_0.05_tr')
+STUDIES_K1_BATCHES = (256, 4096)
+
+
+def streamed_k1(torch, gen):
+    """K1 on the big ansatz's real prior table (orthonormal B-splines of
+    degree 6, 31 knots: 36 bases x the 2000-point mesh, 288 KB, above a
+    block's shared memory) with the conditional coefficients of a big model
+    from seed 2, every draw held in probability against a float64 quantile
+    (``check_sampler(in_probability=True)``: on this table, on an H100,
+    one draw of 1,000 lay 9.4e-5 in x from the plain f32 draw, beyond
+    phase 3's 6e-5),
+    both timed batches in the 'streamed' regime; then the flagship's
+    28-base table (staged in shared memory) timed at the same batches, for
+    the comparison."""
+    from waveflow_tpu_torch.ops import cuda_sampler
+    from waveflow_tpu_torch.ops.sampling import sample_squared_amplitude
+    from waveflow_tpu_torch.vmc import VMCConfig, VMCTrainer
+    sr = example_module('sr_study_torch')
+
+    def prior(name):
+        return VMCTrainer(VMCConfig(batch_size=256, device='cuda',
+                                    **sr.ANSATZE[name])).model
+
+    big = prior('big')
+    got = check_sampler(torch, gen, 'squared', big.ev_ob, big.ob_coeffs,
+                        max(STUDIES_K1_BATCHES), in_probability=True)
+    rows = {'tail': got['tail']}
+    for B in STUDIES_K1_BATCHES:
+        if got[B]['plan'].regime != 'streamed':
+            fail(f"studies: K1 on the big prior's "
+                 f"{tuple(big.ev_ob.table_t.shape)} table at B={B} ran as "
+                 f"{got[B]['plan']}, not streamed")
+        rows[('streamed', B)] = got[B]
+    flagship = prior('flagship')
+    for B in STUDIES_K1_BATCHES:
+        with torch.no_grad():
+            c = flagship.ob_coeffs(torch.rand((B, 2), generator=gen,
+                                              device='cuda'))[:, 0]
+        u = torch.rand((B,), generator=gen, device='cuda')
+
+        def fn(c=c, u=u):
+            return sample_squared_amplitude(flagship.ev_ob, c, u, impl='cuda')
+        fn()
+        plan = cuda_sampler.last_plan
+        rows[('staged', B)] = dict(ms=cuda_ms(torch, fn),
+                                   device_ms=device_ms(torch, fn), plan=plan)
+    for B in STUDIES_K1_BATCHES:
+        s, f = rows[('streamed', B)], rows[('staged', B)]
+        print(f"studies: K1 at B={B}: streamed (36 bases) kernel_ms "
+              f"{s['ms']:.4f} device_ms {s['device_ms']:.4f} against staged "
+              f"(28 bases, regime {f['plan'].regime}) kernel_ms {f['ms']:.4f} "
+              f"device_ms {f['device_ms']:.4f}: {s['device_ms'] / f['device_ms']:.2f}x "
+              f"device | streamed plan grid {s['plan'].grid} x "
+              f"{s['plan'].threads} threads, {s['plan'].smem_bytes} B dynamic "
+              f"shared, group {s['plan'].group}", flush=True)
+    return rows
+
+
+def studies_calls(config) -> dict:
+    """``catalogue_epoch_calls`` of a study recipe: the spline widths are
+    the count's own (narrow), the flow's depth and the optimizer kept."""
+    return catalogue_epoch_calls({k: v for k, v in config.items()
+                                  if k not in ('spline_degree', 'num_knots',
+                                               'n_spline_base_mesh_points',
+                                               'batch_size', 'window',
+                                               'log_every', 'save_dir',
+                                               'device')})
+
+
+def studies_phase(torch, k1_rows=None):
+    """The three study scripts' training paths on the card:
+
+      * examples/frontier_2d2e_torch.py's He recipe (2D, two electrons, L =
+        5, lr 3e-4, seed 2) from scratch on the 'paired2d' sector, which
+        the trainer must resolve, in windows of QUALITY_WINDOW epochs;
+      * examples/sr_study_torch.py's STUDIES_SR_ROWS on the big ansatz (31
+        knots, 4 layers): SPRING with the trust region in windows of
+        TWIN_WINDOW epochs, CG-SR with it in windows of SR_GRAPH_WINDOW;
+
+    each graphed against its eager twin in turns of one window
+    (``quality_twin``): to the bit, every loss finite, K1 / K3 per replayed
+    epoch equal to the CPU's count (``studies_calls``); the big rows' K1
+    launched in the 'streamed' regime.  ``k1_rows``: ``streamed_k1``'s rows
+    from phase 3 of a whole run (before the profiled graph phases, after
+    which the profiler records no eager launch); a partial run makes them
+    here, first."""
+    from waveflow_tpu_torch.ops import cuda_sampler
+    from waveflow_tpu_torch.vmc import VMCConfig, VMCTrainer
+    if k1_rows is None:
+        k1_rows = streamed_k1(torch, torch.Generator('cuda').manual_seed(23))
+    frontier = example_module('frontier_2d2e_torch')
+    sr = example_module('sr_study_torch')
+    args = argparse.Namespace(device='cuda', out_dir='')
+    recipes = [('frontier He paired2d', vars(frontier.config('He', args)),
+                QUALITY_WINDOW)]
+    recipes += [(f'sr_study {key}', vars(sr.config(key, args)),
+                 SR_GRAPH_WINDOW if 'sr_cg' in key else TWIN_WINDOW)
+                for key in STUDIES_SR_ROWS]
+    rows, total = {'k1': k1_rows}, {}
+    for label, config, window in recipes:
+        config = dict(config, save_dir=None, window=window, log_every=window)
+
+        def make(graph, config=config):
+            t = VMCTrainer(VMCConfig(**config), graph=graph)
+            if label.startswith('frontier') and (
+                    t.ansatz, t.xu_coord_type) != ('sorted', 'paired2d'):
+                fail(f"studies {label}: the trainer resolved "
+                     f"({t.ansatz}, {t.xu_coord_type}), not paired2d")
+            return t
+        launches, row = quality_twin(torch, f"studies {label}", make,
+                                     studies_calls(config))
+        regime = cuda_sampler.last_plan.regime
+        row['k1_regime'] = regime
+        if label.startswith('sr_study') and regime != 'streamed':
+            fail(f"studies {label}: K1 ran in the {regime!r} regime, not "
+                 "'streamed'")
+        print(f"studies {label}: K1 regime {regime}", flush=True)
+        rows[label] = row
+        total = {k: total.get(k, 0) + v for k, v in launches.items()}
+    return total, rows
+
+
 def phase_table(torch, params, jax_raw, jax_clipped, ancestral_wps=None,
-                k3_b2b_ms=None):
+                k3_b2b_ms=None, k1_streamed=None):
     """Phases 23, 38-39, 30-31, 50, 6-8, 46-49, 9-26, 51-53, 55, 27,
-    32-33, 54, 56, 34-37, 58-60, 40-41, 57 and 42-45 in order, as (name, run): run() ->
+    32-33, 54, 56, 34-37, 58-61, 40-41, 57 and 42-45 in order, as (name, run): run() ->
     (the kernel
     launches on that path, or None, and the phase's figures)."""
     r4 = json.loads(JAX_EVAL_R4.read_text())[f'results/{SPRING_RUN.name}']
@@ -5999,6 +6163,8 @@ def phase_table(torch, params, jax_raw, jax_clipped, ancestral_wps=None,
         ('quality', lambda: quality_phase(torch)),
         # ---- 60. the batch and MCMC scaling studies' paths ----
         ('scaling', lambda: scaling_phase(torch, params)),
+        # ---- 61. the frontier and SR-study recipes; K1 streamed ----
+        ('studies', lambda: studies_phase(torch, k1_streamed)),
         # ---- 40-43. the table backend's evaluation and window; the
         # density side's new model and dataset ----
         ('table-eval', lambda: table_eval_phase(torch, jax_raw,
@@ -6058,6 +6224,7 @@ def main(argv=None) -> int:
              "posterior-sharded-1, graph-posterior-smc-sharded-1, "
              "graph-posterior-nuts-sharded-1, be4-eval, box4-eval, "
              "li-2d-eval, h2-2d-eval, catalogue, quality, scaling, "
+             "studies, "
              "table-kernels, "
              "table-hpsi, "
              "table-eval, graph-table, graph-table-menu, rqs-density, "
@@ -6131,6 +6298,7 @@ def main(argv=None) -> int:
     k1 = check_sampler(torch, gen, 'squared', model.ev_ob, model.ob_coeffs,
                        65536)
     check_sampler_other_tables(torch, ops, gen)
+    k1_streamed = streamed_k1(torch, torch.Generator('cuda').manual_seed(23))
     k3 = check_basis_jet(torch, ops, tabs_i, tabs_b, gen)
     # the density model at full width, random weights from a seed
     mflow = get_benchmark_model('MFlow', **DENSITY,
@@ -6228,7 +6396,8 @@ def main(argv=None) -> int:
     by_phase = {'train-256': dict(launches)}
     rows = {}
     for name, run in phase_table(torch, params, jax_raw, jax_clipped,
-                                 wps_second, k3[('I', 512)]['ms']):
+                                 wps_second, k3[('I', 512)]['ms'],
+                                 k1_streamed):
         t0 = time.perf_counter()
         launches_of, rows[name] = run()
         if launches_of is not None:
@@ -6278,8 +6447,20 @@ def main(argv=None) -> int:
                     tail_quantile_err=tail['quantile_err'],
                     tail_plain_quantile_err=tail['plain_quantile_err'])
 
+    def streamed(B):
+        # K1 on the big ansatz's 36-base prior table (the SR study's big
+        # rows), beside the staged 28-base table at the same batch
+        row, staged = k1_streamed[('streamed', B)], k1_streamed[('staged', B)]
+        return dict(max_abs_err=row['max_abs_err'], ms=row['ms'],
+                    device_ms=row['device_ms'], plain_ms=row['plain_ms'],
+                    bound_ms=row['bound_ms'], bound_by=row['bound_by'],
+                    library_ms=None, regime=row['plan'].regime,
+                    staged_ms=staged['ms'],
+                    staged_device_ms=staged['device_ms'])
+
     kernels = [
-        sampler_row('sampler', k1, 256),
+        dict(sampler_row('sampler', k1, 256),
+             streamed_36_bases={B: streamed(B) for B in STUDIES_K1_BATCHES}),
         sampler_row('sampler_linear', k2, DENSITY_POINTS),
         dict(name='basis_jet', route='cuda',
              source='waveflow_tpu_torch/csrc/basis_jet.cu',

@@ -225,12 +225,13 @@ def _trace_median(losses, frac=0.2):
     return float(np.median(tail))
 
 
-def trace_chunks(save_dir, key: str, chunk: int = TRACE_CHUNK):
+def trace_chunks(save_dir, key: str, chunk: int = TRACE_CHUNK,
+                 jax_dir=None):
     """The medians of each ``chunk`` epochs of the row's loss trace
     (``<save_dir>/loss.npy``) and of JAX's committed trace for the same
-    row (results/r5_<key>/loss.npy, the seed suffix dropped), each with
-    the median of its last 2,000 epochs and of its last 20%; None for a
-    trace that is not there."""
+    row (``<jax_dir>/loss.npy``, by default results/r5_<key> with the seed
+    suffix dropped), each with the median of its last 2,000 epochs and of
+    its last 20%; None for a trace that is not there."""
     def medians(path):
         if not path.exists():
             return None
@@ -241,7 +242,8 @@ def trace_chunks(save_dir, key: str, chunk: int = TRACE_CHUNK):
                 'last_20pct': _trace_median(losses)}
     return {'chunk': chunk,
             'port': medians(Path(save_dir) / 'loss.npy'),
-            'jax': medians(JAX_ROWS.parent / f"r5_{key.split('_seed')[0]}"
+            'jax': medians(Path(jax_dir or JAX_ROWS.parent
+                                / f"r5_{key.split('_seed')[0]}")
                            / 'loss.npy')}
 
 
