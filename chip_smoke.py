@@ -323,6 +323,19 @@ Phases (any failure exits non-zero; nothing is caught):
                prior's real 36-base table against its plain version at B =
                256 and 4,096 (phase 3 of a whole run, ``streamed_k1``),
                timed beside the staged 28-base table;
+ 62. reports (after studies) — examples/evaluate_flagship_torch.py's loader
+               and evaluation (4,096 walkers, 100 + 8 x 10 sweeps) on
+               results/he1d_seed2, every parameter NaN: no exception,
+               non-finite energies; then results/r4_spring100k in the same
+               process, within 5 combined sigma of JAX's (no sticky CUDA
+               error); examples/outlier_study_torch.py's box2 median_abs
+               recipe and examples/round4_quality_torch.py's
+               li_big_spring_20k recipe from scratch, graphed against
+               eager to the bit, K1 / K3 per replayed epoch = the CPU's
+               count; phase 3 of a whole run holds K3 (NaN / ±inf sites),
+               K1 and K2 (NaN coefficients) to their plain versions NaN for
+               NaN and times K3 before and after its NaN check (a build of
+               the source without it, in turns, outputs equal to the bit);
  42. rqs-density — RQSFlow on benchmarks/circles_parity.py's split, 300
                epochs (cut from 12,000): loss falls, round trip under 1e-4,
                points/s;
@@ -6041,12 +6054,316 @@ def studies_phase(torch, k1_rows=None):
     return total, rows
 
 
+# the reports phase: examples/evaluate_flagship_torch.py's evaluation, its
+# chain cut to REPORTS_EVAL, on the run whose every parameter is NaN and
+# then on a finite run in the same process; the outlier study's median_abs
+# recipe and round 4's big Li SPRING recipe graphed against eager
+NAN_RUN = ROOT / 'results' / 'he1d_seed2'
+REPORTS_EVAL = dict(n_blocks=8, sweeps_per_block=10, n_warmup_sweeps=100,
+                    batch_size=4096)
+REPORTS_RECIPES = (('outlier_study_torch', 'box2__median_abs_lr3e-4_40k'),
+                   ('round4_quality_torch', 'li_big_spring_20k'))
+# K3's sites of the NaN checks and of the timing before / after the check
+K3_NAN_SITES = (512, 131072)
+# csrc/basis_jet.cu's s before and since the NaN check
+K3_NAN_LINE = 's[u] = pos != pos ? pos : fminf(fmaxf(pos - idx, 0.f), 1.f);'
+K3_PRE_NAN_LINE = 's[u] = fminf(fmaxf(pos - idx, 0.f), 1.f);'
+
+
+def nan_sites(torch, gen, R: int):
+    """R sites uniform in [−0.05, 1.05], every 7th NaN, two ±inf."""
+    x = torch.rand((R,), generator=gen, device='cuda') * 1.1 - 0.05
+    x[::7] = float('nan')
+    x[3], x[5] = float('inf'), -float('inf')
+    return x
+
+
+def same_nans(torch, a, b) -> bool:
+    return torch.equal(torch.isnan(a), torch.isnan(b))
+
+
+def k3_nan_check(torch, ops, tabs_i, tabs_b, gen) -> dict:
+    """K3 at NaN, ±inf and finite sites against its plain core, for the
+    I-spline and OB jets at K3_NAN_SITES: NaN for NaN, every other value
+    within phase 3's rtol 2e-5, atol 2e-4; and the whole jet
+    (``PolySplineEvaluator.basis_jet``, the linear extension around the
+    core) with the kernel core against the plain core, NaN for NaN."""
+    from waveflow_tpu_torch.ops import cuda_jet
+    rows = {}
+    for label, tabs, use_ob in (('I', tabs_i, False), ('OB', tabs_b, True)):
+        ev_k, ev_p = (ops.make_poly_evaluator(tabs, use_ob=use_ob,
+                                              jet_backend=b, device='cuda')
+                      for b in ('pallas', 'xla'))
+        A, nc, k = ev_k.A_jet, ev_k.n_cells, ev_k.ncoef
+        for R in K3_NAN_SITES:
+            x = nan_sites(torch, gen, R)
+            pairs = ((cuda_jet.basis_jet_cuda(x, A, nc, k),
+                      cuda_jet.basis_jet_plain(x, A, nc, k), 'core'),
+                     (ev_k.basis_jet(x), ev_p.basis_jet(x), 'jet'))
+            torch.cuda.synchronize()
+            for got, want, what in pairs:
+                nan, fin = torch.isnan(want), torch.isfinite(want)
+                if not same_nans(torch, got, want):
+                    fail(f"K3 {label} {what} R={R}: NaN at "
+                         f"{int(torch.isnan(got).sum())} outputs, the plain "
+                         f"version at {int(nan.sum())}")
+                # ±inf (the jet's linear extension at an infinite x) equal
+                err = (got[fin] - want[fin]).abs().max().item()
+                if not (torch.allclose(got[~nan], want[~nan], rtol=2e-5,
+                                       atol=2e-4)):
+                    fail(f"K3 {label} {what} R={R}: the non-NaN outputs "
+                         f"disagree, max|d| over the finite ones {err:.3e}")
+                rows[f'{label} {what} R={R}'] = dict(
+                    nan_outputs=int(nan.sum()), max_abs_err=err)
+        print(f"K3 {label} at NaN / ±inf / finite sites: NaN for NaN, core "
+              "and jet, against the plain core (rtol 2e-5, atol 2e-4): "
+              + ", ".join(f"{name}: {r['nan_outputs']} NaN, max|d| "
+                          f"{r['max_abs_err']:.3e}"
+                          for name, r in rows.items()
+                          if name.startswith(f'{label} ')), flush=True)
+    return rows
+
+
+def sampler_nan_check(torch, model, gen) -> dict:
+    """K1 and K2 on the flagship prior's table against their plain
+    versions, every 5th walker's coefficients NaN, at B = 256 and 4,096:
+    NaN for NaN, the other draws (u <= 1 − 1e-4) within phase 3's 6e-5."""
+    from waveflow_tpu_torch.ops.sampling import (sample_linear_density,
+                                                 sample_squared_amplitude)
+    rows = {}
+    for name, sample in (('K1', sample_squared_amplitude),
+                         ('K2', sample_linear_density)):
+        for B in (256, 4096):
+            with torch.no_grad():
+                c = model.ob_coeffs(torch.rand((B, 2), generator=gen,
+                                               device='cuda'))[:, 0]
+            if name == 'K2':
+                c = c.abs()
+            c = c.contiguous()
+            c[::5] = float('nan')
+            u = torch.rand((B,), generator=gen, device='cuda') * (1 - 1e-4)
+            x_k = sample(model.ev_ob, c, u, impl='cuda')
+            x_p = sample(model.ev_ob, c, u, impl='plain')
+            torch.cuda.synchronize()
+            fin = ~torch.isnan(x_p)
+            err = (x_k[fin] - x_p[fin]).abs().max().item()
+            if not same_nans(torch, x_k, x_p) or err > 6e-5:
+                fail(f"{name} at NaN coefficients, B={B}: "
+                     f"{int(torch.isnan(x_k).sum())} NaN draws against the "
+                     f"plain version's {int((~fin).sum())}, max|dx| {err:.3e}")
+            rows[f'{name} B={B}'] = dict(nan_draws=int((~fin).sum()),
+                                         max_abs_err=err)
+    print("K1 / K2 at NaN coefficients (every 5th walker): NaN for NaN "
+          "against the plain versions, the rest within 6e-5: "
+          + ", ".join(f"{n}: {r['nan_draws']} NaN, max|dx| "
+                      f"{r['max_abs_err']:.3e}" for n, r in rows.items()),
+          flush=True)
+    return rows
+
+
+def pre_nan_k3_paths():
+    """(source, library) of csrc/basis_jet.cu as it was before the NaN
+    check (K3_PRE_NAN_LINE), under a file name of its own in the build
+    directory (a library opened twice under one path is the first one)."""
+    import hashlib
+    from waveflow_tpu_torch.ops import cuda_build
+    src = (cuda_build.CSRC_DIR / 'basis_jet.cu').read_text()
+    if src.count(K3_NAN_LINE) != 1:
+        fail("basis_jet.cu holds no NaN check to time against")
+    old = src.replace(K3_NAN_LINE, K3_PRE_NAN_LINE)
+    tag = hashlib.sha1((old + ' '.join(cuda_build.NVCC_FLAGS)).encode()
+                       ).hexdigest()[:12]
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src_path = cuda_build.BUILD_DIR / f'basis_jet_pre_nan_{tag}.cu'
+    src_path.write_text(old)
+    return src_path, cuda_build.BUILD_DIR / f'libbasis_jet_pre_nan_{tag}.so'
+
+
+def start_pre_nan_k3_build():
+    """nvcc started on the pre-NaN-check K3 source, to run beside the
+    build of the kernels (one process each, started together); None where
+    the library is built already."""
+    from waveflow_tpu_torch.ops import cuda_build
+    src_path, lib_path = pre_nan_k3_paths()
+    if lib_path.exists():
+        return None
+    return subprocess.Popen(
+        [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, '-I',
+         str(cuda_build.CSRC_DIR), '-o', str(lib_path), str(src_path)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def pre_nan_k3_library(build=None):
+    """The pre-NaN-check K3 library (``build``: its nvcc process from
+    ``start_pre_nan_k3_build``, else one started here), waited for,
+    loaded and bound; its init entry called, which lifts the staged
+    kernel's shared-memory limit."""
+    import ctypes
+    from waveflow_tpu_torch.ops import cuda_jet
+    build = build or start_pre_nan_k3_build()
+    if build is not None:
+        out, _ = build.communicate(timeout=600)
+        if build.returncode != 0:
+            fail(f"nvcc failed for the pre-NaN-check basis_jet.cu:\n{out}")
+    lib = ctypes.CDLL(str(pre_nan_k3_paths()[1]))
+    for entry, (argtypes, restype) in cuda_jet.SIGNATURES.items():
+        fn = getattr(lib, entry)
+        fn.argtypes, fn.restype = list(argtypes), restype
+    n_sm, smem = ctypes.c_int(0), ctypes.c_int(0)
+    if lib.basis_jet_init(ctypes.byref(n_sm), ctypes.byref(smem)):
+        fail("basis_jet_init of the pre-NaN-check build failed")
+    return lib
+
+
+def k3_nan_timing(torch, ops, tabs_i, gen, build=None) -> dict:
+    """K3 before and after the NaN check (one compare per site) on the
+    I-spline jet at K3_NAN_SITES, finite sites: both builds launched
+    through one raw launcher (the wrapper's plan and checks left out),
+    equal outputs to the bit, CUDA events over 50 back-to-back calls in
+    turns before, after, after, before, and the profiler's device time."""
+    from waveflow_tpu_torch.ops import cuda_build, cuda_jet
+    old = pre_nan_k3_library(build)
+    new = cuda_build.bind('basis_jet', cuda_jet.SIGNATURES)
+    ev = ops.make_poly_evaluator(tabs_i, use_ob=False, jet_backend='pallas',
+                                 device='cuda')
+    A, nc, k = ev.A_jet, ev.n_cells, ev.ncoef
+    n_out = A.shape[1]
+    stream = cuda_build.current_stream(0)
+    rows = {}
+    for R in K3_NAN_SITES:
+        x = torch.rand((R,), generator=gen, device='cuda') * 1.1 - 0.05
+        out = torch.empty((R, n_out), device='cuda')
+        p = cuda_jet.plan(R, nc, k, n_out, *cuda_build.device_limits(
+            new, 'basis_jet_init', 0))
+
+        def launch(lib):
+            err = lib.basis_jet_launch(
+                x.data_ptr(), A.data_ptr(), out.data_ptr(), R, nc, k, n_out,
+                p.regime == 'staged', p.grid, p.threads, p.smem_bytes, stream)
+            if err:
+                fail(f"K3 launch failed: {lib.basis_jet_error_string(err)}")
+        outs = []
+        for lib in (old, new):
+            launch(lib)
+            torch.cuda.synchronize()
+            outs.append(out.clone())
+        if not torch.equal(*outs):
+            fail(f"K3 before and after the NaN check differ at R={R} on "
+                 "finite sites")
+        turns = [cuda_ms(torch, lambda lib=lib: launch(lib))
+                 for lib in (old, new, new, old)]
+        before = 0.5 * (turns[0] + turns[3])
+        after = 0.5 * (turns[1] + turns[2])
+        dev = {name: device_ms(torch, lambda lib=lib: launch(lib))
+               for name, lib in (('before', old), ('after', new))}
+        rows[R] = dict(ms_before=before, ms_after=after, turns_ms=turns,
+                       device_ms_before=dev['before'],
+                       device_ms_after=dev['after'], regime=p.regime)
+        print(f"K3 before / after the NaN check, R={R} ({p.regime}): "
+              f"kernel_ms {before:.4f} / {after:.4f} (turns "
+              f"{', '.join(f'{t:.4f}' for t in turns)}) | device_ms "
+              f"{dev['before']:.4f} / {dev['after']:.4f} | outputs equal to "
+              "the bit", flush=True)
+    return rows
+
+
+def nan_rows(torch, ops, model, gen, build=None) -> dict:
+    """The NaN checks of K3, K1 and K2 and K3's time before / after its
+    NaN check (``build``: ``start_pre_nan_k3_build``'s process): in phase 3
+    of a whole run (before the profiled graph phases), else in the reports
+    phase, first."""
+    deg, knots, mesh = (FLAGSHIP[k] for k in ('spline_degree', 'num_knots',
+                                              'n_mesh'))
+    tabs_i = ops.get_tables('I', deg, knots, n_mesh=mesh)
+    tabs_b = ops.get_tables('B', deg, knots, n_mesh=mesh)
+    return dict(k3=k3_nan_check(torch, ops, tabs_i, tabs_b, gen),
+                samplers=sampler_nan_check(torch, model, gen),
+                k3_timing=k3_nan_timing(torch, ops, tabs_i, gen, build))
+
+
+def reports_phase(torch, params, nan=None):
+    """The three report scripts' paths on the card:
+
+      * examples/evaluate_flagship_torch.py's loader and evaluation
+        (``load_run``, ``evaluate``) on results/he1d_seed2, every
+        parameter NaN, at REPORTS_EVAL: no exception, non-finite raw and
+        clipped energies (the accept rate printed, not gated); then on
+        results/r4_spring100k in the same process: finite, within 5
+        combined σ of JAX's figures (results/final_energies_r4.json), raw
+        and clipped — no sticky CUDA error;
+      * examples/outlier_study_torch.py's box2 median_abs recipe and
+        examples/round4_quality_torch.py's li_big_spring_20k recipe from
+        scratch, each graphed against its eager twin in turns of one window
+        of QUALITY_WINDOW epochs, to the bit, K1 / K3 per replayed epoch
+        equal to the CPU's count;
+      * ``nan``: ``nan_rows`` of phase 3; a partial run makes them here,
+        first."""
+    from waveflow_tpu_torch import ops
+    from waveflow_tpu_torch.vmc import VMCConfig, VMCTrainer
+    if nan is None:
+        nan = nan_rows(torch, ops,
+                       flagship_model(torch, params, 'poly_pallas'),
+                       torch.Generator('cuda').manual_seed(24))
+    ef = example_module('evaluate_flagship_torch')
+    refs = json.loads(JAX_EVAL_R4.read_text())
+    rows, total = {'nan': nan}, {}
+    for run_dir in (NAN_RUN, SPRING_RUN):
+        key = f'results/{run_dir.name}'
+        trainer = ef.load_run(ef.config('He', run_dir, {}, 'cuda'))
+        flat = torch.cat([p.detach().reshape(-1)
+                          for p in trainer.model.parameters()])
+        n_nan = int(torch.isnan(flat).sum())
+        ev, launches, wall = ef.evaluate(trainer, **REPORTS_EVAL)
+        ref = refs[key]
+        finite = ef.finite(ev.e_mean, ev.e_clipped)
+        sig = {k: ef.r5.combined_sigma(getattr(ev, k), getattr(ev, s),
+                                       ref[k], ref[s])
+               for k, s in ef.GATED}
+        cut = REPORTS_EVAL
+        print(f"reports {run_dir.name} ({n_nan} of {flat.numel()} parameters "
+              f"NaN; {cut['batch_size']} walkers, {cut['n_warmup_sweeps']} + "
+              f"{cut['n_blocks']} x {cut['sweeps_per_block']} sweeps): raw {ev.e_mean:.6f} +- {ev.e_stderr:.6f}, clipped "
+              f"{ev.e_clipped:.6f} +- {ev.e_clipped_stderr:.6f}, accept rate "
+              f"{ev.accept_rate:.4f} | JAX raw {ref['e_mean']}, clipped "
+              f"{ref['e_clipped']} | combined sigma {sig} | {wall:.2f} s | "
+              f"launches {launches}", flush=True)
+        if run_dir == NAN_RUN:
+            if n_nan != flat.numel() or finite:
+                fail(f"reports {run_dir.name}: {n_nan} of {flat.numel()} "
+                     f"parameters NaN, energies finite: {finite}")
+        elif not finite or any(v is None or abs(v) > 5.0
+                               for v in sig.values()):
+            fail(f"reports {run_dir.name} after the NaN run: {sig} combined "
+                 "sigma from JAX, finite: " + str(finite))
+        rows[run_dir.name] = dict(e_mean=ev.e_mean, e_clipped=ev.e_clipped,
+                                  accept_rate=ev.accept_rate, sigma=sig,
+                                  wall_s=wall, launches=launches,
+                                  nan_parameters=n_nan)
+        total = {k: total.get(k, 0) + v for k, v in launches.items()}
+        del trainer
+    args = argparse.Namespace(device='cuda', out_dir='')
+    for stem, key in REPORTS_RECIPES:
+        mod = example_module(stem)
+        config = (vars(mod.config(key, args)) if stem.startswith('outlier')
+                  else dict(next(j for j in mod.plan() if j.key == key).cfg))
+        config = dict(config, save_dir=None, window=QUALITY_WINDOW,
+                      log_every=QUALITY_WINDOW, device='cuda')
+
+        def make(graph, config=config):
+            return VMCTrainer(VMCConfig(**config), graph=graph)
+        launches, row = quality_twin(torch, f"reports {stem} {key}", make,
+                                     studies_calls(config))
+        rows[key] = row
+        total = {k: total.get(k, 0) + v for k, v in launches.items()}
+    return total, rows
+
+
 def phase_table(torch, params, jax_raw, jax_clipped, ancestral_wps=None,
-                k3_b2b_ms=None, k1_streamed=None):
+                k3_b2b_ms=None, k1_streamed=None, nan=None):
     """Phases 23, 38-39, 30-31, 50, 6-8, 46-49, 9-26, 51-53, 55, 27,
-    32-33, 54, 56, 34-37, 58-61, 40-41, 57 and 42-45 in order, as (name, run): run() ->
-    (the kernel
-    launches on that path, or None, and the phase's figures)."""
+    32-33, 54, 56, 34-37, 58-62, 40-41, 57 and 42-45 in order, as (name,
+    run): run() -> (the kernel launches on that path, or None, and the
+    phase's figures)."""
     r4 = json.loads(JAX_EVAL_R4.read_text())[f'results/{SPRING_RUN.name}']
     mcmc = json.loads(JAX_EVAL_MCMC.read_text())[MALA_RUN.name]
     r5 = json.loads(JAX_EVAL.read_text())
@@ -6165,6 +6482,9 @@ def phase_table(torch, params, jax_raw, jax_clipped, ancestral_wps=None,
         ('scaling', lambda: scaling_phase(torch, params)),
         # ---- 61. the frontier and SR-study recipes; K1 streamed ----
         ('studies', lambda: studies_phase(torch, k1_streamed)),
+        # ---- 62. the report scripts: a NaN run evaluated, then a finite
+        # one; the round-4 and outlier recipes ----
+        ('reports', lambda: reports_phase(torch, params, nan)),
         # ---- 40-43. the table backend's evaluation and window; the
         # density side's new model and dataset ----
         ('table-eval', lambda: table_eval_phase(torch, jax_raw,
@@ -6224,7 +6544,7 @@ def main(argv=None) -> int:
              "posterior-sharded-1, graph-posterior-smc-sharded-1, "
              "graph-posterior-nuts-sharded-1, be4-eval, box4-eval, "
              "li-2d-eval, h2-2d-eval, catalogue, quality, scaling, "
-             "studies, "
+             "studies, reports, "
              "table-kernels, "
              "table-hpsi, "
              "table-eval, graph-table, graph-table-menu, rqs-density, "
@@ -6269,6 +6589,7 @@ def main(argv=None) -> int:
 
     # ---- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
+    pre_nan_build = start_pre_nan_k3_build()
     report = cuda_build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s wall", flush=True)
     for name, (secs, log) in report.items():
@@ -6300,6 +6621,8 @@ def main(argv=None) -> int:
     check_sampler_other_tables(torch, ops, gen)
     k1_streamed = streamed_k1(torch, torch.Generator('cuda').manual_seed(23))
     k3 = check_basis_jet(torch, ops, tabs_i, tabs_b, gen)
+    nan = nan_rows(torch, ops, model, torch.Generator('cuda').manual_seed(24),
+                   pre_nan_build)
     # the density model at full width, random weights from a seed
     mflow = get_benchmark_model('MFlow', **DENSITY,
                                 generator=torch.Generator().manual_seed(1),
@@ -6397,7 +6720,7 @@ def main(argv=None) -> int:
     rows = {}
     for name, run in phase_table(torch, params, jax_raw, jax_clipped,
                                  wps_second, k3[('I', 512)]['ms'],
-                                 k1_streamed):
+                                 k1_streamed, nan):
         t0 = time.perf_counter()
         launches_of, rows[name] = run()
         if launches_of is not None:
@@ -6460,8 +6783,12 @@ def main(argv=None) -> int:
 
     kernels = [
         dict(sampler_row('sampler', k1, 256),
-             streamed_36_bases={B: streamed(B) for B in STUDIES_K1_BATCHES}),
-        sampler_row('sampler_linear', k2, DENSITY_POINTS),
+             streamed_36_bases={B: streamed(B) for B in STUDIES_K1_BATCHES},
+             nan_check={k: v for k, v in nan['samplers'].items()
+                        if k.startswith('K1')}),
+        dict(sampler_row('sampler_linear', k2, DENSITY_POINTS),
+             nan_check={k: v for k, v in nan['samplers'].items()
+                        if k.startswith('K2')}),
         dict(name='basis_jet', route='cuda',
              source='waveflow_tpu_torch/csrc/basis_jet.cu',
              replaces='waveflow_tpu/ops/pallas_jet.py:63',
@@ -6473,6 +6800,7 @@ def main(argv=None) -> int:
              bound_ms=k3_row['bound_ms'], bound_by=k3_row['bound_by'],
              library_ms=k3_row['library_ms'],
              library_device_ms=k3_row['library_device_ms'],
+             nan_check={'sites': nan['k3'], 'timing': nan['k3_timing']},
              vmap_grad=vmap_row, laplacian_forms=rows['lap-forms'],
              reference_grad=rows['reference-grad']),
         dict(name='spline_eval', route='cuda',

@@ -28,6 +28,7 @@ from pathlib import Path
 import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from waveflow_tpu_torch.physics import (
     exact_free_fermion_energy, exact_free_fermion_energy_2d,
@@ -152,7 +153,8 @@ def main(argv=None):
 
     if not (args.mcmc_eval or args.fidelity):
         return
-    from waveflow_tpu_torch.vmc import VMCConfig, VMCTrainer, evaluate_trainer
+    import evaluate_flagship_torch as ef
+    from waveflow_tpu_torch.vmc import VMCConfig
     cfg = VMCConfig(system_name=args.system, n_space_dimension=dim,
                     box_length=args.box_length, num_knots=args.num_knots,
                     spline_degree=args.spline_degree,
@@ -161,9 +163,10 @@ def main(argv=None):
                     sampler='metropolis' if args.ansatz == 'antisym'
                     else 'ancestral',
                     eval_backend=args.eval_backend, device=args.device)
-    trainer = VMCTrainer(cfg)
-    if not trainer.load_checkpoint(str(save_dir)):
-        raise SystemExit(f"no checkpoint under {save_dir}")
+    try:
+        trainer = ef.load_run(cfg, save_dir)
+    except FileNotFoundError as e:
+        raise SystemExit(str(e)) from e
     if args.fidelity:
         from waveflow_tpu_torch.utils import fidelity_2d_1e, fidelity_2d_2e
         if ed_state is None:
@@ -175,9 +178,9 @@ def main(argv=None):
         print(f"fidelity |<psi|psi_ED>| = {fid:.6f} ({oracle}; ED energy "
               f"{exact:.6f})")
     if args.mcmc_eval:
-        ev = evaluate_trainer(trainer, n_blocks=args.eval_blocks,
-                              sweeps_per_block=args.eval_sweeps_per_block,
-                              batch_size=args.eval_batch)
+        ev, _, _ = ef.evaluate(trainer, n_blocks=args.eval_blocks,
+                               sweeps_per_block=args.eval_sweeps_per_block,
+                               batch_size=args.eval_batch)
         print("--- frozen-params MCMC evaluation (trace-independent) ---")
         print(f"<E_L>          = {ev.e_mean:.6f} +/- {ev.e_stderr:.6f} "
               f"({ev.n_samples} samples, {args.eval_blocks} blocks; block "

@@ -79,6 +79,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
+sys.path.insert(0, str(REPO / 'examples'))
 
 import numpy as np
 import torch
@@ -354,13 +355,16 @@ def capture_pools(device):
 
 class Run:
     """What every job reads: the options, the device, the rows so far and
-    the file they are kept in."""
+    the file they are kept in (``out_name``; a row's checkpoints go to
+    ``<out-dir>/<prefix><key>``)."""
+    out_name = OUT_NAME
+    prefix = 'r5_'
 
     def __init__(self, args):
         self.args = args
         self.out_dir = Path(args.out_dir)
         self.out_dir.mkdir(parents=True, exist_ok=True)
-        self.path = self.out_dir / OUT_NAME
+        self.path = self.out_dir / self.out_name
         self.out = (json.loads(self.path.read_text()) if self.path.exists()
                     else {})
         self.info = device_info(args.device)
@@ -376,7 +380,7 @@ class Run:
         cfg = dict(job.cfg, **kw)
         if self.args.seed is not None:
             cfg['seed'] = self.args.seed
-        return VMCConfig(save_dir=str(self.out_dir / f'r5_{key}'),
+        return VMCConfig(save_dir=str(self.out_dir / f'{self.prefix}{key}'),
                          log_every=10 ** 9, device=self.args.device, **cfg)
 
     def key(self, job: Job) -> str:
@@ -422,9 +426,8 @@ def run_vmc(job: Job, run: Run, need_trainer: bool = False):
     if key in run.out:
         if not need_trainer:
             return run.out[key], None
-        t = VMCTrainer(cfg)
-        assert t.load_checkpoint(cfg.save_dir)
-        return run.out[key], t
+        import evaluate_flagship_torch as ef
+        return run.out[key], ef.load_run(cfg)
     epochs = job.epochs if a.epochs is None else a.epochs
     t0 = time.time()
     t = VMCTrainer(cfg)
@@ -454,6 +457,7 @@ def run_vmc(job: Job, run: Run, need_trainer: bool = False):
     opt = t.step.optimizer.state_dict()
     if isinstance(opt, dict) and 'skipped' in opt:
         row['spring_skipped'] = int(opt['skipped'])
+        row['spring_fallbacks'] = int(opt['fallbacks'])
     row.update(seed=cfg.seed, epochs=t.epoch, finite=_finite(losses, ev),
                learning_rate=t.step.optimizer.param_groups[0]['lr']
                if cfg.optimizer == 'adam' else cfg.learning_rate,
@@ -476,14 +480,16 @@ def evaluate_seeds(job: Job, row: dict, trainer, run: Run):
     ``--tail-k`` walkers on its chain (``record_tail``); kept in the row as
     ``eval_seeds`` by seed, and the tail of the row's own chain as
     ``tail``.  Seeds already in the row are not run again."""
+    import evaluate_flagship_torch as ef
     a = run.args
     seeds = a.eval_seeds or ([ROW_EVAL_SEED] if a.tail_k else [])
     done = row.setdefault('eval_seeds', {})
     for seed in seeds:
         if str(seed) in done and (not a.tail_k or 'tail' in done[str(seed)]):
             continue
-        ev = evaluate_trainer(trainer, n_blocks=job.eval_blocks,
-                              batch_size=job.eval_batch, seed=seed, **EVAL_KW)
+        ev, _, _ = ef.evaluate(trainer, n_blocks=job.eval_blocks,
+                               batch_size=job.eval_batch, seed=seed,
+                               **EVAL_KW)
         entry = {**_evaluation_row(ev), 'finite': _finite([], ev)}
         if a.tail_k:
             entry['tail'] = record_tail(

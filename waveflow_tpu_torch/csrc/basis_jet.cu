@@ -65,9 +65,11 @@ __device__ __forceinline__ void eval_sites(const float* __restrict__ x,
   for (int u = 0; u < U; ++u) {
     const int r = r0 + u * stride;
     const float pos = (r < R ? __ldg(x + r) : 0.f) * static_cast<float>(n_cells);
+    // fmaxf maps a NaN pos to cell 0 (in bounds); s keeps the NaN, so the
+    // site's jet is NaN, as the plain core's and JAX's are
     const float idx =
         fminf(fmaxf(floorf(pos), 0.f), static_cast<float>(n_cells - 1));
-    s[u] = fminf(fmaxf(pos - idx, 0.f), 1.f);
+    s[u] = pos != pos ? pos : fminf(fmaxf(pos - idx, 0.f), 1.f);
     base[u] = static_cast<int>(idx) * ncoef * nvec;
   }
   for (int v = lane; v < nvec; v += 32) {

@@ -154,6 +154,12 @@ __device__ __forceinline__ float cell_mass(float h, float a, float d,
   return h * (a * a * s + a * d * s * s + d * d * (s * s * s) / 3.f);
 }
 
+// torch.clamp's rule: a NaN stays NaN (fminf / fmaxf alone would drop it),
+// so a walker with a NaN coefficient draws NaN, as the plain version does
+__device__ __forceinline__ float clamp_nan(float x, float lo, float hi) {
+  return x != x ? x : fminf(fmaxf(x, lo), hi);
+}
+
 // closed-form root of h (a s + d s² / 2) = q in [0, 1]; the products are
 // rounded one by one (no fused multiply-add), as the plain version's are
 __device__ __forceinline__ float solve_linear_cell(float h, float a, float d,
@@ -163,7 +169,7 @@ __device__ __forceinline__ float solve_linear_cell(float h, float a, float d,
       __fadd_rn(__fmul_rn(a, a), __fmul_rn(__fmul_rn(2.f, d), qn)), 0.f));
   const bool flat = fabsf(d) < 1e-12f;
   const float s = flat ? qn / fmaxf(a, 1e-12f) : (disc - a) / d;
-  return fminf(fmaxf(s, 0.f), 1.f);
+  return clamp_nan(s, 0.f, 1.f);
 }
 
 // The masses of a thread's CPT cells from ψ at their CPT + 1 edges, as
@@ -203,7 +209,7 @@ __device__ __forceinline__ float solve_cell(float h, float a, float d, float q,
     for (int it = 0; it < n_newton; ++it) {
       const float v = a + d * s;
       const float dm = fmaxf(h * v * v, 1e-14f);
-      s = fminf(fmaxf(s - (cell_mass(h, a, d, s) - q) / dm, lo), hi);
+      s = clamp_nan(s - (cell_mass(h, a, d, s) - q) / dm, lo, hi);
     }
     return s;
   } else {
@@ -512,8 +518,8 @@ sampler_kernel(const float* __restrict__ u, const float* __restrict__ coeffs,
             b = fmaf(ck, tab[k * n_mesh + j + 1], b);
           }
           if constexpr (KIND == LINEAR) {
-            a = fmaxf(a, 0.f);
-            b = fmaxf(b, 0.f);
+            a = a != a ? a : fmaxf(a, 0.f);
+            b = b != b ? b : fmaxf(b, 0.f);
           }
           const float s = solve_cell<KIND>(h, a, b - a, ring_tgt[t] - ring_prev[t],
                                            n_bisect, n_newton);

@@ -190,8 +190,11 @@ class PolySplineEvaluator:
         idx = torch.clamp(torch.floor(pos), 0, self.n_cells - 1).detach()
         s = pos - idx
         s_c = torch.clamp(s, 0.0, 1.0)
+        # a NaN x reads cell 0 and stays NaN through s, as in JAX (its
+        # cast would be INT64_MIN: an error here, a device assert on a card)
+        cell = torch.nan_to_num(idx, nan=0.0).long()
         local = torch.gather(
-            P, -2, idx.long()[..., None, None].expand(
+            P, -2, cell[..., None, None].expand(
                 idx.shape + (1, self.ncoef)))[..., 0, :]
         return local, s_c, s - s_c
 
